@@ -1,0 +1,423 @@
+"""Chip smoke test of petastorm_tpu_torch on one NVIDIA GPU (Hopper).
+
+Run from the root of a checkout, with no arguments::
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure propagates and exits nonzero:
+
+1. device: a CUDA card, its name and power limit (``nvidia-smi``);
+2. build: the flash-attention kernels, from ``petastorm_tpu_torch/csrc``;
+3. kernels vs plain: each kernel against its plain PyTorch version on the
+   same inputs, and the differentiable op against the dense fp32 reference,
+   at (a) the ViT-S/16 training shapes in bf16, (b) a small fp32 case with
+   causal masking, segment ids and a length that is no multiple of 64, and
+   (c) one case for each other head_dim tile width;
+   then each kernel timed at (a) beside its plain version, one PyTorch
+   library call where one computes the same function, and its bound, and
+   PyTorch's fused attention backward beside the two backward kernels;
+4. model: the ViT-S/16 forward through the kernels against the same model
+   through the dense reference, on a small batch;
+5. main path: a synthetic JPEG Parquet dataset, then 20 full-width
+   ViT-S/16 training steps through the port's reader, loader, on-device
+   augment and model, with every kernel's launches counted; then a short
+   run of the same path under torch.profiler: the device busy time per step
+   and its split by kernel family, and the host's time in launch calls and
+   in calls that wait for the device.
+
+The line before the last is one JSON object ``{"kernels": [...]}``; the
+last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+"""
+
+import importlib
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+STEPS = 20
+BATCH = 64
+VIT_SHAPE = dict(b=64, s=196, h=6, d=64)     # ViT-S/16 at 224x224: 14*14 patches, 384/6
+SMALL_SHAPE = dict(b=2, s=100, h=2, d=16)
+#: (shape, dtype, causal, segments) of the kernel checks: the main path's
+#: shapes, the small fp32 case, and one case for each other tile width the
+#: kernels instantiate (head_dim up to 32, 64, 128), with head_dims that fill
+#: no tile and lengths that are no multiple of 64.
+KERNEL_CASES = (
+    (VIT_SHAPE, torch.bfloat16, False, False),
+    (SMALL_SHAPE, torch.float32, True, True),
+    (dict(b=2, s=130, h=2, d=128), torch.bfloat16, True, False),
+    (dict(b=3, s=77, h=3, d=40), torch.float32, False, True),
+    (dict(b=1, s=150, h=2, d=100), torch.float32, True, True),
+)
+#: Tolerances as (atol, rtol).  fp32: forward 2e-5, gradients 1e-4, as in
+#: tests/test_flash_attention.py.  A bf16 kernel against its plain version:
+#: one bf16 ulp (rtol 8e-3 >= 2**-7, atol 2e-3 near 0), since both compute
+#: in fp32 and differ only in the last rounding to bf16.  bf16 against the
+#: fp32 reference (the op, and the model): 3e-2.
+TOL = {'fwd_f32': (2e-5, 2e-5), 'grad_f32': (1e-4, 1e-4), 'bf16_vs_plain': (2e-3, 8e-3),
+       'bf16': (3e-2, 3e-2)}
+#: H100 SXM peaks (NVIDIA data sheet, dense, 700 W).
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
+REPLACES = {
+    'flash_fwd': 'petastorm_tpu/ops/flash_attention.py:47',
+    'flash_bwd_dq': 'petastorm_tpu/ops/flash_attention.py:200',
+    'flash_bwd_dkv': 'petastorm_tpu/ops/flash_attention.py:252',
+}
+SOURCES = {
+    'flash_fwd': 'petastorm_tpu_torch/csrc/flash_fwd.cu',
+    'flash_bwd_dq': 'petastorm_tpu_torch/csrc/flash_bwd.cu',
+    'flash_bwd_dkv': 'petastorm_tpu_torch/csrc/flash_bwd.cu',
+}
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def max_err(actual, expected):
+    return float((actual.detach().float() - expected.detach().float()).abs().max())
+
+
+def check(name, actual, expected, tol):
+    """assert_close at ``tol = (atol, rtol)``; returns the max abs error."""
+    atol, rtol = tol
+    torch.testing.assert_close(actual.float(), expected.float(), atol=atol, rtol=rtol,
+                               msg=lambda m: '%s: %s' % (name, m))
+    return max_err(actual, expected)
+
+
+def make_inputs(b, s, h, d, dtype, seed, segments=False):
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    q, k, v, do = (torch.randn(b, s, h, d, generator=g, device='cuda').to(dtype)
+                   for _ in range(4))
+    seg = None
+    if segments:
+        # sorted ids in 0..3: packed rows with a padding (0) prefix
+        seg = torch.sort(torch.randint(0, 4, (b, s), generator=g, device='cuda'), dim=1)[0]
+        seg = seg.to(torch.int32).contiguous()
+    return q, k, v, do, seg
+
+
+def phase_device():
+    if not torch.cuda.is_available():
+        raise SystemExit('chip_smoke: no CUDA device (torch.cuda.is_available() is False)')
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    log('device: %s; torch %s, CUDA %s, %d card(s)'
+        % (torch.cuda.get_device_name(0), torch.__version__, torch.version.cuda,
+           torch.cuda.device_count()))
+    log(smi)
+    # fp32 matmuls in full fp32 (the reference and plain versions too).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return smi
+
+
+def phase_build(fa):
+    t0 = time.monotonic()
+    built = fa.build_kernels()
+    log('build: %.1f s wall for %s' % (time.monotonic() - t0, sorted(built) or 'nothing (fresh)'))
+    for name, info in sorted(built.items()):
+        log('  %s: %.1f s' % (name, info['seconds']))
+        for line in info['log'].splitlines():
+            if 'registers' in line or 'spill' in line:
+                log('    ' + line.strip())
+
+
+def kernel_case(fa, shape, dtype, causal, segments, seed):
+    """Each kernel against its plain version on the same inputs, and the
+    autograd op against the dense fp32 reference.  Returns max errors."""
+    b, s, h, d = shape['b'], shape['s'], shape['h'], shape['d']
+    q, k, v, do, seg = make_inputs(b, s, h, d, dtype, seed, segments)
+    scale = d ** -0.5
+    bf16 = dtype == torch.bfloat16
+    tol_fwd = TOL['bf16_vs_plain'] if bf16 else TOL['fwd_f32']
+    tol_grad = TOL['bf16_vs_plain'] if bf16 else TOL['grad_f32']
+    tag = ' '.join([str(dtype)[6:]] + ['causal'] * causal + ['segments'] * segments
+                   + ['s=%d' % s])
+    errs = {}
+
+    o, lse = fa.flash_fwd(q, k, v, seg, causal, scale)
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, seg, causal, scale)
+    errs['flash_fwd'] = check('fwd o [%s]' % tag, o, o_p, tol_fwd)
+    live = lse_p > fa.NEG_INF / 2          # fully masked rows: both exactly NEG_INF
+    torch.testing.assert_close(lse[~live], lse_p[~live], atol=0, rtol=0)
+    check('fwd lse [%s]' % tag, lse[live], lse_p[live], TOL['fwd_f32'])   # f32 either way
+
+    delta = (do.float() * o_p.float()).sum(-1).permute(0, 2, 1).reshape(b * h, s).contiguous()
+    dq = fa.flash_bwd_dq(q, k, v, do, lse_p, delta, seg, causal, scale)
+    dq_p = fa.flash_bwd_dq_plain(q, k, v, do, lse_p, delta, seg, causal, scale)
+    errs['flash_bwd_dq'] = check('dq [%s]' % tag, dq, dq_p, tol_grad)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_p, delta, seg, causal, scale)
+    dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta, seg, causal, scale)
+    errs['flash_bwd_dkv'] = max(check('dk [%s]' % tag, dk, dk_p, tol_grad),
+                                check('dv [%s]' % tag, dv, dv_p, tol_grad))
+
+    # The differentiable op (all three kernels) against the dense fp32
+    # reference with PyTorch's own autograd.
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, causal=causal, segment_ids=seg)
+    out.backward(do)
+    ref_leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    ref = fa.full_attention(*ref_leaves, causal=causal, segment_ids=seg)
+    ref.backward(do.float())
+    e2e = [check('flash_attention out [%s]' % tag, out, ref,
+                 TOL['bf16'] if bf16 else TOL['fwd_f32'])]
+    for name, a, r in zip('qkv', leaves, ref_leaves):
+        e2e.append(check('flash_attention d%s [%s]' % (name, tag), a.grad, r.grad,
+                         TOL['bf16'] if bf16 else TOL['grad_f32']))
+    torch.cuda.synchronize()
+    log('kernels [%s]: max err vs plain fwd %.3g dq %.3g dkv %.3g; vs fp32 reference %s'
+        % (tag, errs['flash_fwd'], errs['flash_bwd_dq'], errs['flash_bwd_dkv'],
+           ' '.join('%.3g' % e for e in e2e)))
+    return errs
+
+
+def time_ms(fn, flush, iters=20, warmup=3):
+    """Mean device time of ``fn()`` with a cold L2 (a 64 MB write between
+    calls), from CUDA events around each call."""
+    for _ in range(warmup):
+        fn()
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def bound(nbytes, flops, flop_rate):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
+    return 1e3 * max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
+
+
+def phase_timing(fa):
+    """Each kernel at the ViT-S/16 shapes (bf16): its time, its plain
+    version's, one library call's where PyTorch has one, and its bound."""
+    b, s, h, d = (VIT_SHAPE[x] for x in 'bshd')
+    q, k, v, do, _ = make_inputs(b, s, h, d, torch.bfloat16, seed=11)
+    scale = d ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, None, False, scale)
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).reshape(b * h, s).contiguous()
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device='cuda')
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # SDPA's [b, h, s, d] view
+    elems, stat = b * s * h * d * 2, b * h * s * 4       # bytes of one tensor, of lse/delta
+    pair = b * h * s * s * d                             # one s x s x d product = 2*pair flops
+    cases = [
+        ('flash_fwd', lambda: fa.flash_fwd(q, k, v, None, False, scale),
+         lambda: fa.flash_fwd_plain(q, k, v, None, False, scale),
+         lambda: F.scaled_dot_product_attention(qt, kt, vt),
+         4 * elems + stat, 4 * pair),
+        ('flash_bwd_dq', lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, None, False, scale),
+         lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, None, False, scale),
+         None, 5 * elems + 2 * stat, 6 * pair),
+        ('flash_bwd_dkv', lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, None, False, scale),
+         lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, None, False, scale),
+         None, 6 * elems + 2 * stat, 8 * pair),
+    ]
+    rows = {}
+    for name, kernel, plain, library, nbytes, flops in cases:
+        ms = time_ms(kernel, flush)
+        plain_ms = time_ms(plain, flush)
+        library_ms = time_ms(library, flush) if library is not None else None
+        bound_ms, bound_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+        log('time %s @ b=%d s=%d h=%d d=%d bf16: kernel %.4f ms, plain %.4f ms, library %s, '
+            'bound %.4f ms (%s; %.1f MB, %.2f GFLOP)'
+            % (name, b, s, h, d, ms, plain_ms,
+               'n/a' if library_ms is None else '%.4f ms' % library_ms,
+               bound_ms, bound_by, nbytes / 1e6, flops / 1e9))
+    # No PyTorch call computes dQ or dK/dV alone, but the fused attention
+    # backward computes all three in one call: the yardstick for the sum
+    # of the two backward kernels.
+    leaves = [t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves)
+    library_bwd_ms = time_ms(lambda: torch.autograd.grad(out, leaves, do.transpose(1, 2),
+                                                         retain_graph=True), flush)
+    log('time SDPA backward (dQ, dK, dV in one call) @ b=%d s=%d h=%d d=%d bf16: %.4f ms; '
+        'flash_bwd_dq + flash_bwd_dkv: %.4f ms'
+        % (b, s, h, d, library_bwd_ms, rows['flash_bwd_dq']['ms'] + rows['flash_bwd_dkv']['ms']))
+    return rows
+
+
+def phase_model(fa):
+    """ViT-S/16 logits through the kernels vs through the dense reference."""
+    from petastorm_tpu_torch.models.vit import ViT
+    from petastorm_tpu_torch.train import VIT_S16
+    model = ViT(generator=torch.Generator().manual_seed(3), **VIT_S16).cuda()
+    images = torch.rand(4, 224, 224, 3, generator=torch.Generator().manual_seed(4)).cuda()
+    with torch.no_grad():
+        logits = model(images)
+        for block in model.blocks:
+            block.attn.attn_fn = fa.full_attention
+        ref = model(images)
+    if not torch.isfinite(logits).all():
+        raise AssertionError('ViT logits are not finite')
+    err = check('ViT-S/16 logits (kernels vs dense reference, bf16)', logits, ref, TOL['bf16'])
+    log('model: ViT-S/16 logits %s, kernels vs dense reference max err %.3g'
+        % (tuple(logits.shape), err))
+
+
+def write_dataset(url, rows=512, seed=0):
+    """Synthetic ImageNet-like JPEG Parquet: RGB images at mixed sizes (most
+    not 224x224, so the transform's resize runs) and a string noun_id."""
+    import cv2
+    import pyarrow as pa
+    from petastorm_tpu_torch.codecs import CompressedImageCodec, ScalarCodec
+    from petastorm_tpu_torch.etl.dataset_metadata import DatasetWriter
+    from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+    schema = Unischema('ImagenetSchema', [
+        UnischemaField('noun_id', np.str_, (), ScalarCodec(pa.string()), False),
+        UnischemaField('image', np.uint8, (None, None, 3), CompressedImageCodec('jpeg'), False)])
+    rng = np.random.default_rng(seed)
+    sizes = [(224, 224), (256, 256), (300, 200), (180, 240)]
+    with DatasetWriter(url, schema, rows_per_rowgroup=64) as writer:
+        for i in range(rows):
+            h, w = sizes[i % len(sizes)]
+            # smooth content plus noise: JPEG sizes like photographs', not like noise
+            img = cv2.resize(rng.integers(0, 256, (16, 16, 3), dtype=np.uint8), (w, h),
+                             interpolation=cv2.INTER_CUBIC)
+            img = np.clip(img + rng.normal(0, 8, img.shape), 0, 255).astype(np.uint8)
+            writer.write({'noun_id': 'n%08d' % rng.integers(0, 1000), 'image': img})
+
+
+def phase_main_path(fa):
+    from petastorm_tpu_torch.train import train
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_') as tmp:
+        url = 'file://' + os.path.join(tmp, 'imagenet_jpeg')
+        t0 = time.monotonic()
+        write_dataset(url)
+        log('dataset: 512 JPEG rows written in %.1f s' % (time.monotonic() - t0))
+        for kernel in fa.KERNELS:
+            kernel.launches = 0
+        result = train(url, steps=STEPS, batch_size=BATCH)
+        launches = {kernel.__name__: kernel.launches for kernel in fa.KERNELS}
+        check_main_path(result, launches)
+        phase_profile(train, url, tmp)
+    return launches
+
+
+def check_main_path(result, launches):
+    losses = result['losses']
+    log('main path: steps=%d final loss=%.4f images/s=%.1f step_ms=%.2f data_wait_ms=%.2f '
+        '(over steps 3..%d) launches=%s'
+        % (result['steps'], losses[-1], result['images_per_s'], result['step_ms'],
+           result['data_wait_ms'], STEPS, launches))
+    log('losses: %s' % ' '.join('%.4f' % x for x in losses))
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError('non-finite training loss: %s' % losses)
+    if result['batch_devices'] != ['cuda']:
+        raise AssertionError('batches reached the model on %s' % result['batch_devices'])
+    expected = 12 * STEPS   # 12 encoder blocks, one attention call each per step
+    for name, n in launches.items():
+        if n != expected:
+            raise AssertionError('%s launched %d times on the main path, expected %d'
+                                 % (name, n, expected))
+
+
+def _family(name):
+    """Kernel family of a CUDA kernel name, for the time breakdown."""
+    for key in ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv'):
+        if key + '_kernel' in name:
+            return key
+    lowered = name.lower()
+    if any(k in lowered for k in ('nvjet', 'gemm', 'cutlass', 'sm90_xmma')):
+        return 'matmul'
+    for key in ('conv', 'reduce', 'elementwise', 'memcpy', 'memset'):
+        if key in lowered:
+            return key
+    return 'other'
+
+
+def phase_profile(train, url, tmp, steps=8):
+    """Where the time of a training step goes: a short run of the main path
+    under torch.profiler (host and device activity).  Over steps 3..steps-1
+    (a step starts at every 12th forward kernel): the device busy time per
+    step and its split by kernel family, the kernels per step, and on the
+    host the time per step inside CUDA launch calls and inside calls that
+    wait for the device (synchronize, blocking copies)."""
+    from torch.profiler import ProfilerActivity, profile
+    path = os.path.join(tmp, 'trace.json')
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        train(url, steps=steps, batch_size=BATCH)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)['traceEvents']
+    events = [e for e in trace if e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset')]
+    runtime = [e for e in trace if e.get('cat') in ('cuda_runtime', 'cuda_driver')]
+    events.sort(key=lambda e: e['ts'])
+    starts = [e['ts'] for e in events if 'flash_fwd_kernel' in e['name']][::12]
+    if len(starts) != steps:
+        raise AssertionError('profile: found %d step starts for %d steps' % (len(starts), steps))
+    lo, hi = starts[2], starts[-1]
+    busy, end, families = 0.0, lo, {}
+    for e in events:
+        t0, t1 = max(e['ts'], lo), min(e['ts'] + e['dur'], hi)
+        if t1 <= t0:
+            continue
+        family = _family(e['name'])
+        families[family] = families.get(family, 0.0) + (t1 - t0)
+        if t1 > end:
+            busy += t1 - max(t0, end)
+            end = t1
+    n = len(starts) - 3
+    kernels = sum(1 for e in events if e.get('cat') == 'kernel' and lo <= e['ts'] < hi)
+    launch_us = wait_us = 0.0
+    for e in runtime:
+        if lo <= e['ts'] < hi:
+            if 'Launch' in e['name']:
+                launch_us += e.get('dur', 0)
+            elif 'Synchronize' in e['name'] or e['name'] in ('cudaMemcpy', 'cuMemcpy'):
+                wait_us += e.get('dur', 0)
+    log('profile (steps 3..%d under torch.profiler, %.2f ms per step): device busy %.2f ms per '
+        'step (%.1f%%); kernel time by family, ms per step: %s'
+        % (steps - 1, (hi - lo) / n / 1e3, busy / n / 1e3, 100.0 * busy / (hi - lo),
+           ', '.join('%s %.2f' % (k, v / n / 1e3)
+                     for k, v in sorted(families.items(), key=lambda kv: -kv[1]))))
+    log('profile host: %.0f kernels per step; %.2f ms per step in CUDA launch calls, %.2f ms '
+        'per step in calls that wait for the device'
+        % (kernels / n, launch_us / n / 1e3, wait_us / n / 1e3))
+
+
+def main():
+    # The kernels' module (petastorm_tpu_torch.ops re-exports its function
+    # under the same name).  Imported first: outside a checkout this fails
+    # before anything is printed.
+    fa = importlib.import_module('petastorm_tpu_torch.ops.flash_attention')
+    smi = phase_device()
+    phase_build(fa)
+    errors = {}
+    for shape, dtype, causal, segments in KERNEL_CASES:
+        for name, err in kernel_case(fa, shape, dtype, causal, segments, seed=7).items():
+            errors[name] = max(errors.get(name, 0.0), err)
+    timing = phase_timing(fa)
+    phase_model(fa)
+    launches = phase_main_path(fa)
+    kernels = [dict(name=name, route='cuda', source=SOURCES[name], replaces=REPLACES[name],
+                    launches=launches[name], max_abs_err=errors[name], ms=timing[name]['ms'],
+                    plain_ms=timing[name]['plain_ms'], bound_ms=timing[name]['bound_ms'],
+                    bound_by=timing[name]['bound_by'], library_ms=timing[name]['library_ms'])
+               for name in ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv')]
+    log(smi)
+    log(json.dumps({'kernels': kernels}))
+    log(json.dumps({'ok': True, 'device': {'platform': 'gpu',
+                                           'kind': torch.cuda.get_device_name(0),
+                                           'count': torch.cuda.device_count()}}))
+
+
+if __name__ == '__main__':
+    sys.exit(main())

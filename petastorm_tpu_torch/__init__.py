@@ -1,0 +1,35 @@
+"""petastorm_tpu_torch — the PyTorch/CUDA port of petastorm_tpu.
+
+A second package beside ``petastorm_tpu`` (the JAX reference, which it is
+held against and never imports): the same reader and decode plane, a
+loader that moves batches to an NVIDIA GPU, on-device augmentation, the ViT
+model and the flash-attention kernels as hand-written CUDA for Hopper
+(``csrc/``).  Entry points run on the card unless the caller passes
+``device='cpu'``.
+
+Imports are lazy (PEP 562) so ``import petastorm_tpu_torch`` stays cheap.
+"""
+
+__version__ = '0.1.0'
+
+_LAZY = {
+    'make_reader': 'petastorm_tpu_torch.reader',
+    'Reader': 'petastorm_tpu_torch.reader',
+    'TransformSpec': 'petastorm_tpu_torch.transform',
+    'Unischema': 'petastorm_tpu_torch.unischema',
+    'UnischemaField': 'petastorm_tpu_torch.unischema',
+    'NoDataAvailableError': 'petastorm_tpu_torch.errors',
+    'DataLoader': 'petastorm_tpu_torch.gpu.loader',
+    'train': 'petastorm_tpu_torch.train',
+}
+
+__all__ = list(_LAZY)
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+        value = getattr(importlib.import_module(_LAZY[name]), name)
+        globals()[name] = value
+        return value
+    raise AttributeError('module %r has no attribute %r' % (__name__, name))

@@ -1,0 +1,23 @@
+"""Row-group result cache interface.
+
+Counterpart of ``petastorm_tpu/cache.py``.  This slice carries only the
+null cache (``cache_type='null'``); the local-disk cache and the cache
+plane are later slices.
+"""
+
+
+class CacheBase(object):
+    def get(self, key, fill_cache_func):
+        """Return the cached value for ``key``, computing and storing it via
+        ``fill_cache_func()`` on a miss."""
+        raise NotImplementedError()
+
+    def cleanup(self):
+        """Release resources / delete backing storage if owned."""
+
+
+class NullCache(CacheBase):
+    """No caching: always calls ``fill_cache_func``."""
+
+    def get(self, key, fill_cache_func):
+        return fill_cache_func()

@@ -1,0 +1,31 @@
+// C ABI of the flash-attention kernels (bound from Python with ctypes).
+//
+// Layouts (all row-major, contiguous):
+//   q, k, v, o, dout, dq, dk, dv : [b, s, h, d]   in `dtype` (0 = f32, 1 = bf16)
+//   lse, delta                   : [b * h, s]     f32
+//   seg                          : [b, s]         int32, or NULL (no segments)
+// `stream` is a cudaStream_t.  Every function launches one kernel on it, does
+// not synchronise, and returns cudaGetLastError() (0 = launched).
+#pragma once
+
+#ifdef __cplusplus
+extern "C" {
+#endif
+
+int pt_flash_fwd(const void* q, const void* k, const void* v, const int* seg,
+                 void* o, float* lse, int b, int s, int h, int d, float scale,
+                 int causal, int dtype, void* stream);
+
+int pt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                    const float* lse, const float* delta, const int* seg, void* dq,
+                    int b, int s, int h, int d, float scale, int causal, int dtype,
+                    void* stream);
+
+int pt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                     const float* lse, const float* delta, const int* seg, void* dk,
+                     void* dv, int b, int s, int h, int d, float scale, int causal,
+                     int dtype, void* stream);
+
+#ifdef __cplusplus
+}
+#endif

@@ -1,0 +1,158 @@
+"""Reader orchestration: ``make_reader`` and ``Reader``.
+
+Counterpart of ``petastorm_tpu/reader.py``: row-group enumeration from the
+footer metadata, sharding, row-group shuffling, epochs, the worker pool,
+the iterator protocol, and the ``columnar_decode`` fast path the loader
+consumes.
+
+Cut to this slice of the port (each option outside it raises
+``ValueError`` naming where it will come): the thread and dummy pools,
+FIFO scheduling, synchronous reads (no ingest plane), the null cache.  The
+shard default is 0 of 1: nothing here probes a multi-host topology.
+"""
+
+from petastorm_tpu_torch.cache import NullCache
+from petastorm_tpu_torch.errors import NoDataAvailableError
+from petastorm_tpu_torch.etl.dataset_metadata import get_schema, load_row_groups
+from petastorm_tpu_torch.fs_utils import get_filesystem_and_path
+from petastorm_tpu_torch.py_dict_reader_worker import PyDictReaderWorker, RowWorkerArgs
+from petastorm_tpu_torch.transform import transform_schema
+from petastorm_tpu_torch.workers_pool import EmptyResultError
+from petastorm_tpu_torch.workers_pool.dummy_pool import DummyPool
+from petastorm_tpu_torch.workers_pool.thread_pool import ThreadPool
+from petastorm_tpu_torch.workers_pool.ventilator import ConcurrentVentilator
+
+_LATER = 'a later slice of the port'
+
+
+def _make_pool(reader_pool_type, workers_count, results_queue_size):
+    if reader_pool_type == 'thread':
+        return ThreadPool(workers_count, results_queue_size)
+    if reader_pool_type == 'dummy':
+        return DummyPool()
+    if reader_pool_type == 'process':
+        raise ValueError("reader_pool_type='process' (the ZeroMQ process pool) is %s" % _LATER)
+    raise ValueError("reader_pool_type must be 'thread' or 'dummy'; got %r"
+                     % (reader_pool_type,))
+
+
+def _shard_indices(num_pieces, cur_shard, shard_count):
+    """Piece indices of this shard: ``i % shard_count == cur_shard``."""
+    if shard_count is None:
+        if cur_shard is not None:
+            raise ValueError('cur_shard requires shard_count')
+        return list(range(num_pieces))
+    if cur_shard is None or not 0 <= cur_shard < shard_count:
+        raise ValueError('cur_shard must be in [0, %d), got %r' % (shard_count, cur_shard))
+    return [i for i in range(num_pieces) if i % shard_count == cur_shard]
+
+
+def make_reader(dataset_url,
+                schema_fields=None,
+                reader_pool_type='thread', workers_count=10, results_queue_size=50,
+                shuffle_row_groups=True,
+                num_epochs=1,
+                cur_shard=None, shard_count=None,
+                cache_type='null',
+                transform_spec=None,
+                seed=None,
+                columnar_decode=False, read_retries=2, retry_backoff_s=0.1,
+                scheduling='fifo', ingest='off'):
+    """Reader over a petastorm-format dataset (codec-decoded rows).
+
+    Yields namedtuple rows, or with ``columnar_decode=True`` one namedtuple
+    of stacked column arrays per row group (the fast path for
+    :class:`petastorm_tpu_torch.gpu.DataLoader`).  Argument names and
+    defaults follow ``petastorm_tpu.make_reader``; ``scheduling`` and
+    ``ingest`` take only the values this slice implements.
+    """
+    if scheduling != 'fifo':
+        raise ValueError("scheduling=%r: only 'fifo' is in this slice; adaptive "
+                         "scheduling is %s" % (scheduling, _LATER))
+    if ingest != 'off':
+        raise ValueError("ingest=%r: only 'off' is in this slice; the async ingest "
+                         "plane is %s" % (ingest, _LATER))
+    if cache_type not in (None, 'null', 'none'):
+        raise ValueError("cache_type=%r: only 'null' is in this slice; the local-disk "
+                         "cache and the cache plane are %s" % (cache_type, _LATER))
+    fs, path = get_filesystem_and_path(dataset_url)
+    stored_schema = get_schema(fs, path)
+    schema_view = (stored_schema.create_schema_view(schema_fields)
+                   if schema_fields is not None else stored_schema)
+
+    pieces = load_row_groups(fs, path)
+    local_indices = _shard_indices(len(pieces), cur_shard, shard_count)
+    if not local_indices:
+        raise NoDataAvailableError(
+            'No row groups to read from %r after sharding' % (dataset_url,))
+
+    worker_args = RowWorkerArgs(
+        pieces=pieces, schema_view=schema_view,
+        transform_spec=transform_spec, cache=NullCache(),
+        columnar_output=columnar_decode, read_retries=read_retries,
+        retry_backoff_s=retry_backoff_s)
+    pool = _make_pool(reader_pool_type, workers_count, results_queue_size)
+    result_schema = transform_schema(schema_view, transform_spec) \
+        if transform_spec is not None else schema_view
+    return Reader(pool=pool, worker_args=worker_args,
+                  items=[(i,) for i in local_indices], schema=result_schema,
+                  shuffle_items=shuffle_row_groups, num_epochs=num_epochs, seed=seed,
+                  batched_output=columnar_decode)
+
+
+class Reader(object):
+    """Iterator over the dataset; owns the pool + ventilator lifecycle."""
+
+    def __init__(self, *, pool, worker_args, items, schema, shuffle_items,
+                 num_epochs, seed, batched_output=False):
+        self.schema = schema
+        #: True for the columnar path: __next__ yields namedtuples of column
+        #: arrays instead of single rows.
+        self.batched_output = batched_output
+        self._pool = pool
+        self._worker_args = worker_args
+        self._items = items
+        self._shuffle_items = shuffle_items
+        self._num_epochs = num_epochs
+        self._seed = seed if seed is not None else 0
+        self._row_buffer = []
+        # Small in-flight window: bounds memory, never starves the workers.
+        window = max(2 * self._pool.workers_count, 4)
+        self._ventilator = ConcurrentVentilator(
+            ventilate_fn=self._pool.ventilate,
+            items=self._items,
+            iterations=self._num_epochs,
+            randomize_item_order=self._shuffle_items,
+            random_seed=self._seed,
+            max_ventilation_queue_size=max(1, min(len(self._items), window)))
+        self._pool.start(PyDictReaderWorker, self._worker_args, ventilator=self._ventilator)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self.batched_output:
+            try:
+                return self.schema.make_namedtuple_from_dict(self._pool.get_results())
+            except EmptyResultError:
+                raise StopIteration from None
+        while not self._row_buffer:
+            try:
+                rows = self._pool.get_results()
+            except EmptyResultError:
+                raise StopIteration from None
+            self._row_buffer = list(rows)
+        return self.schema.make_namedtuple_from_dict(self._row_buffer.pop(0))
+
+    def stop(self):
+        self._pool.stop()
+
+    def join(self):
+        self._pool.join()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc_value, tb):
+        self.stop()
+        self.join()

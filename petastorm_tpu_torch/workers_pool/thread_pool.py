@@ -1,0 +1,130 @@
+"""Default pool: N python threads; pyarrow, zlib and cv2 release the GIL, so
+decode scales across host cores.
+
+Counterpart of ``petastorm_tpu/workers_pool/thread_pool.py``: input queue +
+bounded results queue, worker exceptions re-raised in the caller, acks
+flowing back to the ventilator.  Delivery is in completion order (FIFO
+scheduling); the reorder stage, metrics registry and provenance records are
+later slices.
+"""
+
+import queue
+import sys
+import threading
+import traceback
+
+from petastorm_tpu_torch.workers_pool import (DEFAULT_TIMEOUT_S, EmptyResultError,
+                                              TimeoutWaitingForResultError)
+
+_SENTINEL = object()
+
+
+class _WorkerError(object):
+    """Exception captured in a worker thread, travelling the results queue."""
+
+    def __init__(self, exc, tb_str):
+        self.exc = exc
+        self.tb_str = tb_str
+
+
+class ThreadPool(object):
+    def __init__(self, workers_count=10, results_queue_size=50):
+        self.workers_count = workers_count
+        self._input_queue = queue.Queue()
+        self._results_queue = queue.Queue(maxsize=results_queue_size)
+        self._threads = []
+        self._workers = []
+        self._ventilator = None
+        self._stop_event = threading.Event()
+        self._inflight_lock = threading.Lock()
+        self._inflight = 0  # ventilated but not yet fully processed
+
+    def start(self, worker_class, worker_setup_args=None, ventilator=None):
+        self._ventilator = ventilator
+        for worker_id in range(self.workers_count):
+            worker = worker_class(worker_id, self._put_result, worker_setup_args)
+            self._workers.append(worker)
+            thread = threading.Thread(target=self._worker_loop, args=(worker,),
+                                      name='reader-worker-%d' % worker_id, daemon=True)
+            self._threads.append(thread)
+            thread.start()
+        if ventilator is not None:
+            ventilator.start()
+
+    def ventilate(self, *args):
+        with self._inflight_lock:
+            self._inflight += 1
+        self._input_queue.put(args)
+
+    def _put_result(self, result):
+        # Bounded put that stays responsive to stop(): a worker blocked on a
+        # full results queue must not deadlock teardown.
+        while not self._stop_event.is_set():
+            try:
+                self._results_queue.put(result, timeout=0.1)
+                return
+            except queue.Full:
+                continue
+
+    def _worker_loop(self, worker):
+        try:
+            while not self._stop_event.is_set():
+                try:
+                    item = self._input_queue.get(timeout=0.1)
+                except queue.Empty:
+                    continue
+                if item is _SENTINEL:
+                    break
+                try:
+                    worker.process(*item)
+                except Exception as e:  # noqa: BLE001 — travels to the caller
+                    self._put_result(_WorkerError(e, traceback.format_exc()))
+                finally:
+                    with self._inflight_lock:
+                        self._inflight -= 1
+                    if self._ventilator is not None:
+                        self._ventilator.processed_item()
+        finally:
+            # The owning thread closes its own worker's files: closing them
+            # from another thread could unmap a file mid-read.
+            worker.shutdown()
+
+    def get_results(self, timeout=DEFAULT_TIMEOUT_S):
+        """Next result; EmptyResultError once the ventilator completed, no
+        item is in flight and the queues are empty."""
+        while True:
+            try:
+                result = self._results_queue.get(timeout=0.05)
+            except queue.Empty:
+                if self._all_done():
+                    raise EmptyResultError()
+                timeout -= 0.05
+                if timeout <= 0:
+                    raise TimeoutWaitingForResultError(
+                        'No results within timeout; worker threads alive: %d'
+                        % sum(t.is_alive() for t in self._threads))
+                continue
+            if isinstance(result, _WorkerError):
+                sys.stderr.write(result.tb_str)
+                raise result.exc
+            return result
+
+    def _all_done(self):
+        if self._ventilator is not None and not self._ventilator.completed():
+            return False
+        with self._inflight_lock:
+            inflight = self._inflight
+        return inflight == 0 and self._input_queue.empty() and self._results_queue.empty()
+
+    def stop(self):
+        if self._ventilator is not None:
+            self._ventilator.stop()
+        self._stop_event.set()
+        for _ in self._threads:
+            self._input_queue.put(_SENTINEL)
+
+    def join(self):
+        for thread in self._threads:
+            thread.join()
+        for worker in self._workers:
+            worker.shutdown()  # idempotent; covers never-started threads

@@ -1,0 +1,131 @@
+"""Rules the port keeps: it imports nothing of JAX or of the JAX package, its
+entry points run on the card unless asked for the CPU, and its kernels
+never fall back to another implementation."""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PACKAGE = os.path.join(REPO, 'petastorm_tpu_torch')
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'petastorm_tpu', 'petastorm')
+
+
+def _port_sources():
+    paths = [os.path.join(REPO, 'chip_smoke.py')]
+    for root, _, files in os.walk(PACKAGE):
+        paths.extend(os.path.join(root, f) for f in files if f.endswith('.py'))
+    return sorted(paths)
+
+
+def _imported_modules(tree):
+    """Every module an ``import``/``from`` statement or an
+    ``importlib.import_module``/``__import__`` call with a literal names."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif isinstance(node, ast.Call) and node.args \
+                and isinstance(node.args[0], ast.Constant) \
+                and isinstance(node.args[0].value, str) \
+                and (getattr(node.func, 'attr', None) == 'import_module'
+                     or getattr(node.func, 'id', None) == '__import__'):
+            yield node.args[0].value
+
+
+def test_port_imports_nothing_of_jax_or_the_jax_package():
+    sources = _port_sources()
+    assert len(sources) > 20
+    offenders = []
+    for path in sources:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for module in _imported_modules(tree):
+            if module.split('.')[0] in FORBIDDEN:
+                offenders.append('%s: %s' % (os.path.relpath(path, REPO), module))
+    assert not offenders, offenders
+
+
+def test_training_on_cpu_never_loads_jax(tmp_path):
+    script = textwrap.dedent('''
+        import sys
+        import numpy as np, pyarrow as pa
+        import petastorm_tpu_torch
+        from petastorm_tpu_torch import codecs, unischema
+        from petastorm_tpu_torch.etl.dataset_metadata import DatasetWriter
+        schema = unischema.Unischema('S', [
+            unischema.UnischemaField('noun_id', np.str_, (), codecs.ScalarCodec(pa.string()), False),
+            unischema.UnischemaField('image', np.uint8, (None, None, 3),
+                                     codecs.CompressedImageCodec('jpeg'), False)])
+        url = 'file://' + sys.argv[1]
+        rng = np.random.default_rng(0)
+        with DatasetWriter(url, schema, rows_per_rowgroup=4) as w:
+            for i in range(12):
+                w.write({'noun_id': 'n%d' % i,
+                         'image': rng.integers(0, 256, (32, 40 if i % 2 else 32, 3), dtype=np.uint8)})
+        result = petastorm_tpu_torch.train(url, steps=2, batch_size=4, image_hw=(32, 32),
+                                           device='cpu',
+                                           model_kwargs=dict(num_layers=1, d_model=32,
+                                                             num_heads=2, d_ff=64))
+        assert len(result['losses']) == 2 and all(np.isfinite(result['losses']))
+        assert result['batch_devices'] == ['cpu']
+        loaded = sorted(m for m in sys.modules if m.split('.')[0] in FORBIDDEN)
+        print('LOADED', loaded)
+        sys.exit(1 if loaded else 0)
+    ''').replace('FORBIDDEN', repr(FORBIDDEN))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, '-c', script, str(tmp_path / 'ds')], env=env,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert 'LOADED []' in proc.stdout
+
+
+def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
+    from petastorm_tpu_torch.gpu import DataLoader, resolve_device
+    from petastorm_tpu_torch.train import train
+
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        resolve_device('cuda')
+    assert resolve_device('cpu') == torch.device('cpu')
+
+    class ColumnarReader(object):
+        batched_output = True
+
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        DataLoader(ColumnarReader(), 4)
+    assert DataLoader(ColumnarReader(), 4, device='cpu').device.type == 'cpu'
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        train('file://%s' % tmp_path, steps=1)
+
+
+def test_kernel_wrappers_never_fall_back():
+    """No ``try`` anywhere in the kernel module (so nothing catches a failed
+    launch), every wrapper launches, and nothing in the package reaches
+    PyTorch's fused attention or torch.compile."""
+    path = os.path.join(PACKAGE, 'ops', 'flash_attention.py')
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+    wrappers = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)
+                and n.name in ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv')}
+    assert sorted(wrappers) == ['flash_bwd_dkv', 'flash_bwd_dq', 'flash_fwd']
+    for name, fn in wrappers.items():
+        calls = [c.func.id for c in ast.walk(fn)
+                 if isinstance(c, ast.Call) and isinstance(c.func, ast.Name)]
+        assert '_launch' in calls, name
+    for source in _port_sources():
+        if source.endswith('chip_smoke.py'):
+            continue   # times one library call as a yardstick, outside the package
+        with open(source) as f:
+            text = f.read()
+        for banned in ('scaled_dot_product_attention', 'torch.compile', 'cudnn_attention'):
+            assert banned not in text, (source, banned)
