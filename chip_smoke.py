@@ -11,11 +11,16 @@ Phases, in order; any failure propagates and exits nonzero:
 3. kernels vs plain: each kernel against its plain PyTorch version on the
    same inputs, and the differentiable op against the dense fp32 reference,
    at (a) the ViT-S/16 training shapes in bf16, (b) a small fp32 case with
-   causal masking, segment ids and a length that is no multiple of 64, and
-   (c) one case for each other head_dim tile width;
+   causal masking, segment ids and a length that is no multiple of 64,
+   (c) one case for each other head_dim tile width of the CUDA-core kernels,
+   (d) bf16 cases on the tensor-core route for each of its tile widths and
+   masks, and (e) bf16 cases on the CUDA-core route for each of its tile
+   widths; each case checks which design the forward and dK/dV took;
    then each kernel timed at (a) beside its plain version, one PyTorch
-   library call where one computes the same function, and its bound, and
-   PyTorch's fused attention backward beside the two backward kernels;
+   library call where one computes the same function, and its bound, the
+   forward and dK/dV also through their CUDA-core design, and PyTorch's
+   fused attention backward beside the two backward kernels; and each
+   kernel's host time per wrapper call, for both designs;
 4. model: the ViT-S/16 forward through the kernels against the same model
    through the dense reference, on a small batch;
 5. main path: a synthetic JPEG Parquet dataset, then 20 full-width
@@ -23,7 +28,8 @@ Phases, in order; any failure propagates and exits nonzero:
    augment and model, with every kernel's launches counted; then a short
    run of the same path under torch.profiler: the device busy time per step
    and its split by kernel family, and the host's time in launch calls and
-   in calls that wait for the device.
+   in calls that wait for the device.  Every forward and dK/dV launch of the
+   20 steps must take the tensor-core design.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -45,16 +51,32 @@ STEPS = 20
 BATCH = 64
 VIT_SHAPE = dict(b=64, s=196, h=6, d=64)     # ViT-S/16 at 224x224: 14*14 patches, 384/6
 SMALL_SHAPE = dict(b=2, s=100, h=2, d=16)
-#: (shape, dtype, causal, segments) of the kernel checks: the main path's
-#: shapes, the small fp32 case, and one case for each other tile width the
-#: kernels instantiate (head_dim up to 32, 64, 128), with head_dims that fill
-#: no tile and lengths that are no multiple of 64.
+#: (shape, dtype, causal, segments, misaligned, design) of the kernel checks:
+#: the main path's shapes, the small fp32 case, one case for each other tile
+#: width the CUDA-core kernels instantiate (head_dim up to 32, 64, 128), then
+#: bf16 cases on the tensor-core route for each of its tile widths (16, 32,
+#: 64, 128) and masks, two with head_dims that fill only part of their tile
+#: (40, 72), and bf16 cases on the CUDA-core route at each of its tile
+#: widths: head_dims 20 and 100 (no multiple of 8), and the main path's
+#: shapes on copies that start 2 bytes past a 16-byte boundary.  ``design``
+#: is the design the forward and dK/dV must take.  No length is a multiple
+#: of 64.
 KERNEL_CASES = (
-    (VIT_SHAPE, torch.bfloat16, False, False),
-    (SMALL_SHAPE, torch.float32, True, True),
-    (dict(b=2, s=130, h=2, d=128), torch.bfloat16, True, False),
-    (dict(b=3, s=77, h=3, d=40), torch.float32, False, True),
-    (dict(b=1, s=150, h=2, d=100), torch.float32, True, True),
+    (VIT_SHAPE, torch.bfloat16, False, False, False, 'tensor_core'),
+    (SMALL_SHAPE, torch.float32, True, True, False, 'cuda_core'),
+    (dict(b=2, s=130, h=2, d=128), torch.bfloat16, True, False, False, 'tensor_core'),
+    (dict(b=3, s=77, h=3, d=40), torch.float32, False, True, False, 'cuda_core'),
+    (dict(b=1, s=150, h=2, d=100), torch.float32, True, True, False, 'cuda_core'),
+    (dict(b=2, s=100, h=2, d=32), torch.bfloat16, True, True, False, 'tensor_core'),
+    (dict(b=2, s=130, h=2, d=64), torch.bfloat16, True, True, False, 'tensor_core'),
+    (dict(b=2, s=196, h=2, d=128), torch.bfloat16, False, True, False, 'tensor_core'),
+    (dict(b=2, s=70, h=2, d=16), torch.bfloat16, True, False, False, 'tensor_core'),
+    (dict(b=3, s=77, h=3, d=40), torch.bfloat16, False, True, False, 'tensor_core'),
+    (dict(b=1, s=150, h=2, d=72), torch.bfloat16, True, True, False, 'tensor_core'),
+    (dict(b=2, s=90, h=2, d=20), torch.bfloat16, True, True, False, 'cuda_core'),
+    (VIT_SHAPE, torch.bfloat16, False, False, True, 'cuda_core'),
+    (dict(b=2, s=130, h=2, d=64), torch.bfloat16, True, True, True, 'cuda_core'),
+    (dict(b=1, s=150, h=2, d=100), torch.bfloat16, True, True, False, 'cuda_core'),
 )
 #: Tolerances as (atol, rtol).  fp32: forward 2e-5, gradients 1e-4, as in
 #: tests/test_flash_attention.py.  A bf16 kernel against its plain version:
@@ -71,10 +93,13 @@ REPLACES = {
     'flash_bwd_dq': 'petastorm_tpu/ops/flash_attention.py:200',
     'flash_bwd_dkv': 'petastorm_tpu/ops/flash_attention.py:252',
 }
+#: The design each kernel takes on the main path, and its source.
+MAIN_PATH_DESIGN = {'flash_fwd': 'tensor_core', 'flash_bwd_dq': 'cuda_core',
+                    'flash_bwd_dkv': 'tensor_core'}
 SOURCES = {
-    'flash_fwd': 'petastorm_tpu_torch/csrc/flash_fwd.cu',
+    'flash_fwd': 'petastorm_tpu_torch/csrc/flash_fwd_sm90.cu',
     'flash_bwd_dq': 'petastorm_tpu_torch/csrc/flash_bwd.cu',
-    'flash_bwd_dkv': 'petastorm_tpu_torch/csrc/flash_bwd.cu',
+    'flash_bwd_dkv': 'petastorm_tpu_torch/csrc/flash_bwd_dkv_sm90.cu',
 }
 
 
@@ -92,6 +117,46 @@ def check(name, actual, expected, tol):
     torch.testing.assert_close(actual.float(), expected.float(), atol=atol, rtol=rtol,
                                msg=lambda m: '%s: %s' % (name, m))
     return max_err(actual, expected)
+
+
+def share_of_limit(actual, expected, tol):
+    """max |actual - expected| / (atol + rtol |expected|): the share of the
+    tolerance used (at most 1 passes)."""
+    atol, rtol = tol
+    err = (actual.detach().float() - expected.detach().float()).abs()
+    return float((err / (atol + rtol * expected.detach().float().abs())).max())
+
+
+def reset_counts(fa):
+    for kernel in fa.KERNELS:
+        kernel.launches = 0
+        kernel.launches_by_design = {'tensor_core': 0, 'cuda_core': 0}
+
+
+def designs_taken(fa, before):
+    """{kernel: design} of the launches since ``before`` (a snapshot of
+    ``launches_by_design``), each kernel having launched by one design."""
+    taken = {}
+    for kernel in fa.KERNELS:
+        grown = [d for d, n in kernel.launches_by_design.items()
+                 if n > before[kernel.__name__][d]]
+        if len(grown) != 1:
+            raise AssertionError('%s launched by %s designs' % (kernel.__name__, grown or 'no'))
+        taken[kernel.__name__] = grown[0]
+    return taken
+
+
+def snapshot(fa):
+    return {kernel.__name__: dict(kernel.launches_by_design) for kernel in fa.KERNELS}
+
+
+def check_designs(fa, before, design, tag):
+    """The forward and dK/dV launched since ``before`` by ``design`` alone."""
+    designs = designs_taken(fa, before)
+    for name in ('flash_fwd', 'flash_bwd_dkv'):
+        if designs[name] != design:
+            raise AssertionError('%s [%s] took the %s design, expected %s'
+                                 % (name, tag, designs[name], design))
 
 
 def make_inputs(b, s, h, d, dtype, seed, segments=False):
@@ -133,18 +198,23 @@ def phase_build(fa):
                 log('    ' + line.strip())
 
 
-def kernel_case(fa, shape, dtype, causal, segments, seed):
+def kernel_case(fa, shape, dtype, causal, segments, misaligned, design, seed):
     """Each kernel against its plain version on the same inputs, and the
-    autograd op against the dense fp32 reference.  Returns max errors."""
+    autograd op against the dense fp32 reference, with q, k, v and dO on
+    ``misaligned`` copies or not.  The forward and dK/dV must take
+    ``design``.  Returns max errors."""
     b, s, h, d = shape['b'], shape['s'], shape['h'], shape['d']
     q, k, v, do, seg = make_inputs(b, s, h, d, dtype, seed, segments)
+    if misaligned:
+        q, k, v, do = (misaligned_copy(t) for t in (q, k, v, do))
     scale = d ** -0.5
     bf16 = dtype == torch.bfloat16
     tol_fwd = TOL['bf16_vs_plain'] if bf16 else TOL['fwd_f32']
     tol_grad = TOL['bf16_vs_plain'] if bf16 else TOL['grad_f32']
     tag = ' '.join([str(dtype)[6:]] + ['causal'] * causal + ['segments'] * segments
-                   + ['s=%d' % s])
+                   + ['misaligned'] * misaligned + ['s=%d' % s])
     errs = {}
+    before = snapshot(fa)
 
     o, lse = fa.flash_fwd(q, k, v, seg, causal, scale)
     o_p, lse_p = fa.flash_fwd_plain(q, k, v, seg, causal, scale)
@@ -161,12 +231,18 @@ def kernel_case(fa, shape, dtype, causal, segments, seed):
     dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta, seg, causal, scale)
     errs['flash_bwd_dkv'] = max(check('dk [%s]' % tag, dk, dk_p, tol_grad),
                                 check('dv [%s]' % tag, dv, dv_p, tol_grad))
+    shares = (share_of_limit(o, o_p, tol_fwd), share_of_limit(dk, dk_p, tol_grad),
+              share_of_limit(dv, dv_p, tol_grad))
+    check_designs(fa, before, design, tag)
 
     # The differentiable op (all three kernels) against the dense fp32
-    # reference with PyTorch's own autograd.
-    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    # reference with PyTorch's own autograd.  detach() keeps each tensor's
+    # storage, so misaligned inputs stay misaligned.
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = snapshot(fa)
     out = fa.flash_attention(*leaves, causal=causal, segment_ids=seg)
     out.backward(do)
+    check_designs(fa, before, design, tag + ', op')
     ref_leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
     ref = fa.full_attention(*ref_leaves, causal=causal, segment_ids=seg)
     ref.backward(do.float())
@@ -176,19 +252,26 @@ def kernel_case(fa, shape, dtype, causal, segments, seed):
         e2e.append(check('flash_attention d%s [%s]' % (name, tag), a.grad, r.grad,
                          TOL['bf16'] if bf16 else TOL['grad_f32']))
     torch.cuda.synchronize()
-    log('kernels [%s]: max err vs plain fwd %.3g dq %.3g dkv %.3g; vs fp32 reference %s'
-        % (tag, errs['flash_fwd'], errs['flash_bwd_dq'], errs['flash_bwd_dkv'],
-           ' '.join('%.3g' % e for e in e2e)))
+    log('kernels [%s d=%d, fwd/dkv on %s]: max err vs plain fwd %.3g dq %.3g dkv %.3g '
+        '(share of the limit o %.2f dk %.2f dv %.2f); vs fp32 reference %s'
+        % ((tag, d, design, errs['flash_fwd'], errs['flash_bwd_dq'], errs['flash_bwd_dkv'])
+           + shares + (' '.join('%.3g' % e for e in e2e),)))
     return errs
 
 
 def time_ms(fn, flush, iters=20, warmup=3):
     """Mean device time of ``fn()`` with a cold L2 (a 64 MB write between
-    calls), from CUDA events around each call."""
+    calls), from CUDA events around each call.  A ~5 ms device spin
+    (``torch.cuda._sleep``, PyTorch's own spin kernel) goes ahead of the
+    flush, so the host has enqueued ``fn``'s launches (an autograd call's
+    too, which launch from autograd's device thread) before the start event
+    fires: the window holds the device's work, not the host's time to launch
+    it, which :func:`host_us` measures."""
     for _ in range(warmup):
         fn()
     total = 0.0
     for _ in range(iters):
+        torch.cuda._sleep(10_000_000)
         flush.zero_()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -199,16 +282,46 @@ def time_ms(fn, flush, iters=20, warmup=3):
     return total / iters
 
 
+def host_us(fn, calls=20, rounds=5):
+    """Host time of one ``fn()`` call in microseconds, the median over
+    ``rounds`` of the mean over ``calls`` back-to-back calls: for a kernel
+    wrapper, its Python, its checks, the C entry point (the tensor maps'
+    encoding included) and the launch.  The device runs behind the host, so
+    no call waits for it."""
+    means = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        means.append(1e6 * (time.perf_counter() - t0) / calls)
+    torch.cuda.synchronize()
+    return float(np.median(means))
+
+
 def bound(nbytes, flops, flop_rate):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
     return 1e3 * max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
 
 
+def misaligned_copy(t):
+    """A contiguous copy of ``t`` whose data starts 2 bytes past a 16-byte
+    boundary: the kernels' route then takes the CUDA-core design."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def phase_timing(fa):
-    """Each kernel at the ViT-S/16 shapes (bf16): its time, its plain
-    version's, one library call's where PyTorch has one, and its bound."""
+    """Each kernel at the ViT-S/16 shapes (bf16): its device time and its
+    host time per call, its plain version's device time, one library call's
+    where PyTorch has one, and its bound; the forward and dK/dV also through
+    their CUDA-core design on the same inputs (misaligned copies), timed in
+    turns with the tensor-core one."""
     b, s, h, d = (VIT_SHAPE[x] for x in 'bshd')
     q, k, v, do, _ = make_inputs(b, s, h, d, torch.bfloat16, seed=11)
+    qm, km, vm, dom = (misaligned_copy(t) for t in (q, k, v, do))
     scale = d ** -0.5
     o, lse = fa.flash_fwd(q, k, v, None, False, scale)
     delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).reshape(b * h, s).contiguous()
@@ -216,31 +329,48 @@ def phase_timing(fa):
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # SDPA's [b, h, s, d] view
     elems, stat = b * s * h * d * 2, b * h * s * 4       # bytes of one tensor, of lse/delta
     pair = b * h * s * s * d                             # one s x s x d product = 2*pair flops
+    # Operations the function needs, whatever the design: the tensor-core
+    # kernels' hi/lo products of P and dS are not counted.
     cases = [
         ('flash_fwd', lambda: fa.flash_fwd(q, k, v, None, False, scale),
+         lambda: fa.flash_fwd(qm, km, vm, None, False, scale),
          lambda: fa.flash_fwd_plain(q, k, v, None, False, scale),
          lambda: F.scaled_dot_product_attention(qt, kt, vt),
          4 * elems + stat, 4 * pair),
         ('flash_bwd_dq', lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, None, False, scale),
+         None,
          lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, None, False, scale),
          None, 5 * elems + 2 * stat, 6 * pair),
         ('flash_bwd_dkv', lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, None, False, scale),
+         lambda: fa.flash_bwd_dkv(qm, km, vm, dom, lse, delta, None, False, scale),
          lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, None, False, scale),
          None, 6 * elems + 2 * stat, 8 * pair),
     ]
     rows = {}
-    for name, kernel, plain, library, nbytes, flops in cases:
-        ms = time_ms(kernel, flush)
+    for name, kernel, cuda_core, plain, library, nbytes, flops in cases:
+        if cuda_core is None:
+            ms, cuda_core_ms = time_ms(kernel, flush), None
+            us, cuda_core_us = host_us(kernel), None
+        else:   # in turns: kernel, CUDA-core design, CUDA-core design, kernel
+            first, cc1, cc2, last = (time_ms(fn, flush)
+                                     for fn in (kernel, cuda_core, cuda_core, kernel))
+            ms, cuda_core_ms = (first + last) / 2, (cc1 + cc2) / 2
+            first, cc1, cc2, last = (host_us(fn) for fn in (kernel, cuda_core, cuda_core, kernel))
+            us, cuda_core_us = (first + last) / 2, (cc1 + cc2) / 2
         plain_ms = time_ms(plain, flush)
         library_ms = time_ms(library, flush) if library is not None else None
         bound_ms, bound_by = bound(nbytes, flops, BF16_FLOP_PER_S)
         rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                          bound_ms=bound_ms, bound_by=bound_by)
-        log('time %s @ b=%d s=%d h=%d d=%d bf16: kernel %.4f ms, plain %.4f ms, library %s, '
-            'bound %.4f ms (%s; %.1f MB, %.2f GFLOP)'
-            % (name, b, s, h, d, ms, plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by, cuda_core_ms=cuda_core_ms,
+                          host_us=us, cuda_core_host_us=cuda_core_us)
+        log('time %s @ b=%d s=%d h=%d d=%d bf16: kernel %.4f ms (%s), CUDA-core design %s, '
+            'plain %.4f ms, library %s, bound %.4f ms (%s; %.1f MB, %.2f GFLOP); host per '
+            'call %.1f us, CUDA-core design %s'
+            % (name, b, s, h, d, ms, MAIN_PATH_DESIGN[name],
+               'n/a' if cuda_core_ms is None else '%.4f ms' % cuda_core_ms, plain_ms,
                'n/a' if library_ms is None else '%.4f ms' % library_ms,
-               bound_ms, bound_by, nbytes / 1e6, flops / 1e9))
+               bound_ms, bound_by, nbytes / 1e6, flops / 1e9, us,
+               'n/a' if cuda_core_us is None else '%.1f us' % cuda_core_us))
     # No PyTorch call computes dQ or dK/dV alone, but the fused attention
     # backward computes all three in one call: the yardstick for the sum
     # of the two backward kernels.
@@ -302,21 +432,22 @@ def phase_main_path(fa):
         t0 = time.monotonic()
         write_dataset(url)
         log('dataset: 512 JPEG rows written in %.1f s' % (time.monotonic() - t0))
-        for kernel in fa.KERNELS:
-            kernel.launches = 0
+        reset_counts(fa)
         result = train(url, steps=STEPS, batch_size=BATCH)
         launches = {kernel.__name__: kernel.launches for kernel in fa.KERNELS}
-        check_main_path(result, launches)
+        by_design = {kernel.__name__: dict(kernel.launches_by_design) for kernel in fa.KERNELS}
+        check_main_path(result, launches, by_design)
         phase_profile(train, url, tmp)
     return launches
 
 
-def check_main_path(result, launches):
+def check_main_path(result, launches, by_design):
     losses = result['losses']
     log('main path: steps=%d final loss=%.4f images/s=%.1f step_ms=%.2f data_wait_ms=%.2f '
         '(over steps 3..%d) launches=%s'
         % (result['steps'], losses[-1], result['images_per_s'], result['step_ms'],
            result['data_wait_ms'], STEPS, launches))
+    log('launches by design: %s' % by_design)
     log('losses: %s' % ' '.join('%.4f' % x for x in losses))
     if not np.all(np.isfinite(losses)):
         raise AssertionError('non-finite training loss: %s' % losses)
@@ -327,6 +458,10 @@ def check_main_path(result, launches):
         if n != expected:
             raise AssertionError('%s launched %d times on the main path, expected %d'
                                  % (name, n, expected))
+        design = MAIN_PATH_DESIGN[name]
+        if by_design[name][design] != n:
+            raise AssertionError('%s: %d of its %d main-path launches took the %s design'
+                                 % (name, by_design[name][design], n, design))
 
 
 def _family(name):
@@ -401,16 +536,21 @@ def main():
     smi = phase_device()
     phase_build(fa)
     errors = {}
-    for shape, dtype, causal, segments in KERNEL_CASES:
-        for name, err in kernel_case(fa, shape, dtype, causal, segments, seed=7).items():
-            errors[name] = max(errors.get(name, 0.0), err)
+    for shape, dtype, causal, segments, misaligned, design in KERNEL_CASES:
+        errs = kernel_case(fa, shape, dtype, causal, segments, misaligned, design, seed=7)
+        for name, err in errs.items():
+            if design == MAIN_PATH_DESIGN[name] or name == 'flash_bwd_dq':
+                errors[name] = max(errors.get(name, 0.0), err)
     timing = phase_timing(fa)
     phase_model(fa)
     launches = phase_main_path(fa)
-    kernels = [dict(name=name, route='cuda', source=SOURCES[name], replaces=REPLACES[name],
+    kernels = [dict(name=name, route='cuda', design=MAIN_PATH_DESIGN[name],
+                    source=SOURCES[name], replaces=REPLACES[name],
                     launches=launches[name], max_abs_err=errors[name], ms=timing[name]['ms'],
                     plain_ms=timing[name]['plain_ms'], bound_ms=timing[name]['bound_ms'],
-                    bound_by=timing[name]['bound_by'], library_ms=timing[name]['library_ms'])
+                    bound_by=timing[name]['bound_by'], library_ms=timing[name]['library_ms'],
+                    cuda_core_ms=timing[name]['cuda_core_ms'], host_us=timing[name]['host_us'],
+                    cuda_core_host_us=timing[name]['cuda_core_host_us'])
                for name in ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv')]
     log(smi)
     log(json.dumps({'kernels': kernels}))

@@ -1,22 +1,32 @@
 """Flash attention (forward + backward) as hand-written CUDA kernels for Hopper.
 
 Counterpart of ``petastorm_tpu/ops/flash_attention.py``, whose three Pallas
-TPU kernels become three CUDA C++ kernels for ``sm_90a`` in ``../csrc``:
+TPU kernels become CUDA C++ kernels for ``sm_90a`` in ``../csrc``:
 
-=========================  ==========================================
+=========================  ===================================================
 JAX package (Pallas)       this module (CUDA, ``csrc/``)
-=========================  ==========================================
-``_fwd_kernel``            :func:`flash_fwd` (``flash_fwd.cu``)
+=========================  ===================================================
+``_fwd_kernel``            :func:`flash_fwd` (``flash_fwd_sm90.cu``,
+                           ``flash_fwd.cu``)
 ``_bwd_dq_kernel``         :func:`flash_bwd_dq` (``flash_bwd.cu``)
-``_bwd_dkv_kernel``        :func:`flash_bwd_dkv` (``flash_bwd.cu``)
-=========================  ==========================================
+``_bwd_dkv_kernel``        :func:`flash_bwd_dkv` (``flash_bwd_dkv_sm90.cu``,
+                           ``flash_bwd.cu``)
+=========================  ===================================================
+
+The forward and dK/dV have two designs each, and :func:`kernel_design`
+picks one before launch from the operands alone: ``'tensor_core'`` (wgmma
+fed by TMA; bf16, head_dim a multiple of 8, 16-byte aligned tensors) or
+``'cuda_core'`` (f32 FMAs; every other case, fp32 above all, whose tolerance
+the tensor cores' TF32 could not hold).  A launch that fails raises: no
+design stands in for another.
 
 Each kernel wrapper takes ``[batch, seq, heads, head_dim]`` tensors, allocates
 its outputs, launches its kernel on the current stream and counts the launch
-in its ``launches`` attribute.  Beside each kernel sits its plain PyTorch
-version (``*_plain``): the wrapper runs it for tensors on the CPU, and for a
-CUDA tensor it launches the kernel or raises.  :func:`full_attention` is the
-dense reference (PyTorch's own autograd) that both are held against.
+in its ``launches`` attribute (and by design in ``launches_by_design``).
+Beside each kernel sits its plain PyTorch version (``*_plain``): the wrapper
+runs it for tensors on the CPU, and for a CUDA tensor it launches the kernel
+or raises.  :func:`full_attention` is the dense reference (PyTorch's own
+autograd) that both are held against.
 
 The kernels stream K/V (and, for dK/dV, Q) through shared memory at any
 length, so the TPU kernel's ``kv_chunk`` streaming and its block sizes have
@@ -39,7 +49,7 @@ import torch
 
 __all__ = ['NEG_INF', 'flash_attention', 'full_attention', 'flash_fwd', 'flash_bwd_dq',
            'flash_bwd_dkv', 'flash_fwd_plain', 'flash_bwd_dq_plain', 'flash_bwd_dkv_plain',
-           'build_kernels', 'KERNELS']
+           'build_kernels', 'kernel_design', 'KERNELS']
 
 #: Finite stand-in for -inf (the JAX package's value): keeps exp() exactly 0
 #: without NaNs.
@@ -49,8 +59,10 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG_DIR, 'csrc')
 _BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), 'build', 'petastorm_tpu_torch')
 #: library name -> CUDA source; one nvcc process per source.
-_SOURCES = {'pt_flash_fwd': 'flash_fwd.cu', 'pt_flash_bwd': 'flash_bwd.cu'}
-_HEADERS = ('flash_api.h', 'flash_common.cuh')
+_SOURCES = {'pt_flash_fwd': 'flash_fwd.cu', 'pt_flash_bwd': 'flash_bwd.cu',
+            'pt_flash_fwd_sm90': 'flash_fwd_sm90.cu',
+            'pt_flash_bwd_dkv_sm90': 'flash_bwd_dkv_sm90.cu'}
+_HEADERS = ('flash_api.h', 'flash_common.cuh', 'sm90_common.cuh')
 _NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3', '-shared',
                '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
@@ -60,6 +72,8 @@ _SYMBOLS = {
     'pt_flash_fwd': ('pt_flash_fwd', [_P] * 6 + [_I] * 4 + [_F, _I, _I, _P]),
     'pt_flash_bwd_dq': ('pt_flash_bwd', [_P] * 8 + [_I] * 4 + [_F, _I, _I, _P]),
     'pt_flash_bwd_dkv': ('pt_flash_bwd', [_P] * 9 + [_I] * 4 + [_F, _I, _I, _P]),
+    'pt_flash_fwd_sm90': ('pt_flash_fwd_sm90', [_P] * 6 + [_I] * 4 + [_F, _I, _P]),
+    'pt_flash_bwd_dkv_sm90': ('pt_flash_bwd_dkv_sm90', [_P] * 9 + [_I] * 4 + [_F, _I, _P]),
 }
 
 _libs = {}
@@ -102,14 +116,17 @@ def build_kernels():
             proc = subprocess.Popen([_nvcc()] + _NVCC_FLAGS + ['-o', tmp, source],
                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             started[name] = (proc, tmp, lib_path, time.monotonic())
-        built = {}
+        built, failed = {}, []
         for name, (proc, tmp, lib_path, t0) in started.items():
             log, _ = proc.communicate()
             if proc.returncode != 0:
-                raise RuntimeError('nvcc failed for %s (exit %d):\n%s'
-                                   % (_SOURCES[name], proc.returncode, log))
+                failed.append('nvcc failed for %s (exit %d):\n%s'
+                              % (_SOURCES[name], proc.returncode, log))
+                continue
             os.replace(tmp, lib_path)   # atomic: a concurrent loader never sees half a file
             built[name] = {'seconds': time.monotonic() - t0, 'log': log}
+        if failed:
+            raise RuntimeError('\n'.join(failed))
         return built
 
 
@@ -174,6 +191,23 @@ def _stream(t):
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def kernel_design(dtype, head_dim, *tensors):
+    """The kernel design for operands of ``dtype`` and ``head_dim`` held in
+    ``tensors`` (the ones the kernel reads or writes by TMA):
+    ``'tensor_core'`` for bf16 with head_dim a multiple of 8 up to 128 and
+    every tensor 16-byte aligned (TMA's rule for a base and its strides),
+    else ``'cuda_core'``."""
+    if dtype == torch.bfloat16 and head_dim % 8 == 0 and 8 <= head_dim <= 128 \
+            and all(t.data_ptr() % 16 == 0 for t in tensors):
+        return 'tensor_core'
+    return 'cuda_core'
+
+
+def _count(wrapper, design):
+    wrapper.launches += 1
+    wrapper.launches_by_design[design] += 1
 
 
 def _device_kind(t):
@@ -276,13 +310,19 @@ def flash_fwd(q, k, v, segment_ids, causal, scale):
     b, s, h, d, code = _check_cuda(q, k, v, segment_ids)
     o = torch.empty_like(q)
     lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
-    _launch('pt_flash_fwd', _ptr(q), _ptr(k), _ptr(v), _ptr(segment_ids), _ptr(o), _ptr(lse),
-            b, s, h, d, float(scale), int(bool(causal)), code, _stream(q))
-    flash_fwd.launches += 1
+    args = (_ptr(q), _ptr(k), _ptr(v), _ptr(segment_ids), _ptr(o), _ptr(lse), b, s, h, d,
+            float(scale), int(bool(causal)))
+    design = kernel_design(q.dtype, d, q, k, v, o)
+    if design == 'tensor_core':
+        _launch('pt_flash_fwd_sm90', *args, _stream(q))
+    else:
+        _launch('pt_flash_fwd', *args, code, _stream(q))
+    _count(flash_fwd, design)
     return o, lse
 
 
 flash_fwd.launches = 0
+flash_fwd.launches_by_design = {'tensor_core': 0, 'cuda_core': 0}
 
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, segment_ids, causal, scale):
@@ -295,11 +335,12 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, segment_ids, causal, scale):
     _launch('pt_flash_bwd_dq', _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(lse), _ptr(delta),
             _ptr(segment_ids), _ptr(dq), b, s, h, d, float(scale), int(bool(causal)), code,
             _stream(q))
-    flash_bwd_dq.launches += 1
+    _count(flash_bwd_dq, 'cuda_core')
     return dq
 
 
 flash_bwd_dq.launches = 0
+flash_bwd_dq.launches_by_design = {'tensor_core': 0, 'cuda_core': 0}
 
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta, segment_ids, causal, scale):
@@ -310,14 +351,19 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, segment_ids, causal, scale):
     _check_stats(b, s, h, q.device, lse, delta)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch('pt_flash_bwd_dkv', _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(lse), _ptr(delta),
-            _ptr(segment_ids), _ptr(dk), _ptr(dv), b, s, h, d, float(scale),
-            int(bool(causal)), code, _stream(q))
-    flash_bwd_dkv.launches += 1
+    args = (_ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(lse), _ptr(delta), _ptr(segment_ids),
+            _ptr(dk), _ptr(dv), b, s, h, d, float(scale), int(bool(causal)))
+    design = kernel_design(q.dtype, d, q, k, v, dout, dk, dv)
+    if design == 'tensor_core':
+        _launch('pt_flash_bwd_dkv_sm90', *args, _stream(q))
+    else:
+        _launch('pt_flash_bwd_dkv', *args, code, _stream(q))
+    _count(flash_bwd_dkv, design)
     return dk, dv
 
 
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.launches_by_design = {'tensor_core': 0, 'cuda_core': 0}
 
 #: The kernel wrappers in launch order, for counting and reporting.
 KERNELS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
