@@ -15,12 +15,12 @@ Phases, in order; any failure propagates and exits nonzero:
    (c) one case for each other head_dim tile width of the CUDA-core kernels,
    (d) bf16 cases on the tensor-core route for each of its tile widths and
    masks, and (e) bf16 cases on the CUDA-core route for each of its tile
-   widths; each case checks which design the forward and dK/dV took;
+   widths; each case checks which design each kernel took;
    then each kernel timed at (a) beside its plain version, one PyTorch
-   library call where one computes the same function, and its bound, the
-   forward and dK/dV also through their CUDA-core design, and PyTorch's
-   fused attention backward beside the two backward kernels; and each
-   kernel's host time per wrapper call, for both designs;
+   library call where one computes the same function, and its bound, each
+   also through its CUDA-core design, and PyTorch's fused attention
+   backward beside the two backward kernels; and each kernel's host time
+   per wrapper call, for both designs;
 4. model: the ViT-S/16 forward through the kernels against the same model
    through the dense reference, on a small batch;
 5. main path: a synthetic JPEG Parquet dataset, then 20 full-width
@@ -28,8 +28,8 @@ Phases, in order; any failure propagates and exits nonzero:
    augment and model, with every kernel's launches counted; then a short
    run of the same path under torch.profiler: the device busy time per step
    and its split by kernel family, and the host's time in launch calls and
-   in calls that wait for the device.  Every forward and dK/dV launch of the
-   20 steps must take the tensor-core design.
+   in calls that wait for the device.  Every kernel launch of the 20 steps
+   must take the tensor-core design.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -59,8 +59,8 @@ SMALL_SHAPE = dict(b=2, s=100, h=2, d=16)
 #: (40, 72), and bf16 cases on the CUDA-core route at each of its tile
 #: widths: head_dims 20 and 100 (no multiple of 8), and the main path's
 #: shapes on copies that start 2 bytes past a 16-byte boundary.  ``design``
-#: is the design the forward and dK/dV must take.  No length is a multiple
-#: of 64.
+#: is the design all three kernels must take.  No length is a multiple of
+#: 64.
 KERNEL_CASES = (
     (VIT_SHAPE, torch.bfloat16, False, False, False, 'tensor_core'),
     (SMALL_SHAPE, torch.float32, True, True, False, 'cuda_core'),
@@ -94,11 +94,11 @@ REPLACES = {
     'flash_bwd_dkv': 'petastorm_tpu/ops/flash_attention.py:252',
 }
 #: The design each kernel takes on the main path, and its source.
-MAIN_PATH_DESIGN = {'flash_fwd': 'tensor_core', 'flash_bwd_dq': 'cuda_core',
+MAIN_PATH_DESIGN = {'flash_fwd': 'tensor_core', 'flash_bwd_dq': 'tensor_core',
                     'flash_bwd_dkv': 'tensor_core'}
 SOURCES = {
     'flash_fwd': 'petastorm_tpu_torch/csrc/flash_fwd_sm90.cu',
-    'flash_bwd_dq': 'petastorm_tpu_torch/csrc/flash_bwd.cu',
+    'flash_bwd_dq': 'petastorm_tpu_torch/csrc/flash_bwd_dq_sm90.cu',
     'flash_bwd_dkv': 'petastorm_tpu_torch/csrc/flash_bwd_dkv_sm90.cu',
 }
 
@@ -151,12 +151,11 @@ def snapshot(fa):
 
 
 def check_designs(fa, before, design, tag):
-    """The forward and dK/dV launched since ``before`` by ``design`` alone."""
-    designs = designs_taken(fa, before)
-    for name in ('flash_fwd', 'flash_bwd_dkv'):
-        if designs[name] != design:
+    """Every kernel launched since ``before`` by ``design`` alone."""
+    for name, taken in designs_taken(fa, before).items():
+        if taken != design:
             raise AssertionError('%s [%s] took the %s design, expected %s'
-                                 % (name, tag, designs[name], design))
+                                 % (name, tag, taken, design))
 
 
 def make_inputs(b, s, h, d, dtype, seed, segments=False):
@@ -201,8 +200,8 @@ def phase_build(fa):
 def kernel_case(fa, shape, dtype, causal, segments, misaligned, design, seed):
     """Each kernel against its plain version on the same inputs, and the
     autograd op against the dense fp32 reference, with q, k, v and dO on
-    ``misaligned`` copies or not.  The forward and dK/dV must take
-    ``design``.  Returns max errors."""
+    ``misaligned`` copies or not.  Every kernel must take ``design``.
+    Returns max errors."""
     b, s, h, d = shape['b'], shape['s'], shape['h'], shape['d']
     q, k, v, do, seg = make_inputs(b, s, h, d, dtype, seed, segments)
     if misaligned:
@@ -231,8 +230,8 @@ def kernel_case(fa, shape, dtype, causal, segments, misaligned, design, seed):
     dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta, seg, causal, scale)
     errs['flash_bwd_dkv'] = max(check('dk [%s]' % tag, dk, dk_p, tol_grad),
                                 check('dv [%s]' % tag, dv, dv_p, tol_grad))
-    shares = (share_of_limit(o, o_p, tol_fwd), share_of_limit(dk, dk_p, tol_grad),
-              share_of_limit(dv, dv_p, tol_grad))
+    shares = (share_of_limit(o, o_p, tol_fwd), share_of_limit(dq, dq_p, tol_grad),
+              share_of_limit(dk, dk_p, tol_grad), share_of_limit(dv, dv_p, tol_grad))
     check_designs(fa, before, design, tag)
 
     # The differentiable op (all three kernels) against the dense fp32
@@ -252,8 +251,8 @@ def kernel_case(fa, shape, dtype, causal, segments, misaligned, design, seed):
         e2e.append(check('flash_attention d%s [%s]' % (name, tag), a.grad, r.grad,
                          TOL['bf16'] if bf16 else TOL['grad_f32']))
     torch.cuda.synchronize()
-    log('kernels [%s d=%d, fwd/dkv on %s]: max err vs plain fwd %.3g dq %.3g dkv %.3g '
-        '(share of the limit o %.2f dk %.2f dv %.2f); vs fp32 reference %s'
+    log('kernels [%s d=%d, on %s]: max err vs plain fwd %.3g dq %.3g dkv %.3g '
+        '(share of the limit o %.2f dq %.2f dk %.2f dv %.2f); vs fp32 reference %s'
         % ((tag, d, design, errs['flash_fwd'], errs['flash_bwd_dq'], errs['flash_bwd_dkv'])
            + shares + (' '.join('%.3g' % e for e in e2e),)))
     return errs
@@ -316,9 +315,9 @@ def misaligned_copy(t):
 def phase_timing(fa):
     """Each kernel at the ViT-S/16 shapes (bf16): its device time and its
     host time per call, its plain version's device time, one library call's
-    where PyTorch has one, and its bound; the forward and dK/dV also through
-    their CUDA-core design on the same inputs (misaligned copies), timed in
-    turns with the tensor-core one."""
+    where PyTorch has one, and its bound; each also through its CUDA-core
+    design on the same inputs (misaligned copies), timed in turns with the
+    tensor-core one."""
     b, s, h, d = (VIT_SHAPE[x] for x in 'bshd')
     q, k, v, do, _ = make_inputs(b, s, h, d, torch.bfloat16, seed=11)
     qm, km, vm, dom = (misaligned_copy(t) for t in (q, k, v, do))
@@ -338,7 +337,7 @@ def phase_timing(fa):
          lambda: F.scaled_dot_product_attention(qt, kt, vt),
          4 * elems + stat, 4 * pair),
         ('flash_bwd_dq', lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, None, False, scale),
-         None,
+         lambda: fa.flash_bwd_dq(qm, km, vm, dom, lse, delta, None, False, scale),
          lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, None, False, scale),
          None, 5 * elems + 2 * stat, 6 * pair),
         ('flash_bwd_dkv', lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, None, False, scale),
@@ -348,29 +347,24 @@ def phase_timing(fa):
     ]
     rows = {}
     for name, kernel, cuda_core, plain, library, nbytes, flops in cases:
-        if cuda_core is None:
-            ms, cuda_core_ms = time_ms(kernel, flush), None
-            us, cuda_core_us = host_us(kernel), None
-        else:   # in turns: kernel, CUDA-core design, CUDA-core design, kernel
-            first, cc1, cc2, last = (time_ms(fn, flush)
-                                     for fn in (kernel, cuda_core, cuda_core, kernel))
-            ms, cuda_core_ms = (first + last) / 2, (cc1 + cc2) / 2
-            first, cc1, cc2, last = (host_us(fn) for fn in (kernel, cuda_core, cuda_core, kernel))
-            us, cuda_core_us = (first + last) / 2, (cc1 + cc2) / 2
+        # in turns: kernel, CUDA-core design, CUDA-core design, kernel
+        first, cc1, cc2, last = (time_ms(fn, flush)
+                                 for fn in (kernel, cuda_core, cuda_core, kernel))
+        ms, cuda_core_ms = (first + last) / 2, (cc1 + cc2) / 2
+        first, cc1, cc2, last = (host_us(fn) for fn in (kernel, cuda_core, cuda_core, kernel))
+        us, cuda_core_us = (first + last) / 2, (cc1 + cc2) / 2
         plain_ms = time_ms(plain, flush)
         library_ms = time_ms(library, flush) if library is not None else None
         bound_ms, bound_by = bound(nbytes, flops, BF16_FLOP_PER_S)
         rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                           bound_ms=bound_ms, bound_by=bound_by, cuda_core_ms=cuda_core_ms,
                           host_us=us, cuda_core_host_us=cuda_core_us)
-        log('time %s @ b=%d s=%d h=%d d=%d bf16: kernel %.4f ms (%s), CUDA-core design %s, '
-            'plain %.4f ms, library %s, bound %.4f ms (%s; %.1f MB, %.2f GFLOP); host per '
-            'call %.1f us, CUDA-core design %s'
-            % (name, b, s, h, d, ms, MAIN_PATH_DESIGN[name],
-               'n/a' if cuda_core_ms is None else '%.4f ms' % cuda_core_ms, plain_ms,
-               'n/a' if library_ms is None else '%.4f ms' % library_ms,
-               bound_ms, bound_by, nbytes / 1e6, flops / 1e9, us,
-               'n/a' if cuda_core_us is None else '%.1f us' % cuda_core_us))
+        log('time %s @ b=%d s=%d h=%d d=%d bf16: kernel %.4f ms (%s), CUDA-core design '
+            '%.4f ms (%.1fx), plain %.4f ms, library %s, bound %.4f ms (%s; %.1f MB, '
+            '%.2f GFLOP); host per call %.1f us, CUDA-core design %.1f us'
+            % (name, b, s, h, d, ms, MAIN_PATH_DESIGN[name], cuda_core_ms, cuda_core_ms / ms,
+               plain_ms, 'n/a' if library_ms is None else '%.4f ms' % library_ms,
+               bound_ms, bound_by, nbytes / 1e6, flops / 1e9, us, cuda_core_us))
     # No PyTorch call computes dQ or dK/dV alone, but the fused attention
     # backward computes all three in one call: the yardstick for the sum
     # of the two backward kernels.
@@ -539,7 +533,7 @@ def main():
     for shape, dtype, causal, segments, misaligned, design in KERNEL_CASES:
         errs = kernel_case(fa, shape, dtype, causal, segments, misaligned, design, seed=7)
         for name, err in errs.items():
-            if design == MAIN_PATH_DESIGN[name] or name == 'flash_bwd_dq':
+            if design == MAIN_PATH_DESIGN[name]:
                 errors[name] = max(errors.get(name, 0.0), err)
     timing = phase_timing(fa)
     phase_model(fa)

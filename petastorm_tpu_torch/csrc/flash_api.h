@@ -10,9 +10,9 @@
 // Two routes, chosen by the caller before launch:
 //   pt_flash_fwd, pt_flash_bwd_dq, pt_flash_bwd_dkv   (flash_fwd.cu, flash_bwd.cu)
 //       CUDA cores, f32 or bf16, any head_dim d <= 128;
-//   pt_flash_fwd_sm90, pt_flash_bwd_dkv_sm90          (*_sm90.cu)
+//   pt_flash_fwd_sm90, pt_flash_bwd_dq_sm90, pt_flash_bwd_dkv_sm90   (*_sm90.cu)
 //       tensor cores (wgmma fed by TMA), bf16 only, d a multiple of 8 up to
-//       128, q, k, v, o, dout, dk and dv 16-byte aligned.
+//       128, q, k, v, o, dout, dq, dk and dv 16-byte aligned.
 #pragma once
 
 #ifdef __cplusplus
@@ -36,6 +36,10 @@ int pt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* do
 int pt_flash_fwd_sm90(const void* q, const void* k, const void* v, const int* seg, void* o,
                       float* lse, int b, int s, int h, int d, float scale, int causal,
                       void* stream);
+
+int pt_flash_bwd_dq_sm90(const void* q, const void* k, const void* v, const void* dout,
+                         const float* lse, const float* delta, const int* seg, void* dq,
+                         int b, int s, int h, int d, float scale, int causal, void* stream);
 
 int pt_flash_bwd_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
                           const float* lse, const float* delta, const int* seg, void* dk,

@@ -8,17 +8,18 @@ JAX package (Pallas)       this module (CUDA, ``csrc/``)
 =========================  ===================================================
 ``_fwd_kernel``            :func:`flash_fwd` (``flash_fwd_sm90.cu``,
                            ``flash_fwd.cu``)
-``_bwd_dq_kernel``         :func:`flash_bwd_dq` (``flash_bwd.cu``)
+``_bwd_dq_kernel``         :func:`flash_bwd_dq` (``flash_bwd_dq_sm90.cu``,
+                           ``flash_bwd.cu``)
 ``_bwd_dkv_kernel``        :func:`flash_bwd_dkv` (``flash_bwd_dkv_sm90.cu``,
                            ``flash_bwd.cu``)
 =========================  ===================================================
 
-The forward and dK/dV have two designs each, and :func:`kernel_design`
-picks one before launch from the operands alone: ``'tensor_core'`` (wgmma
-fed by TMA; bf16, head_dim a multiple of 8, 16-byte aligned tensors) or
-``'cuda_core'`` (f32 FMAs; every other case, fp32 above all, whose tolerance
-the tensor cores' TF32 could not hold).  A launch that fails raises: no
-design stands in for another.
+Each kernel has two designs, and :func:`kernel_design` picks one before
+launch from the operands alone: ``'tensor_core'`` (wgmma fed by TMA; bf16,
+head_dim a multiple of 8, 16-byte aligned tensors) or ``'cuda_core'`` (f32
+FMAs; every other case, fp32 above all, whose tolerance the tensor cores'
+TF32 could not hold).  A launch that fails raises: no design stands in for
+another.
 
 Each kernel wrapper takes ``[batch, seq, heads, head_dim]`` tensors, allocates
 its outputs, launches its kernel on the current stream and counts the launch
@@ -61,6 +62,7 @@ _BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), 'build', 'petastorm_tpu_tor
 #: library name -> CUDA source; one nvcc process per source.
 _SOURCES = {'pt_flash_fwd': 'flash_fwd.cu', 'pt_flash_bwd': 'flash_bwd.cu',
             'pt_flash_fwd_sm90': 'flash_fwd_sm90.cu',
+            'pt_flash_bwd_dq_sm90': 'flash_bwd_dq_sm90.cu',
             'pt_flash_bwd_dkv_sm90': 'flash_bwd_dkv_sm90.cu'}
 _HEADERS = ('flash_api.h', 'flash_common.cuh', 'sm90_common.cuh')
 _NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3', '-shared',
@@ -73,6 +75,7 @@ _SYMBOLS = {
     'pt_flash_bwd_dq': ('pt_flash_bwd', [_P] * 8 + [_I] * 4 + [_F, _I, _I, _P]),
     'pt_flash_bwd_dkv': ('pt_flash_bwd', [_P] * 9 + [_I] * 4 + [_F, _I, _I, _P]),
     'pt_flash_fwd_sm90': ('pt_flash_fwd_sm90', [_P] * 6 + [_I] * 4 + [_F, _I, _P]),
+    'pt_flash_bwd_dq_sm90': ('pt_flash_bwd_dq_sm90', [_P] * 8 + [_I] * 4 + [_F, _I, _P]),
     'pt_flash_bwd_dkv_sm90': ('pt_flash_bwd_dkv_sm90', [_P] * 9 + [_I] * 4 + [_F, _I, _P]),
 }
 
@@ -332,10 +335,14 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, segment_ids, causal, scale):
     b, s, h, d, code = _check_cuda(q, k, v, segment_ids, dout)
     _check_stats(b, s, h, q.device, lse, delta)
     dq = torch.empty_like(q)
-    _launch('pt_flash_bwd_dq', _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(lse), _ptr(delta),
-            _ptr(segment_ids), _ptr(dq), b, s, h, d, float(scale), int(bool(causal)), code,
-            _stream(q))
-    _count(flash_bwd_dq, 'cuda_core')
+    args = (_ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(lse), _ptr(delta), _ptr(segment_ids),
+            _ptr(dq), b, s, h, d, float(scale), int(bool(causal)))
+    design = kernel_design(q.dtype, d, q, k, v, dout, dq)
+    if design == 'tensor_core':
+        _launch('pt_flash_bwd_dq_sm90', *args, _stream(q))
+    else:
+        _launch('pt_flash_bwd_dq', *args, code, _stream(q))
+    _count(flash_bwd_dq, design)
     return dq
 
 

@@ -1,9 +1,8 @@
-"""The two designs of the port's forward and dK/dV kernels (tensor cores,
-CUDA cores): which operands take which, that every C entry point in
-``csrc/`` is bound with the right arguments, that each route reaches its
-launch, and that the tensor-core kernels' rounding of P and dS to bf16 hi and
-lo parts stays within the bf16 tolerance against the unchanged plain
-versions.
+"""The two designs of the port's flash kernels (tensor cores, CUDA cores):
+which operands take which, that every C entry point in ``csrc/`` is bound
+with the right arguments, that each route reaches its launch, and that the
+tensor-core kernels' rounding of P and dS to bf16 hi and lo parts stays
+within the bf16 tolerance against the unchanged plain versions.
 
 The kernels themselves run only on the card (``chip_smoke.py``); here the
 routing is checked with the launch replaced by a recorder, and the numerics
@@ -176,15 +175,37 @@ def test_dkv_routes_reach_their_launch(recorded_launches, dtype, d, misaligned, 
     assert sum(fa.flash_bwd_dkv.launches_by_design.values()) == 1
 
 
-@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
-def test_dq_keeps_the_cuda_cores(recorded_launches, dtype):
-    q, k, v, do, (lse, delta) = _operands(dtype, 64)
-    fa.flash_bwd_dq(q, k, v, do, lse, delta, None, False, 0.125)
-    assert [c[0] for c in recorded_launches] == ['pt_flash_bwd_dq']
-    assert fa.flash_bwd_dq.launches_by_design == {'tensor_core': 0, 'cuda_core': 1}
+@pytest.mark.parametrize('dtype,d,misaligned,symbol,design', [
+    (torch.bfloat16, 64, False, 'pt_flash_bwd_dq_sm90', 'tensor_core'),
+    (torch.bfloat16, 128, False, 'pt_flash_bwd_dq_sm90', 'tensor_core'),
+    (torch.bfloat16, 64, True, 'pt_flash_bwd_dq', 'cuda_core'),
+    (torch.bfloat16, 100, False, 'pt_flash_bwd_dq', 'cuda_core'),
+    (torch.float32, 64, False, 'pt_flash_bwd_dq', 'cuda_core'),
+])
+def test_dq_routes_reach_their_launch(recorded_launches, dtype, d, misaligned, symbol, design):
+    q, k, v, do, (lse, delta) = _operands(dtype, d, misaligned)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, None, True, 0.125)
+    assert [c[0] for c in recorded_launches] == [symbol]
+    assert len(recorded_launches[0][1]) == len(fa._SYMBOLS[symbol][1])
+    assert dq.shape == q.shape and dq.dtype == dtype
+    assert fa.flash_bwd_dq.launches == 1
+    assert fa.flash_bwd_dq.launches_by_design[design] == 1
+    assert sum(fa.flash_bwd_dq.launches_by_design.values()) == 1
 
 
-def test_a_failed_launch_raises_and_counts_nothing(monkeypatch):
+def _call_forward(q, k, v, do, lse, delta):
+    return fa.flash_fwd(q, k, v, None, False, 0.125)
+
+
+def _call_dq(q, k, v, do, lse, delta):
+    return fa.flash_bwd_dq(q, k, v, do, lse, delta, None, False, 0.125)
+
+
+@pytest.mark.parametrize('wrapper,call,symbol', [
+    (fa.flash_fwd, _call_forward, 'pt_flash_fwd_sm90'),
+    (fa.flash_bwd_dq, _call_dq, 'pt_flash_bwd_dq_sm90'),
+])
+def test_a_failed_launch_raises_and_counts_nothing(monkeypatch, wrapper, call, symbol):
     """A launch that returns a CUDA error raises; no other design is tried."""
     tried = []
 
@@ -195,11 +216,11 @@ def test_a_failed_launch_raises_and_counts_nothing(monkeypatch):
     monkeypatch.setattr(fa, '_device_kind', lambda t: 'cuda')
     monkeypatch.setattr(fa, '_stream', lambda t: 0)
     monkeypatch.setattr(fa, '_symbol', failing)
-    monkeypatch.setattr(fa.flash_fwd, 'launches', 0)
-    q, k, v, _, _ = _operands(torch.bfloat16, 64)
-    with pytest.raises(RuntimeError, match='pt_flash_fwd_sm90.*error 700'):
-        fa.flash_fwd(q, k, v, None, False, 0.125)
-    assert tried == ['pt_flash_fwd_sm90'] and fa.flash_fwd.launches == 0
+    monkeypatch.setattr(wrapper, 'launches', 0)
+    q, k, v, do, (lse, delta) = _operands(torch.bfloat16, 64)
+    with pytest.raises(RuntimeError, match='%s.*error 700' % symbol):
+        call(q, k, v, do, lse, delta)
+    assert tried == [symbol] and wrapper.launches == 0
 
 
 # ---------------------------------------------------------------------------
@@ -237,6 +258,13 @@ def _fwd_tensor_core(q, k, v, segment_ids, causal, scale, rounding):
     return o.permute(0, 2, 1, 3).to(q.dtype)
 
 
+def _dq_tensor_core(q, k, v, dout, lse, delta, segment_ids, causal, scale, rounding):
+    """flash_bwd_dq_sm90.cu's arithmetic: dS in f32, rounded to bf16 (parts)
+    for dQ += dS.K."""
+    _, ds = fa._probs_and_ds(q, k, v, dout, lse, delta, segment_ids, causal, scale)
+    return torch.einsum('bhqk,bkhd->bqhd', _bf16_parts(ds, rounding), k.float()).to(q.dtype)
+
+
 def _dkv_tensor_core(q, k, v, dout, lse, delta, segment_ids, causal, scale, rounding):
     """flash_bwd_dkv_sm90.cu's arithmetic: P^T and dS^T in f32, rounded to
     bf16 (parts) for dV += P^T.dO and dK += dS^T.Q."""
@@ -268,10 +296,12 @@ def _budget_shares(rounding, causal=True):
     o_plain, lse = fa.flash_fwd_plain(q, k, v, seg, causal, scale)
     o = _fwd_tensor_core(q, k, v, seg, causal, scale, rounding)
     delta = (do.float() * o_plain.float()).sum(-1).permute(0, 2, 1).reshape(b * h, s)
+    dq_plain = fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, seg, causal, scale)
+    dq = _dq_tensor_core(q, k, v, do, lse, delta, seg, causal, scale, rounding)
     dk_plain, dv_plain = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, seg, causal, scale)
     dk, dv = _dkv_tensor_core(q, k, v, do, lse, delta, seg, causal, scale, rounding)
-    return {'o': _share_of_limit(o, o_plain, tol), 'dk': _share_of_limit(dk, dk_plain, tol),
-            'dv': _share_of_limit(dv, dv_plain, tol)}
+    return {'o': _share_of_limit(o, o_plain, tol), 'dq': _share_of_limit(dq, dq_plain, tol),
+            'dk': _share_of_limit(dk, dk_plain, tol), 'dv': _share_of_limit(dv, dv_plain, tol)}
 
 
 def test_split_rounding_stays_within_the_bf16_tolerance():
@@ -284,9 +314,10 @@ def test_split_rounding_stays_within_the_bf16_tolerance():
 
 def test_rounding_once_would_not_fit():
     """Why the kernels split: one bf16 rounding of P and dS exceeds the
-    tolerance on the same inputs."""
+    tolerance on the same inputs, for dQ, dK and dV alike."""
     shares = _budget_shares('once')
     assert max(shares['dk'], shares['dv']) > 1.0, shares
+    assert shares['dq'] > 1.0, shares
 
 
 def test_the_emulated_forward_without_rounding_is_the_plain_forward():
@@ -301,6 +332,6 @@ def test_the_emulated_forward_without_rounding_is_the_plain_forward():
 
 if __name__ == '__main__':
     # The budget behind the kernels' choice: the worst share of the limit for
-    # o, dk and dv under each rounding.
+    # o, dq, dk and dv under each rounding.
     for rounding in ('once', 'split'):
         print(rounding, {k: round(v, 3) for k, v in _budget_shares(rounding).items()})

@@ -109,9 +109,9 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_pa
 
 def test_kernel_wrappers_never_fall_back():
     """No ``try`` anywhere in the kernel module (so nothing catches a failed
-    launch), every wrapper launches, each route of the forward and dK/dV
-    wrappers (tensor cores, CUDA cores) reaches its own launch, and nothing
-    in the package reaches PyTorch's fused attention or torch.compile."""
+    launch), every wrapper launches, each route of each wrapper (tensor
+    cores, CUDA cores) reaches its own launch, and nothing in the package
+    reaches PyTorch's fused attention or torch.compile."""
     path = os.path.join(PACKAGE, 'ops', 'flash_attention.py')
     with open(path) as f:
         tree = ast.parse(f.read(), path)
@@ -120,7 +120,7 @@ def test_kernel_wrappers_never_fall_back():
                 and n.name in ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv')}
     assert sorted(wrappers) == ['flash_bwd_dkv', 'flash_bwd_dq', 'flash_fwd']
     routes = {'flash_fwd': ['pt_flash_fwd', 'pt_flash_fwd_sm90'],
-              'flash_bwd_dq': ['pt_flash_bwd_dq'],
+              'flash_bwd_dq': ['pt_flash_bwd_dq', 'pt_flash_bwd_dq_sm90'],
               'flash_bwd_dkv': ['pt_flash_bwd_dkv', 'pt_flash_bwd_dkv_sm90']}
     for name, fn in wrappers.items():
         launched = sorted(c.args[0].value for c in ast.walk(fn)
