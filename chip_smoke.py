@@ -29,7 +29,17 @@ Phases, in order; any failure propagates and exits nonzero:
    run of the same path under torch.profiler: the device busy time per step
    and its split by kernel family, and the host's time in launch calls and
    in calls that wait for the device.  Every kernel launch of the 20 steps
-   must take the tensor-core design.
+   must take the tensor-core design;
+6. ResNet-50: 20 full-width training steps (the JAX example's default
+   model) on the same dataset, streaming, with the stall monitor's
+   ``stall_pct``, every BatchNorm's running statistics finite and moved,
+   and no flash kernel launched; the trained weights' bf16 logits against
+   the same weights run in fp32; and a profile of the step like the ViT's;
+7. HBM cache: 16 ResNet-50 steps (two epochs) through
+   ``DeviceInMemDataLoader.scan_epochs`` and a profile of its step; then
+   each epoch's batches, gathered on the card, against the host cache's
+   rows at the epoch order that ``petastorm_tpu_torch.random`` computes,
+   every row once per epoch.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -85,6 +95,9 @@ KERNEL_CASES = (
 #: fp32 reference (the op, and the model): 3e-2.
 TOL = {'fwd_f32': (2e-5, 2e-5), 'grad_f32': (1e-4, 1e-4), 'bf16_vs_plain': (2e-3, 8e-3),
        'bf16': (3e-2, 3e-2)}
+#: ResNet-50 bf16 logits against the same weights in fp32: at most this
+#: share of the largest fp32 logit (the bf16 tolerance of the tests).
+RESNET_BF16_SHARE = 3e-2
 #: H100 SXM peaks (NVIDIA data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
@@ -419,28 +432,23 @@ def write_dataset(url, rows=512, seed=0):
             writer.write({'noun_id': 'n%08d' % rng.integers(0, 1000), 'image': img})
 
 
-def phase_main_path(fa):
+def phase_main_path(fa, url, tmp):
     from petastorm_tpu_torch.train import train
-    with tempfile.TemporaryDirectory(prefix='chip_smoke_') as tmp:
-        url = 'file://' + os.path.join(tmp, 'imagenet_jpeg')
-        t0 = time.monotonic()
-        write_dataset(url)
-        log('dataset: 512 JPEG rows written in %.1f s' % (time.monotonic() - t0))
-        reset_counts(fa)
-        result = train(url, steps=STEPS, batch_size=BATCH)
-        launches = {kernel.__name__: kernel.launches for kernel in fa.KERNELS}
-        by_design = {kernel.__name__: dict(kernel.launches_by_design) for kernel in fa.KERNELS}
-        check_main_path(result, launches, by_design)
-        phase_profile(train, url, tmp)
+    reset_counts(fa)
+    result = train(url, steps=STEPS, batch_size=BATCH, model_name='vit')
+    launches = {kernel.__name__: kernel.launches for kernel in fa.KERNELS}
+    by_design = {kernel.__name__: dict(kernel.launches_by_design) for kernel in fa.KERNELS}
+    check_main_path(result, launches, by_design)
+    phase_profile(train, url, tmp, model_name='vit')
     return launches
 
 
 def check_main_path(result, launches, by_design):
     losses = result['losses']
-    log('main path: steps=%d final loss=%.4f images/s=%.1f step_ms=%.2f data_wait_ms=%.2f '
-        '(over steps 3..%d) launches=%s'
-        % (result['steps'], losses[-1], result['images_per_s'], result['step_ms'],
-           result['data_wait_ms'], STEPS, launches))
+    log('main path: steps=%d final loss=%.4f images/s=%.1f step_ms=%.2f (over steps 3..%d) '
+        'data_wait_ms=%.2f (steps 3..%d) launches=%s'
+        % (result['steps'], losses[-1], result['images_per_s'], result['step_ms'], STEPS,
+           result['data_wait_ms'], STEPS - 1, launches))
     log('launches by design: %s' % by_design)
     log('losses: %s' % ' '.join('%.4f' % x for x in losses))
     if not np.all(np.isfinite(losses)):
@@ -464,42 +472,66 @@ def _family(name):
         if key + '_kernel' in name:
             return key
     lowered = name.lower()
+    # cuDNN's convolutions are implicit GEMMs: named by pass before matmul
+    if any(k in lowered for k in ('conv', 'fprop', 'dgrad', 'wgrad')):
+        return 'conv'
     if any(k in lowered for k in ('nvjet', 'gemm', 'cutlass', 'sm90_xmma')):
         return 'matmul'
-    for key in ('conv', 'reduce', 'elementwise', 'memcpy', 'memset'):
+    for key in ('reduce', 'elementwise', 'memcpy', 'memset'):
         if key in lowered:
             return key
     return 'other'
 
 
-def phase_profile(train, url, tmp, steps=8):
-    """Where the time of a training step goes: a short run of the main path
-    under torch.profiler (host and device activity).  Over steps 3..steps-1
-    (a step starts at every 12th forward kernel): the device busy time per
-    step and its split by kernel family, the kernels per step, and on the
-    host the time per step inside CUDA launch calls and inside calls that
-    wait for the device (synchronize, blocking copies)."""
+def _step_starts(trace, events):
+    """Device time at which each profiled step starts: the first device
+    event launched from inside each ``train_step`` range of the host
+    (matched by the launch's correlation id)."""
+    device_ts = {e['args']['correlation']: e['ts'] for e in events
+                 if 'correlation' in e.get('args', {})}
+    launches = sorted((e['ts'], e['args']['correlation']) for e in trace
+                      if e.get('cat') in ('cuda_runtime', 'cuda_driver')
+                      and e.get('args', {}).get('correlation') in device_ts)
+    starts = []
+    for step in sorted((e for e in trace if e.get('cat') == 'user_annotation'
+                        and e['name'] == 'train_step'), key=lambda e: e['ts']):
+        inside = [device_ts[c] for t, c in launches if step['ts'] <= t <= step['ts'] + step['dur']]
+        if inside:
+            starts.append(min(inside))
+    return starts
+
+
+def phase_profile(train, url, tmp, model_name, steps=8, **kwargs):
+    """Where the time of a training step goes: a short run of ``model_name``
+    under torch.profiler (host and device activity).  Over steps
+    3..steps-1 (:func:`_step_starts` finds where each starts): the device
+    busy time per step and its split by kernel family, the kernels per
+    step, and on the host the time per step inside CUDA launch calls and
+    inside calls that wait for the device (synchronize, blocking copies)."""
     from torch.profiler import ProfilerActivity, profile
-    path = os.path.join(tmp, 'trace.json')
+    label = model_name + (' hbm cache' if kwargs.get('hbm_cache') else '')
+    path = os.path.join(tmp, 'trace_%s.json' % label.replace(' ', '_'))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        train(url, steps=steps, batch_size=BATCH)
+        train(url, steps=steps, batch_size=BATCH, model_name=model_name, **kwargs)
     prof.export_chrome_trace(path)
     with open(path) as f:
         trace = json.load(f)['traceEvents']
     events = [e for e in trace if e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset')]
     runtime = [e for e in trace if e.get('cat') in ('cuda_runtime', 'cuda_driver')]
     events.sort(key=lambda e: e['ts'])
-    starts = [e['ts'] for e in events if 'flash_fwd_kernel' in e['name']][::12]
+    starts = _step_starts(trace, events)
     if len(starts) != steps:
-        raise AssertionError('profile: found %d step starts for %d steps' % (len(starts), steps))
+        raise AssertionError('profile %s: found %d step starts for %d steps'
+                             % (label, len(starts), steps))
     lo, hi = starts[2], starts[-1]
-    busy, end, families = 0.0, lo, {}
+    busy, end, families, names = 0.0, lo, {}, {}
     for e in events:
         t0, t1 = max(e['ts'], lo), min(e['ts'] + e['dur'], hi)
         if t1 <= t0:
             continue
         family = _family(e['name'])
         families[family] = families.get(family, 0.0) + (t1 - t0)
+        names[e['name']] = names.get(e['name'], 0.0) + (t1 - t0)
         if t1 > end:
             busy += t1 - max(t0, end)
             end = t1
@@ -512,14 +544,151 @@ def phase_profile(train, url, tmp, steps=8):
                 launch_us += e.get('dur', 0)
             elif 'Synchronize' in e['name'] or e['name'] in ('cudaMemcpy', 'cuMemcpy'):
                 wait_us += e.get('dur', 0)
-    log('profile (steps 3..%d under torch.profiler, %.2f ms per step): device busy %.2f ms per '
-        'step (%.1f%%); kernel time by family, ms per step: %s'
-        % (steps - 1, (hi - lo) / n / 1e3, busy / n / 1e3, 100.0 * busy / (hi - lo),
+    log('profile %s (steps 3..%d under torch.profiler, %.2f ms per step): device busy %.2f ms '
+        'per step (%.1f%%); kernel time by family, ms per step: %s'
+        % (label, steps - 1, (hi - lo) / n / 1e3, busy / n / 1e3, 100.0 * busy / (hi - lo),
            ', '.join('%s %.2f' % (k, v / n / 1e3)
                      for k, v in sorted(families.items(), key=lambda kv: -kv[1]))))
-    log('profile host: %.0f kernels per step; %.2f ms per step in CUDA launch calls, %.2f ms '
+    longest = {}
+    for name, t in sorted(names.items(), key=lambda kv: -kv[1]):
+        longest.setdefault(_family(name), (name, t))
+    short = lambda name: name.replace('void ', '').replace('at::native::', '')[:100]  # noqa: E731
+    log('profile %s: the 6 kernels with the most time, ms per step: %s'
+        % (label, '; '.join('%s %.2f' % (short(k), v / n / 1e3) for k, v in
+                            sorted(names.items(), key=lambda kv: -kv[1])[:6])))
+    log('profile %s: the longest kernel of each family, ms per step: %s'
+        % (label, '; '.join('%s: %s %.2f' % (f, short(k), v / n / 1e3)
+                            for f, (k, v) in longest.items())))
+    log('profile %s host: %.0f kernels per step; %.2f ms per step in CUDA launch calls, %.2f ms '
         'per step in calls that wait for the device'
-        % (kernels / n, launch_us / n / 1e3, wait_us / n / 1e3))
+        % (label, kernels / n, launch_us / n / 1e3, wait_us / n / 1e3))
+
+
+def phase_resnet(fa, url, tmp):
+    """ResNet-50 at full width, streaming: the main-path checks, running
+    statistics, bf16 against fp32 on the trained weights, and a profile."""
+    import copy
+    from petastorm_tpu_torch.gpu import augment
+    from petastorm_tpu_torch.models.resnet import BatchNorm, ResNet50
+    from petastorm_tpu_torch.train import train
+    reset_counts(fa)
+    result = train(url, steps=STEPS, batch_size=BATCH, model_name='resnet50')
+    launches = {kernel.__name__: kernel.launches for kernel in fa.KERNELS}
+    losses = result['losses']
+    log('resnet50: steps=%d final loss=%.4f images/s=%.1f step_ms=%.2f (over steps 3..%d) '
+        'data_wait_ms=%.2f stall_pct=%.2f (steps 3..%d) flash launches=%s'
+        % (result['steps'], losses[-1], result['images_per_s'], result['step_ms'], STEPS,
+           result['data_wait_ms'], result['stall_pct'], STEPS - 1, launches))
+    log('resnet50 losses: %s' % ' '.join('%.4f' % x for x in losses))
+    if not np.all(np.isfinite(losses)) or len(losses) != STEPS:
+        raise AssertionError('resnet50: losses %s' % losses)
+    if result['batch_devices'] != ['cuda']:
+        raise AssertionError('resnet50: batches reached the model on %s'
+                             % result['batch_devices'])
+    if any(launches.values()):
+        raise AssertionError('resnet50 launched flash kernels: %s' % launches)
+    model = result['model']
+    norms = [(name, m) for name, m in model.named_modules() if isinstance(m, BatchNorm)]
+    for name, m in norms:
+        for stat, init in (('running_mean', 0.0), ('running_var', 1.0)):
+            value = getattr(m, stat)
+            if value.device.type != 'cuda' or not torch.isfinite(value).all() \
+                    or not (value != init).any():
+                raise AssertionError('resnet50 %s.%s: not finite or not moved' % (name, stat))
+    log('resnet50: %d BatchNorms, running mean and var finite and moved from (0, 1)'
+        % len(norms))
+
+    # bf16 logits against the same weights in fp32, in train mode (batch
+    # statistics) on copies, so the trained model's statistics stay put.
+    bf16 = copy.deepcopy(model)
+    fp32 = ResNet50(dtype=torch.float32).cuda()
+    fp32.load_state_dict(model.state_dict())
+    g = torch.Generator(device='cuda').manual_seed(6)
+    x = augment.normalize(torch.randint(0, 256, (16, 224, 224, 3), generator=g, device='cuda',
+                                        dtype=torch.uint8), dtype=torch.float32)
+    with torch.no_grad():
+        got, want = bf16.train()(x), fp32.train()(x)
+        got_eval, want_eval = bf16.eval()(x), fp32.eval()(x)
+    torch.cuda.synchronize()
+    for tag, a, b in (('train', got, want), ('eval', got_eval, want_eval)):
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError('resnet50 %s-mode logits are not finite' % tag)
+    share = max_err(got, want) / float(want.abs().max())
+    log('resnet50 bf16 vs fp32 logits (same weights, batch 16, train mode): max err %.4g, '
+        '%.4f of the largest logit %.4g (limit %.2f); eval mode %.4f'
+        % (max_err(got, want), share, float(want.abs().max()), RESNET_BF16_SHARE,
+           max_err(got_eval, want_eval) / float(want_eval.abs().max())))
+    if share > RESNET_BF16_SHARE:
+        raise AssertionError('resnet50 bf16 logits off the fp32 ones by %.4f of the largest'
+                             % share)
+    phase_profile(train, url, tmp, model_name='resnet50')
+
+
+def phase_hbm_cache(url, tmp):
+    """ResNet-50 from the device cache and a profile of its step, then the
+    gathered batches against the host cache at the epoch orders of
+    ``jax.random`` reproduced.
+
+    The gather check runs a second ``DeviceInMemDataLoader``, not the one
+    ``train`` used: it takes ``deterministic_cache_order=True`` so that its
+    cache lines up with the host cache row for row, where ``train``'s cache
+    holds the rows in the order the reader's threads finished them.  Its
+    reference shares the loaders' cache building and ``random.permutation``,
+    so it shows that the on-card gather picks the right rows; that the
+    loaders and the permutation equal the JAX package's, bit for bit, is
+    held by the CPU tests."""
+    from petastorm_tpu_torch import random as prng
+    from petastorm_tpu_torch.gpu import DeviceInMemDataLoader, InMemDataLoader
+    from petastorm_tpu_torch.reader import make_reader
+    from petastorm_tpu_torch.train import make_transform, train
+    result = train(url, steps=16, batch_size=BATCH, model_name='resnet50', hbm_cache=True)
+    losses = result['losses']
+    log('hbm cache: steps=%d epochs=%d final loss=%.4f images/s=%.1f step_ms=%.2f (epoch 2) '
+        'stall_pct=%.1f'
+        % (result['steps'], result['epochs'], losses[-1], result['images_per_s'],
+           result['step_ms'], result['stall_pct']))
+    log('hbm cache losses: %s' % ' '.join('%.4f' % x for x in losses))
+    if result['steps'] != 16 or result['epochs'] != 2 or len(losses) != 16 \
+            or not np.all(np.isfinite(losses)):
+        raise AssertionError('hbm cache: %r' % {k: result[k] for k in ('steps', 'epochs',
+                                                                       'losses')})
+    if result['batch_devices'] != ['cuda']:
+        raise AssertionError('hbm cache: batches on %s' % result['batch_devices'])
+    phase_profile(train, url, tmp, model_name='resnet50', hbm_cache=True)
+
+    def reader():
+        return make_reader(url, schema_fields=['image', 'noun_id'],
+                           transform_spec=make_transform((224, 224)), columnar_decode=True,
+                           num_epochs=1, workers_count=8)
+
+    # Both caches in the content-defined order, so their rows line up.
+    with InMemDataLoader(reader(), BATCH, shuffle=False, drop_last=False,
+                         deterministic_cache_order=True, device='cpu') as host:
+        rows = list(host)
+    rows = {k: torch.cat([b[k] for b in rows]) for k in rows[0]}
+    n = len(rows['label'])
+    with DeviceInMemDataLoader(reader(), BATCH, num_epochs=2, seed=17,
+                               deterministic_cache_order=True) as loader:
+        epochs = [outs for _, outs in loader.scan_epochs(lambda c, b: (c, b), None)]
+    key = prng.PRNGKey(17)
+    for e, outs in enumerate(epochs):
+        key, sub = prng.split(key)
+        order = torch.from_numpy(prng.permutation(sub, n).astype(np.int64))
+        if sorted(order.tolist()) != list(range(n)):
+            raise AssertionError('hbm cache: epoch %d order is no permutation' % e)
+        steps = n // BATCH
+        for name, column in outs.items():
+            if column.device.type != 'cuda':
+                raise AssertionError('hbm cache: %s gathered on %s' % (name, column.device))
+            first = column[0].cpu()
+            if not torch.equal(first, rows[name][order[:BATCH]]):
+                raise AssertionError('hbm cache: epoch %d first batch %s differs' % (e, name))
+            if not torch.equal(column.reshape((steps * BATCH,) + column.shape[2:]).cpu(),
+                               rows[name][order[:steps * BATCH]]):
+                raise AssertionError('hbm cache: epoch %d %s differs' % (e, name))
+    log('hbm cache: %d epochs of %d rows gathered on the card equal the host cache at the '
+        'epoch orders (first batch and every batch); each epoch holds every row once'
+        % (len(epochs), n))
 
 
 def main():
@@ -537,7 +706,14 @@ def main():
                 errors[name] = max(errors.get(name, 0.0), err)
     timing = phase_timing(fa)
     phase_model(fa)
-    launches = phase_main_path(fa)
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_') as tmp:
+        url = 'file://' + os.path.join(tmp, 'imagenet_jpeg')
+        t0 = time.monotonic()
+        write_dataset(url)
+        log('dataset: 512 JPEG rows written in %.1f s' % (time.monotonic() - t0))
+        launches = phase_main_path(fa, url, tmp)
+        phase_resnet(fa, url, tmp)
+        phase_hbm_cache(url, tmp)
     kernels = [dict(name=name, route='cuda', design=MAIN_PATH_DESIGN[name],
                     source=SOURCES[name], replaces=REPLACES[name],
                     launches=launches[name], max_abs_err=errors[name], ms=timing[name]['ms'],

@@ -2,8 +2,9 @@
 
 A second package beside ``petastorm_tpu`` (the JAX reference, which it is
 held against and never imports): the same reader and decode plane, a
-loader that moves batches to an NVIDIA GPU, on-device augmentation, the ViT
-model and the flash-attention kernels as hand-written CUDA for Hopper
+loader that moves batches to an NVIDIA GPU (streaming, or from an epoch
+cache in host or device memory), on-device augmentation, the ResNet-50 and
+ViT models, and the flash-attention kernels as hand-written CUDA for Hopper
 (``csrc/``).  Entry points run on the card unless the caller passes
 ``device='cpu'``.
 
@@ -20,6 +21,9 @@ _LAZY = {
     'UnischemaField': 'petastorm_tpu_torch.unischema',
     'NoDataAvailableError': 'petastorm_tpu_torch.errors',
     'DataLoader': 'petastorm_tpu_torch.gpu.loader',
+    'InMemDataLoader': 'petastorm_tpu_torch.gpu.loader',
+    'DeviceInMemDataLoader': 'petastorm_tpu_torch.gpu.loader',
+    'StallMonitor': 'petastorm_tpu_torch.benchmark.stall_profiler',
     'train': 'petastorm_tpu_torch.train',
 }
 

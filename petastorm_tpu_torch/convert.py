@@ -1,4 +1,4 @@
-"""Carry flax parameters of the JAX package's ViT into the port's modules.
+"""Carry flax parameters of the JAX package's models into the port's modules.
 
 ``vit_params_from_flax(params)`` takes the ``params`` tree of
 ``petastorm_tpu.models.vit.ViT`` (nested dicts of numpy arrays, e.g.
@@ -6,12 +6,17 @@
 ``state_dict`` for :class:`petastorm_tpu_torch.models.vit.ViT` of the same
 configuration; ``block_params_from_flax`` and
 ``attention_params_from_flax`` do the same for one ``Block`` or
-``Attention``.  Layouts:
+``Attention``.  ``resnet_params_from_flax(params, batch_stats)`` does the
+same for ``petastorm_tpu.models.resnet.ResNet50``, running statistics
+included, and ``bottleneck_params_from_flax`` for one ``BottleneckBlock``.
+Layouts:
 
 =======================================  ====================================
 flax                                     port
 =======================================  ====================================
-``Conv`` kernel HWIO                     ``Conv2d`` weight OIHW
+``Conv`` kernel HWIO                     ``Conv2d``/``Conv`` weight OIHW
+``BatchNorm`` scale, bias; stats mean,   ``BatchNorm`` scale, bias,
+var                                      running_mean, running_var
 ``Dense`` kernel ``(in, out)``           ``Dense.weight`` ``(out, in)``
 qkv ``DenseGeneral`` ``(d, 3, h, hd)``   ``(3*h*hd, d)``, rows (qkv, h, hd)
 out ``DenseGeneral`` ``(h, hd, d)``      ``(d, h*hd)``
@@ -23,7 +28,8 @@ The maps are linear, so they carry gradient trees across as well.
 import numpy as np
 import torch
 
-__all__ = ['vit_params_from_flax', 'block_params_from_flax', 'attention_params_from_flax']
+__all__ = ['vit_params_from_flax', 'block_params_from_flax', 'attention_params_from_flax',
+           'resnet_params_from_flax', 'bottleneck_params_from_flax']
 
 
 def _t(x):
@@ -69,4 +75,50 @@ def vit_params_from_flax(params):
                     for k, v in block_params_from_flax(params['block_%d' % i]).items()})
         i += 1
     out.update(_dense('head', params['head']))
+    return out
+
+
+def _conv(name, p):
+    kernel = np.asarray(p['kernel'], dtype=np.float32)                     # HWIO
+    return {name + '.weight': _t(kernel.transpose(3, 2, 0, 1))}            # OIHW
+
+
+def _batch_norm(name, p, stats):
+    out = {name + '.scale': _t(p['scale']), name + '.bias': _t(p['bias'])}
+    if stats is not None:
+        out.update({name + '.running_mean': _t(stats['mean']),
+                    name + '.running_var': _t(stats['var'])})
+    return out
+
+
+def bottleneck_params_from_flax(params, batch_stats=None):
+    """flax ``BottleneckBlock`` params (and ``batch_stats``) -> port
+    ``BottleneckBlock`` state_dict.  flax names the layers in call order:
+    ``Conv_0..2``/``BatchNorm_0..2`` on the main branch, ``Conv_3`` and
+    ``BatchNorm_3`` on the projection."""
+    out = {}
+    for i, (conv, bn) in enumerate((('conv0', 'bn0'), ('conv1', 'bn1'), ('conv2', 'bn2'),
+                                    ('proj', 'proj_bn'))):
+        if 'Conv_%d' % i not in params:
+            break
+        out.update(_conv(conv, params['Conv_%d' % i]))
+        out.update(_batch_norm(bn, params['BatchNorm_%d' % i],
+                               None if batch_stats is None else batch_stats['BatchNorm_%d' % i]))
+    return out
+
+
+def resnet_params_from_flax(params, batch_stats=None):
+    """flax ``ResNet50`` params (and ``batch_stats``) -> port ``ResNet50``
+    state_dict; without ``batch_stats`` (a gradient tree) the running
+    statistics are left out."""
+    stats = batch_stats or {}
+    out = _conv('stem', params['Conv_0'])
+    out.update(_batch_norm('stem_bn', params['BatchNorm_0'], stats.get('BatchNorm_0')))
+    i = 0
+    while 'BottleneckBlock_%d' % i in params:
+        name = 'BottleneckBlock_%d' % i
+        out.update({'blocks.%d.%s' % (i, k): v for k, v in bottleneck_params_from_flax(
+            params[name], stats.get(name)).items()})
+        i += 1
+    out.update(_dense('head', params['Dense_0']))
     return out

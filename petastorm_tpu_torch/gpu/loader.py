@@ -9,21 +9,33 @@ live on the card), and each batch goes to the device through
 batches in flight.  Batches equal the JAX loader's bit for bit, dtypes
 included, for the same reader, seed and batch size.
 
+:class:`InMemDataLoader` reads the dataset once into host memory and serves
+shuffled epochs from there; :class:`DeviceInMemDataLoader` keeps that cache
+on the device, gathers each batch there, and runs whole epochs through a
+step function with :meth:`~DeviceInMemDataLoader.scan_epochs`.  Both give
+the JAX loaders' batches bit for bit: the host loader draws its epoch
+orders from numpy's ``default_rng(seed)``, the device loader from
+:mod:`petastorm_tpu_torch.random` (``jax.random`` reproduced).
+
 Row readers (``columnar_decode=False``), ``state_dict``/resume, autotuning,
-data echoing, ``scan_batches``, sharding and the other loader classes are
-later slices of the port.
+data echoing, ``scan_batches``, sharding, ``DiskCachedDataLoader`` and
+``ResidentDataLoader`` are later slices of the port.
 """
 
+import hashlib
+import itertools
 import logging
 from collections import deque
 
 import numpy as np
+import torch
 
-from petastorm_tpu_torch.gpu.transfer import TransferPlane, resolve_device
+from petastorm_tpu_torch import random as prng
+from petastorm_tpu_torch.gpu.transfer import TransferPlane, canonical_dtype, resolve_device
 
 logger = logging.getLogger(__name__)
 
-__all__ = ['DataLoader']
+__all__ = ['DataLoader', 'InMemDataLoader', 'DeviceInMemDataLoader']
 
 
 class DataLoader(object):
@@ -170,3 +182,222 @@ def _filter_numeric(batch, warned):
             continue
         out[name] = value
     return out
+
+
+def _rows(cache):
+    return len(next(iter(cache.values())))
+
+
+def _canonical_row_order(cache):
+    """Sort the rows of a ``{field: (N, ...) array}`` cache by a blake2b
+    digest of each row over its fields in name order: any pool then yields
+    the same sequence (identical rows tie, and are interchangeable)."""
+    items = sorted(cache.items())
+    digests = []
+    for i in range(_rows(cache)):
+        h = hashlib.blake2b(digest_size=16)
+        for _, column in items:
+            h.update(np.ascontiguousarray(column[i]).tobytes())
+        digests.append(h.digest())
+    idx = np.asarray(sorted(range(len(digests)), key=digests.__getitem__))
+    return {name: column[idx] for name, column in cache.items()}
+
+
+class InMemDataLoader(DataLoader):
+    """Reads the dataset once into host memory, then serves ``num_epochs``
+    (``None``: endless) epochs from there, reshuffled each epoch with
+    ``np.random.default_rng(seed)``.
+
+    The reader must be built with ``num_epochs=1``: epochs repeat here.
+    ``drop_last`` applies to each epoch; the cache holds every row.
+    ``deterministic_cache_order=True`` sorts the cache into a
+    content-defined order (numeric fields only), so the epochs are a pure
+    function of the dataset and the seed, whatever the pool's delivery
+    order.  Other keyword arguments go to :class:`DataLoader`.
+    """
+
+    def __init__(self, reader, batch_size, num_epochs=1, shuffle=True, seed=None,
+                 deterministic_cache_order=False, echo=1, resume_state=None, **kwargs):
+        if echo != 1:
+            raise ValueError('%s does not support echo (epochs serve from an in-memory '
+                             'cache; echo addresses decode-bound streaming)'
+                             % type(self).__name__)
+        if resume_state is not None:
+            raise ValueError('%s does not take resume_state yet: resume tokens of the '
+                             'in-memory loaders are a later slice of the port'
+                             % type(self).__name__)
+        reader_epochs = getattr(reader, 'num_epochs', 1)
+        if reader_epochs != 1:
+            raise ValueError('InMemDataLoader requires a reader built with num_epochs=1 '
+                             '(got num_epochs=%r); epoch repetition happens in the loader'
+                             % (reader_epochs,))
+        super(InMemDataLoader, self).__init__(reader, batch_size, seed=seed, **kwargs)
+        self._num_epochs = num_epochs
+        self._shuffle = shuffle
+        self._deterministic = bool(deterministic_cache_order)
+        self._cache = None
+
+    def _build_cache(self):
+        """Read the whole dataset once into ``self._cache`` (``{field: (N, ...)
+        array}``); returns it, or None for an empty dataset."""
+        if self._cache is None:
+            # drop_last applies per epoch, not to the one read that fills the cache
+            drop_last, self._drop_last = self._drop_last, False
+            try:
+                parts = list(super(InMemDataLoader, self)._columnar_batches())
+            finally:
+                self._drop_last = drop_last
+            if not parts:
+                return None
+            cache = {name: np.concatenate([p[name] for p in parts]) for name in parts[0]}
+            if self._deterministic:
+                cache = _filter_numeric(cache, self._warned_fields)
+                if not cache:
+                    raise ValueError('deterministic_cache_order=True requires at least one '
+                                     'numeric field (the canonical order hashes numeric '
+                                     'row content)')
+                cache = _canonical_row_order(cache)
+            self._cache = cache
+        return self._cache
+
+    def _batch_starts(self, n):
+        stop = n - self.batch_size + 1 if self._drop_last else n
+        starts = range(0, max(stop, 0), self.batch_size)
+        if not starts:
+            logger.warning('epoch cache holds %d rows < batch_size=%d with drop_last: no '
+                           'batches to serve', n, self.batch_size)
+        return starts
+
+    def _columnar_batches(self):
+        cache = self._build_cache()
+        if cache is None:
+            return
+        n = _rows(cache)
+        starts = self._batch_starts(n)
+        if not starts:
+            return
+        rng = np.random.default_rng(self._seed)
+        epoch = 0
+        while self._num_epochs is None or epoch < self._num_epochs:
+            order = rng.permutation(n) if self._shuffle else np.arange(n)
+            for start in starts:
+                idx = order[start:start + self.batch_size]
+                yield {name: column[idx] for name, column in cache.items()}
+            epoch += 1
+
+
+class DeviceInMemDataLoader(InMemDataLoader):
+    """The epoch cache on the device: the dataset is read once, its numeric
+    fields are placed on ``device`` in one copy (and the host copy
+    released), and every batch is an ``index_select`` there, with no host
+    work per step.
+
+    Epoch orders are ``jax.random``'s, reproduced by
+    :mod:`petastorm_tpu_torch.random`: ``key = PRNGKey(seed)``, then per
+    epoch ``key, sub = split(key)`` and ``permutation(sub, n)``, moved to
+    the device once per epoch (``shuffle=False``: the identity).
+    ``seed=None`` draws fresh entropy.  ``transform_fn`` and
+    ``shuffling_queue_capacity`` are rejected: batches never exist on the
+    host.
+    """
+
+    def __init__(self, reader, batch_size, num_epochs=1, shuffle=True, seed=None,
+                 device=None, **kwargs):
+        for unsupported in ('transform_fn', 'shuffling_queue_capacity'):
+            if kwargs.pop(unsupported, None):
+                raise ValueError('DeviceInMemDataLoader does not support %s' % unsupported)
+        super(DeviceInMemDataLoader, self).__init__(
+            reader, batch_size, num_epochs=num_epochs, shuffle=shuffle, seed=seed,
+            device=device, **kwargs)
+        self._dev_cache = None
+
+    def _materialize(self):
+        """The device cache (built once), or None for an empty dataset."""
+        if self._dev_cache is None:
+            if self._build_cache() is None:
+                return None
+            numeric = _filter_numeric(self._cache, self._warned_fields)
+            self._dev_cache = {
+                name: torch.from_numpy(np.ascontiguousarray(
+                    column, dtype=canonical_dtype(column.dtype))).to(self.device)
+                for name, column in numeric.items()}
+            self._cache = None   # never read again: release the host copy
+        return self._dev_cache
+
+    def _epoch_orders(self, n):
+        """Each epoch's row order, an int64 tensor on the device."""
+        seed = self._seed if self._seed is not None \
+            else int(np.random.default_rng().integers(2 ** 31))
+        key = prng.PRNGKey(seed)
+        identity = None
+        epoch = 0
+        while self._num_epochs is None or epoch < self._num_epochs:
+            if self._shuffle:
+                key, sub = prng.split(key)
+                order = torch.from_numpy(prng.permutation(sub, n).astype(np.int64))
+                yield order.to(self.device)
+            else:
+                if identity is None:
+                    identity = torch.arange(n, device=self.device)
+                yield identity
+            epoch += 1
+
+    def __iter__(self):
+        cache = self._materialize()
+        if cache is None:
+            return
+        n = _rows(cache)
+        starts = self._batch_starts(n)
+        if not starts:
+            return
+        for order in self._epoch_orders(n):
+            for start in starts:
+                yield _gather(cache, order[start:start + self.batch_size])
+
+    def scan_epochs(self, step_fn, carry, epochs_per_call=1):
+        """Run the epochs through ``step_fn(carry, batch) -> (carry, out)``,
+        ``epochs_per_call`` epochs per yield.
+
+        Yields ``(carry, outs)``: ``outs`` stacks each step's ``out`` (a
+        tensor, or a dict of them) on the device along a leading steps
+        axis, with a leading epochs axis before it when ``epochs_per_call >
+        1`` (a trailing partial group has fewer epochs).  Partial batches
+        are always dropped.  Each step is launched from the host, one after
+        the other.
+        """
+        if epochs_per_call < 1:
+            raise ValueError('epochs_per_call must be >= 1')
+        cache = self._materialize()
+        if cache is None:
+            return
+        n = _rows(cache)
+        steps = n // self.batch_size
+        if steps == 0:
+            logger.warning('epoch cache holds %d rows < batch_size=%d: no batches to scan',
+                           n, self.batch_size)
+            return
+        orders = self._epoch_orders(n)
+        while True:
+            group = list(itertools.islice(orders, epochs_per_call))
+            if not group:
+                return
+            epochs = []
+            for order in group:
+                outs = []
+                for i in range(steps):
+                    idx = order[i * self.batch_size:(i + 1) * self.batch_size]
+                    carry, out = step_fn(carry, _gather(cache, idx))
+                    outs.append(out)
+                epochs.append(_stack(outs))
+            yield carry, (epochs[0] if epochs_per_call == 1 else _stack(epochs))
+
+
+def _gather(cache, idx):
+    return {name: column.index_select(0, idx) for name, column in cache.items()}
+
+
+def _stack(items):
+    """Stack like outputs (tensors, or dicts of them) along a new leading axis."""
+    if isinstance(items[0], dict):
+        return {k: _stack([item[k] for item in items]) for k in items[0]}
+    return torch.stack([torch.as_tensor(item) for item in items])

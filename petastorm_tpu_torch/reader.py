@@ -127,6 +127,11 @@ class Reader(object):
             max_ventilation_queue_size=max(1, min(len(self._items), window)))
         self._pool.start(PyDictReaderWorker, self._worker_args, ventilator=self._ventilator)
 
+    @property
+    def num_epochs(self):
+        """Epoch repetition count this reader was built with (None: infinite)."""
+        return self._num_epochs
+
     def __iter__(self):
         return self
 

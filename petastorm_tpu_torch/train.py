@@ -1,32 +1,43 @@
-"""JPEG Parquet -> ViT-S/16 training steps on the card.
+"""JPEG Parquet -> ResNet-50 or ViT-S/16 training steps on the card.
 
-Counterpart of ``examples/imagenet/jax_example.py::train`` with
-``--model vit`` (BASELINE.json config #3 on the model that runs the flash
-kernels): JPEG decode + resize run in the reader's thread pool (the
-TransformSpec), batches are assembled columnar and moved to the device by
-:class:`~petastorm_tpu_torch.gpu.DataLoader`, ``random_crop(padding=4)``,
-``random_flip_left_right`` and ``normalize`` run on the device, and the
-model takes SGD steps (momentum 0.9) under softmax cross-entropy.  Every
-attention call goes through the hand-written flash kernels.
+Counterpart of ``examples/imagenet/jax_example.py::train`` (BASELINE.json
+config #3) for the branches ported: ``model_name='resnet50'`` (the
+example's default) or ``'vit'`` (ViT-S/16, whose attention runs the
+hand-written flash kernels), streaming or with ``hbm_cache=True``.  JPEG
+decode + resize run in the reader's thread pool (the TransformSpec),
+``random_crop(padding=4)``, ``random_flip_left_right`` and ``normalize``
+run on the device, and the model takes SGD steps (momentum 0.9) under
+softmax cross-entropy; ResNet-50 trains with its BatchNorms in train mode.
 
-The ResNet-50 branch (no kernel on its path), the disk and HBM caches,
-``scan_batches``, the stall monitor and the example's command line are
-later slices of the port.
+Streaming, batches are assembled columnar and moved to the device by
+:class:`~petastorm_tpu_torch.gpu.DataLoader` under a
+:class:`~petastorm_tpu_torch.benchmark.StallMonitor`.  With
+``hbm_cache=True`` the dataset is decoded once into device memory by
+:class:`~petastorm_tpu_torch.gpu.DeviceInMemDataLoader` and whole epochs
+run through :meth:`~petastorm_tpu_torch.gpu.DeviceInMemDataLoader.scan_epochs`.
+
+Run ``python -m petastorm_tpu_torch.train --dataset-url URL`` with the
+example's ``--steps``, ``--batch-size``, ``--model`` and ``--hbm-cache``.
+The example's disk cache, ``scan_batches`` and tracing are later slices of
+the port.
 """
 
+import argparse
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from petastorm_tpu_torch.gpu import DataLoader, augment
+from petastorm_tpu_torch.benchmark import StallMonitor
+from petastorm_tpu_torch.gpu import DataLoader, DeviceInMemDataLoader, augment
 from petastorm_tpu_torch.gpu.transfer import resolve_device
+from petastorm_tpu_torch.models.resnet import ResNet50
 from petastorm_tpu_torch.models.vit import ViT
 from petastorm_tpu_torch.reader import make_reader
 from petastorm_tpu_torch.transform import TransformSpec
 
-__all__ = ['make_transform', 'train', 'VIT_S16']
+__all__ = ['make_transform', 'train', 'main', 'VIT_S16']
 
 #: ViT-S/16 as the JAX example builds it (jax_example.py:69-70).
 VIT_S16 = dict(num_classes=1000, patch_size=16, d_model=384, num_heads=6, num_layers=12,
@@ -53,50 +64,56 @@ def make_transform(image_hw):
                          removed_fields=['noun_id'])
 
 
+def _make_model(model_name, image_hw, model_kwargs):
+    generator = torch.Generator().manual_seed(0)
+    if model_name == 'resnet50':
+        return ResNet50(generator=generator, **dict(dict(num_classes=1000), **model_kwargs))
+    if model_name == 'vit':
+        return ViT(image_hw=image_hw, generator=generator, **dict(VIT_S16, **model_kwargs))
+    raise ValueError("model_name must be 'resnet50' or 'vit', got %r" % (model_name,))
+
+
 def train(dataset_url, steps, batch_size=64, image_hw=(224, 224), lr=0.1, device=None, *,
-          model_kwargs=None):
-    """Run ``steps`` training steps; returns the losses and the timings.
+          model_name='resnet50', hbm_cache=False, model_kwargs=None):
+    """Run ``steps`` training steps; returns the losses, the timings and the
+    trained ``model``.
 
     The reader decodes with 8 worker threads and the initial weights come
-    from seed 0, as in the JAX example.  ``model_kwargs`` overrides entries
-    of :data:`VIT_S16` (a CPU run shrinks the model with it).  Images/s and
-    step time are taken over the steps after the first two (warm-up), on
-    the host clock with the device synchronized at both ends.
+    from seed 0, as in the JAX example.  ``model_kwargs`` overrides
+    constructor arguments of the model (:data:`VIT_S16` for ViT,
+    ``num_classes=1000`` for ResNet-50; a CPU run shrinks the model with
+    it).  Each step runs inside a ``torch.profiler.record_function``
+    range named ``train_step``.
+
+    Streaming: images/s and step time are taken over the steps after the
+    first two (warm-up), on the host clock with the device synchronized at
+    both ends; ``stall_pct`` and the mean data wait per step are the
+    ``StallMonitor``'s (warm-up 2; it closes a step at the next batch, so
+    it counts ``steps - 3`` of them; the wait is None when it counted
+    none).  ``hbm_cache=True`` runs whole epochs (the last one may
+    take ``steps`` past the request, as in the JAX example); images/s and
+    step time are taken over the epochs after the first, whose time holds
+    the one read of the dataset (None when only one epoch ran), and
+    ``stall_pct`` is 0: no step waits for the host's data path.
     """
     if steps < 1:
         raise ValueError('steps must be at least 1, got %r' % (steps,))
     device = resolve_device(device)
     image_hw = tuple(image_hw)
-    # fp32 matmuls and convolutions in full fp32, as the flax model computes
+    # fp32 matmuls and convolutions in full fp32, as the flax models compute
     # them: no TF32 for the fp32 head, nor for cuDNN's fp32 convolutions
     # (whose default is TF32).  The bf16 products are unaffected.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    config = dict(VIT_S16, **(model_kwargs or {}))
-    model = ViT(image_hw=image_hw, generator=torch.Generator().manual_seed(0),
-                **config).to(device)
+    model = _make_model(model_name, image_hw, model_kwargs or {}).to(device).train()
     # optax.sgd(lr, momentum=0.9): trace = g + 0.9 trace; p -= lr * trace.
     opt = torch.optim.SGD(model.parameters(), lr=lr, momentum=0.9, dampening=0,
                           nesterov=False)
     aug_gen = torch.Generator(device=device).manual_seed(17)
-    warmup = min(2, steps - 1)
-    losses = []
     batch_devices = set()
-    data_wait = 0.0
-    t_start = None
-    reader = make_reader(dataset_url, schema_fields=['image', 'noun_id'],
-                         transform_spec=make_transform(image_hw), columnar_decode=True,
-                         num_epochs=None, workers_count=8)
-    with DataLoader(reader, batch_size=batch_size, device=device) as loader:
-        batches = iter(loader)
-        for step in range(steps):
-            if step == warmup:
-                _sync(device)
-                t_start = time.perf_counter()
-                data_wait = 0.0
-            t0 = time.perf_counter()
-            batch = next(batches)
-            data_wait += time.perf_counter() - t0
+
+    def train_step(batch):
+        with torch.profiler.record_function('train_step'):
             images, labels = batch['image'], batch['label']
             batch_devices.add(str(images.device.type))
             if images.device.type != device.type:
@@ -109,7 +126,34 @@ def train(dataset_url, steps, batch_size=64, image_hw=(224, 224), lr=0.1, device
             opt.zero_grad(set_to_none=True)
             loss.backward()
             opt.step()
-            losses.append(loss.detach())
+            return loss.detach()
+
+    reader_kwargs = dict(schema_fields=['image', 'noun_id'],
+                         transform_spec=make_transform(image_hw), columnar_decode=True,
+                         workers_count=8)
+    if hbm_cache:
+        result = _train_hbm_cache(dataset_url, steps, batch_size, device, train_step,
+                                  reader_kwargs)
+    else:
+        result = _train_streaming(dataset_url, steps, batch_size, device, train_step,
+                                  reader_kwargs)
+    result.update(batch_devices=sorted(batch_devices), device=str(device), model=model)
+    return result
+
+
+def _train_streaming(dataset_url, steps, batch_size, device, train_step, reader_kwargs):
+    warmup = min(2, steps - 1)
+    losses = []
+    t_start = None
+    monitor = StallMonitor(warmup_steps=2)
+    reader = make_reader(dataset_url, num_epochs=None, **reader_kwargs)
+    with DataLoader(reader, batch_size=batch_size, device=device) as loader:
+        batches = monitor.wrap(loader)
+        for step in range(steps):
+            if step == warmup:
+                _sync(device)
+                t_start = time.perf_counter()
+            losses.append(train_step(next(batches)))
     _sync(device)
     elapsed = time.perf_counter() - t_start
     timed = steps - warmup
@@ -117,12 +161,67 @@ def train(dataset_url, steps, batch_size=64, image_hw=(224, 224), lr=0.1, device
             'losses': [float(v) for v in torch.stack(losses).cpu()],
             'images_per_s': timed * batch_size / elapsed,
             'step_ms': 1e3 * elapsed / timed,
-            'data_wait_ms': 1e3 * data_wait / timed,
-            'batch_devices': sorted(batch_devices),
-            'device': str(device)}
+            'data_wait_ms': 1e3 * monitor.wait_time / monitor.steps if monitor.steps else None,
+            'stall_pct': monitor.report()['stall_pct']}
+
+
+def _train_hbm_cache(dataset_url, steps, batch_size, device, train_step, reader_kwargs):
+    losses = []
+    done = timed = epochs = 0
+    t_start = None
+    with make_reader(dataset_url, num_epochs=1, **reader_kwargs) as reader:
+        loader = DeviceInMemDataLoader(reader, batch_size, num_epochs=None, seed=17,
+                                       device=device)
+        for _, outs in loader.scan_epochs(lambda carry, batch: (carry, train_step(batch)),
+                                          None):
+            losses.append(outs)
+            done += int(outs.shape[0])
+            epochs += 1
+            _sync(device)
+            if t_start is None:
+                t_start = time.perf_counter()
+            else:
+                timed += int(outs.shape[0])
+            if done >= steps:
+                break
+    if not epochs:
+        raise ValueError('the dataset holds fewer rows than batch_size=%d: no step to run'
+                         % batch_size)
+    elapsed = time.perf_counter() - t_start
+    return {'steps': done,
+            'epochs': epochs,
+            'losses': [float(v) for v in torch.cat(losses).cpu()],
+            'images_per_s': timed * batch_size / elapsed if timed else None,
+            'step_ms': 1e3 * elapsed / timed if timed else None,
+            'stall_pct': 0.0}
 
 
 def _sync(device):
     if device.type == 'cuda':
         torch.cuda.synchronize(device)
 
+
+def main(argv=None):
+    """The example's command line for the ported branches."""
+    parser = argparse.ArgumentParser(
+        description='Train ResNet-50 or ViT-S/16 on the card from a JPEG Parquet dataset.')
+    parser.add_argument('--dataset-url', required=True,
+                        help='petastorm dataset with image and noun_id fields, e.g. file:///path')
+    parser.add_argument('--steps', type=int, default=50)
+    parser.add_argument('--batch-size', type=int, default=64)
+    parser.add_argument('--model', choices=['resnet50', 'vit'], default='resnet50')
+    parser.add_argument('--hbm-cache', action='store_true',
+                        help='decode the dataset once into device memory and run whole '
+                             'epochs from there (DeviceInMemDataLoader.scan_epochs)')
+    args = parser.parse_args(argv)
+    result = train(args.dataset_url, args.steps, args.batch_size, model_name=args.model,
+                   hbm_cache=args.hbm_cache)
+    rate = result['images_per_s']
+    print('%s on %s: steps=%d loss=%.3f images/s=%s stall=%.2f%%'
+          % (args.model, result['device'], result['steps'], result['losses'][-1],
+             'n/a' if rate is None else '%.1f' % rate, result['stall_pct']))
+    return result
+
+
+if __name__ == '__main__':
+    main()

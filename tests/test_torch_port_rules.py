@@ -53,6 +53,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
 
 
 def test_training_on_cpu_never_loads_jax(tmp_path):
+    """ViT and ResNet-50 training on the CPU, streaming and from the epoch
+    cache, load nothing of JAX."""
     script = textwrap.dedent('''
         import sys
         import numpy as np, pyarrow as pa
@@ -68,13 +70,21 @@ def test_training_on_cpu_never_loads_jax(tmp_path):
         with DatasetWriter(url, schema, rows_per_rowgroup=4) as w:
             for i in range(12):
                 w.write({'noun_id': 'n%d' % i,
-                         'image': rng.integers(0, 256, (32, 40 if i % 2 else 32, 3), dtype=np.uint8)})
-        result = petastorm_tpu_torch.train(url, steps=2, batch_size=4, image_hw=(32, 32),
-                                           device='cpu',
-                                           model_kwargs=dict(num_layers=1, d_model=32,
-                                                             num_heads=2, d_ff=64))
-        assert len(result['losses']) == 2 and all(np.isfinite(result['losses']))
-        assert result['batch_devices'] == ['cpu']
+                         'image': rng.integers(0, 256, (32, 40 if i % 2 else 32, 3),
+                                               dtype=np.uint8)})
+        # (losses expected, train kwargs): streaming runs take exactly the
+        # steps asked for; the HBM cache runs whole epochs, and one epoch of
+        # 12 rows at batch 4 is 3 steps.
+        runs = [(2, dict(model_name='vit', model_kwargs=dict(num_layers=1, d_model=32,
+                                                             num_heads=2, d_ff=64))),
+                (2, dict(model_name='resnet50')),
+                (3, dict(model_name='resnet50', hbm_cache=True))]
+        for expected, kwargs in runs:
+            result = petastorm_tpu_torch.train(url, steps=2, batch_size=4, image_hw=(32, 32),
+                                               device='cpu', **kwargs)
+            assert len(result['losses']) == expected and all(np.isfinite(result['losses'])), \
+                result
+            assert result['batch_devices'] == ['cpu']
         loaded = sorted(m for m in sys.modules if m.split('.')[0] in FORBIDDEN)
         print('LOADED', loaded)
         sys.exit(1 if loaded else 0)
@@ -87,8 +97,9 @@ def test_training_on_cpu_never_loads_jax(tmp_path):
 
 
 def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
-    from petastorm_tpu_torch.gpu import DataLoader, resolve_device
-    from petastorm_tpu_torch.train import train
+    from petastorm_tpu_torch.gpu import (DataLoader, DeviceInMemDataLoader, InMemDataLoader,
+                                         resolve_device)
+    from petastorm_tpu_torch.train import main, train
 
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
@@ -100,11 +111,17 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_pa
     class ColumnarReader(object):
         batched_output = True
 
-    with pytest.raises(RuntimeError, match='device="cpu"'):
-        DataLoader(ColumnarReader(), 4)
-    assert DataLoader(ColumnarReader(), 4, device='cpu').device.type == 'cpu'
-    with pytest.raises(RuntimeError, match='device="cpu"'):
-        train('file://%s' % tmp_path, steps=1)
+    for loader in (DataLoader, InMemDataLoader, DeviceInMemDataLoader):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            loader(ColumnarReader(), 4)
+        assert loader(ColumnarReader(), 4, device='cpu').device.type == 'cpu'
+    for kwargs in (dict(), dict(model_name='resnet50'), dict(model_name='vit'),
+                   dict(hbm_cache=True)):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            train('file://%s' % tmp_path, steps=1, **kwargs)
+    for flags in ([], ['--model', 'vit'], ['--hbm-cache']):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            main(['--dataset-url', 'file://%s' % tmp_path, '--steps', '1'] + flags)
 
 
 def test_kernel_wrappers_never_fall_back():
