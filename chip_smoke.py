@@ -14,13 +14,18 @@ Phases, in order; any failure propagates and exits nonzero:
    causal masking, segment ids and a length that is no multiple of 64,
    (c) one case for each other head_dim tile width of the CUDA-core kernels,
    (d) bf16 cases on the tensor-core route for each of its tile widths and
-   masks, and (e) bf16 cases on the CUDA-core route for each of its tile
-   widths; each case checks which design each kernel took;
+   masks, (e) bf16 cases on the CUDA-core route for each of its tile
+   widths, and (f) the LM paths' shapes: L1's causal 8 x 1024 x 8 x 32,
+   L2's causal 4 x 512 x 4 x 32 with the segment ids of a real packed
+   batch, and L3's causal prefill 2 x 8 x 4 x 32; each case checks which
+   design each kernel took;
    then each kernel timed at (a) beside its plain version, one PyTorch
    library call where one computes the same function, and its bound, each
    also through its CUDA-core design, and PyTorch's fused attention
    backward beside the two backward kernels; and each kernel's host time
-   per wrapper call, for both designs;
+   per wrapper call, for both designs; then each kernel timed at the L1
+   shapes (causal), beside its plain version, PyTorch's causal fused
+   attention and its bound;
 4. model: the ViT-S/16 forward through the kernels against the same model
    through the dense reference, on a small batch;
 5. main path: a synthetic JPEG Parquet dataset, then 20 full-width
@@ -39,7 +44,21 @@ Phases, in order; any failure propagates and exits nonzero:
    ``DeviceInMemDataLoader.scan_epochs`` and a profile of its step; then
    each epoch's batches, gathered on the card, against the host cache's
    rows at the epoch order that ``petastorm_tpu_torch.random`` computes,
-   every row once per epoch.
+   every row once per epoch;
+8. long-context LM (L1): 20 steps of ``train_lm`` at the example's widths
+   (8 x 1024 tokens, 4 layers, d_model 256, remat) from token Parquet, with
+   8 forward, 4 dQ and 4 dK/dV launches per step, all on the tensor
+   cores, and a profile of its step;
+9. packed LM (L2): 20 steps of ``train_packed`` through the flash kernels
+   with segment ids (4 x 512 packed rows, 2 layers, d_model 128), the
+   packing utilisation, and on one loader batch and on a packer's tail
+   batch with all-padding rows: the flash loss against the dense
+   ``packed_attention`` loss on the same weights, every gradient finite;
+   and a profile of its step;
+10. generation (L3): the trained L2 model samples (KV cache, temperature
+   0.8, top-p 0.95) with one prefill forward launch per layer, repeats exactly under
+   the same key, and its greedy tokens equal the argmax of a full forward
+   recomputed step by step.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -57,20 +76,26 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+T_START = time.monotonic()
 STEPS = 20
 BATCH = 64
 VIT_SHAPE = dict(b=64, s=196, h=6, d=64)     # ViT-S/16 at 224x224: 14*14 patches, 384/6
+LM_SHAPE = dict(b=8, s=1024, h=8, d=32)      # L1: jax_example.py's batch 8, 256/8 heads
+PACKED_SHAPE = dict(b=4, s=512, h=4, d=32)   # L2: packed_example.py's 4 rows of 512, 128/4
+PREFILL_SHAPE = dict(b=2, s=8, h=4, d=32)    # L3: the sampler's prefill of 2 prompts of 8
 SMALL_SHAPE = dict(b=2, s=100, h=2, d=16)
 #: (shape, dtype, causal, segments, misaligned, design) of the kernel checks:
 #: the main path's shapes, the small fp32 case, one case for each other tile
 #: width the CUDA-core kernels instantiate (head_dim up to 32, 64, 128), then
 #: bf16 cases on the tensor-core route for each of its tile widths (16, 32,
 #: 64, 128) and masks, two with head_dims that fill only part of their tile
-#: (40, 72), and bf16 cases on the CUDA-core route at each of its tile
-#: widths: head_dims 20 and 100 (no multiple of 8), and the main path's
-#: shapes on copies that start 2 bytes past a 16-byte boundary.  ``design``
-#: is the design all three kernels must take.  No length is a multiple of
-#: 64.
+#: (40, 72), bf16 cases on the CUDA-core route at each of its tile widths:
+#: head_dims 20 and 100 (no multiple of 8), and the main path's shapes on
+#: copies that start 2 bytes past a 16-byte boundary; then the LM paths'
+#: shapes, whose lengths (1024, 512) are whole numbers of 64-row tiles, L2's
+#: with the segment ids of a real packed batch (``'packed'``), and L3's
+#: prefill, one 8-row query tile against one 8-key tile inside the 64-row
+#: tile.  ``design`` is the design all three kernels must take.
 KERNEL_CASES = (
     (VIT_SHAPE, torch.bfloat16, False, False, False, 'tensor_core'),
     (SMALL_SHAPE, torch.float32, True, True, False, 'cuda_core'),
@@ -87,6 +112,9 @@ KERNEL_CASES = (
     (VIT_SHAPE, torch.bfloat16, False, False, True, 'cuda_core'),
     (dict(b=2, s=130, h=2, d=64), torch.bfloat16, True, True, True, 'cuda_core'),
     (dict(b=1, s=150, h=2, d=100), torch.bfloat16, True, True, False, 'cuda_core'),
+    (LM_SHAPE, torch.bfloat16, True, False, False, 'tensor_core'),
+    (PACKED_SHAPE, torch.bfloat16, True, 'packed', False, 'tensor_core'),
+    (PREFILL_SHAPE, torch.bfloat16, True, False, False, 'tensor_core'),
 )
 #: Tolerances as (atol, rtol).  fp32: forward 2e-5, gradients 1e-4, as in
 #: tests/test_flash_attention.py.  A bf16 kernel against its plain version:
@@ -171,16 +199,51 @@ def check_designs(fa, before, design, tag):
                                  % (name, tag, taken, design))
 
 
+def counts(fa):
+    """Each kernel's launches, and its launches by design."""
+    return {kernel.__name__: kernel.launches for kernel in fa.KERNELS}, snapshot(fa)
+
+
+def check_launches(tag, launches, by_design, expected):
+    """Each kernel launched ``expected[name]`` times, all on the tensor cores."""
+    for name, n in launches.items():
+        if n != expected[name]:
+            raise AssertionError('%s: %s launched %d times, expected %d'
+                                 % (tag, name, n, expected[name]))
+        design = MAIN_PATH_DESIGN[name]
+        if by_design[name][design] != n:
+            raise AssertionError('%s: %d of the %d launches of %s took the %s design'
+                                 % (tag, by_design[name][design], n, name, design))
+
+
 def make_inputs(b, s, h, d, dtype, seed, segments=False):
     g = torch.Generator(device='cuda').manual_seed(seed)
     q, k, v, do = (torch.randn(b, s, h, d, generator=g, device='cuda').to(dtype)
                    for _ in range(4))
     seg = None
-    if segments:
+    if segments == 'packed':
+        seg = torch.from_numpy(packed_segment_ids(b, s, seed)).cuda()
+    elif segments:
         # sorted ids in 0..3: packed rows with a padding (0) prefix
         seg = torch.sort(torch.randint(0, 4, (b, s), generator=g, device='cuda'), dim=1)[0]
         seg = seg.to(torch.int32).contiguous()
     return q, k, v, do, seg
+
+
+def packed_segment_ids(b, s, seed):
+    """Segment ids of a real packed batch with the cases padding brings:
+    the last batch ``pack_stream`` emits for the fewest documents like the
+    packed example's (32 to ``s`` tokens) whose tail batch holds both an
+    all-padding row and a document row that ends in padding."""
+    from petastorm_tpu_torch.gpu.packing import pack_stream
+    rng = np.random.default_rng(seed)
+    docs = []
+    while True:
+        docs.append(np.zeros(int(rng.integers(32, s + 1)), np.int32))
+        seg = list(pack_stream(docs, s, b))[-1]['segment_ids']
+        empty = (seg == 0).all(axis=1)
+        if empty.any() and (seg[~empty, -1] == 0).any():
+            return seg
 
 
 def phase_device():
@@ -223,8 +286,9 @@ def kernel_case(fa, shape, dtype, causal, segments, misaligned, design, seed):
     bf16 = dtype == torch.bfloat16
     tol_fwd = TOL['bf16_vs_plain'] if bf16 else TOL['fwd_f32']
     tol_grad = TOL['bf16_vs_plain'] if bf16 else TOL['grad_f32']
-    tag = ' '.join([str(dtype)[6:]] + ['causal'] * causal + ['segments'] * segments
-                   + ['misaligned'] * misaligned + ['s=%d' % s])
+    tag = ' '.join([str(dtype)[6:]] + ['causal'] * causal
+                   + ([segments] if segments == 'packed' else ['segments'] * segments)
+                   + ['misaligned'] * misaligned + ['b=%d s=%d h=%d' % (b, s, h)])
     errs = {}
     before = snapshot(fa)
 
@@ -391,6 +455,55 @@ def phase_timing(fa):
     return rows
 
 
+def phase_timing_lm(fa):
+    """Each kernel at L1's shapes (bf16, causal): its device time, its plain
+    version's, PyTorch's causal fused attention for the forward, and its
+    bound, whose operations count the causal pairs only (s(s+1)/2 a row)."""
+    b, s, h, d = (LM_SHAPE[x] for x in 'bshd')
+    q, k, v, do, _ = make_inputs(b, s, h, d, torch.bfloat16, seed=12)
+    scale = d ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, None, True, scale)
+    delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).reshape(b * h, s).contiguous()
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device='cuda')
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    elems, stat = b * s * h * d * 2, b * h * s * 4
+    pair = b * h * d * s * (s + 1) // 2
+    cases = [
+        ('flash_fwd', lambda: fa.flash_fwd(q, k, v, None, True, scale),
+         lambda: fa.flash_fwd_plain(q, k, v, None, True, scale),
+         lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+         4 * elems + stat, 4 * pair),
+        ('flash_bwd_dq', lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, None, True, scale),
+         lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, None, True, scale),
+         None, 5 * elems + 2 * stat, 6 * pair),
+        ('flash_bwd_dkv', lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, None, True, scale),
+         lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, None, True, scale),
+         None, 6 * elems + 2 * stat, 8 * pair),
+    ]
+    rows = {}
+    for name, kernel, plain, library, nbytes, flops in cases:
+        # in turns: kernel, plain version, kernel
+        first, plain_ms, last = (time_ms(fn, flush) for fn in (kernel, plain, kernel))
+        ms = (first + last) / 2
+        library_ms = time_ms(library, flush) if library is not None else None
+        bound_ms, bound_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+        rows[name] = dict(shape='b=%d s=%d h=%d d=%d bf16 causal' % (b, s, h, d), ms=ms,
+                          plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                          bound_by=bound_by)
+        log('time %s @ L1 b=%d s=%d h=%d d=%d bf16 causal: kernel %.4f ms (%.4f / %.4f), plain '
+            '%.4f ms, library %s, bound %.4f ms (%s; %.1f MB, %.2f GFLOP)'
+            % (name, b, s, h, d, ms, first, last, plain_ms,
+               'n/a' if library_ms is None else '%.4f ms' % library_ms, bound_ms, bound_by,
+               nbytes / 1e6, flops / 1e9))
+    leaves = [t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    library_bwd_ms = time_ms(lambda: torch.autograd.grad(out, leaves, do.transpose(1, 2),
+                                                         retain_graph=True), flush)
+    log('time SDPA causal backward @ L1: %.4f ms; flash_bwd_dq + flash_bwd_dkv: %.4f ms'
+        % (library_bwd_ms, rows['flash_bwd_dq']['ms'] + rows['flash_bwd_dkv']['ms']))
+    return rows
+
+
 def phase_model(fa):
     """ViT-S/16 logits through the kernels vs through the dense reference."""
     from petastorm_tpu_torch.models.vit import ViT
@@ -436,10 +549,9 @@ def phase_main_path(fa, url, tmp):
     from petastorm_tpu_torch.train import train
     reset_counts(fa)
     result = train(url, steps=STEPS, batch_size=BATCH, model_name='vit')
-    launches = {kernel.__name__: kernel.launches for kernel in fa.KERNELS}
-    by_design = {kernel.__name__: dict(kernel.launches_by_design) for kernel in fa.KERNELS}
+    launches, by_design = counts(fa)
     check_main_path(result, launches, by_design)
-    phase_profile(train, url, tmp, model_name='vit')
+    phase_profile(lambda n: train(url, steps=n, batch_size=BATCH, model_name='vit'), 'vit', tmp)
     return launches
 
 
@@ -455,15 +567,8 @@ def check_main_path(result, launches, by_design):
         raise AssertionError('non-finite training loss: %s' % losses)
     if result['batch_devices'] != ['cuda']:
         raise AssertionError('batches reached the model on %s' % result['batch_devices'])
-    expected = 12 * STEPS   # 12 encoder blocks, one attention call each per step
-    for name, n in launches.items():
-        if n != expected:
-            raise AssertionError('%s launched %d times on the main path, expected %d'
-                                 % (name, n, expected))
-        design = MAIN_PATH_DESIGN[name]
-        if by_design[name][design] != n:
-            raise AssertionError('%s: %d of its %d main-path launches took the %s design'
-                                 % (name, by_design[name][design], n, design))
+    # 12 encoder blocks, one attention call each per step
+    check_launches('main path', launches, by_design, {name: 12 * STEPS for name in launches})
 
 
 def _family(name):
@@ -501,18 +606,18 @@ def _step_starts(trace, events):
     return starts
 
 
-def phase_profile(train, url, tmp, model_name, steps=8, **kwargs):
-    """Where the time of a training step goes: a short run of ``model_name``
-    under torch.profiler (host and device activity).  Over steps
-    3..steps-1 (:func:`_step_starts` finds where each starts): the device
-    busy time per step and its split by kernel family, the kernels per
-    step, and on the host the time per step inside CUDA launch calls and
-    inside calls that wait for the device (synchronize, blocking copies)."""
+def phase_profile(run, label, tmp, steps=8):
+    """Where the time of a training step goes: ``run(steps)``, a short
+    training run, under torch.profiler (host and device activity).  Over
+    steps 3..steps-1 (:func:`_step_starts` finds where each starts): the
+    device busy time per step and its split by kernel family, the kernels
+    per step, and on the host the time per step inside CUDA launch calls
+    and inside calls that wait for the device (synchronize, blocking
+    copies)."""
     from torch.profiler import ProfilerActivity, profile
-    label = model_name + (' hbm cache' if kwargs.get('hbm_cache') else '')
     path = os.path.join(tmp, 'trace_%s.json' % label.replace(' ', '_'))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        train(url, steps=steps, batch_size=BATCH, model_name=model_name, **kwargs)
+        run(steps)
     prof.export_chrome_trace(path)
     with open(path) as f:
         trace = json.load(f)['traceEvents']
@@ -573,7 +678,7 @@ def phase_resnet(fa, url, tmp):
     from petastorm_tpu_torch.train import train
     reset_counts(fa)
     result = train(url, steps=STEPS, batch_size=BATCH, model_name='resnet50')
-    launches = {kernel.__name__: kernel.launches for kernel in fa.KERNELS}
+    launches, _ = counts(fa)
     losses = result['losses']
     log('resnet50: steps=%d final loss=%.4f images/s=%.1f step_ms=%.2f (over steps 3..%d) '
         'data_wait_ms=%.2f stall_pct=%.2f (steps 3..%d) flash launches=%s'
@@ -621,7 +726,8 @@ def phase_resnet(fa, url, tmp):
     if share > RESNET_BF16_SHARE:
         raise AssertionError('resnet50 bf16 logits off the fp32 ones by %.4f of the largest'
                              % share)
-    phase_profile(train, url, tmp, model_name='resnet50')
+    phase_profile(lambda n: train(url, steps=n, batch_size=BATCH, model_name='resnet50'),
+                  'resnet50', tmp)
 
 
 def phase_hbm_cache(url, tmp):
@@ -654,7 +760,8 @@ def phase_hbm_cache(url, tmp):
                                                                        'losses')})
     if result['batch_devices'] != ['cuda']:
         raise AssertionError('hbm cache: batches on %s' % result['batch_devices'])
-    phase_profile(train, url, tmp, model_name='resnet50', hbm_cache=True)
+    phase_profile(lambda n: train(url, steps=n, batch_size=BATCH, model_name='resnet50',
+                                  hbm_cache=True), 'resnet50 hbm cache', tmp)
 
     def reader():
         return make_reader(url, schema_fields=['image', 'noun_id'],
@@ -691,6 +798,181 @@ def phase_hbm_cache(url, tmp):
         % (len(epochs), n))
 
 
+def phase_lm(fa, tmp):
+    """L1: the long-context example's training at its widths, with the
+    launches per step checked (4 layers under remat: each block's forward
+    runs twice), and a profile of its step."""
+    import petastorm_tpu_torch.train_lm as lm
+    url = 'file://' + os.path.join(tmp, 'lc_tokens')
+    t0 = time.monotonic()
+    lm.write_token_dataset(url)
+    log('lm dataset: 256 documents of 1024 tokens written in %.1f s' % (time.monotonic() - t0))
+    reset_counts(fa)
+    result = lm.train_lm(url, steps=STEPS, batch_size=8, strategy='flash')
+    launches, by_design = counts(fa)
+    losses = result['losses']
+    log('lm (L1): steps=%d final loss=%.4f tokens/s=%.0f step_ms=%.2f (over steps 3..%d) '
+        'data_wait_ms=%.2f stall_pct=%.2f (steps 3..%d) launches=%s'
+        % (result['steps'], losses[-1], result['tokens_per_s'], result['step_ms'], STEPS,
+           result['data_wait_ms'], result['stall_pct'], STEPS - 1, launches))
+    log('lm losses: %s' % ' '.join('%.4f' % x for x in losses))
+    if len(losses) != STEPS or not np.all(np.isfinite(losses)):
+        raise AssertionError('lm: losses %s' % losses)
+    if result['batch_devices'] != ['cuda']:
+        raise AssertionError('lm: batches reached the model on %s' % result['batch_devices'])
+    layers = lm.LONG_CONTEXT_LM['num_layers']
+    check_launches('lm', launches, by_design,
+                   {'flash_fwd': 2 * layers * STEPS, 'flash_bwd_dq': layers * STEPS,
+                    'flash_bwd_dkv': layers * STEPS})
+    phase_profile(lambda n: lm.train_lm(url, steps=n, batch_size=8), 'lm', tmp)
+    return launches
+
+
+def packed_checks(fa, model, batch, tag):
+    """On one packed batch: the flash loss against the dense
+    ``packed_attention`` loss on the same weights (bf16 tolerance), and
+    every gradient of the flash loss finite and within 3e-2 of the dense
+    one's in relative norm."""
+    from petastorm_tpu_torch.train_lm import packed_loss
+    grads = {}
+    for attn in ('flash', 'dense'):
+        model.zero_grad(set_to_none=True)
+        before = snapshot(fa)
+        loss = packed_loss(model, batch, attn)
+        loss.backward()
+        if attn == 'flash':
+            check_designs(fa, before, 'tensor_core', tag)
+        grads[attn] = (loss.detach(), {n: p.grad.clone() for n, p in model.named_parameters()})
+    model.zero_grad(set_to_none=True)
+    (flash, g_flash), (dense, g_dense) = grads['flash'], grads['dense']
+    err = check('packed loss flash vs dense [%s]' % tag, flash, dense, TOL['bf16'])
+    worst = 0.0
+    for name, g in g_flash.items():
+        if not torch.isfinite(g).all():
+            raise AssertionError('packed [%s]: gradient of %s is not finite' % (tag, name))
+        ref = g_dense[name]
+        rel = float((g - ref).norm() / ref.norm().clamp_min(1e-30))
+        worst = max(worst, rel)
+        if rel > TOL['bf16'][1]:
+            raise AssertionError('packed [%s]: gradient of %s off the dense one by %.4f in '
+                                 'relative norm' % (tag, name, rel))
+    seg = batch['segment_ids']
+    log('packed [%s]: loss flash %.5f dense %.5f (err %.3g); gradients finite, worst relative '
+        'norm vs dense %.4f; %d of %d rows all padding, %d padding tokens'
+        % (tag, float(flash), float(dense), err, worst, int((seg == 0).all(dim=1).sum()),
+           seg.shape[0], int((seg == 0).sum())))
+
+
+def phase_packed(fa, tmp):
+    """L2: the packed example's training through the flash kernels with
+    segment ids, then :func:`packed_checks` on a loader batch and on a
+    packer's tail batch that holds all-padding rows."""
+    import petastorm_tpu_torch.train_lm as lm
+    from petastorm_tpu_torch.gpu import PackedDataLoader
+    from petastorm_tpu_torch.gpu.packing import StreamPacker
+    from petastorm_tpu_torch.reader import make_reader
+    url = 'file://' + os.path.join(tmp, 'lc_var_tokens')
+    t0 = time.monotonic()
+    lm.write_var_token_dataset(url)
+    log('packed dataset: 512 documents of 32..512 tokens written in %.1f s'
+        % (time.monotonic() - t0))
+    reset_counts(fa)
+    result = lm.train_packed(url, steps=STEPS, attn='flash')
+    launches, by_design = counts(fa)
+    losses = result['losses']
+    log('packed (L2): steps=%d final loss=%.4f packing_utilization=%.2f%% tokens/s=%.0f '
+        '(real tokens, from opening the reader) step_ms=%.2f tokens/s=%.0f (real tokens, '
+        'over steps 3..%d) launches=%s'
+        % (result['steps'], losses[-1], 100 * result['packing_utilization'],
+           result['tokens_per_s'], result['step_ms'], result['step_tokens_per_s'], STEPS,
+           launches))
+    log('packed losses: %s' % ' '.join('%.4f' % x for x in losses))
+    if len(losses) != STEPS or not np.all(np.isfinite(losses)):
+        raise AssertionError('packed: losses %s' % losses)
+    if result['batch_devices'] != ['cuda']:
+        raise AssertionError('packed: batches reached the model on %s' % result['batch_devices'])
+    layers = lm.PACKED_LM['num_layers']
+    check_launches('packed', launches, by_design, {name: layers * STEPS for name in launches})
+    model = result['model']
+    phase_profile(lambda n: lm.train_packed(url, steps=n, attn='flash'), 'packed', tmp)
+    with make_reader(url, schema_fields=['tokens'], num_epochs=1, workers_count=4) as reader:
+        batch = next(iter(PackedDataLoader(reader, 'tokens', max_len=lm.PACKED_MAX_LEN,
+                                           rows_per_batch=4)))
+    packed_checks(fa, model, batch, 'loader batch')
+    packer = StreamPacker(lm.PACKED_MAX_LEN, 4)
+    rng = np.random.default_rng(9)
+    for length in (300, 200, 150):
+        packer.add((rng.zipf(1.4, length) % lm.PACKED_VOCAB).astype(np.int32))
+    tail = packer.flush()[0]
+    if not (tail['segment_ids'] == 0).all(axis=1).any():
+        raise AssertionError('packed: the tail batch holds no all-padding row')
+    packed_checks(fa, model, {k: torch.from_numpy(v).cuda() for k, v in tail.items()},
+                  'tail batch')
+    return launches, model
+
+
+def greedy_check(model, prompt, tag):
+    """Greedy tokens against the argmax of a full forward over the growing
+    prefix; a token may differ only where the full forward's top logit
+    lies within bf16's tolerance of the greedy token's."""
+    from petastorm_tpu_torch.models.decoding import generate
+    greedy = generate(model, torch.from_numpy(prompt), 16)
+    seq = torch.from_numpy(prompt).long().cuda()
+    near_ties = 0
+    with torch.no_grad():
+        for t in range(greedy.shape[1]):
+            logits = model(seq)[:, -1]
+            top = logits.max(dim=-1).values
+            got = greedy[:, t].long()
+            for row in (logits.argmax(dim=-1) != got).nonzero().flatten().tolist():
+                gap = float(top[row] - logits[row, got[row]])
+                if gap > TOL['bf16'][0] + TOL['bf16'][1] * float(top[row].abs()):
+                    raise AssertionError('generate [%s]: greedy token %d at step %d row %d is '
+                                         '%.4f below the full forward\'s argmax'
+                                         % (tag, int(got[row]), t, row, gap))
+                near_ties += 1
+            seq = torch.cat([seq, got[:, None]], dim=1)
+    log('generate [%s]: greedy %s; equal to the stepwise full forward\'s argmax at every step '
+        '(%d bf16 near ties)' % (tag, greedy.tolist(), near_ties))
+
+
+def phase_generate(fa, model):
+    """L3: the trained L2 model samples as ``packed_example.py::sample``
+    does (one prefill forward launch per layer, then steps against the
+    cache),
+    repeats exactly under the same key, and :func:`greedy_check` on it
+    and on fresh weights."""
+    import petastorm_tpu_torch.train_lm as lm
+    from petastorm_tpu_torch.models.transformer import TransformerLM
+    model.eval()
+    reset_counts(fa)
+    prompt, tokens = lm.sample(model)
+    launches, by_design = counts(fa)
+    check_launches('generate', launches, by_design,   # one prefill forward per layer
+                   {'flash_fwd': len(model.blocks), 'flash_bwd_dq': 0, 'flash_bwd_dkv': 0})
+    log('generate (L3): launches=%s' % launches)
+    for row in range(len(prompt)):
+        log('  prompt %s -> %s' % (prompt[row].tolist(), tokens[row].tolist()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, again = lm.sample(model)
+    torch.cuda.synchronize()
+    log('generate: %.2f ms per new token (prefill of 8 and 16 tokens, batch 2, host clock)'
+        % (1e3 * (time.perf_counter() - t0) / again.shape[1]))
+    if not torch.equal(tokens, again):
+        raise AssertionError('generate: the same key sampled other tokens')
+    if tokens.device.type != 'cuda' or tokens.dtype != torch.int32 or tokens.shape != (2, 16) \
+            or not ((tokens >= 0) & (tokens < model.vocab_size)).all():
+        raise AssertionError('generate: tokens %s %s %r' % (tokens.device, tokens.dtype,
+                                                             tuple(tokens.shape)))
+    greedy_check(model, prompt, 'trained')
+    # the trained model's greedy choice is nearly always the commonest
+    # token; a fresh model's varies from step to step
+    fresh = TransformerLM(generator=torch.Generator().manual_seed(1), **lm.PACKED_LM)
+    greedy_check(fresh.cuda().eval(), prompt, 'fresh weights')
+    return launches
+
+
 def main():
     # The kernels' module (petastorm_tpu_torch.ops re-exports its function
     # under the same name).  Imported first: outside a checkout this fails
@@ -705,23 +987,36 @@ def main():
             if design == MAIN_PATH_DESIGN[name]:
                 errors[name] = max(errors.get(name, 0.0), err)
     timing = phase_timing(fa)
+    timing_lm = phase_timing_lm(fa)
     phase_model(fa)
+    paths = {}
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as tmp:
         url = 'file://' + os.path.join(tmp, 'imagenet_jpeg')
         t0 = time.monotonic()
         write_dataset(url)
         log('dataset: 512 JPEG rows written in %.1f s' % (time.monotonic() - t0))
-        launches = phase_main_path(fa, url, tmp)
-        phase_resnet(fa, url, tmp)
-        phase_hbm_cache(url, tmp)
+        for name, phase in (('vit', lambda: phase_main_path(fa, url, tmp)),
+                            ('resnet50', lambda: phase_resnet(fa, url, tmp)),
+                            ('hbm_cache', lambda: phase_hbm_cache(url, tmp)),
+                            ('lm', lambda: phase_lm(fa, tmp)),
+                            ('packed', lambda: phase_packed(fa, tmp)),
+                            ('generate', lambda: phase_generate(fa, paths['packed'][1]))):
+            t0 = time.monotonic()
+            paths[name] = phase()
+            log('phase %s: %.1f s' % (name, time.monotonic() - t0))
+    launches = {'vit': paths['vit'], 'lm': paths['lm'], 'packed': paths['packed'][0],
+                'generate': paths['generate']}
     kernels = [dict(name=name, route='cuda', design=MAIN_PATH_DESIGN[name],
                     source=SOURCES[name], replaces=REPLACES[name],
-                    launches=launches[name], max_abs_err=errors[name], ms=timing[name]['ms'],
+                    launches=sum(path[name] for path in launches.values()),
+                    launches_by_path={path: n[name] for path, n in launches.items()},
+                    max_abs_err=errors[name], ms=timing[name]['ms'],
                     plain_ms=timing[name]['plain_ms'], bound_ms=timing[name]['bound_ms'],
                     bound_by=timing[name]['bound_by'], library_ms=timing[name]['library_ms'],
                     cuda_core_ms=timing[name]['cuda_core_ms'], host_us=timing[name]['host_us'],
-                    cuda_core_host_us=timing[name]['cuda_core_host_us'])
+                    cuda_core_host_us=timing[name]['cuda_core_host_us'], l1=timing_lm[name])
                for name in ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv')]
+    log('chip_smoke: %.1f s in all' % (time.monotonic() - T_START))
     log(smi)
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {'platform': 'gpu',

@@ -3,9 +3,10 @@
 A second package beside ``petastorm_tpu`` (the JAX reference, which it is
 held against and never imports): the same reader and decode plane, a
 loader that moves batches to an NVIDIA GPU (streaming, or from an epoch
-cache in host or device memory), on-device augmentation, the ResNet-50 and
-ViT models, and the flash-attention kernels as hand-written CUDA for Hopper
-(``csrc/``).  Entry points run on the card unless the caller passes
+cache in host or device memory, or packed into fixed-shape LM batches),
+on-device augmentation, the ResNet-50, ViT and decoder-only LM models (with
+KV-cache generation), and the flash-attention kernels as hand-written CUDA
+for Hopper (``csrc/``).  Entry points run on the card unless the caller passes
 ``device='cpu'``.
 
 Imports are lazy (PEP 562) so ``import petastorm_tpu_torch`` stays cheap.
@@ -23,6 +24,7 @@ _LAZY = {
     'DataLoader': 'petastorm_tpu_torch.gpu.loader',
     'InMemDataLoader': 'petastorm_tpu_torch.gpu.loader',
     'DeviceInMemDataLoader': 'petastorm_tpu_torch.gpu.loader',
+    'PackedDataLoader': 'petastorm_tpu_torch.gpu.loader',
     'StallMonitor': 'petastorm_tpu_torch.benchmark.stall_profiler',
     'train': 'petastorm_tpu_torch.train',
 }

@@ -19,7 +19,10 @@ flax                                     port
 var                                      running_mean, running_var
 ``Dense`` kernel ``(in, out)``           ``Dense.weight`` ``(out, in)``
 qkv ``DenseGeneral`` ``(d, 3, h, hd)``   ``(3*h*hd, d)``, rows (qkv, h, hd)
+q ``DenseGeneral`` ``(d, h, hd)`` (GQA)  ``(h*hd, d)``
+kv ``DenseGeneral`` ``(d, 2, h, hd)``    ``(2*h*hd, d)``, rows (kv, h, hd)
 out ``DenseGeneral`` ``(h, hd, d)``      ``(d, h*hd)``
+``Embed`` embedding ``(n, d)``           ``Embed.embedding`` ``(n, d)``
 =======================================  ====================================
 
 The maps are linear, so they carry gradient trees across as well.
@@ -29,7 +32,8 @@ import numpy as np
 import torch
 
 __all__ = ['vit_params_from_flax', 'block_params_from_flax', 'attention_params_from_flax',
-           'resnet_params_from_flax', 'bottleneck_params_from_flax']
+           'transformer_lm_params_from_flax', 'resnet_params_from_flax',
+           'bottleneck_params_from_flax']
 
 
 def _t(x):
@@ -45,8 +49,12 @@ def _dense(name, p, in_axes=1):
 
 
 def attention_params_from_flax(p):
-    """flax ``Attention`` params (MHA) -> port ``Attention`` state_dict."""
-    out = _dense('qkv', p['qkv'])                 # (d, 3, h, hd) -> (3*h*hd, d)
+    """flax ``Attention`` params (MHA or GQA) -> port ``Attention`` state_dict."""
+    if 'qkv' in p:
+        out = _dense('qkv', p['qkv'])             # (d, 3, h, hd) -> (3*h*hd, d)
+    else:
+        out = _dense('q', p['q'])                 # (d, h, hd) -> (h*hd, d)
+        out.update(_dense('kv', p['kv']))         # (d, 2, h_kv, hd) -> (2*h_kv*hd, d)
     out.update(_dense('out', p['out'], in_axes=2))  # (h, hd, d) -> (d, h*hd)
     return out
 
@@ -69,12 +77,29 @@ def vit_params_from_flax(params):
            'ln_f.scale': _t(params['ln_f']['scale'])}
     if 'cls_token' in params:
         out['cls_token'] = _t(params['cls_token'])
+    out.update(_blocks(params))
+    out.update(_dense('head', params['head']))
+    return out
+
+
+def _blocks(params):
+    """flax ``block_i`` subtrees -> the port's ``blocks.i.*`` entries."""
+    out = {}
     i = 0
     while 'block_%d' % i in params:
         out.update({'blocks.%d.%s' % (i, k): v
                     for k, v in block_params_from_flax(params['block_%d' % i]).items()})
         i += 1
-    out.update(_dense('head', params['head']))
+    return out
+
+
+def transformer_lm_params_from_flax(params):
+    """flax ``TransformerLM`` params -> port ``TransformerLM`` state_dict."""
+    out = {'embed.embedding': _t(params['embed']['embedding']),
+           'ln_f.scale': _t(params['ln_f']['scale'])}
+    if 'pos_embed' in params:
+        out['pos_embed.embedding'] = _t(params['pos_embed']['embedding'])
+    out.update(_blocks(params))
     return out
 
 

@@ -3,9 +3,10 @@
 Counterpart of ``petastorm_tpu.jax``.
 """
 
-from petastorm_tpu_torch.gpu import augment
-from petastorm_tpu_torch.gpu.loader import DataLoader, DeviceInMemDataLoader, InMemDataLoader
+from petastorm_tpu_torch.gpu import augment, packing
+from petastorm_tpu_torch.gpu.loader import (DataLoader, DeviceInMemDataLoader, InMemDataLoader,
+                                            PackedDataLoader)
 from petastorm_tpu_torch.gpu.transfer import resolve_device
 
-__all__ = ['DataLoader', 'InMemDataLoader', 'DeviceInMemDataLoader', 'augment',
-           'resolve_device']
+__all__ = ['DataLoader', 'InMemDataLoader', 'DeviceInMemDataLoader', 'PackedDataLoader',
+           'augment', 'packing', 'resolve_device']

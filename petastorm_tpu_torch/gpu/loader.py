@@ -17,8 +17,13 @@ the JAX loaders' batches bit for bit: the host loader draws its epoch
 orders from numpy's ``default_rng(seed)``, the device loader from
 :mod:`petastorm_tpu_torch.random` (``jax.random`` reproduced).
 
-Row readers (``columnar_decode=False``), ``state_dict``/resume, autotuning,
-data echoing, ``scan_batches``, sharding, ``DiskCachedDataLoader`` and
+:class:`PackedDataLoader` packs a variable-length sequence column of a row
+reader into fixed-shape LM batches (:mod:`~petastorm_tpu_torch.gpu.packing`)
+and delivers them like :class:`DataLoader`.
+
+``DataLoader`` on row readers (``columnar_decode=False``), ``state_dict``/
+resume (``PackedDataLoader.state_dict`` included), autotuning, data echoing,
+``scan_batches``, sharding, ``DiskCachedDataLoader`` and
 ``ResidentDataLoader`` are later slices of the port.
 """
 
@@ -31,11 +36,12 @@ import numpy as np
 import torch
 
 from petastorm_tpu_torch import random as prng
+from petastorm_tpu_torch.gpu.packing import StreamPacker
 from petastorm_tpu_torch.gpu.transfer import TransferPlane, canonical_dtype, resolve_device
 
 logger = logging.getLogger(__name__)
 
-__all__ = ['DataLoader', 'InMemDataLoader', 'DeviceInMemDataLoader']
+__all__ = ['DataLoader', 'InMemDataLoader', 'DeviceInMemDataLoader', 'PackedDataLoader']
 
 
 class DataLoader(object):
@@ -51,16 +57,15 @@ class DataLoader(object):
         prefetch: batches kept in flight ahead of the consumer.
         device: target device; ``None`` means the card (raises without one).
         seed: shuffling seed.
+        transform_fn: applied to each host batch (a dict of numpy arrays)
+            before it moves to the device; its result is what moves.
     """
 
     def __init__(self, reader, batch_size, shuffling_queue_capacity=0, drop_last=True,
-                 prefetch=2, device=None, seed=None):
+                 prefetch=2, device=None, seed=None, transform_fn=None):
         if batch_size <= 0:
             raise ValueError('batch_size must be positive')
-        if not getattr(reader, 'batched_output', False):
-            raise ValueError('DataLoader takes a columnar reader (make_reader(..., '
-                             'columnar_decode=True)); row readers are a later slice of '
-                             'the port')
+        self._check_reader(reader)
         self.device = resolve_device(device)
         self.reader = reader
         self.batch_size = int(batch_size)
@@ -68,21 +73,40 @@ class DataLoader(object):
         self._drop_last = drop_last
         self._prefetch = max(1, int(prefetch))
         self._seed = seed
+        self._transform_fn = transform_fn
         self._warned_fields = set()
+
+    @staticmethod
+    def _check_reader(reader):
+        if not getattr(reader, 'batched_output', False):
+            raise ValueError('DataLoader takes a columnar reader (make_reader(..., '
+                             'columnar_decode=True)): its row-reader path is a later slice '
+                             'of the port (PackedDataLoader takes row readers)')
 
     def __iter__(self):
         plane = TransferPlane(self.device, ring_slots=self._prefetch + 2)
         pending = deque()
-        for host_batch in self._columnar_batches():
+        for host_batch in self._host_batches():
+            if self._transform_fn is not None:
+                host_batch = self._transform_fn(host_batch)
             pending.append(plane.put(_filter_numeric(host_batch, self._warned_fields)))
             if len(pending) > self._prefetch:
                 yield plane.ready(*pending.popleft())
         while pending:
             yield plane.ready(*pending.popleft())
 
+    def _host_batches(self):
+        return self._columnar_batches()
+
     def _chunk_source(self):
         for chunk in self.reader:
             yield chunk._asdict() if hasattr(chunk, '_asdict') else dict(chunk)
+
+    def _row_source(self):
+        """A row reader's rows as dicts (the JAX loader's ``_row_source``
+        without its resume pushback, which comes with ``state_dict``)."""
+        for row in self.reader:
+            yield row._asdict() if hasattr(row, '_asdict') else dict(row)
 
     def _columnar_batches(self):
         """Re-batch column chunks: a chunk exactly batch_size long passes
@@ -149,6 +173,50 @@ class DataLoader(object):
     def __exit__(self, exc_type, exc_value, tb):
         self.reader.stop()
         self.reader.join()
+
+
+class PackedDataLoader(DataLoader):
+    """Pack the variable-length ``tokens_field`` of a row reader into
+    ``(rows_per_batch, max_len)`` LM batches (``tokens``, ``segment_ids``,
+    ``positions``: :class:`~petastorm_tpu_torch.gpu.packing.StreamPacker`)
+    and deliver them like :class:`DataLoader` (``prefetch``, ``device``,
+    ``transform_fn``)::
+
+        with make_reader(url, schema_fields=['tokens']) as reader:
+            for batch in PackedDataLoader(reader, 'tokens', max_len=4096,
+                                          rows_per_batch=8):
+                step(batch['tokens'], batch['segment_ids'], batch['positions'])
+
+    Order comes from the reader (shuffle row groups there):
+    ``shuffling_queue_capacity`` is rejected, as are columnar readers.
+    With ``drop_last=False`` the final short batch is padded with
+    all-padding rows.
+    """
+
+    def __init__(self, reader, tokens_field, max_len, rows_per_batch, pad_id=0, open_rows=32,
+                 **loader_kwargs):
+        if loader_kwargs.get('shuffling_queue_capacity'):
+            raise ValueError('PackedDataLoader does not support shuffling_queue_capacity; '
+                             'shuffle in the reader (shuffle_row_groups)')
+        super().__init__(reader, batch_size=rows_per_batch, **loader_kwargs)
+        self._tokens_field = tokens_field
+        self._max_len = int(max_len)
+        self._pad_id = pad_id
+        self._open_rows = int(open_rows)
+
+    @staticmethod
+    def _check_reader(reader):
+        if getattr(reader, 'batched_output', False):
+            raise ValueError('PackedDataLoader needs a row reader (make_reader without '
+                             'columnar_decode): a columnar reader yields chunks, not '
+                             'per-document sequences')
+
+    def _host_batches(self):
+        packer = StreamPacker(self._max_len, self.batch_size, pad_id=self._pad_id,
+                              open_rows=self._open_rows, drop_last=self._drop_last)
+        for row in self._row_source():
+            yield from packer.add(row[self._tokens_field])
+        yield from packer.flush()
 
 
 def _take_front(chunks, size):

@@ -1,8 +1,10 @@
-"""Transformer building blocks: ``RMSNorm``, ``Attention`` (multi-head, no
-decode cache) and ``Block``.
+"""Transformer building blocks and the decoder-only ``TransformerLM``.
 
-Counterpart of ``petastorm_tpu/models/transformer.py`` as ``nn.Module``s.
-The numbers follow the flax modules at every dtype boundary:
+Counterpart of ``petastorm_tpu/models/transformer.py`` as ``nn.Module``s:
+``RMSNorm``, ``Attention`` (multi-head or grouped-query, optional RoPE, an
+optional KV cache for decoding), ``Block``, ``Embed``, ``TransformerLM``
+and ``make_attn_fn``.  The numbers follow the flax modules at every dtype
+boundary:
 
 * Parameters are fp32.  A ``Dense`` with ``compute_dtype=bf16`` casts its
   input, weight and bias to bf16 and multiplies in bf16 (flax
@@ -10,23 +12,41 @@ The numbers follow the flax modules at every dtype boundary:
 * ``RMSNorm`` returns ``(x * rsqrt(var + eps)).astype(x.dtype) * scale``
   with an fp32 ``scale``: a bf16 input gives an fp32 output, as under
   JAX's type promotion.
-* flax ``nn.gelu`` is the tanh approximation.
+* ``Embed`` (flax ``nn.Embed(dtype=bf16)``) looks rows up in the table
+  cast to bf16, so a bf16 token plus a bf16 learned position gives a bf16
+  residual stream; its ``attend`` (the tied head) is a bf16 product with
+  the table's transpose, which ``TransformerLM`` casts to fp32.
+* A ``Dense`` rounds its product to bf16 before it adds the bias, as flax
+  does (a bias fused into the product would be added before the one
+  rounding).  flax ``nn.gelu`` is the tanh approximation; PyTorch's fused
+  ``F.gelu`` rounds once where XLA rounds each op, which the bf16 logits'
+  tolerance absorbs (``tests/test_torch_lm.py`` measures each rounding
+  point's share of it).
 
 Weights are stored in PyTorch's layouts (``Dense.weight`` is ``[out, in]``);
 ``petastorm_tpu_torch.convert`` maps flax parameter trees onto them.
-Grouped-query attention, RoPE, the decode cache and ``TransformerLM`` are a
-later slice of the port.
+
+Decoding keeps its cache as explicit state: :meth:`TransformerLM.init_cache`
+makes one :class:`KVCache` per layer, and a forward given ``cache=``
+writes the new keys and values into it in place and advances its index, a
+host integer, so choosing between a fresh prefill and attending the cache
+(``lax.cond`` in the JAX package) costs no device sync.  Ring and Ulysses
+attention wait for the multi-device slice of the port (``parallel/``).
 """
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from petastorm_tpu_torch.ops import flash_attention
+from petastorm_tpu_torch.ops.flash_attention import NEG_INF, full_attention
 
-__all__ = ['Dense', 'RMSNorm', 'Attention', 'Block', 'lecun_normal_']
+__all__ = ['Dense', 'RMSNorm', 'Attention', 'Block', 'Embed', 'KVCache', 'TransformerLM',
+           'lecun_normal_', 'rope', 'rope_cos_sin', 'make_attn_fn']
 
 
 def lecun_normal_(tensor, fan_in, generator=None):
@@ -36,6 +56,30 @@ def lecun_normal_(tensor, fan_in, generator=None):
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     with torch.no_grad():
         return nn.init.trunc_normal_(tensor, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
+def rope_cos_sin(positions, head_dim, base=10000.0):
+    """RoPE tables for ``positions`` ``[b, s]``: fp32 cos and sin, each
+    ``[b, s, 1, head_dim / 2]``, computed once for q and k."""
+    if head_dim % 2:
+        raise ValueError('RoPE needs an even head_dim, got %d' % head_dim)
+    half = head_dim // 2
+    freqs = base ** (-torch.arange(0, half, dtype=torch.float32, device=positions.device)
+                     / half)
+    angles = positions[:, :, None].float() * freqs            # [b, s, half]
+    return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+
+
+def rope(x, positions=None, base=10000.0, cos_sin=None):
+    """Rotary position embedding, GPT-NeoX split halves, on ``x``
+    ``[batch, seq, heads, head_dim]`` at ``positions`` ``[batch, seq]`` (or
+    a precomputed ``cos_sin``); returns x's dtype."""
+    if cos_sin is None:
+        cos_sin = rope_cos_sin(positions, x.shape[-1], base)
+    cos, sin = cos_sin
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
 
 
 class Dense(nn.Module):
@@ -51,7 +95,9 @@ class Dense(nn.Module):
 
     def forward(self, x):
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        # the product rounds to dt before the bias is added, as in flax (a
+        # fused bias would add it before the one rounding)
+        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
 
 
 class RMSNorm(nn.Module):
@@ -67,31 +113,145 @@ class RMSNorm(nn.Module):
         return (x * torch.rsqrt(var + self.eps)).to(x.dtype) * self.scale
 
 
+class Embed(nn.Module):
+    """flax ``nn.Embed(num_embeddings, features, dtype=compute_dtype)``: an
+    fp32 table initialised ``N(0, 1 / features)``."""
+
+    def __init__(self, num_embeddings, features, compute_dtype=torch.bfloat16,
+                 generator=None):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.embedding = nn.Parameter(torch.empty(num_embeddings, features))
+        with torch.no_grad():
+            self.embedding.normal_(0.0, features ** -0.5, generator=generator)
+
+    def forward(self, ids):
+        return F.embedding(ids, self.embedding.to(self.compute_dtype))
+
+    def attend(self, x):
+        """``x @ table^T`` in ``compute_dtype``."""
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.embedding.to(dt))
+
+
+class KVCache(object):
+    """One layer's decode cache: ``key`` and ``value`` buffers ``[batch,
+    max_len, kv_heads, head_dim]`` and ``index``, the next position to
+    write (a host integer).  Forward passes given the cache update it in
+    place."""
+
+    def __init__(self, batch, max_len, kv_heads, head_dim, dtype, device):
+        self.key = torch.zeros(batch, max_len, kv_heads, head_dim, dtype=dtype, device=device)
+        self.value = torch.zeros_like(self.key)
+        self.index = 0
+
+
 class Attention(nn.Module):
-    """Multi-head self-attention: a fused qkv projection, ``attn_fn`` over
-    ``[batch, seq, heads, head_dim]``, and an output projection."""
+    """Self-attention: projections to q, k, v ``[batch, seq, heads,
+    head_dim]``, ``attn_fn`` over them, and an output projection.
+
+    ``num_kv_heads=None`` is multi-head attention with a fused ``qkv``
+    projection; a divisor of ``num_heads`` is grouped-query attention with
+    separate ``q`` and ``kv`` projections (k and v are repeated to the
+    query heads before ``attn_fn``; the cache keeps ``num_kv_heads``).
+    ``pos_mode='rope'`` rotates q and k by ``positions`` before attention.
+    """
 
     def __init__(self, d_model, num_heads, compute_dtype=torch.bfloat16,
-                 attn_fn=flash_attention, causal=True, generator=None):
+                 attn_fn=flash_attention, causal=True, generator=None, *,
+                 num_kv_heads=None, pos_mode=None):
         super().__init__()
         if d_model % num_heads:
             raise ValueError('d_model %d not divisible by %d heads' % (d_model, num_heads))
+        if num_kv_heads is not None and num_heads % num_kv_heads:
+            raise ValueError('num_heads %d not divisible by num_kv_heads %d'
+                             % (num_heads, num_kv_heads))
         self.num_heads = num_heads
         self.head_dim = d_model // num_heads
+        self.num_kv_heads = num_kv_heads
         self.attn_fn = attn_fn
         self.causal = causal
-        # flax DenseGeneral((3, heads, head_dim)): the 3*d_model outputs are
-        # ordered (qkv, head, head_dim).
-        self.qkv = Dense(d_model, 3 * d_model, compute_dtype, generator)
+        self.pos_mode = pos_mode
+        if num_kv_heads is None:
+            # flax DenseGeneral((3, heads, head_dim)): the 3*d_model outputs
+            # are ordered (qkv, head, head_dim).
+            self.qkv = Dense(d_model, 3 * d_model, compute_dtype, generator)
+        else:
+            self.q = Dense(d_model, d_model, compute_dtype, generator)
+            # flax DenseGeneral((2, kv_heads, head_dim))
+            self.kv = Dense(d_model, 2 * num_kv_heads * self.head_dim, compute_dtype, generator)
         # flax DenseGeneral(d_model, axis=(-2, -1)) over (heads, head_dim).
         self.out = Dense(d_model, d_model, compute_dtype, generator)
 
-    def forward(self, x):
+    def forward(self, x, positions=None, cache=None, attn_fn=None):
+        """``cache`` (a :class:`KVCache`) switches to decoding;
+        ``attn_fn`` overrides the module's for this call."""
         b, s, d_model = x.shape
-        qkv = self.qkv(x).view(b, s, 3, self.num_heads, self.head_dim)
-        q, k, v = qkv.unbind(dim=2)        # each [b, s, h, hd]
-        out = self.attn_fn(q, k, v, causal=self.causal)
+        hd = self.head_dim
+        if self.num_kv_heads is None:
+            q, k, v = self.qkv(x).view(b, s, 3, self.num_heads, hd).unbind(dim=2)
+        else:
+            q = self.q(x).view(b, s, self.num_heads, hd)
+            k, v = self.kv(x).view(b, s, 2, self.num_kv_heads, hd).unbind(dim=2)
+        if self.pos_mode == 'rope':
+            if positions is None:
+                if cache is not None:
+                    # arange(seq) would rotate every one-token step at
+                    # position 0: demand real positions.
+                    raise ValueError('decode mode with RoPE requires explicit positions')
+                positions = torch.arange(s, device=x.device).expand(b, s)
+            cs = rope_cos_sin(positions, hd)
+            q, k = rope(q, cos_sin=cs), rope(k, cos_sin=cs)
+        attn_fn = attn_fn or self.attn_fn
+        if cache is not None:
+            out = self._decode_step(q, k, v, cache, attn_fn)
+        else:
+            k, v = self._expand_kv(k, v)
+            out = attn_fn(q, k, v, causal=self.causal)
         return self.out(out.reshape(b, s, d_model))
+
+    def _expand_kv(self, k, v):
+        """Repeat KV heads to the query head count (a no-op for MHA)."""
+        if self.num_kv_heads is None or self.num_kv_heads == self.num_heads:
+            return k, v
+        g = self.num_heads // self.num_kv_heads
+        return k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
+
+    def _decode_step(self, q, k, v, cache, attn_fn):
+        """Attention against the static KV cache, written in place.
+
+        A multi-token call on a fresh cache (index 0) is a prefill: causal
+        ``attn_fn`` over the prompt alone.  A chunk on a warm cache, and
+        every one-token step, attends the whole buffer with absolute
+        positions masked (:meth:`_attend_cache`).
+        """
+        seq = q.shape[1]
+        i = cache.index
+        if i + seq > cache.key.shape[1]:
+            raise ValueError('cache holds %d positions; writing %d at %d'
+                             % (cache.key.shape[1], seq, i))
+        cache.key[:, i:i + seq] = k.to(cache.key.dtype)
+        cache.value[:, i:i + seq] = v.to(cache.value.dtype)
+        cache.index = i + seq
+        if seq > 1 and i == 0:
+            k, v = self._expand_kv(k, v)
+            return attn_fn(q, k, v, causal=True)
+        q_pos = i + torch.arange(seq, device=q.device)
+        return self._attend_cache(q, cache.key, cache.value, q_pos)
+
+    @staticmethod
+    def _attend_cache(q, ck, cv, q_pos):
+        """Attend the cache buffer at absolute query positions ``q_pos``,
+        grouped against the unexpanded KV heads, in fp32."""
+        b, seq, h, hd = q.shape
+        max_len, h_kv = ck.shape[1], ck.shape[2]
+        q_g = q.float().reshape(b, seq, h_kv, h // h_kv, hd)
+        scores = torch.einsum('bqkgd,blkd->bkgql', q_g, ck.float()) * hd ** -0.5
+        mask = torch.arange(max_len, device=q.device)[None, :] <= q_pos[:, None]
+        scores = torch.where(mask, scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum('bkgql,blkd->bqkgd', probs, cv.float())
+        return out.reshape(b, seq, h, hd).to(q.dtype)
 
 
 class Block(nn.Module):
@@ -99,15 +259,94 @@ class Block(nn.Module):
     ``x + ffw_out(gelu(ffw_in(ln2(x))))``."""
 
     def __init__(self, d_model, num_heads, d_ff, compute_dtype=torch.bfloat16,
-                 attn_fn=flash_attention, causal=True, generator=None):
+                 attn_fn=flash_attention, causal=True, generator=None, *,
+                 num_kv_heads=None, pos_mode=None):
         super().__init__()
         self.ln1 = RMSNorm(d_model)
-        self.attn = Attention(d_model, num_heads, compute_dtype, attn_fn, causal, generator)
+        self.attn = Attention(d_model, num_heads, compute_dtype, attn_fn, causal, generator,
+                              num_kv_heads=num_kv_heads, pos_mode=pos_mode)
         self.ln2 = RMSNorm(d_model)
         self.ffw_in = Dense(d_model, d_ff, compute_dtype, generator)
         self.ffw_out = Dense(d_ff, d_model, compute_dtype, generator)
 
-    def forward(self, x):
-        x = x + self.attn(self.ln1(x))
+    def forward(self, x, positions=None, cache=None, attn_fn=None):
+        x = x + self.attn(self.ln1(x), positions, cache, attn_fn)
         h = F.gelu(self.ffw_in(self.ln2(x)), approximate='tanh')
         return x + self.ffw_out(h)
+
+
+class TransformerLM(nn.Module):
+    """Decoder-only LM: tokens ``[batch, seq]`` -> fp32 logits ``[batch,
+    seq, vocab]``, with a tied output head.
+
+    ``pos_embed`` is ``'learned'`` (a table of ``max_seq_len`` rows added to
+    the token embedding) or ``'rope'``; ``num_kv_heads`` selects
+    grouped-query attention; ``remat=True`` recomputes each block in the
+    backward pass (``torch.utils.checkpoint``, non-reentrant), which runs
+    its attention forward twice.  ``generator`` seeds the initial weights.
+    """
+
+    def __init__(self, vocab_size, d_model=512, num_heads=8, num_layers=6, d_ff=2048,
+                 max_seq_len=2048, compute_dtype=torch.bfloat16, attn_fn=flash_attention,
+                 remat=False, num_kv_heads=None, pos_embed='learned', generator=None):
+        super().__init__()
+        if pos_embed not in ('learned', 'rope'):
+            raise ValueError("pos_embed must be 'learned' or 'rope', got %r" % (pos_embed,))
+        self.vocab_size = vocab_size
+        self.max_seq_len = max_seq_len
+        self.compute_dtype = compute_dtype
+        self.remat = remat
+        self.pos_mode = pos_embed
+        self.embed = Embed(vocab_size, d_model, compute_dtype, generator)
+        if pos_embed == 'learned':
+            self.pos_embed = Embed(max_seq_len, d_model, compute_dtype, generator)
+        self.blocks = nn.ModuleList(
+            Block(d_model, num_heads, d_ff, compute_dtype, attn_fn, True, generator,
+                  num_kv_heads=num_kv_heads,
+                  pos_mode='rope' if pos_embed == 'rope' else None)
+            for _ in range(num_layers))
+        self.ln_f = RMSNorm(d_model)
+
+    def init_cache(self, batch, device=None):
+        """A fresh decode cache, one :class:`KVCache` per layer, of
+        ``max_seq_len`` positions in ``compute_dtype``."""
+        device = device if device is not None else self.embed.embedding.device
+        attn = self.blocks[0].attn
+        kv_heads = attn.num_kv_heads or attn.num_heads
+        return [KVCache(batch, self.max_seq_len, kv_heads, attn.head_dim, self.compute_dtype,
+                        device) for _ in self.blocks]
+
+    def forward(self, tokens, positions=None, cache=None, attn_fn=None):
+        """``positions`` ``[batch, seq]`` overrides the row-absolute
+        ``arange`` (packed documents pass theirs, restarting at 0);
+        ``cache`` (from :meth:`init_cache`) decodes; ``attn_fn`` overrides
+        the blocks' attention for this call (e.g. one bound to a packed
+        batch's segment ids)."""
+        x = self.embed(tokens)
+        if positions is None:
+            positions = torch.arange(tokens.shape[1], device=tokens.device).expand(tokens.shape)
+        if self.pos_mode == 'learned':
+            x = x + self.pos_embed(positions)
+        for i, block in enumerate(self.blocks):
+            layer_cache = None if cache is None else cache[i]
+            if self.remat and layer_cache is None and torch.is_grad_enabled():
+                x = checkpoint(block, x, positions, None, attn_fn, use_reentrant=False)
+            else:
+                x = block(x, positions, layer_cache, attn_fn)
+        x = self.ln_f(x)
+        return self.embed.attend(x).float()
+
+
+def make_attn_fn(strategy='flash', segment_ids=None):
+    """The attention for a strategy: ``'flash'`` (the hand-written
+    kernels) or ``'dense'`` (the O(seq^2) reference), bound to a packed
+    batch's ``segment_ids`` (``[batch, seq]``, 0 = padding) when given.
+    ``'ring'`` and ``'ulysses'`` shard the sequence over devices and wait
+    for the multi-device slice of the port."""
+    if strategy in ('ring', 'ulysses'):
+        raise ValueError('attention strategy %r shards the sequence over devices: it comes '
+                         'with the multi-device slice of the port (parallel/)' % (strategy,))
+    if strategy not in ('flash', 'dense'):
+        raise ValueError('unknown attention strategy %r' % (strategy,))
+    fn = flash_attention if strategy == 'flash' else full_attention
+    return fn if segment_ids is None else functools.partial(fn, segment_ids=segment_ids)

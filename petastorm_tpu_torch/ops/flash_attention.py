@@ -286,7 +286,8 @@ def full_attention(q, k, v, causal=False, scale=None, segment_ids=None):
     output exactly 0.
     """
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    sc = torch.einsum('bqhd,bkhd->bhqk', q, k) * scale
+    # the scale in q's dtype, as JAX rounds a Python scalar to the array's
+    sc = torch.einsum('bqhd,bkhd->bhqk', q, k) * torch.tensor(scale, dtype=q.dtype)
     if causal:
         s_len = q.shape[1]
         keep = torch.tril(torch.ones(s_len, s_len, dtype=torch.bool, device=q.device))
@@ -295,7 +296,9 @@ def full_attention(q, k, v, causal=False, scale=None, segment_ids=None):
         seg = segment_ids
         same = (seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] != 0)
         sc = torch.where(same[:, None], sc, NEG_INF)
-    p = torch.softmax(sc, dim=-1)
+    # jax.nn.softmax op by op, so a bf16 input rounds where XLA rounds it
+    unnormalized = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+    p = unnormalized / unnormalized.sum(dim=-1, keepdim=True)
     if segment_ids is not None:
         # padding rows would softmax uniformly over NEG_INF; zero them
         p = torch.where((segment_ids != 0)[:, None, :, None], p, 0.0)

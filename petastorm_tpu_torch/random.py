@@ -8,11 +8,21 @@ the JAX loader's, element for element.  Counterparts in ``jax/_src``:
 ``prng.threefry_seed``, ``prng._threefry_split_foldlike``,
 ``prng._threefry_random_bits_partitionable``, ``prng._threefry2x32_lowering``
 and ``random._shuffle``.  A key is a ``uint32`` array of shape ``(2,)``.
+
+``uniform``, ``gumbel`` and ``categorical`` (float32) are what
+``random._uniform``, ``random._gumbel`` in its default ``mode='low'``
+(``jax_high_dynamic_range_gumbel`` is off) and ``random.categorical``
+compute: the sampler of ``models.decoding.generate``.  The random words and
+the uniforms are the JAX package's bit for bit; the logarithms of the
+Gumbel noise run in torch on the logits' device and may differ from XLA's
+in the last bit, which moves no sample short of an exact tie.
 """
 
 import numpy as np
+import torch
 
-__all__ = ['PRNGKey', 'split', 'random_bits', 'permutation', 'threefry2x32']
+__all__ = ['PRNGKey', 'split', 'random_bits', 'permutation', 'threefry2x32', 'uniform',
+           'gumbel', 'categorical']
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -72,3 +82,33 @@ def permutation(key, n):
         key, sub = split(key)
         x = x[np.argsort(random_bits(sub, n), kind='stable')]
     return x
+
+
+def uniform(key, shape=(), minval=0.0, maxval=1.0):
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``: 23
+    random mantissa bits under exponent 0 give a float in [1, 2), minus 1,
+    scaled to [minval, maxval) in float32."""
+    shape = tuple(int(n) for n in shape)
+    bits = random_bits(key, int(np.prod(shape, dtype=np.int64))).reshape(shape)
+    one = np.array(1.0, np.float32).view(np.uint32)
+    floats = ((bits >> np.uint32(32 - 23)) | one).view(np.float32) - np.float32(1.0)
+    lo, hi = np.float32(minval), np.float32(maxval)
+    return np.maximum(lo, floats * (hi - lo) + lo)
+
+
+def gumbel(key, shape=(), device='cpu'):
+    """``jax.random.gumbel(key, shape, float32)`` in JAX's default
+    ``mode='low'``: ``-log(-log(u))`` of ``u = uniform(key, shape,
+    minval=finfo(float32).tiny)``, as a float32 tensor on ``device``."""
+    u = torch.from_numpy(uniform(key, shape, minval=np.finfo(np.float32).tiny, maxval=1.0))
+    return -torch.log(-torch.log(u.to(device)))
+
+
+def categorical(key, logits, axis=-1):
+    """``jax.random.categorical(key, logits, axis)``: the Gumbel-max trick,
+    ``argmax(gumbel(key, logits.shape) + logits)`` over ``axis`` (the first
+    index wins a tie, as in ``jnp.argmax``).  ``logits`` is a float32
+    tensor; returns int64 indices on its device."""
+    if logits.dtype != torch.float32:
+        raise TypeError('categorical takes float32 logits, got %s' % (logits.dtype,))
+    return torch.argmax(gumbel(key, logits.shape, logits.device) + logits, dim=axis)

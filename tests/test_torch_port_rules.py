@@ -96,10 +96,46 @@ def test_training_on_cpu_never_loads_jax(tmp_path):
     assert 'LOADED []' in proc.stdout
 
 
+def test_lm_training_and_sampling_on_cpu_never_load_jax(tmp_path):
+    """The LM paths on the CPU (long-context training, packed training
+    with dense and flash attention, KV-cache sampling) load nothing of
+    JAX: the same subprocess check, in a process of its own."""
+    script = textwrap.dedent('''
+        import sys
+        import numpy as np
+        import petastorm_tpu_torch.train_lm as lm
+        url = 'file://' + sys.argv[1]
+        small = dict(d_model=32, num_heads=4, num_layers=1, d_ff=64)
+        lm.LONG_CONTEXT_LM.update(small)
+        lm.PACKED_LM.update(small)
+        lm.write_token_dataset(url + '_tokens', num_docs=8)
+        result = lm.train_lm(url + '_tokens', steps=2, batch_size=2, device='cpu')
+        assert len(result['losses']) == 2 and all(np.isfinite(result['losses'])), result
+        assert result['batch_devices'] == ['cpu']
+        lm.write_var_token_dataset(url + '_var_tokens', num_docs=16)
+        for attn in ('dense', 'flash'):
+            result = lm.train_packed(url + '_var_tokens', steps=2, attn=attn, device='cpu')
+            assert len(result['losses']) == 2 and all(np.isfinite(result['losses'])), result
+            assert result['step_ms'] > 0 and result['step_tokens_per_s'] > 0, result
+            assert result['batch_devices'] == ['cpu'] and 0 < result['packing_utilization'] <= 1
+        prompt, tokens = lm.sample(result['model'], max_new=4)
+        assert prompt.shape == (2, 8) and tuple(tokens.shape) == (2, 4)
+        loaded = sorted(m for m in sys.modules if m.split('.')[0] in FORBIDDEN)
+        print('LOADED', loaded)
+        sys.exit(1 if loaded else 0)
+    ''').replace('FORBIDDEN', repr(FORBIDDEN))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, '-c', script, str(tmp_path / 'ds')], env=env,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert 'LOADED []' in proc.stdout
+
+
 def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
     from petastorm_tpu_torch.gpu import (DataLoader, DeviceInMemDataLoader, InMemDataLoader,
-                                         resolve_device)
+                                         PackedDataLoader, resolve_device)
     from petastorm_tpu_torch.train import main, train
+    import petastorm_tpu_torch.train_lm as lm
 
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
@@ -122,6 +158,19 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_pa
     for flags in ([], ['--model', 'vit'], ['--hbm-cache']):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             main(['--dataset-url', 'file://%s' % tmp_path, '--steps', '1'] + flags)
+
+    class RowReader(object):
+        batched_output = False
+
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        PackedDataLoader(RowReader(), 'tokens', 64, 4)
+    assert PackedDataLoader(RowReader(), 'tokens', 64, 4, device='cpu').device.type == 'cpu'
+    for entry in (lm.train_lm, lm.train_packed):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            entry('file://%s' % tmp_path, steps=1)
+    for flags in ([], ['--packed'], ['--packed', '--strategy', 'flash', '--sample']):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            lm.main(['--dataset-url', 'file://%s' % tmp_path, '--steps', '1'] + flags)
 
 
 def test_kernel_wrappers_never_fall_back():
