@@ -25,7 +25,9 @@ Phases, in order; any failure propagates and exits nonzero:
    backward beside the two backward kernels; and each kernel's host time
    per wrapper call, for both designs; then each kernel timed at the L1
    shapes (causal), beside its plain version, PyTorch's causal fused
-   attention and its bound;
+   attention and its bound; then the cases only the CUDA-core design takes,
+   fp16 and head_dim 256 (fp32, bf16, fp16) at each mask, checked as above
+   and timed at b=4, s=1024, h=4;
 4. model: the ViT-S/16 forward through the kernels against the same model
    through the dense reference, on a small batch;
 5. main path: a synthetic JPEG Parquet dataset, then 20 full-width
@@ -60,10 +62,26 @@ Phases, in order; any failure propagates and exits nonzero:
    the same key, and its greedy tokens equal the argmax of a full forward
    recomputed step by step.
 
-The line before the last is one JSON object ``{"kernels": [...]}``; the
-last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+Every training path (5-9) runs graphed, the default on the card: a CUDA
+graph of the step replayed once per step (``petastorm_tpu_torch.gpu.graphs``),
+with the flash launches counted as capture x replays.  Beside each graphed
+run: the same run eagerly (``cuda_graph=False``) with the same flash
+launches, both runs' images/s or tokens/s, step ms, host ms per step, data
+wait and ``stall_pct``; a profile of the graphed step; and an eager and a
+graphed run from the same seeds and data order (one decode thread, no
+row-group shuffle), whose losses, parameters and buffers must be equal bit
+for bit.  ResNet-50 streaming also runs the
+example's ``--scan-steps 4``; the HBM cache's profiled step must hold one
+graph launch and no kernel launched from the host but the two fills of the
+augment generator's seed and offset that PyTorch makes before a replay; L3
+samples the same tokens graphed and eager, each timed per new token.
+
+A line ``{"paths": {...}}`` holds those numbers.  The line before the last
+is one JSON object ``{"kernels": [...]}``; the last line is ``{"ok": true,
+"device": {...}}``.  Imports nothing of JAX.
 """
 
+import contextlib
 import importlib
 import json
 import os
@@ -84,6 +102,11 @@ LM_SHAPE = dict(b=8, s=1024, h=8, d=32)      # L1: jax_example.py's batch 8, 256
 PACKED_SHAPE = dict(b=4, s=512, h=4, d=32)   # L2: packed_example.py's 4 rows of 512, 128/4
 PREFILL_SHAPE = dict(b=2, s=8, h=4, d=32)    # L3: the sampler's prefill of 2 prompts of 8
 SMALL_SHAPE = dict(b=2, s=100, h=2, d=16)
+REPAIR_SHAPE = dict(b=2, s=256, h=2)         # fp16 and head_dim 256: the CUDA-core design
+REPAIR_TIME_SHAPE = dict(b=4, s=1024, h=4)
+#: Steps of each eager-against-graphed comparison (one warm-up step, the
+#: capture, then replays); the HBM cache runs two epochs of 8.
+EQ_STEPS = 8
 #: (shape, dtype, causal, segments, misaligned, design) of the kernel checks:
 #: the main path's shapes, the small fp32 case, one case for each other tile
 #: width the CUDA-core kernels instantiate (head_dim up to 32, 64, 128), then
@@ -115,20 +138,35 @@ KERNEL_CASES = (
     (LM_SHAPE, torch.bfloat16, True, False, False, 'tensor_core'),
     (PACKED_SHAPE, torch.bfloat16, True, 'packed', False, 'tensor_core'),
     (PREFILL_SHAPE, torch.bfloat16, True, False, False, 'tensor_core'),
+    # fp16 and head_dim 256, which only the CUDA-core design takes: each mask,
+    # head_dim 256 in fp32, bf16 and fp16, fp16 at 64, and 200 (a partial
+    # 256 tile) at a length that is no multiple of the 32-row streamed tile
+    (dict(REPAIR_SHAPE, d=256), torch.float32, False, False, False, 'cuda_core'),
+    (dict(REPAIR_SHAPE, d=256), torch.float32, True, True, False, 'cuda_core'),
+    (dict(REPAIR_SHAPE, d=256), torch.bfloat16, True, False, False, 'cuda_core'),
+    (dict(REPAIR_SHAPE, d=256), torch.bfloat16, False, True, False, 'cuda_core'),
+    (dict(REPAIR_SHAPE, d=64), torch.float16, False, False, False, 'cuda_core'),
+    (dict(REPAIR_SHAPE, d=64), torch.float16, True, True, False, 'cuda_core'),
+    (dict(REPAIR_SHAPE, d=256), torch.float16, True, False, False, 'cuda_core'),
+    (dict(REPAIR_SHAPE, d=256), torch.float16, False, True, False, 'cuda_core'),
+    (dict(b=1, s=150, h=2, d=200), torch.bfloat16, True, True, False, 'cuda_core'),
 )
 #: Tolerances as (atol, rtol).  fp32: forward 2e-5, gradients 1e-4, as in
 #: tests/test_flash_attention.py.  A bf16 kernel against its plain version:
 #: one bf16 ulp (rtol 8e-3 >= 2**-7, atol 2e-3 near 0), since both compute
-#: in fp32 and differ only in the last rounding to bf16.  bf16 against the
-#: fp32 reference (the op, and the model): 3e-2.
+#: in fp32 and differ only in the last rounding to bf16; fp16 likewise, two
+#: fp16 ulps (rtol 2e-3 >= 2 * 2**-10, atol 2.5e-4).  bf16 against the fp32
+#: reference (the op, and the model): 3e-2; fp16: 1e-2 (its ulp is 8 times
+#: finer, and the op rounds o to fp16 before delta = rowsum(dO * O)).
 TOL = {'fwd_f32': (2e-5, 2e-5), 'grad_f32': (1e-4, 1e-4), 'bf16_vs_plain': (2e-3, 8e-3),
-       'bf16': (3e-2, 3e-2)}
+       'bf16': (3e-2, 3e-2), 'fp16_vs_plain': (2.5e-4, 2e-3), 'fp16': (1e-2, 1e-2)}
 #: ResNet-50 bf16 logits against the same weights in fp32: at most this
 #: share of the largest fp32 logit (the bf16 tolerance of the tests).
 RESNET_BF16_SHARE = 3e-2
 #: H100 SXM peaks (NVIDIA data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
-BF16_FLOP_PER_S = 989e12
+BF16_FLOP_PER_S = 989e12     # and fp16, on the tensor cores
+F32_FLOP_PER_S = 67e12       # fp32 outside the tensor cores
 REPLACES = {
     'flash_fwd': 'petastorm_tpu/ops/flash_attention.py:47',
     'flash_bwd_dq': 'petastorm_tpu/ops/flash_attention.py:200',
@@ -283,9 +321,9 @@ def kernel_case(fa, shape, dtype, causal, segments, misaligned, design, seed):
     if misaligned:
         q, k, v, do = (misaligned_copy(t) for t in (q, k, v, do))
     scale = d ** -0.5
-    bf16 = dtype == torch.bfloat16
-    tol_fwd = TOL['bf16_vs_plain'] if bf16 else TOL['fwd_f32']
-    tol_grad = TOL['bf16_vs_plain'] if bf16 else TOL['grad_f32']
+    low = {torch.bfloat16: 'bf16', torch.float16: 'fp16'}.get(dtype)   # None: fp32
+    tol_fwd = TOL[low + '_vs_plain'] if low else TOL['fwd_f32']
+    tol_grad = TOL[low + '_vs_plain'] if low else TOL['grad_f32']
     tag = ' '.join([str(dtype)[6:]] + ['causal'] * causal
                    + ([segments] if segments == 'packed' else ['segments'] * segments)
                    + ['misaligned'] * misaligned + ['b=%d s=%d h=%d' % (b, s, h)])
@@ -323,10 +361,10 @@ def kernel_case(fa, shape, dtype, causal, segments, misaligned, design, seed):
     ref = fa.full_attention(*ref_leaves, causal=causal, segment_ids=seg)
     ref.backward(do.float())
     e2e = [check('flash_attention out [%s]' % tag, out, ref,
-                 TOL['bf16'] if bf16 else TOL['fwd_f32'])]
+                 TOL[low] if low else TOL['fwd_f32'])]
     for name, a, r in zip('qkv', leaves, ref_leaves):
         e2e.append(check('flash_attention d%s [%s]' % (name, tag), a.grad, r.grad,
-                         TOL['bf16'] if bf16 else TOL['grad_f32']))
+                         TOL[low] if low else TOL['grad_f32']))
     torch.cuda.synchronize()
     log('kernels [%s d=%d, on %s]: max err vs plain fwd %.3g dq %.3g dkv %.3g '
         '(share of the limit o %.2f dq %.2f dk %.2f dv %.2f); vs fp32 reference %s'
@@ -504,6 +542,55 @@ def phase_timing_lm(fa):
     return rows
 
 
+def phase_timing_repair(fa):
+    """Each kernel where only its CUDA-core design runs: head_dim 256 in fp32
+    and bf16, and fp16 at head_dim 64 and 256, non-causal at b=4, s=1024,
+    h=4; its device time, its plain version's, PyTorch's fused attention for
+    the forward, and its bound (operations at 989 TFLOP/s for bf16 and fp16,
+    at 67 TFLOP/s for fp32, the rate outside the tensor cores).  Returns
+    ``{kernel: [row per case]}``."""
+    b, s, h = (REPAIR_TIME_SHAPE[x] for x in 'bsh')
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device='cuda')
+    rows = {name: [] for name in ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv')}
+    for dtype, d in ((torch.float32, 256), (torch.bfloat16, 256), (torch.float16, 64),
+                     (torch.float16, 256)):
+        q, k, v, do, _ = make_inputs(b, s, h, d, dtype, seed=13)
+        scale = d ** -0.5
+        o, lse = fa.flash_fwd(q, k, v, None, False, scale)
+        delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1).reshape(b * h, s).contiguous()
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        elems, stat = b * s * h * d * q.element_size(), b * h * s * 4
+        pair = b * h * s * s * d
+        rate = F32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S
+        cases = [
+            ('flash_fwd', lambda: fa.flash_fwd(q, k, v, None, False, scale),
+             lambda: fa.flash_fwd_plain(q, k, v, None, False, scale),
+             lambda: F.scaled_dot_product_attention(qt, kt, vt), 4 * elems + stat, 4 * pair),
+            ('flash_bwd_dq', lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, None, False, scale),
+             lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, None, False, scale),
+             None, 5 * elems + 2 * stat, 6 * pair),
+            ('flash_bwd_dkv',
+             lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, None, False, scale),
+             lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, None, False, scale),
+             None, 6 * elems + 2 * stat, 8 * pair),
+        ]
+        before = snapshot(fa)
+        for name, kernel, plain, library, nbytes, flops in cases:
+            first, plain_ms, last = (time_ms(fn, flush, iters=10) for fn in (kernel, plain, kernel))
+            library_ms = time_ms(library, flush, iters=10) if library is not None else None
+            bound_ms, bound_by = bound(nbytes, flops, rate)
+            shape = 'b=%d s=%d h=%d d=%d %s' % (b, s, h, d, str(dtype)[6:])
+            rows[name].append(dict(shape=shape, ms=(first + last) / 2, plain_ms=plain_ms,
+                                   library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
+            log('time %s @ %s (CUDA-core design): kernel %.4f ms (%.4f / %.4f), plain %.4f ms, '
+                'library %s, bound %.4f ms (%s; %.1f MB, %.2f GFLOP at %.0f TFLOP/s)'
+                % (name, shape, (first + last) / 2, first, last, plain_ms,
+                   'n/a' if library_ms is None else '%.4f ms' % library_ms, bound_ms, bound_by,
+                   nbytes / 1e6, flops / 1e9, rate / 1e12))
+        check_designs(fa, before, 'cuda_core', 'repair timing d=%d %s' % (d, dtype))
+    return rows
+
+
 def phase_model(fa):
     """ViT-S/16 logits through the kernels vs through the dense reference."""
     from petastorm_tpu_torch.models.vit import ViT
@@ -547,20 +634,28 @@ def write_dataset(url, rows=512, seed=0):
 
 def phase_main_path(fa, url, tmp):
     from petastorm_tpu_torch.train import train
+
+    def run(steps=STEPS, **kwargs):
+        return train(url, steps=steps, batch_size=BATCH, model_name='vit', **kwargs)
     reset_counts(fa)
-    result = train(url, steps=STEPS, batch_size=BATCH, model_name='vit')
+    result = run()
     launches, by_design = counts(fa)
     check_main_path(result, launches, by_design)
-    phase_profile(lambda n: train(url, steps=n, batch_size=BATCH, model_name='vit'), 'vit', tmp)
+    eager_beside(fa, 'vit', run, result, launches)
+    SUMMARY['vit']['profile'] = phase_profile(lambda n: run(n), 'vit', tmp)
+    SUMMARY['vit']['profile_eager'] = phase_profile(lambda n: run(n, cuda_graph=False),
+                                                  'vit eager', tmp)
+    eager_vs_graphed(fa, 'vit', lambda **kw: run(EQ_STEPS, **kw))
     return launches
 
 
 def check_main_path(result, launches, by_design):
     losses = result['losses']
-    log('main path: steps=%d final loss=%.4f images/s=%.1f step_ms=%.2f (over steps 3..%d) '
-        'data_wait_ms=%.2f (steps 3..%d) launches=%s'
-        % (result['steps'], losses[-1], result['images_per_s'], result['step_ms'], STEPS,
-           result['data_wait_ms'], STEPS - 1, launches))
+    log('main path: steps=%d final loss=%.4f images/s=%.1f step_ms=%.2f host_ms=%.3f (over steps '
+        '3..%d, graphed: %s) data_wait_ms=%.2f (steps 3..%d) launches=%s'
+        % (result['steps'], losses[-1], result['images_per_s'], result['step_ms'],
+           result['host_ms'], STEPS, result['cuda_graph'], result['data_wait_ms'], STEPS - 1,
+           launches))
     log('launches by design: %s' % by_design)
     log('losses: %s' % ' '.join('%.4f' % x for x in losses))
     if not np.all(np.isfinite(losses)):
@@ -589,11 +684,15 @@ def _family(name):
 
 
 def _step_starts(trace, events):
-    """Device time at which each profiled step starts: the first device
-    event launched from inside each ``train_step`` range of the host
-    (matched by the launch's correlation id)."""
-    device_ts = {e['args']['correlation']: e['ts'] for e in events
-                 if 'correlation' in e.get('args', {})}
+    """``(device time, host time)`` at which each profiled step starts: the
+    first device event launched from inside each ``train_step`` range of
+    the host (matched by the launch's correlation id; every kernel of a
+    graph replay carries its graph launch's), and the range's start."""
+    device_ts = {}
+    for e in events:
+        c = e.get('args', {}).get('correlation')
+        if c is not None:
+            device_ts[c] = min(e['ts'], device_ts.get(c, e['ts']))
     launches = sorted((e['ts'], e['args']['correlation']) for e in trace
                       if e.get('cat') in ('cuda_runtime', 'cuda_driver')
                       and e.get('args', {}).get('correlation') in device_ts)
@@ -602,18 +701,20 @@ def _step_starts(trace, events):
                         and e['name'] == 'train_step'), key=lambda e: e['ts']):
         inside = [device_ts[c] for t, c in launches if step['ts'] <= t <= step['ts'] + step['dur']]
         if inside:
-            starts.append(min(inside))
+            starts.append((min(inside), step['ts']))
     return starts
 
 
 def phase_profile(run, label, tmp, steps=8):
     """Where the time of a training step goes: ``run(steps)``, a short
     training run, under torch.profiler (host and device activity).  Over
-    steps 3..steps-1 (:func:`_step_starts` finds where each starts): the
-    device busy time per step and its split by kernel family, the kernels
-    per step, and on the host the time per step inside CUDA launch calls
-    and inside calls that wait for the device (synchronize, blocking
-    copies)."""
+    steps 3..steps-1 (:func:`_step_starts` finds where each starts on the
+    device and on the host): the device busy time per step and its split by
+    kernel family, the kernels per step, and on the host the time per step
+    inside CUDA launch calls (kernel launches and graph launches, also
+    counted apart; a graph launch waits while the device is still busy with
+    earlier work) and inside calls that wait for the device (synchronize,
+    blocking copies).  Returns the numbers per step."""
     from torch.profiler import ProfilerActivity, profile
     path = os.path.join(tmp, 'trace_%s.json' % label.replace(' ', '_'))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -628,7 +729,7 @@ def phase_profile(run, label, tmp, steps=8):
     if len(starts) != steps:
         raise AssertionError('profile %s: found %d step starts for %d steps'
                              % (label, len(starts), steps))
-    lo, hi = starts[2], starts[-1]
+    (lo, host_lo), (hi, host_hi) = starts[2], starts[-1]
     busy, end, families, names = 0.0, lo, {}, {}
     for e in events:
         t0, t1 = max(e['ts'], lo), min(e['ts'] + e['dur'], hi)
@@ -643,10 +744,20 @@ def phase_profile(run, label, tmp, steps=8):
     n = len(starts) - 3
     kernels = sum(1 for e in events if e.get('cat') == 'kernel' and lo <= e['ts'] < hi)
     launch_us = wait_us = 0.0
-    for e in runtime:
-        if lo <= e['ts'] < hi:
+    graph_launches = kernel_launches = 0
+    launched = {}    # device kernel name -> launches from the host (not by a graph)
+    kernel_name = {e['args']['correlation']: e['name'] for e in events
+                   if e.get('cat') == 'kernel' and 'correlation' in e.get('args', {})}
+    for e in runtime:   # the host's calls from the start of step 3 to that of the last
+        if host_lo <= e['ts'] < host_hi:
             if 'Launch' in e['name']:
                 launch_us += e.get('dur', 0)
+                if 'GraphLaunch' in e['name']:
+                    graph_launches += 1
+                else:
+                    kernel_launches += 1
+                    name = kernel_name.get(e.get('args', {}).get('correlation'), '?')
+                    launched[name] = launched.get(name, 0) + 1
             elif 'Synchronize' in e['name'] or e['name'] in ('cudaMemcpy', 'cuMemcpy'):
                 wait_us += e.get('dur', 0)
     log('profile %s (steps 3..%d under torch.profiler, %.2f ms per step): device busy %.2f ms '
@@ -664,9 +775,122 @@ def phase_profile(run, label, tmp, steps=8):
     log('profile %s: the longest kernel of each family, ms per step: %s'
         % (label, '; '.join('%s: %s %.2f' % (f, short(k), v / n / 1e3)
                             for f, (k, v) in longest.items())))
-    log('profile %s host: %.0f kernels per step; %.2f ms per step in CUDA launch calls, %.2f ms '
-        'per step in calls that wait for the device'
-        % (label, kernels / n, launch_us / n / 1e3, wait_us / n / 1e3))
+    log('profile %s host: %.0f kernels per step; %.3f ms per step in CUDA launch calls (%.1f '
+        'graph launches and %.1f kernel launches per step), %.2f ms per step in calls that wait '
+        'for the device'
+        % (label, kernels / n, launch_us / n / 1e3, graph_launches / n, kernel_launches / n,
+           wait_us / n / 1e3))
+    if graph_launches:
+        log('profile %s host: kernels launched from the host, not by a graph, per step: %s'
+            % (label, '; '.join('%s %.1f' % (short(k), v / n) for k, v in launched.items())
+               or 'none'))
+    return dict(step_ms=(hi - lo) / n / 1e3, busy_ms=busy / n / 1e3,
+                busy_pct=100.0 * busy / (hi - lo), kernels=kernels / n,
+                launch_ms=launch_us / n / 1e3, graph_launches=graph_launches / n,
+                kernel_launches=kernel_launches / n, wait_ms=wait_us / n / 1e3,
+                host_launched={k: v / n for k, v in launched.items()})
+
+
+#: Per path: the graphed run, the eager run beside it, the profile of the
+#: graphed run and the eager-against-graphed comparison; printed as JSON.
+SUMMARY = {}
+#: What each path's result reports per step, for the eager-beside-graphed line.
+METRICS = ('images_per_s', 'tokens_per_s', 'step_tokens_per_s', 'step_ms', 'host_ms',
+           'data_wait_ms', 'stall_pct')
+
+
+def _metrics(result):
+    return {k: result[k] for k in METRICS if result.get(k) is not None}
+
+
+def eager_beside(fa, label, run, graphed, graphed_launches):
+    """The same run eagerly (``cuda_graph=False``) beside the graphed one:
+    the same flash launches, counted as capture x replays on the graphed
+    side, and each path's timings side by side."""
+    if not graphed['cuda_graph']:
+        raise AssertionError('%s: the default run did not replay a graph' % label)
+    reset_counts(fa)
+    eager = run(cuda_graph=False)
+    launches, _ = counts(fa)
+    if eager['cuda_graph'] or launches != graphed_launches:
+        raise AssertionError('%s: eager run launched %s, graphed %s'
+                             % (label, launches, graphed_launches))
+    got, want = _metrics(graphed), _metrics(eager)
+    log('%s eager vs graphed (same flash launches %s): %s'
+        % (label, launches, ', '.join('%s %.2f / %.2f' % (k, want[k], got[k])
+                                      for k in METRICS if k in got and k in want)))
+    SUMMARY.setdefault(label, {}).update(graphed=got, eager=want)
+    return eager
+
+
+@contextlib.contextmanager
+def same_data_order():
+    """Every ``make_reader`` of the training entry points reads with one
+    decode thread and no row-group shuffle, so that two runs see the same
+    batches in the same order (the 8- and 4-thread pools deliver row groups
+    in the order their threads finish them)."""
+    import petastorm_tpu_torch.train as image_train
+    import petastorm_tpu_torch.train_lm as lm_train
+    from petastorm_tpu_torch.reader import make_reader
+
+    def ordered(*args, **kwargs):
+        kwargs.update(workers_count=1, shuffle_row_groups=False)
+        return make_reader(*args, **kwargs)
+
+    image_train.make_reader = lm_train.make_reader = ordered
+    try:
+        yield
+    finally:
+        image_train.make_reader = lm_train.make_reader = make_reader
+
+
+def _differences(a, b):
+    """(loss rel diff, number of state tensors that differ, worst relative
+    norm of a state tensor's difference) of two results."""
+    la, lb = np.asarray(a['losses'], np.float64), np.asarray(b['losses'], np.float64)
+    if la.shape != lb.shape:
+        raise AssertionError('runs of %d and %d steps' % (len(la), len(lb)))
+    loss_rel = float((np.abs(la - lb) / np.abs(lb)).max())
+    sa, sb = a['model'].state_dict(), b['model'].state_dict()
+    differ, worst = 0, 0.0
+    for name, x in sa.items():
+        y = sb[name]
+        if not torch.equal(x, y):
+            differ += 1
+            worst = max(worst, float((x.double() - y.double()).norm()
+                                     / y.double().norm().clamp_min(1e-30)))
+    return loss_rel, differ, worst, len(sa)
+
+
+def eager_vs_graphed(fa, label, run):
+    """``run(cuda_graph=False)`` and ``run(cuda_graph=None)`` from the same
+    seeds and data order: the same flash launches, and losses, parameters
+    and buffers equal bit for bit (both run the same kernels on the same
+    data; the differences are reported when they are not)."""
+    results = {}
+    with same_data_order():
+        for mode, flag in (('eager', False), ('graphed', None)):
+            reset_counts(fa)
+            results[mode] = run(cuda_graph=flag)
+            results[mode + '_launches'] = counts(fa)[0]
+        eager, graphed = results['eager'], results['graphed']
+        if results['eager_launches'] != results['graphed_launches']:
+            raise AssertionError('%s: flash launches eager %s, graphed %s'
+                                 % (label, results['eager_launches'], results['graphed_launches']))
+        loss_rel, differ, worst, n_state = _differences(graphed, eager)
+        row = dict(steps=len(eager['losses']), loss_rel=loss_rel, state_differ=differ,
+                   state_rel=worst, state_tensors=n_state,
+                   bitwise=loss_rel == 0.0 and differ == 0)
+    SUMMARY.setdefault(label, {})['eager_vs_graphed'] = row
+    verdict = ('equal bit for bit' if row['bitwise'] else
+               'loss off by %.3g (relative), %d of %d state tensors differ, worst %.3g in '
+               'relative norm' % (loss_rel, differ, n_state, worst))
+    log('%s eager vs graphed, same seeds and data order, %d steps: %s; losses %s'
+        % (label, row['steps'], verdict, ' '.join('%.6f' % x for x in graphed['losses'])))
+    if not row['bitwise']:
+        raise AssertionError('%s: the graphed run is not the eager one bit for bit: %s'
+                             % (label, verdict))
+    return row
 
 
 def phase_resnet(fa, url, tmp):
@@ -675,15 +899,19 @@ def phase_resnet(fa, url, tmp):
     import copy
     from petastorm_tpu_torch.gpu import augment
     from petastorm_tpu_torch.models.resnet import BatchNorm, ResNet50
-    from petastorm_tpu_torch.train import train
+    from petastorm_tpu_torch.train import main, train
+
+    def run(steps=STEPS, **kwargs):
+        return train(url, steps=steps, batch_size=BATCH, model_name='resnet50', **kwargs)
     reset_counts(fa)
-    result = train(url, steps=STEPS, batch_size=BATCH, model_name='resnet50')
+    result = run()
     launches, _ = counts(fa)
     losses = result['losses']
-    log('resnet50: steps=%d final loss=%.4f images/s=%.1f step_ms=%.2f (over steps 3..%d) '
-        'data_wait_ms=%.2f stall_pct=%.2f (steps 3..%d) flash launches=%s'
-        % (result['steps'], losses[-1], result['images_per_s'], result['step_ms'], STEPS,
-           result['data_wait_ms'], result['stall_pct'], STEPS - 1, launches))
+    log('resnet50: steps=%d final loss=%.4f images/s=%.1f step_ms=%.2f host_ms=%.3f (over steps '
+        '3..%d, graphed: %s) data_wait_ms=%.2f stall_pct=%.2f (steps 3..%d) flash launches=%s'
+        % (result['steps'], losses[-1], result['images_per_s'], result['step_ms'],
+           result['host_ms'], STEPS, result['cuda_graph'], result['data_wait_ms'],
+           result['stall_pct'], STEPS - 1, launches))
     log('resnet50 losses: %s' % ' '.join('%.4f' % x for x in losses))
     if not np.all(np.isfinite(losses)) or len(losses) != STEPS:
         raise AssertionError('resnet50: losses %s' % losses)
@@ -702,6 +930,7 @@ def phase_resnet(fa, url, tmp):
                 raise AssertionError('resnet50 %s.%s: not finite or not moved' % (name, stat))
     log('resnet50: %d BatchNorms, running mean and var finite and moved from (0, 1)'
         % len(norms))
+    eager_beside(fa, 'resnet50', run, result, launches)
 
     # bf16 logits against the same weights in fp32, in train mode (batch
     # statistics) on copies, so the trained model's statistics stay put.
@@ -726,11 +955,26 @@ def phase_resnet(fa, url, tmp):
     if share > RESNET_BF16_SHARE:
         raise AssertionError('resnet50 bf16 logits off the fp32 ones by %.4f of the largest'
                              % share)
-    phase_profile(lambda n: train(url, steps=n, batch_size=BATCH, model_name='resnet50'),
-                  'resnet50', tmp)
+    SUMMARY['resnet50']['profile'] = phase_profile(lambda n: run(n), 'resnet50', tmp)
+    SUMMARY['resnet50']['profile_eager'] = phase_profile(lambda n: run(n, cuda_graph=False),
+                                                  'resnet50 eager', tmp)
+    eager_vs_graphed(fa, 'resnet50', lambda **kw: run(EQ_STEPS, **kw))
+    # the example's --scan-steps 4: chunks of 4 batches, one transfer and one
+    # graph launch each, through its command line
+    scan = main(['--dataset-url', url, '--steps', str(STEPS), '--batch-size', str(BATCH),
+                 '--scan-steps', '4'])
+    if scan['steps'] != -(-STEPS // 4) * 4 or not np.all(np.isfinite(scan['losses'])) \
+            or scan['batch_devices'] != ['cuda'] or not scan['cuda_graph']:
+        raise AssertionError('resnet50 --scan-steps 4: %r' % {
+            k: scan[k] for k in ('steps', 'losses', 'batch_devices', 'cuda_graph')})
+    log('resnet50 --scan-steps 4: steps=%d final loss=%.4f images/s=%.1f step_ms=%.2f '
+        'host_ms=%.3f (chunks 3..%d; host time per step holds the chunk\'s assembly)'
+        % (scan['steps'], scan['losses'][-1], scan['images_per_s'], scan['step_ms'],
+           scan['host_ms'], -(-STEPS // 4)))
+    SUMMARY['resnet50_scan4'] = {'graphed': _metrics(scan)}
 
 
-def phase_hbm_cache(url, tmp):
+def phase_hbm_cache(fa, url, tmp):
     """ResNet-50 from the device cache and a profile of its step, then the
     gathered batches against the host cache at the epoch orders of
     ``jax.random`` reproduced.
@@ -747,12 +991,16 @@ def phase_hbm_cache(url, tmp):
     from petastorm_tpu_torch.gpu import DeviceInMemDataLoader, InMemDataLoader
     from petastorm_tpu_torch.reader import make_reader
     from petastorm_tpu_torch.train import make_transform, train
-    result = train(url, steps=16, batch_size=BATCH, model_name='resnet50', hbm_cache=True)
+    def run(steps=16, **kwargs):
+        return train(url, steps=steps, batch_size=BATCH, model_name='resnet50', hbm_cache=True,
+                     **kwargs)
+    reset_counts(fa)
+    result = run()
     losses = result['losses']
-    log('hbm cache: steps=%d epochs=%d final loss=%.4f images/s=%.1f step_ms=%.2f (epoch 2) '
-        'stall_pct=%.1f'
+    log('hbm cache: steps=%d epochs=%d final loss=%.4f images/s=%.1f step_ms=%.2f host_ms=%.3f '
+        '(epoch 2, graphed: %s) stall_pct=%.1f'
         % (result['steps'], result['epochs'], losses[-1], result['images_per_s'],
-           result['step_ms'], result['stall_pct']))
+           result['step_ms'], result['host_ms'], result['cuda_graph'], result['stall_pct']))
     log('hbm cache losses: %s' % ' '.join('%.4f' % x for x in losses))
     if result['steps'] != 16 or result['epochs'] != 2 or len(losses) != 16 \
             or not np.all(np.isfinite(losses)):
@@ -760,8 +1008,19 @@ def phase_hbm_cache(url, tmp):
                                                                        'losses')})
     if result['batch_devices'] != ['cuda']:
         raise AssertionError('hbm cache: batches on %s' % result['batch_devices'])
-    phase_profile(lambda n: train(url, steps=n, batch_size=BATCH, model_name='resnet50',
-                                  hbm_cache=True), 'resnet50 hbm cache', tmp)
+    eager_beside(fa, 'hbm_cache', run, result, counts(fa)[0])
+    profile = phase_profile(lambda n: run(n), 'resnet50 hbm cache', tmp)
+    SUMMARY['hbm_cache']['profile'] = profile
+    SUMMARY['hbm_cache']['profile_eager'] = phase_profile(
+        lambda n: run(n, cuda_graph=False), 'resnet50 hbm cache eager', tmp)
+    # Between steps the host launches the graph and nothing of the step: the
+    # only kernels it launches itself are the replay's fills of the augment
+    # generator's seed and offset, which PyTorch writes before each replay.
+    stray = [k for k in profile['host_launched'] if 'fill' not in k.lower()]
+    if profile['graph_launches'] != 1 or stray or profile['kernel_launches'] > 2:
+        raise AssertionError('hbm cache: %.1f graph launches per profiled step and, from the '
+                             'host, %s' % (profile['graph_launches'], profile['host_launched']))
+    eager_vs_graphed(fa, 'hbm_cache', run)
 
     def reader():
         return make_reader(url, schema_fields=['image', 'noun_id'],
@@ -807,14 +1066,17 @@ def phase_lm(fa, tmp):
     t0 = time.monotonic()
     lm.write_token_dataset(url)
     log('lm dataset: 256 documents of 1024 tokens written in %.1f s' % (time.monotonic() - t0))
+    def run(steps=STEPS, **kwargs):
+        return lm.train_lm(url, steps=steps, batch_size=8, strategy='flash', **kwargs)
     reset_counts(fa)
-    result = lm.train_lm(url, steps=STEPS, batch_size=8, strategy='flash')
+    result = run()
     launches, by_design = counts(fa)
     losses = result['losses']
-    log('lm (L1): steps=%d final loss=%.4f tokens/s=%.0f step_ms=%.2f (over steps 3..%d) '
-        'data_wait_ms=%.2f stall_pct=%.2f (steps 3..%d) launches=%s'
-        % (result['steps'], losses[-1], result['tokens_per_s'], result['step_ms'], STEPS,
-           result['data_wait_ms'], result['stall_pct'], STEPS - 1, launches))
+    log('lm (L1): steps=%d final loss=%.4f tokens/s=%.0f step_ms=%.2f host_ms=%.3f (over steps '
+        '3..%d, graphed: %s) data_wait_ms=%.2f stall_pct=%.2f (steps 3..%d) launches=%s'
+        % (result['steps'], losses[-1], result['tokens_per_s'], result['step_ms'],
+           result['host_ms'], STEPS, result['cuda_graph'], result['data_wait_ms'],
+           result['stall_pct'], STEPS - 1, launches))
     log('lm losses: %s' % ' '.join('%.4f' % x for x in losses))
     if len(losses) != STEPS or not np.all(np.isfinite(losses)):
         raise AssertionError('lm: losses %s' % losses)
@@ -824,7 +1086,11 @@ def phase_lm(fa, tmp):
     check_launches('lm', launches, by_design,
                    {'flash_fwd': 2 * layers * STEPS, 'flash_bwd_dq': layers * STEPS,
                     'flash_bwd_dkv': layers * STEPS})
-    phase_profile(lambda n: lm.train_lm(url, steps=n, batch_size=8), 'lm', tmp)
+    eager_beside(fa, 'lm', run, result, launches)
+    SUMMARY['lm']['profile'] = phase_profile(lambda n: run(n), 'lm', tmp)
+    SUMMARY['lm']['profile_eager'] = phase_profile(lambda n: run(n, cuda_graph=False),
+                                                  'lm eager', tmp)
+    eager_vs_graphed(fa, 'lm', lambda **kw: run(EQ_STEPS, **kw))
     return launches
 
 
@@ -876,16 +1142,18 @@ def phase_packed(fa, tmp):
     lm.write_var_token_dataset(url)
     log('packed dataset: 512 documents of 32..512 tokens written in %.1f s'
         % (time.monotonic() - t0))
+    def run(steps=STEPS, **kwargs):
+        return lm.train_packed(url, steps=steps, attn='flash', **kwargs)
     reset_counts(fa)
-    result = lm.train_packed(url, steps=STEPS, attn='flash')
+    result = run()
     launches, by_design = counts(fa)
     losses = result['losses']
     log('packed (L2): steps=%d final loss=%.4f packing_utilization=%.2f%% tokens/s=%.0f '
-        '(real tokens, from opening the reader) step_ms=%.2f tokens/s=%.0f (real tokens, '
-        'over steps 3..%d) launches=%s'
+        '(real tokens, from opening the reader) step_ms=%.2f host_ms=%.3f tokens/s=%.0f (real '
+        'tokens, over steps 3..%d, graphed: %s) launches=%s'
         % (result['steps'], losses[-1], 100 * result['packing_utilization'],
-           result['tokens_per_s'], result['step_ms'], result['step_tokens_per_s'], STEPS,
-           launches))
+           result['tokens_per_s'], result['step_ms'], result['host_ms'],
+           result['step_tokens_per_s'], STEPS, result['cuda_graph'], launches))
     log('packed losses: %s' % ' '.join('%.4f' % x for x in losses))
     if len(losses) != STEPS or not np.all(np.isfinite(losses)):
         raise AssertionError('packed: losses %s' % losses)
@@ -894,7 +1162,11 @@ def phase_packed(fa, tmp):
     layers = lm.PACKED_LM['num_layers']
     check_launches('packed', launches, by_design, {name: layers * STEPS for name in launches})
     model = result['model']
-    phase_profile(lambda n: lm.train_packed(url, steps=n, attn='flash'), 'packed', tmp)
+    eager_beside(fa, 'packed', run, result, launches)
+    SUMMARY['packed']['profile'] = phase_profile(lambda n: run(n), 'packed', tmp)
+    SUMMARY['packed']['profile_eager'] = phase_profile(lambda n: run(n, cuda_graph=False),
+                                                  'packed eager', tmp)
+    eager_vs_graphed(fa, 'packed', lambda **kw: run(EQ_STEPS, **kw))
     with make_reader(url, schema_fields=['tokens'], num_epochs=1, workers_count=4) as reader:
         batch = next(iter(PackedDataLoader(reader, 'tokens', max_len=lm.PACKED_MAX_LEN,
                                            rows_per_batch=4)))
@@ -953,14 +1225,39 @@ def phase_generate(fa, model):
     log('generate (L3): launches=%s' % launches)
     for row in range(len(prompt)):
         log('  prompt %s -> %s' % (prompt[row].tolist(), tokens[row].tolist()))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _, again = lm.sample(model)
-    torch.cuda.synchronize()
-    log('generate: %.2f ms per new token (prefill of 8 and 16 tokens, batch 2, host clock)'
-        % (1e3 * (time.perf_counter() - t0) / again.shape[1]))
-    if not torch.equal(tokens, again):
-        raise AssertionError('generate: the same key sampled other tokens')
+    # ms per new token, the graphed token loop and the eager one in turns;
+    # every run under the same key samples the same tokens
+    per_token = {'graphed': [], 'eager': []}
+    for mode in ('graphed', 'eager', 'eager', 'graphed'):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, again = lm.sample(model, cuda_graph=None if mode == 'graphed' else False)
+        torch.cuda.synchronize()
+        per_token[mode].append(1e3 * (time.perf_counter() - t0) / again.shape[1])
+        if not torch.equal(tokens, again):
+            raise AssertionError('generate: the %s loop sampled other tokens under the same key'
+                                 % mode)
+    ms = {mode: float(np.mean(v)) for mode, v in per_token.items()}
+    log('generate: ms per new token (prefill of 8 and 16 tokens, batch 2, host clock): eager '
+        '%.3f (%s), graphed %.3f (%s); the same tokens from both under the same key'
+        % (ms['eager'], ' / '.join('%.3f' % x for x in per_token['eager']), ms['graphed'],
+           ' / '.join('%.3f' % x for x in per_token['graphed'])))
+    # What one more token costs, without the prefill, the noise and the
+    # capture that every call pays: 64 new tokens against 16, in turns.
+    totals = {}
+    for mode in ('graphed', 'eager', 'eager', 'graphed'):
+        for new in (16, 64):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lm.sample(model, max_new=new, cuda_graph=None if mode == 'graphed' else False)
+            torch.cuda.synchronize()
+            totals.setdefault((mode, new), []).append(1e3 * (time.perf_counter() - t0))
+    marginal = {mode: (np.mean(totals[mode, 64]) - np.mean(totals[mode, 16])) / 48
+                for mode in ('graphed', 'eager')}
+    SUMMARY['generate'] = {'ms_per_token': ms, 'runs': per_token,
+                           'marginal_ms_per_token': marginal}
+    log('generate: marginal ms per new token (64 new tokens against 16): eager %.4f, graphed %.4f'
+        % (marginal['eager'], marginal['graphed']))
     if tokens.device.type != 'cuda' or tokens.dtype != torch.int32 or tokens.shape != (2, 16) \
             or not ((tokens >= 0) & (tokens < model.vocab_size)).all():
         raise AssertionError('generate: tokens %s %s %r' % (tokens.device, tokens.dtype,
@@ -980,14 +1277,17 @@ def main():
     fa = importlib.import_module('petastorm_tpu_torch.ops.flash_attention')
     smi = phase_device()
     phase_build(fa)
-    errors = {}
+    errors, repair_errors = {}, {}
     for shape, dtype, causal, segments, misaligned, design in KERNEL_CASES:
         errs = kernel_case(fa, shape, dtype, causal, segments, misaligned, design, seed=7)
         for name, err in errs.items():
             if design == MAIN_PATH_DESIGN[name]:
                 errors[name] = max(errors.get(name, 0.0), err)
+            if dtype == torch.float16 or shape['d'] > 128:
+                repair_errors[name] = max(repair_errors.get(name, 0.0), err)
     timing = phase_timing(fa)
     timing_lm = phase_timing_lm(fa)
+    timing_repair = phase_timing_repair(fa)
     phase_model(fa)
     paths = {}
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as tmp:
@@ -997,7 +1297,7 @@ def main():
         log('dataset: 512 JPEG rows written in %.1f s' % (time.monotonic() - t0))
         for name, phase in (('vit', lambda: phase_main_path(fa, url, tmp)),
                             ('resnet50', lambda: phase_resnet(fa, url, tmp)),
-                            ('hbm_cache', lambda: phase_hbm_cache(url, tmp)),
+                            ('hbm_cache', lambda: phase_hbm_cache(fa, url, tmp)),
                             ('lm', lambda: phase_lm(fa, tmp)),
                             ('packed', lambda: phase_packed(fa, tmp)),
                             ('generate', lambda: phase_generate(fa, paths['packed'][1]))):
@@ -1014,8 +1314,11 @@ def main():
                     plain_ms=timing[name]['plain_ms'], bound_ms=timing[name]['bound_ms'],
                     bound_by=timing[name]['bound_by'], library_ms=timing[name]['library_ms'],
                     cuda_core_ms=timing[name]['cuda_core_ms'], host_us=timing[name]['host_us'],
-                    cuda_core_host_us=timing[name]['cuda_core_host_us'], l1=timing_lm[name])
+                    cuda_core_host_us=timing[name]['cuda_core_host_us'], l1=timing_lm[name],
+                    fp16_and_d256=dict(max_abs_err=repair_errors[name],
+                                       times=timing_repair[name]))
                for name in ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv')]
+    log(json.dumps({'paths': SUMMARY}))
     log('chip_smoke: %.1f s in all' % (time.monotonic() - T_START))
     log(smi)
     log(json.dumps({'kernels': kernels}))

@@ -20,7 +20,14 @@
 // the streamed tiles of one head (196 rows) are reused from L2 by the head's
 // other blocks, so DRAM traffic stays near the minimum; the 64 x 64 p and ds
 // tiles live only in registers and shared memory.  The math is fp32 FMA on
-// the CUDA cores; wgmma/TMA is later work.
+// the CUDA cores.  This is the route for what the tensor-core kernels
+// (flash_bwd_dq_sm90.cu, flash_bwd_dkv_sm90.cu) do not take: fp32, fp16,
+// head dims that are no multiple of 8 or above 128, and misaligned tensors.
+// At head_dim tile 256 the streamed tiles are 32 rows (K/V for dQ, Q/dO for
+// dK/dV): with 64 they would need 280,320 B (dQ) and ~297 KB (dK/dV) of
+// shared memory, over the H100's 232,448 B per block; with 32, 206,208 B
+// and 214,912 B.  Staging the streamed tiles in the input dtype instead would
+// not help fp32, and each thread's two 4 x 32 accumulators (dK/dV) spill.
 #include "flash_api.h"
 #include "flash_common.cuh"
 
@@ -34,11 +41,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     const int* __restrict__ seg, T* __restrict__ dq, int s, int h,
                     int d, float scale, int causal) {
+  constexpr int BC = stream_rows<D>(), NJ = BC / 8, LDS = BC + 1;
   extern __shared__ float smem[];
   float* sQ = smem;                   // 64 x (D+1)
   float* sdO = sQ + BR * (D + 1);     // 64 x (D+1)
-  float* sK = sdO + BR * (D + 1);     // 64 x (D+1)
-  float* sV = sK + BC * (D + 1);      // 64 x (D+1)
+  float* sK = sdO + BR * (D + 1);     // BC x (D+1)
+  float* sV = sK + BC * (D + 1);      // BC x (D+1)
   float* sdS = sV + BC * (D + 1);     // 64 x LDS
   int* sSegQ = reinterpret_cast<int*>(sdS + BR * LDS);
   int* sSegK = sSegQ + BR;
@@ -47,9 +55,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.y, bi = bh / h, hi = bh % h;
   const int tid = threadIdx.x, tr = tid >> 3, tc = tid & 7;
 
-  load_tile<T, D>(sQ, q, q0, bi, hi, s, h, d);
-  load_tile<T, D>(sdO, dout, q0, bi, hi, s, h, d);
-  load_seg(sSegQ, seg, q0, bi, s);
+  load_tile<T, D, BR>(sQ, q, q0, bi, hi, s, h, d);
+  load_tile<T, D, BR>(sdO, dout, q0, bi, hi, s, h, d);
+  load_seg<BR>(sSegQ, seg, q0, bi, s);
   float row_lse[4], row_delta[4], acc[4][D / 8];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -63,19 +71,19 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kv_end = causal ? min(s, q0 + BR) : s;
   for (int k0 = 0; k0 < kv_end; k0 += BC) {
     __syncthreads();
-    load_tile<T, D>(sK, k, k0, bi, hi, s, h, d);
-    load_tile<T, D>(sV, v, k0, bi, hi, s, h, d);
-    load_seg(sSegK, seg, k0, bi, s);
+    load_tile<T, D, BC>(sK, k, k0, bi, hi, s, h, d);
+    load_tile<T, D, BC>(sV, v, k0, bi, hi, s, h, d);
+    load_seg<BC>(sSegK, seg, k0, bi, s);
     __syncthreads();
 
-    float sc[4][8], dp[4][8];
-    tile_dot<D>(sc, sQ, sK, tr, tc);
-    tile_dot<D>(dp, sdO, sV, tr, tc);
+    float sc[4][NJ], dp[4][NJ];
+    tile_dot<D, NJ>(sc, sQ, sK, tr, tc);
+    tile_dot<D, NJ>(dp, sdO, sV, tr, tc);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qr = tr * 4 + i, q_pos = q0 + qr, sq = sSegQ[qr];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         const int kc = tc + 8 * j, k_pos = k0 + kc;
         // q_pos < s: padded query rows carry no lse; never exponentiate them.
         bool ok = k_pos < s && q_pos < s && sq == sSegK[kc] && sq != 0;
@@ -85,7 +93,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     __syncthreads();
-    tile_accumulate<D>(acc, sdS, sK, tr, tc);
+    tile_accumulate<D, BC>(acc, sdS, sK, tr, tc);
   }
 
 #pragma unroll
@@ -100,8 +108,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// One block per (batch*head, 64-row K tile): dk and dv for those rows.  The
-// thread's micro-tile is transposed: its rows are keys, its columns queries.
+// One block per (batch*head, 64-row K tile): dk and dv for those rows, Q and
+// dO streamed in BQ-row tiles.  The thread's micro-tile is transposed: its
+// rows are keys, its columns queries.
 template <typename T, int D>
 __global__ void __launch_bounds__(NTHREADS)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -109,25 +118,26 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      const int* __restrict__ seg, T* __restrict__ dk, T* __restrict__ dv,
                      int s, int h, int d, float scale, int causal) {
+  constexpr int BK = BR, BQ = stream_rows<D>(), NJ = BQ / 8, LDS = BQ + 1;
   extern __shared__ float smem[];
   float* sK = smem;                   // 64 x (D+1)
-  float* sV = sK + BC * (D + 1);      // 64 x (D+1)
-  float* sQ = sV + BC * (D + 1);      // 64 x (D+1)
-  float* sdO = sQ + BR * (D + 1);     // 64 x (D+1)
-  float* sP = sdO + BR * (D + 1);     // 64 x LDS, [key][query]
-  float* sdS = sP + BC * LDS;         // 64 x LDS, [key][query]
-  float* sLse = sdS + BC * LDS;       // 64
-  float* sDelta = sLse + BR;          // 64
-  int* sSegQ = reinterpret_cast<int*>(sDelta + BR);
-  int* sSegK = sSegQ + BR;
+  float* sV = sK + BK * (D + 1);      // 64 x (D+1)
+  float* sQ = sV + BK * (D + 1);      // BQ x (D+1)
+  float* sdO = sQ + BQ * (D + 1);     // BQ x (D+1)
+  float* sP = sdO + BQ * (D + 1);     // 64 x LDS, [key][query]
+  float* sdS = sP + BK * LDS;         // 64 x LDS, [key][query]
+  float* sLse = sdS + BK * LDS;       // BQ
+  float* sDelta = sLse + BQ;          // BQ
+  int* sSegQ = reinterpret_cast<int*>(sDelta + BQ);
+  int* sSegK = sSegQ + BQ;
 
-  const int k0 = blockIdx.x * BC;
+  const int k0 = blockIdx.x * BK;
   const int bh = blockIdx.y, bi = bh / h, hi = bh % h;
   const int tid = threadIdx.x, tr = tid >> 3, tc = tid & 7;
 
-  load_tile<T, D>(sK, k, k0, bi, hi, s, h, d);
-  load_tile<T, D>(sV, v, k0, bi, hi, s, h, d);
-  load_seg(sSegK, seg, k0, bi, s);
+  load_tile<T, D, BK>(sK, k, k0, bi, hi, s, h, d);
+  load_tile<T, D, BK>(sV, v, k0, bi, hi, s, h, d);
+  load_seg<BK>(sSegK, seg, k0, bi, s);
   float acc_dk[4][D / 8], acc_dv[4][D / 8];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -135,27 +145,27 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < D / 8; ++c) acc_dk[i][c] = acc_dv[i][c] = 0.f;
 
   // Causal: query tiles wholly above this key tile contribute nothing.
-  const int q_begin = causal ? (k0 / BR) * BR : 0;
-  for (int q0 = q_begin; q0 < s; q0 += BR) {
+  const int q_begin = causal ? (k0 / BQ) * BQ : 0;
+  for (int q0 = q_begin; q0 < s; q0 += BQ) {
     __syncthreads();
-    load_tile<T, D>(sQ, q, q0, bi, hi, s, h, d);
-    load_tile<T, D>(sdO, dout, q0, bi, hi, s, h, d);
-    load_seg(sSegQ, seg, q0, bi, s);
-    for (int idx = tid; idx < BR; idx += NTHREADS) {
+    load_tile<T, D, BQ>(sQ, q, q0, bi, hi, s, h, d);
+    load_tile<T, D, BQ>(sdO, dout, q0, bi, hi, s, h, d);
+    load_seg<BQ>(sSegQ, seg, q0, bi, s);
+    for (int idx = tid; idx < BQ; idx += NTHREADS) {
       const int row = q0 + idx;
       sLse[idx] = row < s ? lse[(size_t)bh * s + row] : 0.f;
       sDelta[idx] = row < s ? delta[(size_t)bh * s + row] : 0.f;
     }
     __syncthreads();
 
-    float st[4][8], dpt[4][8];
-    tile_dot<D>(st, sK, sQ, tr, tc);
-    tile_dot<D>(dpt, sV, sdO, tr, tc);
+    float st[4][NJ], dpt[4][NJ];
+    tile_dot<D, NJ>(st, sK, sQ, tr, tc);
+    tile_dot<D, NJ>(dpt, sV, sdO, tr, tc);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int kr = tr * 4 + i, k_pos = k0 + kr, sk = sSegK[kr];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         const int qc = tc + 8 * j, q_pos = q0 + qc, sq = sSegQ[qc];
         bool ok = k_pos < s && q_pos < s && sq == sk && sq != 0;
         if (causal) ok = ok && q_pos >= k_pos;
@@ -165,8 +175,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     __syncthreads();
-    tile_accumulate<D>(acc_dv, sP, sdO, tr, tc);
-    tile_accumulate<D>(acc_dk, sdS, sQ, tr, tc);
+    tile_accumulate<D, BQ>(acc_dv, sP, sdO, tr, tc);
+    tile_accumulate<D, BQ>(acc_dk, sdS, sQ, tr, tc);
   }
 
 #pragma unroll
@@ -189,7 +199,9 @@ template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
               const float* delta, const int* seg, void* dq, int b, int s, int h, int d,
               float scale, int causal, cudaStream_t stream) {
-  const int smem = ((2 * BR + 2 * BC) * (D + 1) + BR * LDS) * sizeof(float) + 2 * 64 * sizeof(int);
+  constexpr int BC = stream_rows<D>();
+  const int smem = ((2 * BR + 2 * BC) * (D + 1) + BR * (BC + 1)) * sizeof(float) +
+                   (BR + BC) * sizeof(int);
   auto kernel = flash_bwd_dq_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -204,12 +216,13 @@ template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                const float* delta, const int* seg, void* dk, void* dv, int b, int s, int h,
                int d, float scale, int causal, cudaStream_t stream) {
-  const int smem = ((2 * BR + 2 * BC) * (D + 1) + 2 * BC * LDS + 2 * BR) * sizeof(float) +
-                   2 * 64 * sizeof(int);
+  constexpr int BQ = stream_rows<D>();
+  const int smem = ((2 * BR + 2 * BQ) * (D + 1) + 2 * BR * (BQ + 1) + 2 * BQ) * sizeof(float) +
+                   (BR + BQ) * sizeof(int);
   auto kernel = flash_bwd_dkv_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((s + BC - 1) / BC, b * h);
+  dim3 grid((s + BR - 1) / BR, b * h);
   kernel<<<grid, NTHREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, seg, static_cast<T*>(dk), static_cast<T*>(dv),
@@ -224,7 +237,8 @@ int dispatch_dq(const void* q, const void* k, const void* v, const void* dout, c
   switch (tile_width(d)) {
     case 32: return launch_dq<T, 32>(q, k, v, dout, lse, delta, seg, dq, b, s, h, d, scale, causal, st);
     case 64: return launch_dq<T, 64>(q, k, v, dout, lse, delta, seg, dq, b, s, h, d, scale, causal, st);
-    default: return launch_dq<T, 128>(q, k, v, dout, lse, delta, seg, dq, b, s, h, d, scale, causal, st);
+    case 128: return launch_dq<T, 128>(q, k, v, dout, lse, delta, seg, dq, b, s, h, d, scale, causal, st);
+    default: return launch_dq<T, 256>(q, k, v, dout, lse, delta, seg, dq, b, s, h, d, scale, causal, st);
   }
 }
 
@@ -235,7 +249,8 @@ int dispatch_dkv(const void* q, const void* k, const void* v, const void* dout, 
   switch (tile_width(d)) {
     case 32: return launch_dkv<T, 32>(q, k, v, dout, lse, delta, seg, dk, dv, b, s, h, d, scale, causal, st);
     case 64: return launch_dkv<T, 64>(q, k, v, dout, lse, delta, seg, dk, dv, b, s, h, d, scale, causal, st);
-    default: return launch_dkv<T, 128>(q, k, v, dout, lse, delta, seg, dk, dv, b, s, h, d, scale, causal, st);
+    case 128: return launch_dkv<T, 128>(q, k, v, dout, lse, delta, seg, dk, dv, b, s, h, d, scale, causal, st);
+    default: return launch_dkv<T, 256>(q, k, v, dout, lse, delta, seg, dk, dv, b, s, h, d, scale, causal, st);
   }
 }
 
@@ -245,7 +260,7 @@ extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v, cons
                                const float* lse, const float* delta, const int* seg, void* dq,
                                int b, int s, int h, int d, float scale, int causal, int dtype,
                                void* stream) {
-  if (d < 1 || d > 128 || s < 1 || b < 1 || h < 1) return cudaErrorInvalidValue;
+  if (d < 1 || d > 256 || s < 1 || b < 1 || h < 1) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return ptflash::dispatch_dq<float>(q, k, v, dout, lse, delta, seg, dq, b, s, h, d, scale,
@@ -253,6 +268,9 @@ extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v, cons
   if (dtype == 1)
     return ptflash::dispatch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, seg, dq, b, s, h, d,
                                                scale, causal, st);
+  if (dtype == 2)
+    return ptflash::dispatch_dq<__half>(q, k, v, dout, lse, delta, seg, dq, b, s, h, d, scale,
+                                        causal, st);
   return cudaErrorInvalidValue;
 }
 
@@ -260,7 +278,7 @@ extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v, con
                                 const float* lse, const float* delta, const int* seg, void* dk,
                                 void* dv, int b, int s, int h, int d, float scale, int causal,
                                 int dtype, void* stream) {
-  if (d < 1 || d > 128 || s < 1 || b < 1 || h < 1) return cudaErrorInvalidValue;
+  if (d < 1 || d > 256 || s < 1 || b < 1 || h < 1) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return ptflash::dispatch_dkv<float>(q, k, v, dout, lse, delta, seg, dk, dv, b, s, h, d,
@@ -268,5 +286,8 @@ extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v, con
   if (dtype == 1)
     return ptflash::dispatch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, seg, dk, dv, b, s,
                                                 h, d, scale, causal, st);
+  if (dtype == 2)
+    return ptflash::dispatch_dkv<__half>(q, k, v, dout, lse, delta, seg, dk, dv, b, s, h, d,
+                                         scale, causal, st);
   return cudaErrorInvalidValue;
 }

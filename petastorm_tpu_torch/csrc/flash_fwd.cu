@@ -18,8 +18,10 @@
 // head, 196 x 64, stays in L2 across the head's 4 Q tiles, so DRAM traffic is
 // close to the minimum), writes o and lse once, and keeps the 64 x 64 score
 // tile in registers and shared memory, never in device memory.  The math is
-// fp32 FMA on the CUDA cores; moving it onto wgmma tensor-core tiles fed by
-// TMA is later work.
+// fp32 FMA on the CUDA cores.  This is the route for what the tensor-core
+// kernel (flash_fwd_sm90.cu) does not take: fp32, fp16, head dims that are
+// no multiple of 8 or above 128 (up to 256, where K/V stream in 32-row
+// tiles), and misaligned tensors.
 #include "flash_api.h"
 #include "flash_common.cuh"
 
@@ -31,20 +33,21 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ seg,
                  T* __restrict__ o, float* __restrict__ lse, int s, int h, int d,
                  float scale, int causal) {
+  constexpr int BC = stream_rows<D>(), NJ = BC / 8, LDS = BC + 1;
   extern __shared__ float smem[];
   float* sQ = smem;                   // 64 x (D+1)
-  float* sK = sQ + BR * (D + 1);      // 64 x (D+1)
-  float* sV = sK + BC * (D + 1);      // 64 x (D+1)
+  float* sK = sQ + BR * (D + 1);      // BC x (D+1)
+  float* sV = sK + BC * (D + 1);      // BC x (D+1)
   float* sP = sV + BC * (D + 1);      // 64 x LDS
   int* sSegQ = reinterpret_cast<int*>(sP + BR * LDS);  // 64
-  int* sSegK = sSegQ + BR;                              // 64
+  int* sSegK = sSegQ + BR;                              // BC
 
   const int q0 = blockIdx.x * BR;
   const int bh = blockIdx.y, bi = bh / h, hi = bh % h;
   const int tid = threadIdx.x, tr = tid >> 3, tc = tid & 7;
 
-  load_tile<T, D>(sQ, q, q0, bi, hi, s, h, d);
-  load_seg(sSegQ, seg, q0, bi, s);
+  load_tile<T, D, BR>(sQ, q, q0, bi, hi, s, h, d);
+  load_seg<BR>(sSegQ, seg, q0, bi, s);
 
   float m[4], l[4], acc[4][D / 8];
 #pragma unroll
@@ -59,20 +62,20 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kv_end = causal ? min(s, q0 + BR) : s;
   for (int k0 = 0; k0 < kv_end; k0 += BC) {
     __syncthreads();  // the previous tile's readers are done with sK/sV/sP
-    load_tile<T, D>(sK, k, k0, bi, hi, s, h, d);
-    load_tile<T, D>(sV, v, k0, bi, hi, s, h, d);
-    load_seg(sSegK, seg, k0, bi, s);
+    load_tile<T, D, BC>(sK, k, k0, bi, hi, s, h, d);
+    load_tile<T, D, BC>(sV, v, k0, bi, hi, s, h, d);
+    load_seg<BC>(sSegK, seg, k0, bi, s);
     __syncthreads();
 
-    float sc[4][8];
-    tile_dot<D>(sc, sQ, sK, tr, tc);
+    float sc[4][NJ];
+    tile_dot<D, NJ>(sc, sQ, sK, tr, tc);
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qr = tr * 4 + i, q_pos = q0 + qr, sq = sSegQ[qr];
       float mx = NEG_INF;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         const int kc = tc + 8 * j, k_pos = k0 + kc;
         bool ok = k_pos < s && sq == sSegK[kc] && sq != 0;
         if (causal) ok = ok && q_pos >= k_pos;
@@ -83,7 +86,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float alpha = m[i] == NEG_INF ? 0.f : expf(m[i] - m_new);
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         const float p = m_new == NEG_INF ? 0.f : expf(sc[i][j] - m_new);
         sP[qr * LDS + tc + 8 * j] = p;
         sum += p;
@@ -94,7 +97,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int c = 0; c < D / 8; ++c) acc[i][c] *= alpha;
     }
     __syncthreads();
-    tile_accumulate<D>(acc, sP, sV, tr, tc);
+    tile_accumulate<D, BC>(acc, sP, sV, tr, tc);
   }
 
 #pragma unroll
@@ -115,7 +118,9 @@ template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, const int* seg, void* o,
                float* lse, int b, int s, int h, int d, float scale, int causal,
                cudaStream_t stream) {
-  const int smem = ((BR + 2 * BC) * (D + 1) + BR * LDS) * sizeof(float) + 2 * 64 * sizeof(int);
+  constexpr int BC = stream_rows<D>();
+  const int smem = ((BR + 2 * BC) * (D + 1) + BR * (BC + 1)) * sizeof(float) +
+                   (BR + BC) * sizeof(int);
   auto kernel = flash_fwd_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -133,7 +138,8 @@ int dispatch_fwd(const void* q, const void* k, const void* v, const int* seg, vo
   switch (tile_width(d)) {
     case 32: return launch_fwd<T, 32>(q, k, v, seg, o, lse, b, s, h, d, scale, causal, stream);
     case 64: return launch_fwd<T, 64>(q, k, v, seg, o, lse, b, s, h, d, scale, causal, stream);
-    default: return launch_fwd<T, 128>(q, k, v, seg, o, lse, b, s, h, d, scale, causal, stream);
+    case 128: return launch_fwd<T, 128>(q, k, v, seg, o, lse, b, s, h, d, scale, causal, stream);
+    default: return launch_fwd<T, 256>(q, k, v, seg, o, lse, b, s, h, d, scale, causal, stream);
   }
 }
 
@@ -142,12 +148,14 @@ int dispatch_fwd(const void* q, const void* k, const void* v, const int* seg, vo
 extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v, const int* seg,
                             void* o, float* lse, int b, int s, int h, int d, float scale,
                             int causal, int dtype, void* stream) {
-  if (d < 1 || d > 128 || s < 1 || b < 1 || h < 1) return cudaErrorInvalidValue;
+  if (d < 1 || d > 256 || s < 1 || b < 1 || h < 1) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return ptflash::dispatch_fwd<float>(q, k, v, seg, o, lse, b, s, h, d, scale, causal, st);
   if (dtype == 1)
     return ptflash::dispatch_fwd<__nv_bfloat16>(q, k, v, seg, o, lse, b, s, h, d, scale,
                                                 causal, st);
+  if (dtype == 2)
+    return ptflash::dispatch_fwd<__half>(q, k, v, seg, o, lse, b, s, h, d, scale, causal, st);
   return cudaErrorInvalidValue;
 }

@@ -21,10 +21,15 @@ orders from numpy's ``default_rng(seed)``, the device loader from
 reader into fixed-shape LM batches (:mod:`~petastorm_tpu_torch.gpu.packing`)
 and delivers them like :class:`DataLoader`.
 
+The JAX loaders' one-dispatch consumers, :meth:`DataLoader.scan_batches`
+(every loader here) and :meth:`DeviceInMemDataLoader.scan_epochs`, replay a
+CUDA graph of the step on the card (:mod:`~petastorm_tpu_torch.gpu.graphs`)
+and run the step eagerly on the CPU.
+
 ``DataLoader`` on row readers (``columnar_decode=False``), ``state_dict``/
 resume (``PackedDataLoader.state_dict`` included), autotuning, data echoing,
-``scan_batches``, sharding, ``DiskCachedDataLoader`` and
-``ResidentDataLoader`` are later slices of the port.
+sharding, ``DiskCachedDataLoader`` and ``ResidentDataLoader`` are later
+slices of the port.
 """
 
 import hashlib
@@ -36,6 +41,7 @@ import numpy as np
 import torch
 
 from petastorm_tpu_torch import random as prng
+from petastorm_tpu_torch.gpu import graphs
 from petastorm_tpu_torch.gpu.packing import StreamPacker
 from petastorm_tpu_torch.gpu.transfer import TransferPlane, canonical_dtype, resolve_device
 
@@ -94,6 +100,72 @@ class DataLoader(object):
                 yield plane.ready(*pending.popleft())
         while pending:
             yield plane.ready(*pending.popleft())
+
+    def scan_batches(self, step_fn, carry, steps_per_call=8, cuda_graph=None, generators=()):
+        """Consume the stream ``steps_per_call`` steps at a time, as the JAX
+        loader's ``scan_batches`` does with one ``lax.scan`` dispatch.
+
+        ``step_fn(carry, batch) -> (carry, out)`` sees exactly the batches
+        ``__iter__`` would deliver.  Each chunk of ``steps_per_call`` host
+        batches is stacked to ``(k, batch, ...)`` and moved to the device
+        in one transfer; a ragged tail batch (``drop_last=False``) flushes
+        the chunk before it and becomes a chunk of its own.  Yields
+        ``(carry, outs)`` per chunk, ``outs`` stacked along a leading axis
+        of length k.
+
+        On the card (``cuda_graph`` as :func:`graphs.resolve` reads it) a
+        whole chunk, the k steps in order, is one
+        :class:`~petastorm_tpu_torch.gpu.graphs.StepGraph`, one for each
+        shape of carry and chunk (:func:`graphs.signature`), as JAX compiles
+        once for each: its first chunk runs eagerly (the warm-up), its
+        second is captured and replayed, every later one replayed.  A ragged
+        tail chunk has a shape of its own, so it runs as its graph's eager
+        warm-up.  There the carry must be a tree of tensors (dicts, lists,
+        tuples; None): a Python number in it raises ``TypeError``.
+        ``generators`` are the device generators ``step_fn`` draws from.
+        """
+        if steps_per_call < 1:
+            raise ValueError('steps_per_call must be >= 1')
+        graphed = graphs.resolve(cuda_graph, self.device)
+
+        def run_chunk(carry, chunk):
+            outs = []
+            for i in range(len(next(iter(chunk.values())))):
+                carry, out = step_fn(carry, {name: v[i] for name, v in chunk.items()})
+                outs.append(out)
+            return carry, _stack(outs)
+
+        plane = TransferPlane(self.device, ring_slots=2)
+        by_signature = {}   # graphs.signature of (carry, chunk) -> StepGraph
+
+        def put(chunk):
+            host = [_filter_numeric(self._transform_fn(b) if self._transform_fn else b,
+                                    self._warned_fields) for b in chunk]
+            return plane.ready(*plane.put({name: np.stack([b[name] for b in host])
+                                           for name in host[0]}))
+
+        def run(carry, chunk):
+            stacked = put(chunk)
+            if not graphed:
+                return run_chunk(carry, stacked)
+            key = graphs.signature((carry, stacked))
+            if key not in by_signature:
+                by_signature[key] = graphs.StepGraph(run_chunk, generators)
+            return by_signature[key](carry, stacked)
+
+        chunk = []
+        for host_batch in self._host_batches():
+            if chunk and _rows(host_batch) != _rows(chunk[0]):
+                carry, outs = run(carry, chunk)
+                chunk = []
+                yield carry, outs
+            chunk.append(host_batch)
+            if len(chunk) == steps_per_call:
+                carry, outs = run(carry, chunk)
+                chunk = []
+                yield carry, outs
+        if chunk:
+            yield run(carry, chunk)
 
     def _host_batches(self):
         return self._columnar_batches()
@@ -422,7 +494,7 @@ class DeviceInMemDataLoader(InMemDataLoader):
             for start in starts:
                 yield _gather(cache, order[start:start + self.batch_size])
 
-    def scan_epochs(self, step_fn, carry, epochs_per_call=1):
+    def scan_epochs(self, step_fn, carry, epochs_per_call=1, cuda_graph=None, generators=()):
         """Run the epochs through ``step_fn(carry, batch) -> (carry, out)``,
         ``epochs_per_call`` epochs per yield.
 
@@ -430,11 +502,23 @@ class DeviceInMemDataLoader(InMemDataLoader):
         tensor, or a dict of them) on the device along a leading steps
         axis, with a leading epochs axis before it when ``epochs_per_call >
         1`` (a trailing partial group has fewer epochs).  Partial batches
-        are always dropped.  Each step is launched from the host, one after
-        the other.
+        are always dropped.
+
+        On the card (``cuda_graph`` as :func:`graphs.resolve` reads it) the
+        step is the JAX loader's scan body: each epoch's order is copied once
+        into a static buffer, and one CUDA graph gathers the batch at a
+        device cursor, runs ``step_fn``, writes ``out`` into a static
+        ``[steps]`` buffer at the cursor and advances it.  The first step
+        runs eagerly (warm-up) and the graph is captured after it; between
+        steps the host does nothing but replay.  The yielded carry is the
+        graph's static carry, rewritten by the next epoch, and must be a tree
+        of tensors (dicts, lists, tuples; None): a Python number in it raises
+        ``TypeError``.  ``generators`` are the device generators ``step_fn``
+        draws from.  The CPU runs the steps eagerly, one after the other.
         """
         if epochs_per_call < 1:
             raise ValueError('epochs_per_call must be >= 1')
+        graphed = graphs.resolve(cuda_graph, self.device)
         cache = self._materialize()
         if cache is None:
             return
@@ -444,6 +528,8 @@ class DeviceInMemDataLoader(InMemDataLoader):
             logger.warning('epoch cache holds %d rows < batch_size=%d: no batches to scan',
                            n, self.batch_size)
             return
+        if graphed:
+            scan = _EpochGraph(cache, n, self.batch_size, steps, step_fn, carry, generators)
         orders = self._epoch_orders(n)
         while True:
             group = list(itertools.islice(orders, epochs_per_call))
@@ -451,13 +537,54 @@ class DeviceInMemDataLoader(InMemDataLoader):
                 return
             epochs = []
             for order in group:
-                outs = []
-                for i in range(steps):
-                    idx = order[i * self.batch_size:(i + 1) * self.batch_size]
-                    carry, out = step_fn(carry, _gather(cache, idx))
-                    outs.append(out)
-                epochs.append(_stack(outs))
+                if graphed:
+                    carry, outs = scan.epoch(order)
+                else:
+                    outs = []
+                    for i in range(steps):
+                        idx = order[i * self.batch_size:(i + 1) * self.batch_size]
+                        carry, out = step_fn(carry, _gather(cache, idx))
+                        outs.append(out)
+                    outs = _stack(outs)
+                epochs.append(outs)
             yield carry, (epochs[0] if epochs_per_call == 1 else _stack(epochs))
+
+
+class _EpochGraph(object):
+    """:meth:`DeviceInMemDataLoader.scan_epochs` on the card: one step (the
+    batch gathered at a device cursor, the user's step, its ``out`` written
+    at the cursor, the cursor advanced) captured once and replayed."""
+
+    def __init__(self, cache, n, batch_size, steps, step_fn, carry, generators):
+        device = next(iter(cache.values())).device
+        self._cache = cache
+        self._steps = steps
+        self._step_fn = step_fn
+        self._order = torch.empty(n, dtype=torch.int64, device=device)
+        self._cursor = torch.zeros(1, dtype=torch.int64, device=device)
+        self._offsets = torch.arange(batch_size, device=device)
+        self._batch_size = batch_size
+        self.carry = graphs.tree_map(torch.clone, carry)
+        self._outs = None
+        self._graph = graphs.StepGraph(self._body, generators)
+
+    def _body(self):
+        idx = self._order.index_select(0, self._cursor * self._batch_size + self._offsets)
+        carry, out = self._step_fn(self.carry, _gather(self._cache, idx))
+        graphs.copy_into(self.carry, carry)
+        if self._outs is None:   # the eager first step sizes the [steps] buffers
+            self._outs = graphs.tree_map(
+                lambda o: o.new_empty((self._steps,) + tuple(o.shape)), out)
+        graphs.write_at(self._outs, self._cursor, out)
+        self._cursor.add_(1)
+
+    def epoch(self, order):
+        """Run one epoch in ``order``; returns ``(carry, outs)``."""
+        self._order.copy_(order)
+        self._cursor.zero_()
+        for _ in range(self._steps):
+            self._graph()
+        return self.carry, graphs.tree_map(torch.clone, self._outs)
 
 
 def _gather(cache, idx):

@@ -5,9 +5,13 @@ helpers it runs on).  The per-layer cache is a fixed ``[batch,
 max_seq_len, kv_heads, head_dim]`` buffer (``TransformerLM.init_cache``);
 the prompt is one prefill forward (causal ``attn_fn`` over the prompt, the
 flash kernels by default), then each new token is one forward of a single
-position against the cache.  The JAX package runs the token loop as a
-``lax.scan``; here it is a Python loop of eager steps.  Sampling draws its
-keys and Gumbel noise with :mod:`petastorm_tpu_torch.random`
+position against the cache.  The JAX package runs the token loop as one
+``lax.scan``; on the card the port captures one token step (pick the token,
+then the one-position forward, which writes the cache at its device
+position) as a CUDA graph and replays it once per token, with a step counter
+on the device (:mod:`petastorm_tpu_torch.gpu.graphs`); the CPU, and the
+card with ``cuda_graph=False``, run the same step eagerly.  Sampling draws
+its keys and Gumbel noise with :mod:`petastorm_tpu_torch.random`
 (``jax.random`` reproduced), so the same key picks the same tokens::
 
     tokens = decoding.generate(model, prompt, max_new_tokens=64)
@@ -18,6 +22,7 @@ keys and Gumbel noise with :mod:`petastorm_tpu_torch.random`
 import torch
 
 from petastorm_tpu_torch import random as prng
+from petastorm_tpu_torch.gpu import graphs
 
 __all__ = ['generate']
 
@@ -55,7 +60,7 @@ def _truncate_logits(logits, top_k, top_p):
 
 
 def generate(model, prompt, max_new_tokens, temperature=0.0, rng=None, top_k=None,
-             top_p=None, eos_id=None, pad_id=0):
+             top_p=None, eos_id=None, pad_id=0, cuda_graph=None):
     """Generate ``max_new_tokens`` continuations of ``prompt`` ``[b, L]``.
 
     Returns ``[b, max_new_tokens]`` int32 tokens on the model's device.
@@ -63,9 +68,13 @@ def generate(model, prompt, max_new_tokens, temperature=0.0, rng=None, top_k=Non
     ``rng`` (a key from :func:`petastorm_tpu_torch.random.PRNGKey`,
     required), optionally truncated to the ``top_k`` highest logits and/or
     the ``top_p`` nucleus; the key is split once per token, as the JAX
-    package splits it.  With ``eos_id`` set, a row that emits it emits
-    ``pad_id`` from then on.  ``L + max_new_tokens`` must fit
-    ``model.max_seq_len`` (the cache's size).
+    package splits it, and every token's Gumbel noise is drawn up front
+    (``[max_new_tokens, b, vocab]`` float32, moved to the device in one
+    copy).  With ``eos_id`` set, a row that emits it emits ``pad_id`` from
+    then on.  ``L + max_new_tokens`` must fit ``model.max_seq_len`` (the
+    cache's size).  ``cuda_graph``: ``None`` replays a captured token step
+    on the card and runs it eagerly on the CPU; ``False`` runs it eagerly on
+    the card too.
     """
     device = model.embed.embedding.device
     prompt = torch.as_tensor(prompt).to(device=device, dtype=torch.int64)
@@ -83,25 +92,51 @@ def generate(model, prompt, max_new_tokens, temperature=0.0, rng=None, top_k=Non
         raise ValueError('top_k must be >= 1')
     if top_p is not None and not 0.0 < top_p <= 1.0:
         raise ValueError('top_p must be in (0, 1]')
-
-    def pick(logits, key):
-        if temperature <= 0:
-            return torch.argmax(logits, dim=-1)
-        return prng.categorical(key, _truncate_logits(logits / temperature, top_k, top_p))
+    graphed = graphs.resolve(cuda_graph, device)
+    noise = None
+    if temperature > 0:
+        key, subs = rng, []
+        for _ in range(max_new_tokens):
+            key, sub = prng.split(key)
+            subs.append(sub)
+        noise = prng.gumbel_stack(subs, (b, model.vocab_size), device)
 
     with torch.no_grad():
-        cache, logits = _prefill(model, prompt)
-        key = rng if rng is not None else prng.PRNGKey(0)
+        cache, last_logits = _prefill(model, prompt)
+        # The token loop's state, updated in place (a captured step's
+        # static buffers): the logits to pick from, the step counter,
+        # which rows are done, and the tokens.
+        logits = last_logits.contiguous()
+        step = torch.zeros(1, dtype=torch.int64, device=device)
         done = torch.zeros(b, dtype=torch.bool, device=device)
-        tokens = []
-        for t in range(prompt_len, total):
-            key, sub = prng.split(key)
-            token = pick(logits, sub)
+        tokens = torch.zeros(b, max_new_tokens, dtype=torch.int64, device=device)
+
+        def emit():
+            """Pick this step's token from ``logits`` and store it."""
+            if noise is None:
+                token = torch.argmax(logits, dim=-1)
+            else:
+                # jax.random.categorical under this step's key: the
+                # Gumbel-max trick with the step's noise
+                truncated = _truncate_logits(logits / temperature, top_k, top_p)
+                token = torch.argmax(noise.index_select(0, step)[0] + truncated, dim=-1)
             if eos_id is not None:
                 token = torch.where(done, pad_id, token)
-                done = done | (token == eos_id)
-            tokens.append(token)
-            if t + 1 < total:   # the last token needs no forward
-                position = torch.full((b, 1), t, device=device)
-                logits = model(token[:, None], positions=position, cache=cache)[:, 0]
-    return torch.stack(tokens, dim=1).to(torch.int32)
+                done.logical_or_(token == eos_id)
+            tokens.index_copy_(1, step, token[:, None])
+            return token
+
+        def token_step():
+            token = emit()
+            positions = (step + prompt_len).expand(b, 1)
+            logits.copy_(model(token[:, None], positions=positions, cache=cache)[:, 0])
+            step.add_(1)
+
+        forwards = max_new_tokens - 1   # the last token needs no forward
+        if graphed and forwards > 0:
+            token_step = graphs.StepGraph(token_step, range_name='decode_step')
+        for _ in range(forwards):
+            token_step()
+        if max_new_tokens > 0:
+            emit()
+    return tokens.to(torch.int32)

@@ -30,7 +30,9 @@ Decoding keeps its cache as explicit state: :meth:`TransformerLM.init_cache`
 makes one :class:`KVCache` per layer, and a forward given ``cache=``
 writes the new keys and values into it in place and advances its index, a
 host integer, so choosing between a fresh prefill and attending the cache
-(``lax.cond`` in the JAX package) costs no device sync.  Ring and Ulysses
+(``lax.cond`` in the JAX package) costs no device sync.  A one-token step
+writes and masks at the cache's device position instead, so that it can be
+captured in a CUDA graph and replayed (``models.decoding.generate``).  Ring and Ulysses
 attention wait for the multi-device slice of the port (``parallel/``).
 """
 
@@ -136,14 +138,18 @@ class Embed(nn.Module):
 
 class KVCache(object):
     """One layer's decode cache: ``key`` and ``value`` buffers ``[batch,
-    max_len, kv_heads, head_dim]`` and ``index``, the next position to
-    write (a host integer).  Forward passes given the cache update it in
-    place."""
+    max_len, kv_heads, head_dim]``, ``index``, the next position to write
+    (a host integer), and ``position``, the same on the device (an int64
+    tensor of one element), where one-token steps write.  Forward passes
+    given the cache update it in place.  A replayed capture of a one-token
+    step advances ``position`` at every replay and ``index`` only once, at
+    capture."""
 
     def __init__(self, batch, max_len, kv_heads, head_dim, dtype, device):
         self.key = torch.zeros(batch, max_len, kv_heads, head_dim, dtype=dtype, device=device)
         self.value = torch.zeros_like(self.key)
         self.index = 0
+        self.position = torch.zeros(1, dtype=torch.int64, device=device)
 
 
 class Attention(nn.Module):
@@ -223,17 +229,27 @@ class Attention(nn.Module):
         A multi-token call on a fresh cache (index 0) is a prefill: causal
         ``attn_fn`` over the prompt alone.  A chunk on a warm cache, and
         every one-token step, attends the whole buffer with absolute
-        positions masked (:meth:`_attend_cache`).
+        positions masked (:meth:`_attend_cache`).  A one-token step writes
+        at the device position (``index_copy_``) and masks with it: no host
+        integer reaches the device, so the step can be captured.
         """
         seq = q.shape[1]
         i = cache.index
         if i + seq > cache.key.shape[1]:
             raise ValueError('cache holds %d positions; writing %d at %d'
                              % (cache.key.shape[1], seq, i))
+        cache.index = i + seq
+        if seq == 1:
+            pos = cache.position
+            cache.key.index_copy_(1, pos, k.to(cache.key.dtype))
+            cache.value.index_copy_(1, pos, v.to(cache.value.dtype))
+            out = self._attend_cache(q, cache.key, cache.value, pos)
+            pos.add_(1)
+            return out
         cache.key[:, i:i + seq] = k.to(cache.key.dtype)
         cache.value[:, i:i + seq] = v.to(cache.value.dtype)
-        cache.index = i + seq
-        if seq > 1 and i == 0:
+        cache.position.fill_(i + seq)
+        if i == 0:
             k, v = self._expand_kv(k, v)
             return attn_fn(q, k, v, causal=True)
         q_pos = i + torch.arange(seq, device=q.device)
@@ -330,7 +346,11 @@ class TransformerLM(nn.Module):
         for i, block in enumerate(self.blocks):
             layer_cache = None if cache is None else cache[i]
             if self.remat and layer_cache is None and torch.is_grad_enabled():
-                x = checkpoint(block, x, positions, None, attn_fn, use_reentrant=False)
+                # No RNG state to stash: the blocks draw no random numbers,
+                # and a stash would read the card's generator state inside
+                # the CUDA-graph capture of the train step.
+                x = checkpoint(block, x, positions, None, attn_fn, use_reentrant=False,
+                               preserve_rng_state=False)
             else:
                 x = block(x, positions, layer_cache, attn_fn)
         x = self.ln_f(x)

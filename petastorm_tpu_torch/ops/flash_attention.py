@@ -16,14 +16,16 @@ JAX package (Pallas)       this module (CUDA, ``csrc/``)
 
 Each kernel has two designs, and :func:`kernel_design` picks one before
 launch from the operands alone: ``'tensor_core'`` (wgmma fed by TMA; bf16,
-head_dim a multiple of 8, 16-byte aligned tensors) or ``'cuda_core'`` (f32
-FMAs; every other case, fp32 above all, whose tolerance the tensor cores'
-TF32 could not hold).  A launch that fails raises: no design stands in for
-another.
+head_dim a multiple of 8 up to 128, 16-byte aligned tensors) or
+``'cuda_core'`` (f32 FMAs; every other case: fp32 above all, whose tolerance
+the tensor cores' TF32 could not hold, fp16, and head_dim up to 256).  A
+launch that fails raises: no design stands in for another.
 
 Each kernel wrapper takes ``[batch, seq, heads, head_dim]`` tensors, allocates
 its outputs, launches its kernel on the current stream and counts the launch
-in its ``launches`` attribute (and by design in ``launches_by_design``).
+in its ``launches`` attribute (and by design in ``launches_by_design``);
+under a CUDA graph (:mod:`~petastorm_tpu_torch.gpu.graphs`) they count the
+launches each replay runs.
 Beside each kernel sits its plain PyTorch version (``*_plain``): the wrapper
 runs it for tensors on the CPU, and for a CUDA tensor it launches the kernel
 or raises.  :func:`full_attention` is the dense reference (PyTorch's own
@@ -47,6 +49,8 @@ import threading
 import time
 
 import torch
+
+from petastorm_tpu_torch.gpu import graphs
 
 __all__ = ['NEG_INF', 'flash_attention', 'full_attention', 'flash_fwd', 'flash_bwd_dq',
            'flash_bwd_dkv', 'flash_fwd_plain', 'flash_bwd_dq_plain', 'flash_bwd_dkv_plain',
@@ -147,7 +151,9 @@ def _symbol(symbol):
     return getattr(lib, symbol)
 
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: The largest head_dim the kernels take (the CUDA-core design's widest tile).
+MAX_HEAD_DIM = 256
 
 
 def _check_cuda(q, k, v, segment_ids, *more):
@@ -156,9 +162,9 @@ def _check_cuda(q, k, v, segment_ids, *more):
         raise ValueError('expected [batch, seq, heads, head_dim], got %r' % (tuple(q.shape),))
     b, s, h, d = q.shape
     if q.dtype not in _DTYPE_CODES:
-        raise TypeError('flash kernels take float32 or bfloat16, got %s' % (q.dtype,))
-    if d > 128:
-        raise ValueError('flash kernels take head_dim <= 128, got %d' % d)
+        raise TypeError('flash kernels take float32, bfloat16 or float16, got %s' % (q.dtype,))
+    if d > MAX_HEAD_DIM:
+        raise ValueError('flash kernels take head_dim <= %d, got %d' % (MAX_HEAD_DIM, d))
     for t in (q, k, v) + more:
         if t.device != q.device or t.dtype != q.dtype or tuple(t.shape) != (b, s, h, d):
             raise ValueError('q, k, v (and dO) must share device, dtype and shape %r; got %s %s %r'
@@ -201,7 +207,8 @@ def kernel_design(dtype, head_dim, *tensors):
     ``tensors`` (the ones the kernel reads or writes by TMA):
     ``'tensor_core'`` for bf16 with head_dim a multiple of 8 up to 128 and
     every tensor 16-byte aligned (TMA's rule for a base and its strides),
-    else ``'cuda_core'``."""
+    else ``'cuda_core'`` (fp32, fp16, other head dims up to
+    :data:`MAX_HEAD_DIM`, misaligned tensors)."""
     if dtype == torch.bfloat16 and head_dim % 8 == 0 and 8 <= head_dim <= 128 \
             and all(t.data_ptr() % 16 == 0 for t in tensors):
         return 'tensor_core'
@@ -377,6 +384,8 @@ flash_bwd_dkv.launches_by_design = {'tensor_core': 0, 'cuda_core': 0}
 
 #: The kernel wrappers in launch order, for counting and reporting.
 KERNELS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
+for _wrapper in KERNELS:   # a replay counts the launches its capture recorded
+    graphs.counts_launches(_wrapper)
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 __all__ = ['PRNGKey', 'split', 'random_bits', 'permutation', 'threefry2x32', 'uniform',
-           'gumbel', 'categorical']
+           'gumbel', 'gumbel_stack', 'categorical']
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -100,8 +100,15 @@ def gumbel(key, shape=(), device='cpu'):
     """``jax.random.gumbel(key, shape, float32)`` in JAX's default
     ``mode='low'``: ``-log(-log(u))`` of ``u = uniform(key, shape,
     minval=finfo(float32).tiny)``, as a float32 tensor on ``device``."""
-    u = torch.from_numpy(uniform(key, shape, minval=np.finfo(np.float32).tiny, maxval=1.0))
-    return -torch.log(-torch.log(u.to(device)))
+    return gumbel_stack([key], shape, device)[0]
+
+
+def gumbel_stack(keys, shape=(), device='cpu'):
+    """``[gumbel(key, shape) for key in keys]`` stacked on a new leading
+    axis, with the uniforms moved to ``device`` in one copy."""
+    tiny = np.finfo(np.float32).tiny
+    u = np.stack([uniform(key, shape, minval=tiny, maxval=1.0) for key in keys])
+    return -torch.log(-torch.log(torch.from_numpy(u).to(device)))
 
 
 def categorical(key, logits, axis=-1):

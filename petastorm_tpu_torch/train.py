@@ -11,14 +11,22 @@ softmax cross-entropy; ResNet-50 trains with its BatchNorms in train mode.
 
 Streaming, batches are assembled columnar and moved to the device by
 :class:`~petastorm_tpu_torch.gpu.DataLoader` under a
-:class:`~petastorm_tpu_torch.benchmark.StallMonitor`.  With
+:class:`~petastorm_tpu_torch.benchmark.StallMonitor`; with ``scan_steps=k``
+they go ``k`` at a time through
+:meth:`~petastorm_tpu_torch.gpu.DataLoader.scan_batches`.  With
 ``hbm_cache=True`` the dataset is decoded once into device memory by
 :class:`~petastorm_tpu_torch.gpu.DeviceInMemDataLoader` and whole epochs
 run through :meth:`~petastorm_tpu_torch.gpu.DeviceInMemDataLoader.scan_epochs`.
 
+On the card every mode replays a CUDA graph of the step, the counterpart of
+the example's ``jax.jit`` and ``lax.scan`` (:mod:`petastorm_tpu_torch.gpu.graphs`):
+one graph launch per step (per chunk of ``k`` steps with ``scan_steps``).
+The CPU runs the same step eagerly, and so does the card with
+``cuda_graph=False``, the loop the replay is held against.
+
 Run ``python -m petastorm_tpu_torch.train --dataset-url URL`` with the
-example's ``--steps``, ``--batch-size``, ``--model`` and ``--hbm-cache``.
-The example's disk cache, ``scan_batches`` and tracing are later slices of
+example's ``--steps``, ``--batch-size``, ``--model``, ``--hbm-cache`` and
+``--scan-steps``.  The example's disk cache and tracing are later slices of
 the port.
 """
 
@@ -30,7 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from petastorm_tpu_torch.benchmark import StallMonitor
-from petastorm_tpu_torch.gpu import DataLoader, DeviceInMemDataLoader, augment
+from petastorm_tpu_torch.gpu import DataLoader, DeviceInMemDataLoader, augment, graphs
 from petastorm_tpu_torch.gpu.transfer import resolve_device
 from petastorm_tpu_torch.models.resnet import ResNet50
 from petastorm_tpu_torch.models.vit import ViT
@@ -74,7 +82,8 @@ def _make_model(model_name, image_hw, model_kwargs):
 
 
 def train(dataset_url, steps, batch_size=64, image_hw=(224, 224), lr=0.1, device=None, *,
-          model_name='resnet50', hbm_cache=False, model_kwargs=None):
+          model_name='resnet50', hbm_cache=False, scan_steps=0, model_kwargs=None,
+          cuda_graph=None):
     """Run ``steps`` training steps; returns the losses, the timings and the
     trained ``model``.
 
@@ -82,23 +91,32 @@ def train(dataset_url, steps, batch_size=64, image_hw=(224, 224), lr=0.1, device
     from seed 0, as in the JAX example.  ``model_kwargs`` overrides
     constructor arguments of the model (:data:`VIT_S16` for ViT,
     ``num_classes=1000`` for ResNet-50; a CPU run shrinks the model with
-    it).  Each step runs inside a ``torch.profiler.record_function``
-    range named ``train_step``.
+    it).  ``cuda_graph`` (see :func:`petastorm_tpu_torch.gpu.graphs.resolve`):
+    ``None`` replays a CUDA graph of the step on the card, after one eager
+    warm-up step, and runs eagerly on the CPU; ``False`` runs eagerly on the
+    card too.  Each step runs inside a ``torch.profiler.record_function``
+    range named ``train_step`` (a replayed step: around its replay).
 
     Streaming: images/s and step time are taken over the steps after the
-    first two (warm-up), on the host clock with the device synchronized at
-    both ends; ``stall_pct`` and the mean data wait per step are the
-    ``StallMonitor``'s (warm-up 2; it closes a step at the next batch, so
-    it counts ``steps - 3`` of them; the wait is None when it counted
-    none).  ``hbm_cache=True`` runs whole epochs (the last one may
-    take ``steps`` past the request, as in the JAX example); images/s and
-    step time are taken over the epochs after the first, whose time holds
-    the one read of the dataset (None when only one epoch ran), and
+    first two (warm-up and, graphed, the capture), on the host clock with
+    the device synchronized at both ends; ``host_ms`` is the host's time
+    per step inside the step call; ``stall_pct`` and the mean data wait per
+    step are the ``StallMonitor``'s (warm-up 2; it closes a step at the
+    next batch, so it counts ``steps - 3`` of them; the wait is None when
+    it counted none).  ``scan_steps=k`` runs chunks of ``k`` steps through
+    ``DataLoader.scan_batches`` (whole chunks: ``steps`` rounds up), timed
+    over the chunks after the first two, with no stall monitor (its
+    ``host_ms`` holds the chunk's assembly and transfer).
+    ``hbm_cache=True`` runs whole epochs (the last one may take ``steps``
+    past the request, as in the JAX example); images/s, step time and host
+    time are taken over the epochs after the first, whose time holds the
+    one read of the dataset (None when only one epoch ran), and
     ``stall_pct`` is 0: no step waits for the host's data path.
     """
     if steps < 1:
         raise ValueError('steps must be at least 1, got %r' % (steps,))
     device = resolve_device(device)
+    graphed = graphs.resolve(cuda_graph, device)
     image_hw = tuple(image_hw)
     # fp32 matmuls and convolutions in full fp32, as the flax models compute
     # them: no TF32 for the fp32 head, nor for cuDNN's fp32 convolutions
@@ -112,48 +130,67 @@ def train(dataset_url, steps, batch_size=64, image_hw=(224, 224), lr=0.1, device
     aug_gen = torch.Generator(device=device).manual_seed(17)
     batch_devices = set()
 
+    def check_batch(batch):
+        images = batch['image']
+        batch_devices.add(str(images.device.type))
+        if images.device.type != device.type:
+            raise RuntimeError('batch reached the model on %s, expected %s'
+                               % (images.device, device))
+
     def train_step(batch):
         with torch.profiler.record_function('train_step'):
-            images, labels = batch['image'], batch['label']
-            batch_devices.add(str(images.device.type))
-            if images.device.type != device.type:
-                raise RuntimeError('batch reached the model on %s, expected %s'
-                                   % (images.device, device))
-            x = augment.random_crop(images, image_hw, padding=4, generator=aug_gen)
+            x = augment.random_crop(batch['image'], image_hw, padding=4, generator=aug_gen)
             x = augment.random_flip_left_right(x, generator=aug_gen)
             x = augment.normalize(x, dtype=torch.float32)
-            loss = F.cross_entropy(model(x), labels.long())
+            loss = F.cross_entropy(model(x), batch['label'].long())
             opt.zero_grad(set_to_none=True)
             loss.backward()
             opt.step()
             return loss.detach()
 
+    def scan_step(carry, batch):
+        # Python here runs at the eager steps and at capture, not per replay
+        check_batch(batch)
+        return carry, train_step(batch)
+
     reader_kwargs = dict(schema_fields=['image', 'noun_id'],
                          transform_spec=make_transform(image_hw), columnar_decode=True,
                          workers_count=8)
+    scan_kwargs = dict(cuda_graph=graphed, generators=[aug_gen])
     if hbm_cache:
-        result = _train_hbm_cache(dataset_url, steps, batch_size, device, train_step,
-                                  reader_kwargs)
+        result = _train_hbm_cache(dataset_url, steps, batch_size, device, scan_step,
+                                  reader_kwargs, scan_kwargs)
+    elif scan_steps:
+        result = _train_scan(dataset_url, steps, batch_size, device, scan_step, reader_kwargs,
+                             dict(scan_kwargs, steps_per_call=scan_steps))
     else:
-        result = _train_streaming(dataset_url, steps, batch_size, device, train_step,
+        step = graphs.StepGraph(train_step, generators=[aug_gen]) if graphed else train_step
+        result = _train_streaming(dataset_url, steps, batch_size, device, step, check_batch,
                                   reader_kwargs)
-    result.update(batch_devices=sorted(batch_devices), device=str(device), model=model)
+    result.update(batch_devices=sorted(batch_devices), device=str(device), model=model,
+                  cuda_graph=graphed)
     return result
 
 
-def _train_streaming(dataset_url, steps, batch_size, device, train_step, reader_kwargs):
+def _train_streaming(dataset_url, steps, batch_size, device, step, check_batch, reader_kwargs):
     warmup = min(2, steps - 1)
     losses = []
     t_start = None
+    host_s = 0.0
     monitor = StallMonitor(warmup_steps=2)
     reader = make_reader(dataset_url, num_epochs=None, **reader_kwargs)
     with DataLoader(reader, batch_size=batch_size, device=device) as loader:
         batches = monitor.wrap(loader)
-        for step in range(steps):
-            if step == warmup:
+        for i in range(steps):
+            if i == warmup:
                 _sync(device)
                 t_start = time.perf_counter()
-            losses.append(train_step(next(batches)))
+            batch = next(batches)
+            check_batch(batch)
+            t0 = time.perf_counter()
+            losses.append(step(batch))
+            if i >= warmup:
+                host_s += time.perf_counter() - t0
     _sync(device)
     elapsed = time.perf_counter() - t_start
     timed = steps - warmup
@@ -161,29 +198,64 @@ def _train_streaming(dataset_url, steps, batch_size, device, train_step, reader_
             'losses': [float(v) for v in torch.stack(losses).cpu()],
             'images_per_s': timed * batch_size / elapsed,
             'step_ms': 1e3 * elapsed / timed,
+            'host_ms': 1e3 * host_s / timed,
             'data_wait_ms': 1e3 * monitor.wait_time / monitor.steps if monitor.steps else None,
             'stall_pct': monitor.report()['stall_pct']}
 
 
-def _train_hbm_cache(dataset_url, steps, batch_size, device, train_step, reader_kwargs):
+def _train_scan(dataset_url, steps, batch_size, device, scan_step, reader_kwargs, scan_kwargs):
+    losses = []
+    done = timed = 0
+    t_start = None
+    host_s = 0.0
+    reader = make_reader(dataset_url, num_epochs=None, **reader_kwargs)
+    with DataLoader(reader, batch_size=batch_size, device=device) as loader:
+        chunks = loader.scan_batches(scan_step, None, **scan_kwargs)
+        while done < steps:
+            t0 = time.perf_counter()
+            _, outs = next(chunks)
+            if t_start is not None:
+                host_s += time.perf_counter() - t0
+                timed += int(outs.shape[0])
+            losses.append(outs)
+            done += int(outs.shape[0])
+            if len(losses) == 2:   # after the warm-up chunk and the capture
+                _sync(device)
+                t_start = time.perf_counter()
+        chunks.close()
+    _sync(device)
+    elapsed = time.perf_counter() - t_start if timed else None
+    return {'steps': done,
+            'losses': [float(v) for v in torch.cat(losses).cpu()],
+            'images_per_s': timed * batch_size / elapsed if timed else None,
+            'step_ms': 1e3 * elapsed / timed if timed else None,
+            'host_ms': 1e3 * host_s / timed if timed else None,
+            'data_wait_ms': None, 'stall_pct': None}
+
+
+def _train_hbm_cache(dataset_url, steps, batch_size, device, scan_step, reader_kwargs,
+                     scan_kwargs):
     losses = []
     done = timed = epochs = 0
     t_start = None
+    host_s = 0.0
     with make_reader(dataset_url, num_epochs=1, **reader_kwargs) as reader:
         loader = DeviceInMemDataLoader(reader, batch_size, num_epochs=None, seed=17,
                                        device=device)
-        for _, outs in loader.scan_epochs(lambda carry, batch: (carry, train_step(batch)),
-                                          None):
+        t_resume = time.perf_counter()
+        for _, outs in loader.scan_epochs(scan_step, None, **scan_kwargs):
+            if t_start is not None:
+                host_s += time.perf_counter() - t_resume
+                timed += int(outs.shape[0])
             losses.append(outs)
             done += int(outs.shape[0])
             epochs += 1
             _sync(device)
             if t_start is None:
                 t_start = time.perf_counter()
-            else:
-                timed += int(outs.shape[0])
             if done >= steps:
                 break
+            t_resume = time.perf_counter()
     if not epochs:
         raise ValueError('the dataset holds fewer rows than batch_size=%d: no step to run'
                          % batch_size)
@@ -193,6 +265,7 @@ def _train_hbm_cache(dataset_url, steps, batch_size, device, train_step, reader_
             'losses': [float(v) for v in torch.cat(losses).cpu()],
             'images_per_s': timed * batch_size / elapsed if timed else None,
             'step_ms': 1e3 * elapsed / timed if timed else None,
+            'host_ms': 1e3 * host_s / timed if timed else None,
             'stall_pct': 0.0}
 
 
@@ -213,13 +286,17 @@ def main(argv=None):
     parser.add_argument('--hbm-cache', action='store_true',
                         help='decode the dataset once into device memory and run whole '
                              'epochs from there (DeviceInMemDataLoader.scan_epochs)')
+    parser.add_argument('--scan-steps', type=int, default=0,
+                        help='stream k batches per transfer and per graph launch '
+                             '(DataLoader.scan_batches); 0 runs one step per batch')
     args = parser.parse_args(argv)
     result = train(args.dataset_url, args.steps, args.batch_size, model_name=args.model,
-                   hbm_cache=args.hbm_cache)
-    rate = result['images_per_s']
-    print('%s on %s: steps=%d loss=%.3f images/s=%s stall=%.2f%%'
+                   hbm_cache=args.hbm_cache, scan_steps=args.scan_steps)
+    rate, stall = result['images_per_s'], result['stall_pct']
+    print('%s on %s: steps=%d loss=%.3f images/s=%s stall=%s'
           % (args.model, result['device'], result['steps'], result['losses'][-1],
-             'n/a' if rate is None else '%.1f' % rate, result['stall_pct']))
+             'n/a' if rate is None else '%.1f' % rate,
+             'n/a' if stall is None else '%.2f%%' % stall))
     return result
 
 

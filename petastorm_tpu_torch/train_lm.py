@@ -22,8 +22,14 @@ Counterpart of the JAX package's long-context examples, on one device:
 
 Parameters are fp32 with bf16 compute, as flax's; ``optax.adamw(lr)`` is
 ``torch.optim.AdamW(lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)``
-(optax's decay, on every parameter).  Each step runs inside a
+(optax's decay, on every parameter; on the card ``capturable=True``, its
+step count on the device).  Each step runs inside a
 ``torch.profiler.record_function`` range named ``train_step``.
+
+On the card the train steps and the sampler's token steps replay CUDA
+graphs, the counterpart of the examples' ``jax.jit`` and of ``generate``'s
+``lax.scan`` (:mod:`petastorm_tpu_torch.gpu.graphs`); the CPU runs them
+eagerly, and so does the card with ``cuda_graph=False``.
 
 Run ``python -m petastorm_tpu_torch.train_lm --dataset-url URL [--generate]``
 with the examples' ``--steps``, ``--batch-size``, ``--strategy``,
@@ -42,7 +48,7 @@ from petastorm_tpu_torch import random as prng
 from petastorm_tpu_torch.benchmark import StallMonitor
 from petastorm_tpu_torch.codecs import NdarrayCodec
 from petastorm_tpu_torch.etl.dataset_metadata import DatasetWriter
-from petastorm_tpu_torch.gpu import DataLoader, PackedDataLoader, packing
+from petastorm_tpu_torch.gpu import DataLoader, PackedDataLoader, graphs, packing
 from petastorm_tpu_torch.gpu.transfer import resolve_device
 from petastorm_tpu_torch.models.decoding import generate
 from petastorm_tpu_torch.models.transformer import TransformerLM, make_attn_fn
@@ -97,11 +103,13 @@ def write_var_token_dataset(url, num_docs=512):
     return url
 
 
-def _adamw(model, lr):
+def _adamw(model, lr, device):
     # optax.adamw(lr): b1 0.9, b2 0.999, eps 1e-8, weight decay 1e-4 on
-    # every parameter (torch's default decay is 1e-2)
+    # every parameter (torch's default decay is 1e-2).  On the card the step
+    # count lives on the device, so that a captured step advances it, eager
+    # or graphed alike; the CPU keeps the host count.
     return torch.optim.AdamW(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=1e-4)
+                             weight_decay=1e-4, capturable=device.type == 'cuda')
 
 
 def _model(config, **kwargs):
@@ -114,27 +122,27 @@ def _check_batch(tokens, device, batch_devices):
         raise RuntimeError('batch reached the model on %s, expected %s' % (tokens.device, device))
 
 
-def train_lm(dataset_url, steps, batch_size=8, strategy='flash', device=None):
+def train_lm(dataset_url, steps, batch_size=8, strategy='flash', device=None, cuda_graph=None):
     """Run ``steps`` steps of the long-context example; returns the losses,
     the timings and the trained ``model``.
 
     tokens/s and step time are taken over the steps after the first two
-    (warm-up), on the host clock with the device synchronized at both
-    ends; the data wait per step and ``stall_pct`` are the
+    (warm-up and, graphed, the capture), on the host clock with the device
+    synchronized at both ends; ``host_ms`` is the host's time per step
+    inside the step call; the data wait per step and ``stall_pct`` are the
     ``StallMonitor``'s (warm-up 2).  The model is :data:`LONG_CONTEXT_LM`.
+    ``cuda_graph`` as in :func:`petastorm_tpu_torch.train.train`.
     """
     if steps < 1:
         raise ValueError('steps must be at least 1, got %r' % (steps,))
     device = resolve_device(device)
     model = _model(LONG_CONTEXT_LM, attn_fn=make_attn_fn(strategy), remat=True).to(device).train()
-    opt = _adamw(model, 3e-4)       # jax_example.py: optax.adamw(3e-4)
+    opt = _adamw(model, 3e-4, device)   # jax_example.py: optax.adamw(3e-4)
     batch_devices = set()
 
     def train_step(batch):
         with torch.profiler.record_function('train_step'):
-            tokens = batch['tokens']
-            _check_batch(tokens, device, batch_devices)
-            tokens = tokens.long()
+            tokens = batch['tokens'].long()
             logits = model(tokens)
             labels = torch.roll(tokens, -1, dims=1)
             loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1),
@@ -142,10 +150,12 @@ def train_lm(dataset_url, steps, batch_size=8, strategy='flash', device=None):
             opt.zero_grad(set_to_none=True)
             loss.backward()
             opt.step()
-            return loss.detach(), tokens.numel()
+            return loss.detach()
 
+    graphed = graphs.resolve(cuda_graph, device)
+    step_fn = graphs.StepGraph(train_step) if graphed else train_step
     warmup = min(2, steps - 1)
-    losses, t_start, timed_tokens = [], None, 0
+    losses, t_start, timed_tokens, host_s = [], None, 0, 0.0
     monitor = StallMonitor(warmup_steps=2)
     reader = make_reader(dataset_url, num_epochs=None, columnar_decode=True, workers_count=4)
     with DataLoader(reader, batch_size=batch_size, prefetch=2, drop_last=True,
@@ -155,19 +165,25 @@ def train_lm(dataset_url, steps, batch_size=8, strategy='flash', device=None):
             if step == warmup:
                 _sync(device)
                 t_start = time.perf_counter()
-            loss, n_tokens = train_step(next(batches))
-            losses.append(loss)
+            batch = next(batches)
+            _check_batch(batch['tokens'], device, batch_devices)
+            t0 = time.perf_counter()
+            losses.append(step_fn(batch))
             if step >= warmup:
-                timed_tokens += n_tokens
+                host_s += time.perf_counter() - t0
+                timed_tokens += batch['tokens'].numel()
     _sync(device)
     elapsed = time.perf_counter() - t_start
+    timed = steps - warmup
     return {'steps': steps,
             'losses': [float(v) for v in torch.stack(losses).cpu()],
             'tokens_per_s': timed_tokens / elapsed,
-            'step_ms': 1e3 * elapsed / (steps - warmup),
+            'step_ms': 1e3 * elapsed / timed,
+            'host_ms': 1e3 * host_s / timed,
             'data_wait_ms': 1e3 * monitor.wait_time / monitor.steps if monitor.steps else None,
             'stall_pct': monitor.report()['stall_pct'],
-            'batch_devices': sorted(batch_devices), 'device': str(device), 'model': model}
+            'batch_devices': sorted(batch_devices), 'device': str(device), 'model': model,
+            'cuda_graph': graphed}
 
 
 def _packed_attn(attn, segment_ids):
@@ -192,7 +208,8 @@ def packed_loss(model, batch, attn='dense'):
     return (per_tok * weights).sum() / torch.clamp(weights.sum(), min=1.0)
 
 
-def train_packed(dataset_url, steps=20, rows_per_batch=4, attn='dense', device=None):
+def train_packed(dataset_url, steps=20, rows_per_batch=4, attn='dense', device=None,
+                 cuda_graph=None):
     """Run ``steps`` steps of the packed example (model :data:`PACKED_LM`);
     returns the losses, the packing utilisation and real tokens/s as the
     example computes them (non-padding tokens over the tokens of every
@@ -200,12 +217,13 @@ def train_packed(dataset_url, steps=20, rows_per_batch=4, attn='dense', device=N
     reader to the last loss), the step time and real tokens/s over the
     steps after the first two (warm-up), timed as :func:`train_lm` times
     them, and the trained ``model`` (whose own ``attn_fn`` stays the flash
-    kernels, as ``sample`` uses it)."""
+    kernels, as ``sample`` uses it).  ``cuda_graph`` as in
+    :func:`petastorm_tpu_torch.train.train`."""
     if steps < 1:
         raise ValueError('steps must be at least 1, got %r' % (steps,))
     device = resolve_device(device)
     model = _model(PACKED_LM).to(device).train()
-    opt = _adamw(model, 3e-3)       # packed_example.py::train's lr
+    opt = _adamw(model, 3e-3, device)   # packed_example.py::train's lr
     stats = {'seen': 0, 'real': 0}
     real_per_batch = []             # per batch, in the order the loader yields them
     batch_devices = set()
@@ -220,15 +238,16 @@ def train_packed(dataset_url, steps=20, rows_per_batch=4, attn='dense', device=N
 
     def train_step(batch):
         with torch.profiler.record_function('train_step'):
-            _check_batch(batch['tokens'], device, batch_devices)
             loss = packed_loss(model, batch, attn)
             opt.zero_grad(set_to_none=True)
             loss.backward()
             opt.step()
             return loss.detach()
 
+    graphed = graphs.resolve(cuda_graph, device)
+    step_fn = graphs.StepGraph(train_step) if graphed else train_step
     warmup = min(2, steps - 1)
-    losses, t_start, timed_real = [], None, 0
+    losses, t_start, timed_real, host_s = [], None, 0, 0.0
     t0 = time.monotonic()
     with make_reader(dataset_url, schema_fields=['tokens'], num_epochs=None,
                      workers_count=4) as reader:
@@ -239,8 +258,11 @@ def train_packed(dataset_url, steps=20, rows_per_batch=4, attn='dense', device=N
             if step == warmup:
                 _sync(device)
                 t_start = time.perf_counter()
-            losses.append(train_step(batch))
+            _check_batch(batch['tokens'], device, batch_devices)
+            t_step = time.perf_counter()
+            losses.append(step_fn(batch))
             if step >= warmup:
+                host_s += time.perf_counter() - t_step
                 timed_real += real_per_batch[step]
             if len(losses) >= steps:
                 break
@@ -251,19 +273,22 @@ def train_packed(dataset_url, steps=20, rows_per_batch=4, attn='dense', device=N
             'packing_utilization': stats['real'] / stats['seen'],
             'tokens_per_s': stats['real'] / (time.monotonic() - t0),
             'step_ms': 1e3 * elapsed / (len(losses) - warmup),
+            'host_ms': 1e3 * host_s / (len(losses) - warmup),
             'step_tokens_per_s': timed_real / elapsed,
-            'batch_devices': sorted(batch_devices), 'device': str(device), 'model': model}
+            'batch_devices': sorted(batch_devices), 'device': str(device), 'model': model,
+            'cuda_graph': graphed}
 
 
-def sample(model, prompt_len=8, max_new=16, seed=0):
+def sample(model, prompt_len=8, max_new=16, seed=0, cuda_graph=None):
     """``packed_example.py::sample``: continue two zipf prompts of
     ``prompt_len`` tokens with the KV-cache decoder (temperature 0.8, top-p
     0.95, key ``PRNGKey(seed)``); returns ``(prompt, tokens)``, numpy int32
-    and an int32 tensor on the model's device."""
+    and an int32 tensor on the model's device.  ``cuda_graph`` as in
+    :func:`petastorm_tpu_torch.models.decoding.generate`."""
     rng = np.random.default_rng(seed)
     prompt = (rng.zipf(1.4, (2, prompt_len)) % model.vocab_size).astype(np.int32)
     tokens = generate(model, torch.from_numpy(prompt), max_new, temperature=0.8, top_p=0.95,
-                      rng=prng.PRNGKey(seed))
+                      rng=prng.PRNGKey(seed), cuda_graph=cuda_graph)
     return prompt, tokens
 
 

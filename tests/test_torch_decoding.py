@@ -86,6 +86,54 @@ def test_sampled_generate_matches_jax(variant, knobs):
         np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _per_token_generate(model, prompt, max_new, temperature, rng, top_k=None, top_p=None):
+    """The token loop drawing each token's key and Gumbel noise as it goes
+    (``categorical`` under ``split(key)``), with the cache written at host
+    positions: the reference for ``generate``'s noise drawn up front."""
+    b, length = prompt.shape
+    with torch.no_grad():
+        cache = model.init_cache(b)
+        logits = model(prompt, positions=torch.arange(length).expand(b, length),
+                       cache=cache)[:, -1]
+        key, tokens = rng, []
+        for t in range(length, length + max_new):
+            key, sub = prng.split(key)
+            truncated = decoding._truncate_logits(logits / temperature, top_k, top_p)
+            token = prng.categorical(sub, truncated)
+            tokens.append(token)
+            logits = model(token[:, None], positions=torch.full((b, 1), t), cache=cache)[:, 0]
+    return torch.stack(tokens, dim=1).to(torch.int32)
+
+
+@pytest.mark.parametrize('knobs', [dict(temperature=0.8, top_p=0.95),
+                                   dict(temperature=1.3, top_k=5)])
+@pytest.mark.parametrize('variant', sorted(VARIANTS))
+def test_noise_drawn_up_front_picks_what_per_token_draws_pick(variant, knobs):
+    _, _, model = _pair(variant)
+    prompt = torch.tensor(_prompt(8, length=6)).long()
+    for seed in (1, 2, 3):
+        want = _per_token_generate(model, prompt, 10, rng=prng.PRNGKey(seed), **knobs)
+        got = decoding.generate(model, prompt, 10, rng=prng.PRNGKey(seed), **knobs)
+        assert torch.equal(got, want)
+
+
+def test_one_token_steps_write_at_the_device_position():
+    """A one-token step writes the cache at ``position`` (a device tensor)
+    and advances it with ``index``; a prefill sets it."""
+    _, _, model = _pair('mha')
+    prompt = torch.tensor(_prompt(9)).long()
+    with torch.no_grad():
+        cache = model.init_cache(2)
+        model(prompt, positions=torch.arange(5).expand(2, 5), cache=cache)
+        assert [(c.index, int(c.position)) for c in cache] == [(5, 5)] * len(cache)
+        before = [c.key.clone() for c in cache]
+        model(prompt[:, :1], positions=torch.full((2, 1), 5), cache=cache)
+    for c, k in zip(cache, before):
+        assert (c.index, int(c.position)) == (6, 6)
+        assert torch.equal(c.key[:, :5], k[:, :5]) and not torch.equal(c.key[:, 5], k[:, 5])
+        assert torch.equal(c.key[:, 6:], k[:, 6:])
+
+
 def test_eos_pads_the_rest_of_the_row():
     _, _, model = _pair('mha')
     prompt = torch.tensor(_prompt(3))

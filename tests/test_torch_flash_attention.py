@@ -182,3 +182,40 @@ def test_rejects_bad_arguments():
         flash_attention(q, k, v, kv_chunk=-1)
     with pytest.raises(ValueError):
         flash_attention(q[0], k[0], v[0])
+
+
+@pytest.mark.parametrize('causal,segments', [(False, False), (True, False), (True, True)])
+def test_head_dim_256_matches_jax(causal, segments):
+    """head_dim 256, the widest tile of the kernels' CUDA-core design: the
+    forward and the gradients in fp32 at the JAX suite's fp32 tolerances
+    (the packed case's 3e-5 for gradients with segments)."""
+    q, k, v, dout = _inputs(13, b=1, s=40, h=2, d=256, n=4)
+    kw = dict(causal=causal, block_q=32, block_k=32)
+    if segments:
+        kw['segment_ids'] = _segments(14, 1, 40)
+    want, want_g = _jax(q, k, v, dout, **dict(kw))
+    got, got_g = _port(q, k, v, dout, **dict(kw))
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+    grad_tol = 3e-5 if segments else 1e-4
+    for g, w, name in zip(got_g, want_g, 'qkv'):
+        np.testing.assert_allclose(g, w, atol=grad_tol, rtol=grad_tol, err_msg='d%s' % name)
+
+
+#: float16 against the JAX kernels in float16: two fp16 ulps (2 * 2**-10)
+#: relative, both sides computing in f32 and rounding once to fp16, which
+#: may land on either side of a value's rounding boundary.
+FP16_TOL = 2e-3
+
+
+@pytest.mark.parametrize('d', [64, 256])
+@pytest.mark.parametrize('causal', [False, True])
+def test_float16_matches_jax(d, causal):
+    q, k, v, dout = (x.astype(np.float16) for x in _inputs(15, b=1, s=48, h=2, d=d, n=4))
+    kw = dict(causal=causal, block_q=32, block_k=32)
+    want, want_g = _jax(q, k, v, dout, **dict(kw))
+    got, got_g = _port(q, k, v, dout, **dict(kw))
+    np.testing.assert_allclose(got, want, atol=FP16_TOL, rtol=FP16_TOL)
+    for g, w, name in zip(got_g, want_g, 'qkv'):
+        assert g.dtype == np.float16
+        np.testing.assert_allclose(g.astype(np.float32), np.asarray(w, np.float32),
+                                   atol=FP16_TOL, rtol=FP16_TOL, err_msg='d%s' % name)

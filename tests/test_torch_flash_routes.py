@@ -65,6 +65,13 @@ def test_fp32_and_other_head_dims_take_the_cuda_cores(dtype, d):
     assert fa.kernel_design(dtype, d, *_qkv(dtype, d)) == 'cuda_core'
 
 
+@pytest.mark.parametrize('dtype,d', [(torch.float16, 64), (torch.float16, 256),
+                                     (torch.bfloat16, 256), (torch.bfloat16, 136),
+                                     (torch.float32, 256)])
+def test_fp16_and_head_dims_above_128_take_the_cuda_cores(dtype, d):
+    assert fa.kernel_design(dtype, d, *_qkv(dtype, d)) == 'cuda_core'
+
+
 @pytest.mark.parametrize('which', range(3))
 def test_a_misaligned_view_takes_the_cuda_cores(which):
     tensors = _qkv(torch.bfloat16, 64)
@@ -144,6 +151,9 @@ def _operands(dtype, d, misaligned=False, b=2, s=20, h=2):
     (torch.bfloat16, 64, True, 'pt_flash_fwd', 'cuda_core'),
     (torch.bfloat16, 100, False, 'pt_flash_fwd', 'cuda_core'),
     (torch.float32, 64, False, 'pt_flash_fwd', 'cuda_core'),
+    (torch.float16, 64, False, 'pt_flash_fwd', 'cuda_core'),
+    (torch.bfloat16, 256, False, 'pt_flash_fwd', 'cuda_core'),
+    (torch.float32, 256, False, 'pt_flash_fwd', 'cuda_core'),
 ])
 def test_forward_routes_reach_their_launch(recorded_launches, dtype, d, misaligned, symbol,
                                            design):
@@ -151,6 +161,9 @@ def test_forward_routes_reach_their_launch(recorded_launches, dtype, d, misalign
     o, lse = fa.flash_fwd(q, k, v, None, False, 0.125)
     assert [c[0] for c in recorded_launches] == [symbol]
     assert len(recorded_launches[0][1]) == len(fa._SYMBOLS[symbol][1])
+    if design == 'cuda_core':   # the dtype code before the stream (csrc/flash_api.h)
+        assert recorded_launches[0][1][-2] == {torch.float32: 0, torch.bfloat16: 1,
+                                               torch.float16: 2}[dtype]
     assert o.shape == q.shape and o.dtype == dtype and lse.shape == (4, 20)
     assert fa.flash_fwd.launches == 1
     assert fa.flash_fwd.launches_by_design[design] == 1
@@ -163,6 +176,7 @@ def test_forward_routes_reach_their_launch(recorded_launches, dtype, d, misalign
     (torch.bfloat16, 64, True, 'pt_flash_bwd_dkv', 'cuda_core'),
     (torch.bfloat16, 100, False, 'pt_flash_bwd_dkv', 'cuda_core'),
     (torch.float32, 64, False, 'pt_flash_bwd_dkv', 'cuda_core'),
+    (torch.float16, 256, False, 'pt_flash_bwd_dkv', 'cuda_core'),
 ])
 def test_dkv_routes_reach_their_launch(recorded_launches, dtype, d, misaligned, symbol, design):
     q, k, v, do, (lse, delta) = _operands(dtype, d, misaligned)
@@ -181,6 +195,8 @@ def test_dkv_routes_reach_their_launch(recorded_launches, dtype, d, misaligned, 
     (torch.bfloat16, 64, True, 'pt_flash_bwd_dq', 'cuda_core'),
     (torch.bfloat16, 100, False, 'pt_flash_bwd_dq', 'cuda_core'),
     (torch.float32, 64, False, 'pt_flash_bwd_dq', 'cuda_core'),
+    (torch.float16, 64, False, 'pt_flash_bwd_dq', 'cuda_core'),
+    (torch.bfloat16, 256, False, 'pt_flash_bwd_dq', 'cuda_core'),
 ])
 def test_dq_routes_reach_their_launch(recorded_launches, dtype, d, misaligned, symbol, design):
     q, k, v, do, (lse, delta) = _operands(dtype, d, misaligned)
@@ -191,6 +207,16 @@ def test_dq_routes_reach_their_launch(recorded_launches, dtype, d, misaligned, s
     assert fa.flash_bwd_dq.launches == 1
     assert fa.flash_bwd_dq.launches_by_design[design] == 1
     assert sum(fa.flash_bwd_dq.launches_by_design.values()) == 1
+
+
+def test_head_dims_above_256_and_other_dtypes_are_refused(recorded_launches):
+    q, k, v, _, _ = _operands(torch.bfloat16, 264)
+    with pytest.raises(ValueError, match='head_dim <= 256'):
+        fa.flash_fwd(q, k, v, None, False, 0.125)
+    q, k, v, _, _ = _operands(torch.float64, 64)
+    with pytest.raises(TypeError, match='float16'):
+        fa.flash_fwd(q, k, v, None, False, 0.125)
+    assert recorded_launches == [] and fa.flash_fwd.launches == 0
 
 
 def _call_forward(q, k, v, do, lse, delta):
