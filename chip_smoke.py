@@ -7,7 +7,10 @@ Run from the root of a checkout, with no arguments::
 Phases, in order; any failure propagates and exits nonzero:
 
 1. device: a CUDA card, its name and power limit (``nvidia-smi``);
-2. build: the flash-attention kernels, from ``petastorm_tpu_torch/csrc``;
+2. build: the flash-attention kernels (nvcc) and the native decode plane
+   (g++, ``csrc/pt_decode.cc``), from ``petastorm_tpu_torch/csrc``; the
+   functions the decode library holds (a library family whose headers the
+   host lacks is printed as absent, with the paths that decode with cv2);
 3. kernels vs plain: each kernel against its plain PyTorch version on the
    same inputs, and the differentiable op against the dense fp32 reference,
    at (a) the ViT-S/16 training shapes in bf16, (b) a small fp32 case with
@@ -60,7 +63,26 @@ Phases, in order; any failure propagates and exits nonzero:
 10. generation (L3): the trained L2 model samples (KV cache, temperature
    0.8, top-p 0.95) with one prefill forward launch per layer, repeats exactly under
    the same key, and its greedy tokens equal the argmax of a full forward
-   recomputed step by step.
+   recomputed step by step;
+11. native: each function the decode library holds against the cv2 or
+   np.load path on the JPEG dataset's images (JPEG within 1 LSB, the fused
+   decode and resize to 224x224 within 2, PNG, .npy and zlib .npy exact),
+   host decode rates on one thread, and a ``ResizeImages`` read to the card
+   that must go through the fused native function where the library holds it;
+12. decode plane, read from a warm pool: the image reader alone (no
+   training) to the card with 8, 2 and 1 decode threads and 8, 4 and 1
+   decode processes, 12 epochs timed after 2 (images/s, the host's pinned
+   copy per batch, a process's busy time per row group, also without each
+   worker's first); graphed runs of 100 steps timed after 20 of ResNet-50
+   streaming with 8, 4 and 2 decode threads and 8 decode processes, ViT
+   with 8 threads and 8 processes, and L1 with the native plane and under
+   ``native.disabled()``, each with the pinned copy timed inside it and
+   its launches checked; every process-pool run must have
+   delivered through /dev/shm and left no slab and no child; the L1 native
+   run must have decoded through the native plane;
+13. pool parity: in a process started with ``PYTHONHASHSEED=0``, the
+   process pool with one worker and no shuffle delivers the thread pool's
+   batches to the card bit for bit, and leaves no slab and no child.
 
 Every training path (5-9) runs graphed, the default on the card: a CUDA
 graph of the step replayed once per step (``petastorm_tpu_torch.gpu.graphs``),
@@ -97,6 +119,7 @@ import torch.nn.functional as F
 T_START = time.monotonic()
 STEPS = 20
 BATCH = 64
+IMAGE_ROWS = 512   # the JPEG dataset's rows: 8 row groups of 64
 VIT_SHAPE = dict(b=64, s=196, h=6, d=64)     # ViT-S/16 at 224x224: 14*14 patches, 384/6
 LM_SHAPE = dict(b=8, s=1024, h=8, d=32)      # L1: jax_example.py's batch 8, 256/8 heads
 PACKED_SHAPE = dict(b=4, s=512, h=4, d=32)   # L2: packed_example.py's 4 rows of 512, 128/4
@@ -609,7 +632,7 @@ def phase_model(fa):
         % (tuple(logits.shape), err))
 
 
-def write_dataset(url, rows=512, seed=0):
+def write_dataset(url, rows=IMAGE_ROWS, seed=0):
     """Synthetic ImageNet-like JPEG Parquet: RGB images at mixed sizes (most
     not 224x224, so the transform's resize runs) and a string noun_id."""
     import cv2
@@ -1270,6 +1293,414 @@ def phase_generate(fa, model):
     return launches
 
 
+#: The decode-plane runs of the image paths: (label, model, pool, workers).
+#: ResNet-50 streaming at 8, 4 and 2 decode threads and 8 decode processes,
+#: ViT at 8 threads and 8 processes.
+DECODE_RUNS = (
+    ('resnet50 thread 8', 'resnet50', 'thread', 8),
+    ('resnet50 thread 4', 'resnet50', 'thread', 4),
+    ('resnet50 thread 2', 'resnet50', 'thread', 2),
+    ('resnet50 process 8', 'resnet50', 'process', 8),
+    ('vit thread 8', 'vit', 'thread', 8),
+    ('vit process 8', 'vit', 'process', 8),
+)
+#: The decode plane alone, without training: (pool, workers).
+DECODE_ONLY = (('thread', 8), ('thread', 2), ('thread', 1), ('process', 8), ('process', 4),
+               ('process', 1))
+#: The decode plane's readings come from a warm pool: each training run
+#: takes DECODE_STEPS steps (100 row groups of 64 rows, 12 or more per
+#: decode process at 8) and is timed after DECODE_WARMUP of them; the
+#: decode-alone runs read DECODE_EPOCHS epochs (96 row groups) and are timed
+#: after the first DECODE_WARM_EPOCHS.  A spawned worker's first row group
+#: carries its interpreter's imports and first touches, which threads in a
+#: warm interpreter never pay.
+DECODE_STEPS, DECODE_WARMUP = 100, 20
+DECODE_EPOCHS, DECODE_WARM_EPOCHS = 12, 2
+#: Native decode against the cv2 and np.load paths, in LSB: JPEG decode
+#: (the JAX package's own bound, tests/test_native_decode.py), the fused
+#: decode and resize of <= 2x reductions and upscales
+#: (tests/test_resize_transform.py); PNG and .npy must be exact.
+NATIVE_LSB = {'jpeg_decode': 1, 'jpeg_decode_resize': 2, 'png_decode': 0, 'npy_copy': 0,
+              'zlib_npy_decompress': 0}
+
+
+def live_children():
+    """Pids of this process's children that have not exited (``/proc``)."""
+    me, out = os.getpid(), []
+    for entry in os.listdir('/proc'):
+        if not entry.isdigit():
+            continue
+        try:
+            with open('/proc/%s/stat' % entry) as f:
+                fields = f.read().rsplit(')', 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[1]) == me and fields[0] != 'Z':
+            out.append(int(entry))
+    return out
+
+
+def jpeg_cells(url):
+    """The image column's cells of the JPEG dataset, as bytes, in row order."""
+    import pyarrow.parquet as pq
+    from petastorm_tpu_torch.etl.dataset_metadata import load_row_groups
+    from petastorm_tpu_torch.fs_utils import get_filesystem_and_path
+    fs, path = get_filesystem_and_path(url)
+    cells = []
+    for piece in load_row_groups(fs, path):
+        table = pq.ParquetFile(piece.path).read_row_group(piece.row_group, columns=['image'])
+        cells.extend(table.column('image').to_pylist())
+    return cells
+
+
+def rows_per_s(fn, rows, rounds=2):
+    """Rows per second of ``fn()`` on this thread, the mean over ``rounds``."""
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        fn()
+    return rows * rounds / (time.perf_counter() - t0)
+
+
+def phase_native_build():
+    """Build the native decode plane (g++, at first use, like the flash
+    kernels' nvcc), before any path loads it; its seconds, the compiler and
+    the functions the library holds.  Absent ones are printed, with the
+    paths that then decode with cv2."""
+    from petastorm_tpu_torch import native
+    gxx = subprocess.run(['g++', '--version'], capture_output=True, text=True,
+                         check=True).stdout.splitlines()[0]
+    mtime = lambda: os.path.getmtime(native.library_path()) \
+        if os.path.exists(native.library_path()) else None  # noqa: E731
+    before = mtime()
+    t0 = time.monotonic()
+    native.get_lib()
+    build_s = time.monotonic() - t0
+    fresh = mtime() != before
+    caps = native.capabilities()
+    absent = [name for name in native._SYMBOLS if name not in caps]
+    log('native: %s %s in %.2f s by %s; capabilities %s'
+        % (native.library_path(), 'built' if fresh else 'loaded (built before)', build_s, gxx,
+           caps))
+    if absent:
+        log('native: ABSENT from the library (their headers were not found): %s; those columns '
+            'decode with cv2 or np.load%s' % (absent, ': the JPEG image paths (ViT, ResNet-50, '
+                                              'the HBM cache, ResizeImages) decode with cv2'
+                                              if 'pt_jpeg_decode_batch' in absent else ''))
+    SUMMARY['native'] = dict(build_s=build_s if fresh else None, gxx=gxx, capabilities=caps,
+                             absent=absent)
+
+
+def phase_native(url):
+    """The native decode plane: each function the library holds against the
+    cv2 or np.load path (``native.disabled()``) on the JPEG dataset's
+    images, within :data:`NATIVE_LSB`; host decode rates on one thread; and
+    a ``ResizeImages`` read through the columnar reader to the card, which
+    must decode through the fused native function where the library holds
+    it."""
+    import cv2
+    from petastorm_tpu_torch import native
+    from petastorm_tpu_torch.codecs import (CompressedImageCodec, CompressedNdarrayCodec,
+                                            NdarrayCodec)
+    from petastorm_tpu_torch.gpu import DataLoader
+    from petastorm_tpu_torch.reader import make_reader
+    from petastorm_tpu_torch.train_transform import FixRow
+    from petastorm_tpu_torch.transform import ResizeImages
+    from petastorm_tpu_torch.unischema import UnischemaField
+    caps = SUMMARY['native']['capabilities']
+    cells = jpeg_cells(url)
+    codec = CompressedImageCodec('jpeg')
+    field = UnischemaField('image', np.uint8, (224, 224, 3), codec, False)
+    with native.disabled():
+        decoded = [codec.decode(field, c) for c in cells]
+    square = [i for i, img in enumerate(decoded) if img.shape[:2] == (224, 224)]
+    images = np.stack([decoded[i] for i in square])
+    tensor = UnischemaField('x', np.uint8, images.shape[1:], NdarrayCodec(), False)
+    png = [cv2.imencode('.png', img[:, :, ::-1])[1].tobytes() for img in images]
+    npy = [NdarrayCodec().encode(tensor, img) for img in images]
+    zlib_npy = [CompressedNdarrayCodec().encode(tensor, img) for img in images]
+    with native.disabled():
+        resized = np.empty((len(cells), 224, 224, 3), np.uint8)
+        for i, cell in enumerate(cells):
+            codec.decode_resized_into(field, cell, resized[i])
+        png_ref = np.stack([CompressedImageCodec('png').decode(field, c) for c in png])
+        npy_ref = np.stack([NdarrayCodec().decode(tensor, c) for c in npy])
+        zlib_ref = np.stack([CompressedNdarrayCodec().decode(tensor, c) for c in zlib_npy])
+    cases = [('jpeg_decode', native.jpeg_decode_batch, [cells[i] for i in square], images),
+             ('png_decode', native.png_decode_batch, png, png_ref),
+             ('npy_copy', native.npy_copy_batch, npy, npy_ref),
+             ('zlib_npy_decompress', native.zlib_npy_decompress_batch, zlib_npy, zlib_ref),
+             ('jpeg_decode_resize', native.jpeg_decode_resize_batch, cells, resized)]
+    checks = {}
+    for name, fn, batch_cells, ref in cases:
+        if 'pt_' + name + '_batch' not in caps:
+            checks[name] = 'absent'
+            log('native %s: absent from the library, not checked' % name)
+            continue
+        got = np.empty_like(ref)
+        if not fn(batch_cells, got):
+            raise AssertionError('native %s rejected the batch' % name)
+        err = int(np.abs(got.astype(np.int16) - ref.astype(np.int16)).max())
+        if err > NATIVE_LSB[name]:
+            raise AssertionError('native %s: %d LSB off the cv2 / np.load path (limit %d)'
+                                 % (name, err, NATIVE_LSB[name]))
+        checks[name] = err
+        log('native %s: %d rows, max %d LSB off the cv2 / np.load path (limit %d)'
+            % (name, len(ref), err, NATIVE_LSB[name]))
+    # Host decode on one thread, rows/s: what the image paths run per row
+    # (cv2 decode and the example's fix_row), and the native batch calls.
+    fix = FixRow((224, 224))
+    rates = {'cv2_fix_row': rows_per_s(
+        lambda: [fix({'image': codec.decode(field, c), 'noun_id': 'n0'}) for c in cells],
+        len(cells))}
+    for name, fn, batch_cells, ref in (cases[0], cases[-1]):
+        rates[name] = rows_per_s(lambda: fn(batch_cells, np.empty_like(ref)), len(ref)) \
+            if checks[name] != 'absent' else None
+    log('native: host decode rows/s on one thread: cv2 per cell + fix_row %.1f; native batch '
+        '(224x224 rows) %s; native fused decode + resize %s'
+        % (rates['cv2_fix_row'], *('%.1f' % rates[k] if rates[k] else 'absent'
+                                   for k in ('jpeg_decode', 'jpeg_decode_resize'))))
+    # ResizeImages through the columnar reader and the loader to the card.
+    before = native.calls['jpeg_decode_resize_batch']
+    reader = make_reader(url, schema_fields=['image'], columnar_decode=True, num_epochs=1,
+                         transform_spec=ResizeImages({'image': (224, 224)}), workers_count=8)
+    t0, rows = time.perf_counter(), 0
+    with DataLoader(reader, batch_size=BATCH, drop_last=False) as loader:
+        for batch in loader:
+            rows += batch['image'].shape[0]
+            if batch['image'].shape[1:] != (224, 224, 3) or batch['image'].device.type != 'cuda':
+                raise AssertionError('ResizeImages batch %s on %s' % (
+                    tuple(batch['image'].shape), batch['image'].device))
+    torch.cuda.synchronize()
+    resize_rate = rows / (time.perf_counter() - t0)
+    fused = native.calls['jpeg_decode_resize_batch'] - before
+    log('native: ResizeImages((224, 224)) columnar read of %d rows to the card, 8 threads: %.1f '
+        'images/s (first epoch, reader start included); %d row groups through the fused native '
+        'function' % (rows, resize_rate, fused))
+    if rows != len(cells):
+        raise AssertionError('ResizeImages read %d of %d rows' % (rows, len(cells)))
+    if 'pt_jpeg_decode_resize_batch' in caps and fused == 0:
+        raise AssertionError('ResizeImages: no row group went through the fused native function')
+    SUMMARY['native'].update(max_lsb=checks, rows_per_s_one_thread=rates,
+                             resize_images=dict(images_per_s=resize_rate, native_batches=fused))
+
+
+def check_process_run(label, diag):
+    """A process-pool run (``diag``: its reader's diagnostics): its batches
+    came through /dev/shm (where the host has a usable one), and it left no
+    slab of its workers and no child behind."""
+    from petastorm_tpu_torch.workers_pool import shm_plane
+    if shm_plane.available() and not diag['shm_results']:
+        raise AssertionError('%s: no batch came through /dev/shm' % label)
+    left = shm_plane.residue(diag['worker_pids'])
+    if left or live_children():
+        raise AssertionError('%s: left slabs %s and children %s' % (label, sorted(left),
+                                                                    live_children()))
+
+
+@contextlib.contextmanager
+def timed_puts():
+    """Seconds of each ``TransferPlane.put`` call made inside: the host's
+    copy of a batch into pinned memory, on the thread that consumes the
+    loader, so inside the data wait the stall monitor measures."""
+    from petastorm_tpu_torch.gpu import transfer
+    put_s, put = [], transfer.TransferPlane.put
+
+    def timed_put(plane, batch):
+        t0 = time.perf_counter()
+        out = put(plane, batch)
+        put_s.append(time.perf_counter() - t0)
+        return out
+    transfer.TransferPlane.put = timed_put
+    try:
+        yield put_s
+    finally:
+        transfer.TransferPlane.put = put
+
+
+def busy_ms(diag):
+    """A process pool's busy ms per row group: over every item, and over the
+    items after each worker's first (the warm pool's)."""
+    if not diag.get('items_processed'):
+        return None, None
+    return (1e3 * diag['busy_time'] / diag['items_processed'],
+            1e3 * diag['warm_busy_time'] / diag['warm_items'] if diag['warm_items'] else None)
+
+
+def decode_only(url, pool, workers):
+    """The image paths' reader (the example's transform, ``pool`` with
+    ``workers``) through the loader to the card for DECODE_EPOCHS epochs,
+    with no training, timed after the first DECODE_WARM_EPOCHS: images/s,
+    the host's copy of each batch into pinned memory (:func:`timed_puts`),
+    and the process pool's busy ms per row group."""
+    from petastorm_tpu_torch.gpu import DataLoader
+    from petastorm_tpu_torch.reader import make_reader
+    from petastorm_tpu_torch.train import make_transform
+    warm_batches = DECODE_WARM_EPOCHS * IMAGE_ROWS // BATCH
+    with timed_puts() as put_s:
+        reader = make_reader(url, schema_fields=['image', 'noun_id'], columnar_decode=True,
+                             num_epochs=DECODE_EPOCHS, transform_spec=make_transform((224, 224)),
+                             reader_pool_type=pool, workers_count=workers)
+        rows, t0 = 0, None
+        with DataLoader(reader, batch_size=BATCH, device='cuda') as loader:
+            for i, batch in enumerate(loader):
+                if i == warm_batches:
+                    torch.cuda.synchronize()
+                    t0, rows = time.perf_counter(), 0
+                rows += batch['image'].shape[0]
+        torch.cuda.synchronize()
+    diag = reader.diagnostics
+    busy, warm_busy = busy_ms(diag)
+    return dict(images_per_s=rows / (time.perf_counter() - t0),
+                put_ms=1e3 * float(np.mean(put_s[warm_batches:])), diag=diag,
+                shm_results=diag.get('shm_results'), busy_ms_per_row_group=busy,
+                warm_busy_ms_per_row_group=warm_busy)
+
+
+def phase_decode_plane(fa, url, lm_url):
+    """First the decode plane alone (:func:`decode_only` for each of
+    :data:`DECODE_ONLY`), then graphed runs of DECODE_STEPS steps on the
+    same data with another decode plane each (:data:`DECODE_RUNS`, timed
+    after DECODE_WARMUP steps; L1 with the native plane and under
+    ``native.disabled()``, timed after train_lm's own 2): images/s or
+    tokens/s, step, host and data-wait ms, ``stall_pct``, the pinned copy's
+    ms per step inside the same window, the process pool's busy ms per row
+    group and the results that came through /dev/shm.  Each run is a path
+    of its own: its flash launches are counted from 0 and checked."""
+    import petastorm_tpu_torch.train_lm as lm
+    from petastorm_tpu_torch import native
+    from petastorm_tpu_torch.train import train
+    from petastorm_tpu_torch.workers_pool import shm_plane
+    import cv2
+    import zmq
+    log('decode plane: %d host cores (%d usable by this process); /dev/shm %s; pyzmq %s; cv2 %s '
+        '(%d threads of its own)'
+        % (os.cpu_count(), len(os.sched_getaffinity(0)),
+           'usable' if shm_plane.available() else 'NOT usable: every result takes the byte path',
+           zmq.__version__, cv2.__version__, cv2.getNumThreads()))
+    alone = {}
+    for pool, workers in DECODE_ONLY:
+        label = '%s %d' % (pool, workers)
+        alone[label] = row = decode_only(url, pool, workers)
+        diag = row.pop('diag')
+        if pool == 'process':
+            check_process_run('decode alone, ' + label, diag)
+        log('decode plane alone [%s] (no training, %d epochs to the card, timed after %d): %.1f '
+            'images/s; host copy into pinned memory %.2f ms per batch; %s'
+            % (label, DECODE_EPOCHS, DECODE_WARM_EPOCHS, row['images_per_s'], row['put_ms'],
+               'busy %.1f ms per row group of 64 (%.1f after each worker\'s first), '
+               'shm_results %d' % (row['busy_ms_per_row_group'],
+                                   row['warm_busy_ms_per_row_group'], row['shm_results'])
+               if pool == 'process' else 'decode in this process'))
+    SUMMARY['decode_alone'] = alone
+    rows = {}
+
+    def record(label, result, launches, steps, warmup, put_s):
+        if not result['cuda_graph'] or result['batch_devices'] != ['cuda'] \
+                or not np.all(np.isfinite(result['losses'])) or len(result['losses']) != steps:
+            raise AssertionError('%s: %r' % (label, {k: result[k] for k in (
+                'cuda_graph', 'batch_devices', 'losses')}))
+        diag = result['reader_diagnostics']
+        busy, warm_busy = busy_ms(diag)
+        # the copies from the warm-up on (the loader yields a batch
+        # `prefetch` batches after its put)
+        put_ms = 1e3 * float(np.mean(put_s[warmup:]))
+        rows[label] = dict(_metrics(result), put_ms=put_ms, shm_results=diag.get('shm_results'),
+                           busy_ms_per_row_group=busy, warm_busy_ms_per_row_group=warm_busy,
+                           launches=launches)
+        rate = result.get('images_per_s') or result.get('tokens_per_s')
+        log('decode plane [%s] (%d steps, timed after %d): %s/s %.1f step_ms %.2f host_ms %.3f '
+            'data_wait_ms %.2f pinned_copy_ms %.2f stall_pct %.2f shm_results %s busy_ms per row '
+            'group %s (warm %s) launches %s'
+            % (label, steps, warmup, 'images' if 'images_per_s' in result else 'tokens', rate,
+               result['step_ms'], result['host_ms'], result['data_wait_ms'], put_ms,
+               result['stall_pct'], diag.get('shm_results'),
+               None if busy is None else '%.1f' % busy,
+               None if warm_busy is None else '%.1f' % warm_busy, launches))
+
+    for label, model, pool, workers in DECODE_RUNS:
+        reset_counts(fa)
+        with timed_puts() as put_s:
+            result = train(url, steps=DECODE_STEPS, batch_size=BATCH, model_name=model,
+                           reader_pool_type=pool, workers_count=workers,
+                           warmup_steps=DECODE_WARMUP)
+        launches, by_design = counts(fa)
+        check_launches(label, launches, by_design,
+                       {name: (12 * DECODE_STEPS if model == 'vit' else 0) for name in launches})
+        if pool == 'process':
+            check_process_run(label, result['reader_diagnostics'])
+        record(label, result, launches, DECODE_STEPS, DECODE_WARMUP, put_s)
+    layers = lm.LONG_CONTEXT_LM['num_layers']
+    for label, plane in (('lm native', contextlib.nullcontext()),
+                         ('lm disabled', native.disabled())):
+        before = native.calls['npy_copy_batch']
+        reset_counts(fa)
+        with plane, timed_puts() as put_s:
+            result = lm.train_lm(lm_url, steps=DECODE_STEPS, batch_size=8, strategy='flash')
+        launches, by_design = counts(fa)
+        check_launches(label, launches, by_design,
+                       {'flash_fwd': 2 * layers * DECODE_STEPS,
+                        'flash_bwd_dq': layers * DECODE_STEPS,
+                        'flash_bwd_dkv': layers * DECODE_STEPS})
+        batches = native.calls['npy_copy_batch'] - before
+        if (batches == 0) == (label == 'lm native'):
+            raise AssertionError('%s: %d row groups decoded by the native plane' % (label, batches))
+        record(label, result, launches, DECODE_STEPS, 2, put_s)
+        rows[label]['native_batches'] = batches
+    SUMMARY['decode_plane'] = rows
+
+
+PARITY_SCRIPT = r"""
+import json, sys
+import torch
+from petastorm_tpu_torch.gpu import DataLoader
+from petastorm_tpu_torch.reader import make_reader
+from petastorm_tpu_torch.train import make_transform
+from petastorm_tpu_torch.workers_pool import shm_plane
+batches, shm = {}, {}
+for pool in ('thread', 'process'):
+    reader = make_reader(sys.argv[1], schema_fields=['image', 'noun_id'], columnar_decode=True,
+                         transform_spec=make_transform((224, 224)), reader_pool_type=pool,
+                         workers_count=1, shuffle_row_groups=False, num_epochs=1)
+    with DataLoader(reader, batch_size=64, drop_last=False, device='cuda') as loader:
+        batches[pool] = [{k: v.cpu() for k, v in b.items()} for b in loader]
+    shm[pool] = reader.diagnostics.get('shm_results')
+    pids = reader.diagnostics.get('worker_pids', [])
+    alive = [p.pid for p in getattr(reader._pool, '_processes', []) if p.poll() is None]
+equal = len(batches['thread']) == len(batches['process']) and all(
+    set(a) == set(b) and all(a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in a)
+    for a, b in zip(batches['thread'], batches['process']))
+print(json.dumps({'batches': len(batches['process']), 'equal': equal, 'shm_results': shm,
+                  'fields': sorted(batches['process'][0]), 'children_alive': alive,
+                  'residue': sorted(shm_plane.residue(pids))}))
+"""
+
+
+def phase_pool_parity(url):
+    """In a process started with PYTHONHASHSEED=0 (the example's label is
+    ``hash(noun_id) % 1000``, and each decode process would seed its own
+    hash otherwise): the process pool with one worker and no row-group
+    shuffle delivers the thread pool's batches to the card bit for bit,
+    images and labels, its batches came through /dev/shm, and after
+    ``stop`` no child and no slab is left."""
+    from petastorm_tpu_torch.workers_pool import shm_plane
+    env = dict(os.environ, PYTHONHASHSEED='0',
+               PYTHONPATH=os.pathsep.join([os.getcwd(), os.environ.get('PYTHONPATH', '')]))
+    proc = subprocess.run([sys.executable, '-c', PARITY_SCRIPT, url], env=env,
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError('pool parity process failed:\n%s\n%s' % (proc.stdout[-3000:],
+                                                                      proc.stderr[-3000:]))
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    log('pool parity (PYTHONHASHSEED=0, one worker, no shuffle): %d batches of %s, process pool '
+        'equal to the thread pool bit for bit: %s; shm_results %s; children alive after stop %s; '
+        'slabs left %s' % (out['batches'], out['fields'], out['equal'], out['shm_results'],
+                           out['children_alive'], out['residue']))
+    if not out['equal'] or out['fields'] != ['image', 'label'] or out['children_alive'] \
+            or out['residue'] or (shm_plane.available() and not out['shm_results']['process']):
+        raise AssertionError('pool parity: %r' % out)
+    SUMMARY['pool_parity'] = out
+
+
 def main():
     # The kernels' module (petastorm_tpu_torch.ops re-exports its function
     # under the same name).  Imported first: outside a checkout this fails
@@ -1277,6 +1708,7 @@ def main():
     fa = importlib.import_module('petastorm_tpu_torch.ops.flash_attention')
     smi = phase_device()
     phase_build(fa)
+    phase_native_build()
     errors, repair_errors = {}, {}
     for shape, dtype, causal, segments, misaligned, design in KERNEL_CASES:
         errs = kernel_case(fa, shape, dtype, causal, segments, misaligned, design, seed=7)
@@ -1300,7 +1732,11 @@ def main():
                             ('hbm_cache', lambda: phase_hbm_cache(fa, url, tmp)),
                             ('lm', lambda: phase_lm(fa, tmp)),
                             ('packed', lambda: phase_packed(fa, tmp)),
-                            ('generate', lambda: phase_generate(fa, paths['packed'][1]))):
+                            ('generate', lambda: phase_generate(fa, paths['packed'][1])),
+                            ('native', lambda: phase_native(url)),
+                            ('decode_plane', lambda: phase_decode_plane(
+                                fa, url, 'file://' + os.path.join(tmp, 'lc_tokens'))),
+                            ('pool_parity', lambda: phase_pool_parity(url))):
             t0 = time.monotonic()
             paths[name] = phase()
             log('phase %s: %.1f s' % (name, time.monotonic() - t0))

@@ -1,10 +1,10 @@
 """Cell-level codecs: encode numpy values into Parquet-storable cells and back.
 
-Counterpart of ``petastorm_tpu/codecs.py``: the scalar, ndarray and
-compressed-image codecs on their cv2 and numpy paths.  The native decode
-plane (``libpt_decode.so``) and ``CompressedNdarrayCodec`` are later slices
-of the port, so ``decode_batch_into`` always returns False and every column
-decodes cell by cell.  The Spark projections are left out.
+Counterpart of ``petastorm_tpu/codecs.py``: the scalar, ndarray,
+compressed-ndarray and compressed-image codecs.  A static-shape column
+decodes whole through the native decode plane (:mod:`petastorm_tpu_torch.native`)
+where the library holds the codec's function, and cell by cell through
+numpy and cv2 otherwise.  The Spark projections are left out.
 
 Codecs are pickled into the dataset footer, so their instance state is the
 JAX package's byte for byte: a dataset written by either package reads in
@@ -12,6 +12,7 @@ the other (``etl/dataset_metadata.py`` maps the module names).
 """
 
 import io
+import zlib
 
 import numpy as np
 import pyarrow as pa
@@ -22,8 +23,25 @@ __all__ = [
     'DataframeColumnCodec',
     'ScalarCodec',
     'NdarrayCodec',
+    'CompressedNdarrayCodec',
     'CompressedImageCodec',
+    'resize_image_cell',
 ]
+
+
+def resize_image_cell(arr, h, w):
+    """The one resize every Python path uses (``ResizeImages``' row
+    function, the columnar fallback, ``decode_resized_into``): cv2.resize
+    INTER_LINEAR, with the trailing 1-channel dim cv2 drops restored.  The
+    native fused path approximates it (see
+    :func:`petastorm_tpu_torch.native.jpeg_decode_resize_batch`)."""
+    import cv2
+    if arr is None or not isinstance(arr, np.ndarray) or arr.shape[:2] == (h, w):
+        return arr
+    out = cv2.resize(arr, (w, h), interpolation=cv2.INTER_LINEAR)
+    if arr.ndim == 3 and arr.shape[2] == 1:
+        out = out[:, :, None]
+    return out
 
 
 class DataframeColumnCodec(object):
@@ -50,8 +68,8 @@ class DataframeColumnCodec(object):
         np.copyto(dst, decoded, casting='same_kind')
 
     def decode_batch_into(self, unischema_field, cells, dst):
-        """Whole-column decode into ``dst``.  The native plane that does this
-        is a later slice of the port: False sends the caller to the per-cell
+        """Whole-column decode into ``dst`` (``cells``: a pyarrow binary
+        column or a list of bytes); False sends the caller to the per-cell
         path."""
         return False
 
@@ -167,8 +185,31 @@ class NdarrayCodec(DataframeColumnCodec):
             arr = arr.view(expected)
         return arr
 
+    def decode_batch_into(self, unischema_field, cells, dst):
+        """The whole column in one native call (a header check and a memcpy
+        per cell); False for what the library leaves to ``np.load``
+        (extension dtypes, other shapes, Fortran order)."""
+        from petastorm_tpu_torch import native
+        return native.npy_copy_batch(cells, dst)
+
     def arrow_dtype(self):
         return pa.binary()
+
+
+class CompressedNdarrayCodec(NdarrayCodec):
+    """``NdarrayCodec`` + zlib, for sparse or compressible tensors."""
+
+    def encode(self, unischema_field, value):
+        return zlib.compress(super(CompressedNdarrayCodec, self).encode(unischema_field, value))
+
+    def decode(self, unischema_field, value):
+        return super(CompressedNdarrayCodec, self).decode(unischema_field,
+                                                          zlib.decompress(value))
+
+    def decode_batch_into(self, unischema_field, cells, dst):
+        """The whole column inflated and unpacked in one native call."""
+        from petastorm_tpu_torch import native
+        return native.zlib_npy_decompress_batch(cells, dst)
 
 
 # -- images ------------------------------------------------------------------
@@ -241,6 +282,35 @@ class CompressedImageCodec(DataframeColumnCodec):
             # declared rank on every path.
             arr = arr.reshape(shape)
         return np.ascontiguousarray(arr.astype(unischema_field.numpy_dtype, copy=False))
+
+    def decode_batch_into(self, unischema_field, cells, dst):
+        """The whole column decoded natively, straight to RGB or grayscale
+        in the batch (no BGR intermediate, no per-image Python)."""
+        from petastorm_tpu_torch import native
+        if self._image_codec in ('.jpg', '.jpeg'):
+            return native.jpeg_decode_batch(cells, dst)
+        return native.png_decode_batch(cells, dst)
+
+    def decode_batch_into_resized(self, unischema_field, cells, dst):
+        """Fused whole-column decode and resize: images of any size land as
+        exactly ``dst[i]``-shaped ones (see
+        :func:`petastorm_tpu_torch.native.jpeg_decode_resize_batch` for its
+        accuracy against :func:`resize_image_cell`).  False: the caller
+        resizes cell by cell."""
+        from petastorm_tpu_torch import native
+        if self._image_codec in ('.jpg', '.jpeg'):
+            return native.jpeg_decode_resize_batch(cells, dst)
+        return native.png_decode_resize_batch(cells, dst)
+
+    def decode_resized_into(self, unischema_field, value, dst):
+        """Per-cell form of the fused path: a full decode and
+        :func:`resize_image_cell` into ``dst``."""
+        arr = resize_image_cell(self.decode(unischema_field, value), dst.shape[0], dst.shape[1])
+        if arr.ndim == 2 and dst.ndim == 3:
+            arr = arr[:, :, None]
+        elif arr.ndim == 3 and arr.shape[2] == 1 and dst.ndim == 2:
+            arr = arr[:, :, 0]
+        np.copyto(dst, arr, casting='same_kind')
 
     def decode_into(self, unischema_field, value, dst):
         import cv2

@@ -6,8 +6,8 @@ the iterator protocol, and the ``columnar_decode`` fast path the loader
 consumes.
 
 Cut to this slice of the port (each option outside it raises
-``ValueError`` naming where it will come): the thread and dummy pools,
-FIFO scheduling, synchronous reads (no ingest plane), the null cache.  The
+``ValueError`` naming where it will come): the thread, process and dummy
+pools, FIFO scheduling, synchronous reads (no ingest plane), the null cache.  The
 shard default is 0 of 1: nothing here probes a multi-host topology.
 """
 
@@ -25,14 +25,15 @@ from petastorm_tpu_torch.workers_pool.ventilator import ConcurrentVentilator
 _LATER = 'a later slice of the port'
 
 
-def _make_pool(reader_pool_type, workers_count, results_queue_size):
+def _make_pool(reader_pool_type, workers_count, results_queue_size, zmq_copy_buffers=True):
     if reader_pool_type == 'thread':
         return ThreadPool(workers_count, results_queue_size)
     if reader_pool_type == 'dummy':
         return DummyPool()
     if reader_pool_type == 'process':
-        raise ValueError("reader_pool_type='process' (the ZeroMQ process pool) is %s" % _LATER)
-    raise ValueError("reader_pool_type must be 'thread' or 'dummy'; got %r"
+        from petastorm_tpu_torch.workers_pool.process_pool import ProcessPool
+        return ProcessPool(workers_count, results_queue_size, zmq_copy_buffers=zmq_copy_buffers)
+    raise ValueError("reader_pool_type must be one of 'thread', 'process', 'dummy'; got %r"
                      % (reader_pool_type,))
 
 
@@ -55,7 +56,7 @@ def make_reader(dataset_url,
                 cur_shard=None, shard_count=None,
                 cache_type='null',
                 transform_spec=None,
-                seed=None,
+                seed=None, zmq_copy_buffers=True,
                 columnar_decode=False, read_retries=2, retry_backoff_s=0.1,
                 scheduling='fifo', ingest='off'):
     """Reader over a petastorm-format dataset (codec-decoded rows).
@@ -65,6 +66,13 @@ def make_reader(dataset_url,
     :class:`petastorm_tpu_torch.gpu.DataLoader`).  Argument names and
     defaults follow ``petastorm_tpu.make_reader``; ``scheduling`` and
     ``ingest`` take only the values this slice implements.
+
+    ``reader_pool_type='process'`` decodes in ``workers_count`` processes of
+    their own (:class:`~petastorm_tpu_torch.workers_pool.process_pool.ProcessPool`),
+    outside this interpreter's lock; results come back through
+    ``/dev/shm``.  Its transform must then be picklable (a module-level
+    function or callable class): one that is not raises here.
+    ``zmq_copy_buffers=False`` sends byte-path results without ZeroMQ's copy.
     """
     if scheduling != 'fifo':
         raise ValueError("scheduling=%r: only 'fifo' is in this slice; adaptive "
@@ -91,7 +99,7 @@ def make_reader(dataset_url,
         transform_spec=transform_spec, cache=NullCache(),
         columnar_output=columnar_decode, read_retries=read_retries,
         retry_backoff_s=retry_backoff_s)
-    pool = _make_pool(reader_pool_type, workers_count, results_queue_size)
+    pool = _make_pool(reader_pool_type, workers_count, results_queue_size, zmq_copy_buffers)
     result_schema = transform_schema(schema_view, transform_spec) \
         if transform_spec is not None else schema_view
     return Reader(pool=pool, worker_args=worker_args,
@@ -148,6 +156,13 @@ class Reader(object):
                 raise StopIteration from None
             self._row_buffer = list(rows)
         return self.schema.make_namedtuple_from_dict(self._row_buffer.pop(0))
+
+    @property
+    def diagnostics(self):
+        """The pool's counters: the process pool's ``items_processed``,
+        ``busy_time``, ``warm_items``, ``warm_busy_time``, ``shm_results``
+        and its ``worker_pids``; empty for the other pools."""
+        return dict(getattr(self._pool, 'diagnostics', {}))
 
     def stop(self):
         self._pool.stop()

@@ -4,7 +4,8 @@ Counterpart of ``examples/imagenet/jax_example.py::train`` (BASELINE.json
 config #3) for the branches ported: ``model_name='resnet50'`` (the
 example's default) or ``'vit'`` (ViT-S/16, whose attention runs the
 hand-written flash kernels), streaming or with ``hbm_cache=True``.  JPEG
-decode + resize run in the reader's thread pool (the TransformSpec),
+decode + resize run in the reader's worker pool (the TransformSpec; 8
+threads, or with ``reader_pool_type='process'`` processes of their own),
 ``random_crop(padding=4)``, ``random_flip_left_right`` and ``normalize``
 run on the device, and the model takes SGD steps (momentum 0.9) under
 softmax cross-entropy; ResNet-50 trains with its BatchNorms in train mode.
@@ -43,6 +44,7 @@ from petastorm_tpu_torch.gpu.transfer import resolve_device
 from petastorm_tpu_torch.models.resnet import ResNet50
 from petastorm_tpu_torch.models.vit import ViT
 from petastorm_tpu_torch.reader import make_reader
+from petastorm_tpu_torch.train_transform import FixRow
 from petastorm_tpu_torch.transform import TransformSpec
 
 __all__ = ['make_transform', 'train', 'main', 'VIT_S16']
@@ -54,19 +56,10 @@ VIT_S16 = dict(num_classes=1000, patch_size=16, d_model=384, num_heads=6, num_la
 
 def make_transform(image_hw):
     """Worker-side decode fix-up: resize to ``image_hw`` and turn ``noun_id``
-    into an int32 ``label`` (copied from the JAX example)."""
-    import cv2
-
-    def fix_row(row):
-        row = dict(row)
-        img = row.pop('image')
-        if img.shape[:2] != image_hw:
-            img = cv2.resize(img, (image_hw[1], image_hw[0]))
-        row['image'] = img
-        row['label'] = np.int32(hash(row.pop('noun_id')) % 1000)
-        return row
-
-    return TransformSpec(fix_row,
+    into an int32 ``label`` (the JAX example's, as the picklable
+    :class:`~petastorm_tpu_torch.train_transform.FixRow`)."""
+    image_hw = tuple(image_hw)
+    return TransformSpec(FixRow(image_hw),
                          edit_fields=[('image', np.uint8, image_hw + (3,), False),
                                       ('label', np.int32, (), False)],
                          removed_fields=['noun_id'])
@@ -83,12 +76,15 @@ def _make_model(model_name, image_hw, model_kwargs):
 
 def train(dataset_url, steps, batch_size=64, image_hw=(224, 224), lr=0.1, device=None, *,
           model_name='resnet50', hbm_cache=False, scan_steps=0, model_kwargs=None,
-          cuda_graph=None):
+          cuda_graph=None, reader_pool_type='thread', workers_count=8, warmup_steps=2):
     """Run ``steps`` training steps; returns the losses, the timings and the
     trained ``model``.
 
-    The reader decodes with 8 worker threads and the initial weights come
-    from seed 0, as in the JAX example.  ``model_kwargs`` overrides
+    The reader decodes with ``workers_count`` workers of
+    ``reader_pool_type`` (8 threads, as in the JAX example; ``'process'``
+    decodes outside this interpreter's lock; ``reader_diagnostics`` in the
+    result holds the pool's counters, :attr:`Reader.diagnostics`), and the
+    initial weights come from seed 0.  ``model_kwargs`` overrides
     constructor arguments of the model (:data:`VIT_S16` for ViT,
     ``num_classes=1000`` for ResNet-50; a CPU run shrinks the model with
     it).  ``cuda_graph`` (see :func:`petastorm_tpu_torch.gpu.graphs.resolve`):
@@ -98,13 +94,16 @@ def train(dataset_url, steps, batch_size=64, image_hw=(224, 224), lr=0.1, device
     range named ``train_step`` (a replayed step: around its replay).
 
     Streaming: images/s and step time are taken over the steps after the
-    first two (warm-up and, graphed, the capture), on the host clock with
-    the device synchronized at both ends; ``host_ms`` is the host's time
-    per step inside the step call; ``stall_pct`` and the mean data wait per
-    step are the ``StallMonitor``'s (warm-up 2; it closes a step at the
-    next batch, so it counts ``steps - 3`` of them; the wait is None when
-    it counted none).  ``scan_steps=k`` runs chunks of ``k`` steps through
-    ``DataLoader.scan_batches`` (whole chunks: ``steps`` rounds up), timed
+    first ``warmup_steps`` (at least the eager warm-up and, graphed, the
+    capture: keep it at 2 or more), on the host clock with the device
+    synchronized at both ends; ``host_ms`` is the host's time per step
+    inside the step call; ``stall_pct`` and the mean data wait per step are
+    the ``StallMonitor``'s (warm-up ``warmup_steps``; it closes a step at
+    the next batch, so it counts ``steps - warmup_steps - 1`` of them; the
+    wait is None when it counted none).  A larger ``warmup_steps`` leaves
+    the decode workers' start out of these readings.  ``scan_steps=k`` runs
+    chunks of ``k`` steps through ``DataLoader.scan_batches`` (whole
+    chunks: ``steps`` rounds up), timed
     over the chunks after the first two, with no stall monitor (its
     ``host_ms`` holds the chunk's assembly and transfer).
     ``hbm_cache=True`` runs whole epochs (the last one may take ``steps``
@@ -155,7 +154,7 @@ def train(dataset_url, steps, batch_size=64, image_hw=(224, 224), lr=0.1, device
 
     reader_kwargs = dict(schema_fields=['image', 'noun_id'],
                          transform_spec=make_transform(image_hw), columnar_decode=True,
-                         workers_count=8)
+                         reader_pool_type=reader_pool_type, workers_count=workers_count)
     scan_kwargs = dict(cuda_graph=graphed, generators=[aug_gen])
     if hbm_cache:
         result = _train_hbm_cache(dataset_url, steps, batch_size, device, scan_step,
@@ -166,18 +165,19 @@ def train(dataset_url, steps, batch_size=64, image_hw=(224, 224), lr=0.1, device
     else:
         step = graphs.StepGraph(train_step, generators=[aug_gen]) if graphed else train_step
         result = _train_streaming(dataset_url, steps, batch_size, device, step, check_batch,
-                                  reader_kwargs)
+                                  reader_kwargs, warmup_steps)
     result.update(batch_devices=sorted(batch_devices), device=str(device), model=model,
                   cuda_graph=graphed)
     return result
 
 
-def _train_streaming(dataset_url, steps, batch_size, device, step, check_batch, reader_kwargs):
-    warmup = min(2, steps - 1)
+def _train_streaming(dataset_url, steps, batch_size, device, step, check_batch, reader_kwargs,
+                     warmup_steps):
+    warmup = min(warmup_steps, steps - 1)
     losses = []
     t_start = None
     host_s = 0.0
-    monitor = StallMonitor(warmup_steps=2)
+    monitor = StallMonitor(warmup_steps=warmup_steps)
     reader = make_reader(dataset_url, num_epochs=None, **reader_kwargs)
     with DataLoader(reader, batch_size=batch_size, device=device) as loader:
         batches = monitor.wrap(loader)
@@ -200,7 +200,8 @@ def _train_streaming(dataset_url, steps, batch_size, device, step, check_batch, 
             'step_ms': 1e3 * elapsed / timed,
             'host_ms': 1e3 * host_s / timed,
             'data_wait_ms': 1e3 * monitor.wait_time / monitor.steps if monitor.steps else None,
-            'stall_pct': monitor.report()['stall_pct']}
+            'stall_pct': monitor.report()['stall_pct'],
+            'reader_diagnostics': reader.diagnostics}
 
 
 def _train_scan(dataset_url, steps, batch_size, device, scan_step, reader_kwargs, scan_kwargs):
@@ -230,7 +231,8 @@ def _train_scan(dataset_url, steps, batch_size, device, scan_step, reader_kwargs
             'images_per_s': timed * batch_size / elapsed if timed else None,
             'step_ms': 1e3 * elapsed / timed if timed else None,
             'host_ms': 1e3 * host_s / timed if timed else None,
-            'data_wait_ms': None, 'stall_pct': None}
+            'data_wait_ms': None, 'stall_pct': None,
+            'reader_diagnostics': reader.diagnostics}
 
 
 def _train_hbm_cache(dataset_url, steps, batch_size, device, scan_step, reader_kwargs,
@@ -266,7 +268,8 @@ def _train_hbm_cache(dataset_url, steps, batch_size, device, scan_step, reader_k
             'images_per_s': timed * batch_size / elapsed if timed else None,
             'step_ms': 1e3 * elapsed / timed if timed else None,
             'host_ms': 1e3 * host_s / timed if timed else None,
-            'stall_pct': 0.0}
+            'stall_pct': 0.0,
+            'reader_diagnostics': reader.diagnostics}
 
 
 def _sync(device):

@@ -122,7 +122,8 @@ def _check_batch(tokens, device, batch_devices):
         raise RuntimeError('batch reached the model on %s, expected %s' % (tokens.device, device))
 
 
-def train_lm(dataset_url, steps, batch_size=8, strategy='flash', device=None, cuda_graph=None):
+def train_lm(dataset_url, steps, batch_size=8, strategy='flash', device=None, cuda_graph=None, *,
+             reader_pool_type='thread', workers_count=4):
     """Run ``steps`` steps of the long-context example; returns the losses,
     the timings and the trained ``model``.
 
@@ -131,7 +132,8 @@ def train_lm(dataset_url, steps, batch_size=8, strategy='flash', device=None, cu
     synchronized at both ends; ``host_ms`` is the host's time per step
     inside the step call; the data wait per step and ``stall_pct`` are the
     ``StallMonitor``'s (warm-up 2).  The model is :data:`LONG_CONTEXT_LM`.
-    ``cuda_graph`` as in :func:`petastorm_tpu_torch.train.train`.
+    ``cuda_graph``, ``reader_pool_type`` and ``workers_count`` (4 threads,
+    the example's) as in :func:`petastorm_tpu_torch.train.train`.
     """
     if steps < 1:
         raise ValueError('steps must be at least 1, got %r' % (steps,))
@@ -157,7 +159,8 @@ def train_lm(dataset_url, steps, batch_size=8, strategy='flash', device=None, cu
     warmup = min(2, steps - 1)
     losses, t_start, timed_tokens, host_s = [], None, 0, 0.0
     monitor = StallMonitor(warmup_steps=2)
-    reader = make_reader(dataset_url, num_epochs=None, columnar_decode=True, workers_count=4)
+    reader = make_reader(dataset_url, num_epochs=None, columnar_decode=True,
+                         reader_pool_type=reader_pool_type, workers_count=workers_count)
     with DataLoader(reader, batch_size=batch_size, prefetch=2, drop_last=True,
                     device=device) as loader:
         batches = monitor.wrap(loader)
@@ -182,6 +185,7 @@ def train_lm(dataset_url, steps, batch_size=8, strategy='flash', device=None, cu
             'host_ms': 1e3 * host_s / timed,
             'data_wait_ms': 1e3 * monitor.wait_time / monitor.steps if monitor.steps else None,
             'stall_pct': monitor.report()['stall_pct'],
+            'reader_diagnostics': reader.diagnostics,
             'batch_devices': sorted(batch_devices), 'device': str(device), 'model': model,
             'cuda_graph': graphed}
 

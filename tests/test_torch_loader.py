@@ -153,7 +153,7 @@ def test_thread_pool_delivers_the_same_rows(datasets):
 def test_unsupported_options_name_the_later_slice(datasets):
     url = datasets['port']
     for kwargs in (dict(scheduling='adaptive'), dict(ingest='plane'),
-                   dict(cache_type='local-disk'), dict(reader_pool_type='process')):
+                   dict(cache_type='local-disk')):
         with pytest.raises(ValueError, match='later slice'):
             make_reader(url, **kwargs)
     with make_reader(url, reader_pool_type='dummy') as reader:

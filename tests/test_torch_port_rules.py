@@ -42,6 +42,11 @@ def _imported_modules(tree):
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     sources = _port_sources()
     assert len(sources) > 20
+    for module in ('native.py', 'train_transform.py', 'workers_pool/process_pool.py',
+                   'workers_pool/process_worker.py', 'workers_pool/shm_plane.py',
+                   'workers_pool/exec_in_new_process.py', 'reader_impl/pickle_serializer.py',
+                   'reader_impl/arrow_table_serializer.py'):
+        assert os.path.join(PACKAGE, module) in sources, module
     offenders = []
     for path in sources:
         with open(path) as f:
@@ -94,6 +99,84 @@ def test_training_on_cpu_never_loads_jax(tmp_path):
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert 'LOADED []' in proc.stdout
+
+
+def test_decode_workers_load_neither_torch_nor_jax(tmp_path):
+    """What a process-pool child imports and unpickles (its main loop, the
+    reader's worker and its arguments, the image example's transform, the
+    native plane) loads neither torch nor JAX."""
+    import pickle
+    from petastorm_tpu_torch.py_dict_reader_worker import PyDictReaderWorker, RowWorkerArgs
+    from petastorm_tpu_torch.train import make_transform
+    from petastorm_tpu_torch.transform import ResizeImages
+    from petastorm_tpu_torch.workers_pool.process_worker import worker_main
+    payload = tmp_path / 'payload.pkl'
+    payload.write_bytes(pickle.dumps(
+        (worker_main, PyDictReaderWorker,
+         RowWorkerArgs(pieces=[], schema_view=None, transform_spec=make_transform((32, 32))),
+         ResizeImages({'image': (8, 8)}))))
+    script = textwrap.dedent('''
+        import pickle, sys
+        import petastorm_tpu_torch.py_dict_reader_worker
+        import petastorm_tpu_torch.workers_pool.process_worker
+        from petastorm_tpu_torch import native
+        with open(sys.argv[1], 'rb') as f:
+            worker_main, worker, args, resize = pickle.load(f)
+        assert args.transform_spec.func({'image': __import__('numpy').zeros((4, 4, 3), 'uint8'),
+                                         'noun_id': 'n0'})['image'].shape == (32, 32, 3)
+        native.capabilities()
+        loaded = sorted(m for m in sys.modules if m.split('.')[0] in FORBIDDEN + ('torch',))
+        print('LOADED', loaded)
+        sys.exit(1 if loaded else 0)
+    ''').replace('FORBIDDEN', repr(FORBIDDEN))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, '-c', script, str(payload)], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert 'LOADED []' in proc.stdout
+
+
+def test_process_pool_training_on_cpu_equals_the_thread_pools(tmp_path):
+    """ViT (one layer) trained 2 steps on the CPU with the process pool
+    gives the thread pool's losses, one worker each (one data order), under
+    one PYTHONHASHSEED for the parent and its children (the example's label
+    is ``hash(noun_id) % 1000``); its batches came through ``/dev/shm``,
+    and no slab or child is left behind."""
+    script = textwrap.dedent('''
+        import sys
+        import numpy as np, pyarrow as pa
+        import petastorm_tpu_torch
+        from petastorm_tpu_torch import codecs, unischema
+        from petastorm_tpu_torch.etl.dataset_metadata import DatasetWriter
+        from petastorm_tpu_torch.workers_pool import shm_plane
+        schema = unischema.Unischema('S', [
+            unischema.UnischemaField('noun_id', np.str_, (), codecs.ScalarCodec(pa.string()),
+                                     False),
+            unischema.UnischemaField('image', np.uint8, (None, None, 3),
+                                     codecs.CompressedImageCodec('png'), False)])
+        url = 'file://' + sys.argv[1]
+        rng = np.random.default_rng(0)
+        with DatasetWriter(url, schema, rows_per_rowgroup=12) as w:
+            for i in range(24):
+                w.write({'noun_id': 'n%d' % i,
+                         'image': rng.integers(0, 256, (32, 40 if i % 2 else 32, 3),
+                                               dtype=np.uint8)})
+        results = {}
+        for pool in ('thread', 'process'):
+            results[pool] = petastorm_tpu_torch.train(
+                url, steps=2, batch_size=4, image_hw=(32, 32), device='cpu', model_name='vit',
+                model_kwargs=dict(num_layers=1), reader_pool_type=pool, workers_count=1)
+        print('LOSSES', results['thread']['losses'], results['process']['losses'])
+        assert results['thread']['losses'] == results['process']['losses']
+        assert results['thread']['reader_diagnostics'] == {}
+        diag = results['process']['reader_diagnostics']
+        assert diag['shm_results'] > 0, diag
+        assert shm_plane.residue(diag['worker_pids']) == set()
+    ''')
+    env = dict(os.environ, PYTHONPATH=REPO, PYTHONHASHSEED='0')
+    proc = subprocess.run([sys.executable, '-c', script, str(tmp_path / 'ds')], env=env,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_lm_training_and_sampling_on_cpu_never_load_jax(tmp_path):
