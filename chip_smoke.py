@@ -71,20 +71,49 @@ Phases, in order; any failure propagates and exits nonzero:
    that must go through the fused native function where the library holds it;
 12. decode plane, read from a warm pool: the image reader alone (no
    training) to the card with 8, 2 and 1 decode threads and 8, 4 and 1
-   decode processes, 12 epochs timed after 2 (images/s, the host's pinned
-   copy per batch, a process's busy time per row group, also without each
+   decode processes, 12 epochs timed after 2 (images/s, the put to the card
+   per batch, a process's busy time per row group, also without each
    worker's first); graphed runs of 100 steps timed after 20 of ResNet-50
    streaming with 8, 4 and 2 decode threads and 8 decode processes, ViT
-   with 8 threads and 8 processes, and L1 with the native plane and under
-   ``native.disabled()``, each with the pinned copy timed inside it and
-   its launches checked; every process-pool run must have
-   delivered through /dev/shm and left no slab and no child; the L1 native
-   run must have decoded through the native plane;
+   with 8 threads and 8 processes, L1 with the native plane and under
+   ``native.disabled()``, and L2, all through the loader's transfer plane
+   and its dispatch thread; ResNet-50 and ViT at 8 threads, L1 native and
+   L2 also with the plane off (``transfer=False``), each right after its
+   pumped run (the image pairs traced: the stall's top component); each
+   with the put, its slab packing, ring wait and copy call timed inside it
+   on the thread that ran them (with the plane on: the dispatch thread,
+   beside the data wait),
+   ``h2d_degraded``, the advisor's regime and its launches checked; every
+   process-pool run must have delivered through /dev/shm and left no slab
+   and no child; the L1 native runs must have decoded through the native
+   plane;
 13. pool parity: in a process started with ``PYTHONHASHSEED=0``, the
    process pool with one worker and no shuffle delivers the thread pool's
-   batches to the card bit for bit, and leaves no slab and no child.
+   batches to the card bit for bit, and leaves no slab and no child;
+14. pump parity and the GIL probe: a coalesced put unpacked on the card
+   equals the CPU's bit for bit, at full width and with
+   ``wire_dtypes='auto'``; with one decode thread and no shuffle the pumped
+   loader delivers the inline loader's batches bit for bit, its pulls and
+   puts on the dispatch thread; a structure the plane refuses is counted in
+   ``h2d_degraded`` and reaches the card; how fast another Python thread
+   runs, and how long another thread's ``non_blocking`` copy call takes,
+   while this one sleeps, replays a graph whose launches wait for the card,
+   and synchronizes; in a process of its own, what a garbage collection
+   that frees an unreachable CUDA graph does to a capture it runs inside,
+   and that a step graph's capture survives such a graph;
+15. disk cache (``--decoded-cache-dir``): ResNet-50 for one epoch that
+   decodes and writes the cache, then 100 steps timed after 20 from the
+   memory-mapped files with no reader; the files' sizes; an epoch from the
+   cache pumped and inline, bit for bit;
+16. trace (``--trace``): ResNet-50 through the command line; the Chrome
+   trace holds ``data_wait``, ``step``, ``host_batch`` and the plane's
+   ``h2d/*`` spans, the loader's on the dispatch thread.
 
-Every training path (5-9) runs graphed, the default on the card: a CUDA
+Every streaming path moves its batches through the loader's transfer
+plane (``transfer='auto'``): a dispatch thread pulls, transforms and puts
+each batch into one pinned slab and one copy; the training thread only
+takes finished batches.  Every training path (5-9) runs graphed, the
+default on the card: a CUDA
 graph of the step replayed once per step (``petastorm_tpu_torch.gpu.graphs``),
 with the flash launches counted as capture x replays.  Beside each graphed
 run: the same run eagerly (``cuda_graph=False``) with the same flash
@@ -110,6 +139,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -710,14 +740,17 @@ def _step_starts(trace, events):
     """``(device time, host time)`` at which each profiled step starts: the
     first device event launched from inside each ``train_step`` range of
     the host (matched by the launch's correlation id; every kernel of a
-    graph replay carries its graph launch's), and the range's start."""
+    graph replay carries its graph launch's), and the range's start.  Only
+    the training thread's calls count: the loader's transfer thread copies
+    meanwhile."""
+    main_tid = _step_tid(trace)
     device_ts = {}
     for e in events:
         c = e.get('args', {}).get('correlation')
         if c is not None:
             device_ts[c] = min(e['ts'], device_ts.get(c, e['ts']))
     launches = sorted((e['ts'], e['args']['correlation']) for e in trace
-                      if e.get('cat') in ('cuda_runtime', 'cuda_driver')
+                      if e.get('cat') in ('cuda_runtime', 'cuda_driver') and e['tid'] == main_tid
                       and e.get('args', {}).get('correlation') in device_ts)
     starts = []
     for step in sorted((e for e in trace if e.get('cat') == 'user_annotation'
@@ -726,6 +759,16 @@ def _step_starts(trace, events):
         if inside:
             starts.append((min(inside), step['ts']))
     return starts
+
+
+def _step_tid(trace):
+    """The training thread's id in a profile: that of its ``train_step``
+    ranges."""
+    tids = {e['tid'] for e in trace
+            if e.get('cat') == 'user_annotation' and e['name'] == 'train_step'}
+    if len(tids) != 1:
+        raise AssertionError('train_step ranges on %d threads' % len(tids))
+    return tids.pop()
 
 
 def phase_profile(run, label, tmp, steps=8):
@@ -746,7 +789,10 @@ def phase_profile(run, label, tmp, steps=8):
     with open(path) as f:
         trace = json.load(f)['traceEvents']
     events = [e for e in trace if e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset')]
-    runtime = [e for e in trace if e.get('cat') in ('cuda_runtime', 'cuda_driver')]
+    main_tid = _step_tid(trace)
+    # the training thread's calls (the transfer thread waits on its own events)
+    runtime = [e for e in trace if e.get('cat') in ('cuda_runtime', 'cuda_driver')
+               and e['tid'] == main_tid]
     events.sort(key=lambda e: e['ts'])
     starts = _step_starts(trace, events)
     if len(starts) != steps:
@@ -843,6 +889,14 @@ def eager_beside(fa, label, run, graphed, graphed_launches):
         % (label, launches, ', '.join('%s %.2f / %.2f' % (k, want[k], got[k])
                                       for k in METRICS if k in got and k in want)))
     SUMMARY.setdefault(label, {}).update(graphed=got, eager=want)
+    if 'loader_metrics' in graphed:   # the streaming paths: through the transfer plane
+        h2d = {mode: {k: r['loader_metrics'].get(k, 0) for k in ('h2d_batches', 'h2d_degraded')}
+               for mode, r in (('graphed', graphed), ('eager', eager))}
+        log('%s transfer plane (graphed / eager): %s' % (label, h2d))
+        if not all(n['h2d_batches'] + n['h2d_degraded'] for n in h2d.values()):
+            raise AssertionError('%s: a run did not go through the transfer plane: %s'
+                                 % (label, h2d))
+        SUMMARY[label]['h2d'] = h2d
     return eager
 
 
@@ -1113,6 +1167,8 @@ def phase_lm(fa, tmp):
     SUMMARY['lm']['profile'] = phase_profile(lambda n: run(n), 'lm', tmp)
     SUMMARY['lm']['profile_eager'] = phase_profile(lambda n: run(n, cuda_graph=False),
                                                   'lm eager', tmp)
+    SUMMARY['lm']['profile_inline'] = phase_profile(lambda n: run(n, transfer=False),
+                                                   'lm inline', tmp)
     eager_vs_graphed(fa, 'lm', lambda **kw: run(EQ_STEPS, **kw))
     return launches
 
@@ -1189,6 +1245,8 @@ def phase_packed(fa, tmp):
     SUMMARY['packed']['profile'] = phase_profile(lambda n: run(n), 'packed', tmp)
     SUMMARY['packed']['profile_eager'] = phase_profile(lambda n: run(n, cuda_graph=False),
                                                   'packed eager', tmp)
+    SUMMARY['packed']['profile_inline'] = phase_profile(lambda n: run(n, transfer=False),
+                                                       'packed inline', tmp)
     eager_vs_graphed(fa, 'packed', lambda **kw: run(EQ_STEPS, **kw))
     with make_reader(url, schema_fields=['tokens'], num_epochs=1, workers_count=4) as reader:
         batch = next(iter(PackedDataLoader(reader, 'tokens', max_len=lm.PACKED_MAX_LEN,
@@ -1293,17 +1351,24 @@ def phase_generate(fa, model):
     return launches
 
 
-#: The decode-plane runs of the image paths: (label, model, pool, workers).
-#: ResNet-50 streaming at 8, 4 and 2 decode threads and 8 decode processes,
-#: ViT at 8 threads and 8 processes.
+#: The decode-plane runs of the image paths: (label, model, pool, workers,
+#: transfer).  ResNet-50 streaming at 8, 4 and 2 decode threads and 8 decode
+#: processes, ViT at 8 threads and 8 processes, all through the transfer
+#: plane's dispatch thread (``transfer='auto'``); and at 8 threads each with
+#: the plane off (``transfer=False``: every put on the training thread),
+#: right after its pumped run.  The pairs are traced.
 DECODE_RUNS = (
-    ('resnet50 thread 8', 'resnet50', 'thread', 8),
-    ('resnet50 thread 4', 'resnet50', 'thread', 4),
-    ('resnet50 thread 2', 'resnet50', 'thread', 2),
-    ('resnet50 process 8', 'resnet50', 'process', 8),
-    ('vit thread 8', 'vit', 'thread', 8),
-    ('vit process 8', 'vit', 'process', 8),
+    ('resnet50 thread 8', 'resnet50', 'thread', 8, 'auto'),
+    ('resnet50 thread 8 inline', 'resnet50', 'thread', 8, False),
+    ('resnet50 thread 4', 'resnet50', 'thread', 4, 'auto'),
+    ('resnet50 thread 2', 'resnet50', 'thread', 2, 'auto'),
+    ('resnet50 process 8', 'resnet50', 'process', 8, 'auto'),
+    ('vit thread 8', 'vit', 'thread', 8, 'auto'),
+    ('vit thread 8 inline', 'vit', 'thread', 8, False),
+    ('vit process 8', 'vit', 'process', 8, 'auto'),
 )
+PUMP_PAIRS = ('resnet50 thread 8', 'resnet50 thread 8 inline', 'vit thread 8',
+              'vit thread 8 inline')
 #: The decode plane alone, without training: (pool, workers).
 DECODE_ONLY = (('thread', 8), ('thread', 2), ('thread', 1), ('process', 8), ('process', 4),
                ('process', 1))
@@ -1497,30 +1562,90 @@ def check_process_run(label, diag):
                                                                     live_children()))
 
 
+class Puts(list):
+    """Seconds of each put to the card (``TransferPlane.put``, or
+    ``put_inline`` where the plane is off or a structure degrades: the
+    host's copy into pinned memory and the copy's dispatch), in order;
+    ``stage_s``, those of each coalesced put's packing into its slab (the
+    ``h2d/stage`` window), ``wait_s``, of its wait for the copy that last
+    read its ring slab (the ring's ``h2d/commit``), and ``copy_s``, from the
+    end of its packing to the start of its unpack on the card (the
+    ``non_blocking`` copy call); ``threads``, the threads they ran on."""
+
+    def __init__(self):
+        super().__init__()
+        self.stage_s = []
+        self.wait_s = []
+        self.copy_s = []
+        self.threads = set()
+        self.packed_at = threading.local()
+
+    def ms(self, skip=0, part=None):
+        values = (getattr(self, part + '_s') if part else self)[skip:]
+        return 1e3 * float(np.mean(values)) if values else None
+
+    def on(self):
+        """Where the puts ran: 'consumer' (this thread) or 'pump'."""
+        me = threading.get_ident()
+        return '+'.join(sorted({'consumer' if t == me else 'pump' for t in self.threads}))
+
+
 @contextlib.contextmanager
 def timed_puts():
-    """Seconds of each ``TransferPlane.put`` call made inside: the host's
-    copy of a batch into pinned memory, on the thread that consumes the
-    loader, so inside the data wait the stall monitor measures."""
+    """:class:`Puts` of the puts made inside.  With the transfer plane on
+    they run on the loader's dispatch thread, beside the training thread's
+    data wait and not inside it; with it off, on the training thread."""
     from petastorm_tpu_torch.gpu import transfer
-    put_s, put = [], transfer.TransferPlane.put
+    puts = Puts()
+    originals = {name: getattr(transfer.TransferPlane, name) for name in ('put', 'put_inline')}
+    pack, wait = transfer._Layout.pack, transfer.TransferPlane._wait_slot
+    unpack = transfer._Layout.unpack
 
-    def timed_put(plane, batch):
+    def timed(fn):
+        def wrapper(plane, batch):
+            t0 = time.perf_counter()
+            out = fn(plane, batch)
+            if out is not None:
+                puts.append(time.perf_counter() - t0)
+                puts.threads.add(threading.get_ident())
+            return out
+        return wrapper
+
+    def timed_pack(layout, leaves, slab):
         t0 = time.perf_counter()
-        out = put(plane, batch)
-        put_s.append(time.perf_counter() - t0)
+        pack(layout, leaves, slab)
+        puts.packed_at.t = time.perf_counter()
+        puts.stage_s.append(puts.packed_at.t - t0)
+
+    def timed_unpack(layout, slab):
+        packed_at = getattr(puts.packed_at, 't', None)
+        if packed_at is not None:   # a ring put (put_once copies on this stream)
+            puts.copy_s.append(time.perf_counter() - packed_at)
+            puts.packed_at.t = None
+        return unpack(layout, slab)
+
+    def timed_wait(plane, slot):
+        t0 = time.perf_counter()
+        out = wait(plane, slot)
+        puts.wait_s.append(time.perf_counter() - t0)
         return out
-    transfer.TransferPlane.put = timed_put
+    for name, fn in originals.items():
+        setattr(transfer.TransferPlane, name, timed(fn))
+    transfer._Layout.pack, transfer.TransferPlane._wait_slot = timed_pack, timed_wait
+    transfer._Layout.unpack = timed_unpack
     try:
-        yield put_s
+        yield puts
     finally:
-        transfer.TransferPlane.put = put
+        for name, fn in originals.items():
+            setattr(transfer.TransferPlane, name, fn)
+        transfer._Layout.pack, transfer.TransferPlane._wait_slot = pack, wait
+        transfer._Layout.unpack = unpack
 
 
 def busy_ms(diag):
     """A process pool's busy ms per row group: over every item, and over the
-    items after each worker's first (the warm pool's)."""
-    if not diag.get('items_processed'):
+    items after each worker's first (the warm pool's); None for the other pools."""
+    if diag.get('pool') != 'process' or not diag.get('items_processed'):
         return None, None
     return (1e3 * diag['busy_time'] / diag['items_processed'],
             1e3 * diag['warm_busy_time'] / diag['warm_items'] if diag['warm_items'] else None)
@@ -1551,21 +1676,25 @@ def decode_only(url, pool, workers):
     diag = reader.diagnostics
     busy, warm_busy = busy_ms(diag)
     return dict(images_per_s=rows / (time.perf_counter() - t0),
-                put_ms=1e3 * float(np.mean(put_s[warm_batches:])), diag=diag,
+                put_ms=put_s.ms(warm_batches), put_on=put_s.on(), diag=diag,
                 shm_results=diag.get('shm_results'), busy_ms_per_row_group=busy,
                 warm_busy_ms_per_row_group=warm_busy)
 
 
-def phase_decode_plane(fa, url, lm_url):
+def phase_decode_plane(fa, url, lm_url, packed_url, tmp):
     """First the decode plane alone (:func:`decode_only` for each of
     :data:`DECODE_ONLY`), then graphed runs of DECODE_STEPS steps on the
     same data with another decode plane each (:data:`DECODE_RUNS`, timed
     after DECODE_WARMUP steps; L1 with the native plane and under
-    ``native.disabled()``, timed after train_lm's own 2): images/s or
-    tokens/s, step, host and data-wait ms, ``stall_pct``, the pinned copy's
-    ms per step inside the same window, the process pool's busy ms per row
-    group and the results that came through /dev/shm.  Each run is a path
-    of its own: its flash launches are counted from 0 and checked."""
+    ``native.disabled()``, timed after train_lm's own 2; L1 and L2 also
+    with the transfer plane off): images/s or tokens/s, step, host and
+    data-wait ms, ``stall_pct``, the put's ms per step in the same window and
+    the thread it ran on (with the plane on, the dispatch thread: beside the
+    data wait, not inside it) and its slab packing (``h2d/stage``), the
+    process pool's busy ms per row group, the results that came through
+    /dev/shm, and for the traced pumped/inline pairs the stall's top
+    component and the advisor's regime.  Each run is a path of its own: its
+    flash launches are counted from 0 and checked."""
     import petastorm_tpu_torch.train_lm as lm
     from petastorm_tpu_torch import native
     from petastorm_tpu_torch.train import train
@@ -1585,8 +1714,9 @@ def phase_decode_plane(fa, url, lm_url):
         if pool == 'process':
             check_process_run('decode alone, ' + label, diag)
         log('decode plane alone [%s] (no training, %d epochs to the card, timed after %d): %.1f '
-            'images/s; host copy into pinned memory %.2f ms per batch; %s'
+            'images/s; put to the card %.2f ms per batch (on the %s thread); %s'
             % (label, DECODE_EPOCHS, DECODE_WARM_EPOCHS, row['images_per_s'], row['put_ms'],
+               row['put_on'],
                'busy %.1f ms per row group of 64 (%.1f after each worker\'s first), '
                'shm_results %d' % (row['busy_ms_per_row_group'],
                                    row['warm_busy_ms_per_row_group'], row['shm_results'])
@@ -1594,58 +1724,107 @@ def phase_decode_plane(fa, url, lm_url):
     SUMMARY['decode_alone'] = alone
     rows = {}
 
-    def record(label, result, launches, steps, warmup, put_s):
+    def record(label, result, launches, steps, warmup, put_s, transfer):
         if not result['cuda_graph'] or result['batch_devices'] != ['cuda'] \
                 or not np.all(np.isfinite(result['losses'])) or len(result['losses']) != steps:
             raise AssertionError('%s: %r' % (label, {k: result[k] for k in (
                 'cuda_graph', 'batch_devices', 'losses')}))
+        h2d = {k: result['loader_metrics'].get(k, 0) for k in ('h2d_batches', 'h2d_degraded')}
+        if (put_s.on() == 'pump') != (transfer == 'auto') \
+                or (transfer == 'auto') != bool(h2d['h2d_batches'] + h2d['h2d_degraded']):
+            raise AssertionError('%s (transfer=%r): puts on the %s thread, %s'
+                                 % (label, transfer, put_s.on(), h2d))
         diag = result['reader_diagnostics']
         busy, warm_busy = busy_ms(diag)
-        # the copies from the warm-up on (the loader yields a batch
-        # `prefetch` batches after its put)
-        put_ms = 1e3 * float(np.mean(put_s[warmup:]))
-        rows[label] = dict(_metrics(result), put_ms=put_ms, shm_results=diag.get('shm_results'),
-                           busy_ms_per_row_group=busy, warm_busy_ms_per_row_group=warm_busy,
-                           launches=launches)
+        # the puts from the warm-up on (the loader yields a batch `prefetch`
+        # batches after its put)
+        rows[label] = dict(_metrics(result), transfer=transfer, put_ms=put_s.ms(warmup),
+                           put_on=put_s.on(), stage_ms=put_s.ms(warmup, 'stage'),
+                           ring_wait_ms=put_s.ms(warmup, 'wait'),
+                           copy_call_ms=put_s.ms(warmup, 'copy'),
+                           shm_results=diag.get('shm_results'), busy_ms_per_row_group=busy,
+                           warm_busy_ms_per_row_group=warm_busy, launches=launches,
+                           stall_top_component=result.get('stall_top_component'),
+                           regime=(result.get('diagnosis') or {}).get('regime'), **h2d)
+        row = rows[label]
         rate = result.get('images_per_s') or result.get('tokens_per_s')
         log('decode plane [%s] (%d steps, timed after %d): %s/s %.1f step_ms %.2f host_ms %.3f '
-            'data_wait_ms %.2f pinned_copy_ms %.2f stall_pct %.2f shm_results %s busy_ms per row '
-            'group %s (warm %s) launches %s'
+            'data_wait_ms %.2f stall_pct %.2f; put %.2f ms per batch on the %s thread (slab '
+            'packing %s ms, ring wait %s ms, copy call %s ms); h2d_batches %d h2d_degraded %d; '
+            'stall top %s regime %s; shm_results %s busy_ms per row group %s (warm %s) '
+            'launches %s'
             % (label, steps, warmup, 'images' if 'images_per_s' in result else 'tokens', rate,
-               result['step_ms'], result['host_ms'], result['data_wait_ms'], put_ms,
-               result['stall_pct'], diag.get('shm_results'),
+               result['step_ms'], result['host_ms'], result['data_wait_ms'],
+               result['stall_pct'], row['put_ms'], row['put_on'],
+               None if row['stage_ms'] is None else '%.2f' % row['stage_ms'],
+               None if row['ring_wait_ms'] is None else '%.2f' % row['ring_wait_ms'],
+               None if row['copy_call_ms'] is None else '%.2f' % row['copy_call_ms'],
+               h2d['h2d_batches'], h2d['h2d_degraded'], row['stall_top_component'],
+               row['regime'], diag.get('shm_results'),
                None if busy is None else '%.1f' % busy,
                None if warm_busy is None else '%.1f' % warm_busy, launches))
 
-    for label, model, pool, workers in DECODE_RUNS:
+    for label, model, pool, workers, transfer in DECODE_RUNS:
         reset_counts(fa)
+        trace = os.path.join(tmp, label.replace(' ', '_') + '.json') \
+            if label in PUMP_PAIRS else None
         with timed_puts() as put_s:
             result = train(url, steps=DECODE_STEPS, batch_size=BATCH, model_name=model,
                            reader_pool_type=pool, workers_count=workers,
-                           warmup_steps=DECODE_WARMUP)
+                           warmup_steps=DECODE_WARMUP, transfer=transfer, trace_path=trace)
         launches, by_design = counts(fa)
         check_launches(label, launches, by_design,
                        {name: (12 * DECODE_STEPS if model == 'vit' else 0) for name in launches})
         if pool == 'process':
             check_process_run(label, result['reader_diagnostics'])
-        record(label, result, launches, DECODE_STEPS, DECODE_WARMUP, put_s)
+        record(label, result, launches, DECODE_STEPS, DECODE_WARMUP, put_s, transfer)
     layers = lm.LONG_CONTEXT_LM['num_layers']
-    for label, plane in (('lm native', contextlib.nullcontext()),
-                         ('lm disabled', native.disabled())):
+    for label, plane, transfer in (('lm native', contextlib.nullcontext(), 'auto'),
+                                   ('lm native inline', contextlib.nullcontext(), False),
+                                   ('lm disabled', native.disabled(), 'auto')):
         before = native.calls['npy_copy_batch']
         reset_counts(fa)
         with plane, timed_puts() as put_s:
-            result = lm.train_lm(lm_url, steps=DECODE_STEPS, batch_size=8, strategy='flash')
+            result = lm.train_lm(lm_url, steps=DECODE_STEPS, batch_size=8, strategy='flash',
+                                 transfer=transfer)
         launches, by_design = counts(fa)
         check_launches(label, launches, by_design,
                        {'flash_fwd': 2 * layers * DECODE_STEPS,
                         'flash_bwd_dq': layers * DECODE_STEPS,
                         'flash_bwd_dkv': layers * DECODE_STEPS})
         batches = native.calls['npy_copy_batch'] - before
-        if (batches == 0) == (label == 'lm native'):
+        if (batches == 0) == label.startswith('lm native'):
             raise AssertionError('%s: %d row groups decoded by the native plane' % (label, batches))
-        record(label, result, launches, DECODE_STEPS, 2, put_s)
+        record(label, result, launches, DECODE_STEPS, 2, put_s, transfer)
         rows[label]['native_batches'] = batches
+    # L2: the packing runs on the dispatch thread with the plane on
+    for label, transfer in (('packed', 'auto'), ('packed inline', False)):
+        reset_counts(fa)
+        with timed_puts() as put_s:
+            result = lm.train_packed(packed_url, steps=DECODE_STEPS, attn='flash',
+                                     transfer=transfer)
+        launches, by_design = counts(fa)
+        check_launches(label, launches, by_design,
+                       {name: lm.PACKED_LM['num_layers'] * DECODE_STEPS for name in launches})
+        h2d = {k: result['loader_metrics'].get(k, 0) for k in ('h2d_batches', 'h2d_degraded')}
+        if len(result['losses']) != DECODE_STEPS or not np.all(np.isfinite(result['losses'])) \
+                or (put_s.on() == 'pump') != (transfer == 'auto'):
+            raise AssertionError('%s: %d losses, puts on the %s thread'
+                                 % (label, len(result['losses']), put_s.on()))
+        rows[label] = dict(step_tokens_per_s=result['step_tokens_per_s'],
+                           step_ms=result['step_ms'], host_ms=result['host_ms'],
+                           transfer=transfer, put_ms=put_s.ms(2), put_on=put_s.on(),
+                           stage_ms=put_s.ms(2, 'stage'), ring_wait_ms=put_s.ms(2, 'wait'),
+                           launches=launches, **h2d)
+        log('decode plane [%s] (%d steps, timed after 2): real tokens/s %.0f step_ms %.2f '
+            'host_ms %.3f; put %.2f ms per batch on the %s thread (slab packing %s ms, ring wait '
+            '%s ms); h2d_batches %d h2d_degraded %d; launches %s'
+            % (label, DECODE_STEPS, result['step_tokens_per_s'], result['step_ms'],
+               result['host_ms'], rows[label]['put_ms'], rows[label]['put_on'],
+               None if rows[label]['stage_ms'] is None else '%.2f' % rows[label]['stage_ms'],
+               None if rows[label]['ring_wait_ms'] is None
+               else '%.2f' % rows[label]['ring_wait_ms'],
+               h2d['h2d_batches'], h2d['h2d_degraded'], launches))
     SUMMARY['decode_plane'] = rows
 
 
@@ -1701,6 +1880,306 @@ def phase_pool_parity(url):
     SUMMARY['pool_parity'] = out
 
 
+def phase_pump_parity(url):
+    """The transfer plane on the card.  A coalesced put, unpacked on the
+    card, equals the same put on the CPU bit for bit, at full width and
+    with ``wire_dtypes='auto'`` (bfloat16 on the wire, cast back on the
+    card).  Then with one decode thread and no row-group shuffle the pumped
+    loader (``transfer=True``) delivers the inline loader's
+    (``transfer=False``) batches bit for bit; its pulls and puts ran on the
+    dispatch thread, the inline ones on this one, and every pumped batch
+    went through one coalesced copy.  A structure the plane refuses (the
+    image column alone: one full-width leaf) is counted in ``h2d_degraded``
+    and still reaches the card, from the dispatch thread, equal to the
+    inline images."""
+    from petastorm_tpu_torch.benchmark import TraceRecorder
+    from petastorm_tpu_torch.gpu import DataLoader, transfer
+    from petastorm_tpu_torch.reader import make_reader
+    from petastorm_tpu_torch.train import make_transform
+    rng = np.random.default_rng(11)
+    tree = {'x': rng.standard_normal((64, 1000)).astype(np.float32),
+            'f64': rng.standard_normal((64,)) * 1e3,
+            'image': rng.integers(0, 256, (64, 56, 56, 3), dtype=np.uint8),
+            'wide': rng.integers(-2 ** 40, 2 ** 40, (64,)), 'flag': rng.random(64) < 0.5}
+    for policy in (None, 'auto'):
+        card = transfer.TransferPlane('cuda', wire_dtypes=policy)
+        got = card.ready(*card.put(tree))
+        cpu = transfer.TransferPlane('cpu', wire_dtypes=policy)
+        want = cpu.ready(*cpu.put(tree))
+        torch.cuda.synchronize()
+        for name, value in want.items():
+            if got[name].device.type != 'cuda' or got[name].dtype != value.dtype \
+                    or not torch.equal(got[name].cpu(), value):
+                raise AssertionError('plane put on the card, wire_dtypes=%r: %s differs from '
+                                     'the CPU put' % (policy, name))
+        log('transfer plane on the card, wire_dtypes=%r: one coalesced copy of %d bytes (%d '
+            'logical), equal to the CPU put bit for bit'
+            % (policy, card.metrics.counter('h2d_bytes_wire').value,
+               card.metrics.counter('h2d_bytes_logical').value))
+        card.close()
+    batches, tids, h2d = {}, {}, {}
+    for mode in (True, False, 'degraded'):
+        rec = TraceRecorder()
+        reader = make_reader(url, schema_fields=['image', 'noun_id'], columnar_decode=True,
+                             transform_spec=make_transform((224, 224)), workers_count=1,
+                             shuffle_row_groups=False, num_epochs=1)
+        squeeze = (lambda b: {'image': b['image']}) if mode == 'degraded' else None
+        with DataLoader(reader, batch_size=BATCH, drop_last=False, trace_recorder=rec,
+                        transfer=mode == 'degraded' or mode, transform_fn=squeeze) as loader:
+            batches[mode] = [{k: v.cpu() for k, v in b.items()} for b in loader]
+            h2d[mode] = {k: loader.metrics.counter(k).value
+                         for k in ('h2d_batches', 'h2d_degraded')}
+        tids[mode] = {e['name']: e['tid'] for e in rec.events}
+    me = threading.get_ident()
+    equal = len(batches[True]) == len(batches[False]) == IMAGE_ROWS // BATCH and all(
+        set(a) == set(b) and all(a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in a)
+        for a, b in zip(batches[True], batches[False]))
+    log('pump parity (one decode thread, no shuffle): %d batches, pumped equal to inline bit for '
+        'bit: %s; pumped h2d %s, pulls on the %s thread; inline pulls on the %s thread'
+        % (len(batches[True]), equal, h2d[True],
+           'training' if tids[True]['host_batch'] == me else 'dispatch',
+           'training' if tids[False]['host_batch'] == me else 'dispatch'))
+    degraded_equal = len(batches['degraded']) == len(batches[False]) and all(
+        list(a) == ['image'] and torch.equal(a['image'], b['image'])
+        for a, b in zip(batches['degraded'], batches[False]))
+    log('pump parity, the image column alone: h2d %s, put column by column on the %s thread, '
+        'equal to the inline images: %s'
+        % (h2d['degraded'], 'training' if tids['degraded']['device_put'] == me else 'dispatch',
+           degraded_equal))
+    if not equal or tids[True]['host_batch'] == me or tids[True]['h2d/stage'] == me \
+            or tids[False]['host_batch'] != me \
+            or h2d[True]['h2d_batches'] != len(batches[True]) or h2d[False]['h2d_batches'] \
+            or not degraded_equal or tids['degraded']['device_put'] == me \
+            or h2d['degraded']['h2d_degraded'] != len(batches['degraded']):
+        raise AssertionError('pump parity: equal %s / %s, h2d %s, threads %s (this one %d)'
+                             % (equal, degraded_equal, h2d, tids, me))
+    SUMMARY['pump_parity'] = dict(batches=len(batches[True]), equal=equal, h2d=h2d[True],
+                                  degraded=h2d['degraded'])
+
+
+def phase_gil_probe():
+    """What another thread can do while the training thread's graph launch
+    waits for the card.  Twice, with one other thread each: a Python loop
+    that counts its turns per ms, then a thread that times its calls of a
+    ``non_blocking`` copy of 9.6 MB of pinned memory to the card on a stream
+    of its own (the call a loader's dispatch thread makes); each while this
+    thread sleeps, while it replays back to back a captured graph of 3000
+    elementwise kernels over 16 MB (each launch waits for room in the
+    card's queue once it is full), and while it synchronizes."""
+    x = torch.zeros(1 << 22, device='cuda')
+
+    def body():
+        for _ in range(3000):
+            x.add_(1.0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        body()
+    torch.cuda.synchronize()
+    src = torch.empty(64 * 224 * 224 * 3, dtype=torch.uint8, pin_memory=True)
+    copy_stream = torch.cuda.Stream()
+    turns, calls = [0], []
+
+    def spin(stop):
+        while not stop.is_set():
+            turns[0] += 1
+
+    def copy(stop):
+        with torch.cuda.stream(copy_stream):
+            while not stop.is_set():
+                t0 = time.perf_counter()
+                src.to('cuda', non_blocking=True)
+                calls.append((t0, time.perf_counter()))
+                copy_stream.synchronize()
+
+    def windows(worker):
+        stop = threading.Event()
+        thread = threading.Thread(target=worker, args=(stop,))
+        thread.start()
+        out = {}
+        try:
+            for label, fn in (('sleep', lambda: time.sleep(0.2)),
+                              ('replays', lambda: [graph.replay() for _ in range(8)]),
+                              ('synchronize', torch.cuda.synchronize)):
+                n0, c0, t0 = turns[0], len(calls), time.perf_counter()
+                fn()
+                ms = 1e3 * (time.perf_counter() - t0)
+                inside = [1e3 * (b - a) for a, b in calls[c0:]]
+                out[label] = dict(ms=ms, turns_per_ms=(turns[0] - n0) / ms, copies=len(inside),
+                                  copy_call_ms=max(inside) if inside else None)
+            torch.cuda.synchronize()
+        finally:
+            stop.set()
+            thread.join()
+        return out
+    spun, copied = windows(spin), windows(copy)
+    for label in ('sleep', 'replays', 'synchronize'):
+        a, b = spun[label], copied[label]
+        log('GIL probe, while this thread %s (%.1f ms; %.1f ms): another Python thread %.1f loop '
+            'turns per ms; another thread\'s non_blocking 9.6 MB copy call: %d calls, the '
+            'longest %s ms'
+            % ({'sleep': 'sleeps', 'replays': 'replays a 3000-kernel graph 8 times back to back',
+                'synchronize': 'synchronizes after them'}[label], a['ms'], b['ms'],
+               a['turns_per_ms'], b['copies'],
+               None if b['copy_call_ms'] is None else '%.3f' % b['copy_call_ms']))
+    SUMMARY['gil_probe'] = dict(spin=spun, copy=copied)
+
+
+GRAPH_GC_SCRIPT = r"""
+import gc, json, warnings
+import torch
+from petastorm_tpu_torch.gpu import graphs
+x = torch.zeros(16, device='cuda')
+side = torch.cuda.Stream()
+side.wait_stream(torch.cuda.current_stream())
+with torch.cuda.stream(side):
+    x.add_(1)
+torch.cuda.current_stream().wait_stream(side)
+
+
+def orphan():
+    # an unreachable graph that only the cyclic collector frees
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        x.add_(1)
+    holder = {'graph': graph}
+    holder['self'] = holder
+
+
+def capture(collect_inside):
+    graph = torch.cuda.CUDAGraph()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        try:
+            with torch.cuda.graph(graph):
+                x.add_(1)
+                if collect_inside:
+                    gc.collect()
+                x.add_(1)
+            return dict(ok=True, warnings=[str(w.message)[:120] for w in caught])
+        except Exception as e:
+            return dict(ok=False, error=str(e).splitlines()[0][:160],
+                        warnings=[str(w.message)[:120] for w in caught])
+
+
+gc.disable()
+orphan()
+inside = capture(True)
+torch.cuda.synchronize()
+orphan()
+step = graphs.StepGraph(lambda t: t * 2)
+step(torch.ones(2, device='cuda'))
+try:
+    step(torch.ones(2, device='cuda'))
+    held = dict(ok=True)
+except Exception as e:
+    held = dict(ok=False, error=str(e).splitlines()[0][:160])
+print(json.dumps({'collect_inside_capture': inside, 'step_graph_capture': held}))
+"""
+
+
+def phase_graph_gc():
+    """Why a step graph's capture holds off Python's cyclic garbage collector:
+    in a process of its own (a failed capture stays there), an unreachable
+    CUDA graph that only the collector frees, then a capture during which
+    the collector runs; and a ``StepGraph`` capture with such a graph
+    pending, which must succeed."""
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([os.getcwd(), os.environ.get('PYTHONPATH', '')]))
+    proc = subprocess.run([sys.executable, '-c', GRAPH_GC_SCRIPT], env=env,
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError('graph gc process failed:\n%s\n%s' % (proc.stdout[-3000:],
+                                                                     proc.stderr[-3000:]))
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    log('graph gc: a collection inside a capture that frees an unreachable graph: %s; a '
+        'StepGraph capture with such a graph pending: %s'
+        % (out['collect_inside_capture'], out['step_graph_capture']))
+    if not out['step_graph_capture']['ok']:
+        raise AssertionError('graph gc: the StepGraph capture failed: %r' % out)
+    SUMMARY['graph_gc'] = out
+
+
+def phase_disk_cache(fa, url, tmp):
+    """``--decoded-cache-dir`` on ResNet-50: a run of one epoch that decodes
+    and writes the cache (epoch 0: 8 steps, timed after 2), then DECODE_STEPS
+    steps timed after DECODE_WARMUP served from the memory-mapped files with
+    no reader; images/s and ``stall_pct`` of each.  Then two loaders over
+    the complete cache, one pumped and one inline, serve the same epoch bit
+    for bit."""
+    from petastorm_tpu_torch.gpu import DiskCachedDataLoader
+    from petastorm_tpu_torch.train import train
+    cache = os.path.join(tmp, 'decoded_cache')
+    rows = {}
+    for label, steps, warmup in (('build', IMAGE_ROWS // BATCH, 2),
+                                 ('memmap', DECODE_STEPS, DECODE_WARMUP)):
+        reset_counts(fa)
+        result = train(url, steps=steps, batch_size=BATCH, model_name='resnet50',
+                       decoded_cache_dir=cache, warmup_steps=warmup)
+        launches, _ = counts(fa)
+        h2d = {k: result['loader_metrics'].get(k, 0) for k in ('h2d_batches', 'h2d_degraded')}
+        if any(launches.values()) or len(result['losses']) != steps \
+                or not np.all(np.isfinite(result['losses'])) or not h2d['h2d_batches'] \
+                or not DiskCachedDataLoader.cache_complete(cache):
+            raise AssertionError('disk cache %s: launches %s, %d losses, h2d %s, complete %s'
+                                 % (label, launches, len(result['losses']), h2d,
+                                    DiskCachedDataLoader.cache_complete(cache)))
+        if label == 'memmap' and result['reader_diagnostics']:
+            raise AssertionError('disk cache: the complete cache was read with a reader')
+        rows[label] = dict(_metrics(result), regime=result['diagnosis']['regime'], **h2d)
+        log('disk cache [%s] (resnet50, %d steps timed after %d): images/s %.1f step_ms %.2f '
+            'data_wait_ms %.2f stall_pct %.2f regime %s h2d %s'
+            % (label, steps, warmup, result['images_per_s'], result['step_ms'],
+               result['data_wait_ms'], result['stall_pct'], rows[label]['regime'], h2d))
+    with open(os.path.join(cache, 'manifest.json')) as f:
+        manifest = json.load(f)
+    sizes = {name: os.path.getsize(os.path.join(cache, spec['file']))
+             for name, spec in manifest['fields'].items()}
+    if manifest['rows'] != IMAGE_ROWS or sizes['image'] != IMAGE_ROWS * 224 * 224 * 3:
+        raise AssertionError('disk cache manifest %r, sizes %r' % (manifest, sizes))
+    served = {}
+    for mode in ('auto', False):
+        with DiskCachedDataLoader(None, BATCH, decoded_cache_dir=cache, num_epochs=1, seed=3,
+                                  transfer=mode) as loader:
+            served[mode] = [{k: v.cpu() for k, v in b.items()} for b in loader]
+    equal = len(served['auto']) == IMAGE_ROWS // BATCH and all(
+        all(torch.equal(a[k], b[k]) for k in a) for a, b in zip(served['auto'], served[False]))
+    log('disk cache: %d rows, %s bytes per field; an epoch from the cache, pumped and inline, '
+        'equal bit for bit: %s' % (manifest['rows'], sizes, equal))
+    if not equal:
+        raise AssertionError('disk cache: the pumped and inline epochs differ')
+    SUMMARY['disk_cache'] = dict(rows, bytes=sizes)
+
+
+def phase_trace(url, tmp):
+    """The example's ``--trace`` on ResNet-50 streaming: the Chrome trace
+    holds the monitor's ``data_wait`` and ``step``, the loader's
+    ``host_batch`` and the plane's ``h2d/stage``, ``h2d/dispatch`` and
+    ``h2d/commit`` spans, the loader's and the plane's on another thread
+    than the monitor's."""
+    from petastorm_tpu_torch.train import main
+    path = os.path.join(tmp, 'resnet50_trace.json')
+    result = main(['--dataset-url', url, '--steps', str(STEPS), '--batch-size', str(BATCH),
+                   '--trace', path])
+    with open(path) as f:
+        events = json.load(f)['traceEvents']
+    tids, counts_ = {}, {}
+    for e in events:
+        tids.setdefault(e['name'], set()).add(e['tid'])
+        counts_[e['name']] = counts_.get(e['name'], 0) + 1
+    want = {'data_wait', 'step', 'host_batch', 'h2d/stage', 'h2d/dispatch', 'h2d/commit'}
+    log('trace: %d spans in %s: %s; stall top component %s'
+        % (len(events), os.path.basename(path), counts_, result['stall_top_component']))
+    if not want <= set(tids) or result['trace_events'] != len(events) \
+            or (tids['host_batch'] | tids['h2d/stage']) & tids['data_wait']:
+        raise AssertionError('trace: spans %s on threads %s' % (counts_, tids))
+    SUMMARY['trace'] = dict(spans=counts_, stall_top_component=result['stall_top_component'])
+
+
 def main():
     # The kernels' module (petastorm_tpu_torch.ops re-exports its function
     # under the same name).  Imported first: outside a checkout this fails
@@ -1735,8 +2214,14 @@ def main():
                             ('generate', lambda: phase_generate(fa, paths['packed'][1])),
                             ('native', lambda: phase_native(url)),
                             ('decode_plane', lambda: phase_decode_plane(
-                                fa, url, 'file://' + os.path.join(tmp, 'lc_tokens'))),
-                            ('pool_parity', lambda: phase_pool_parity(url))):
+                                fa, url, 'file://' + os.path.join(tmp, 'lc_tokens'),
+                                'file://' + os.path.join(tmp, 'lc_var_tokens'), tmp)),
+                            ('pool_parity', lambda: phase_pool_parity(url)),
+                            ('pump_parity', lambda: phase_pump_parity(url)),
+                            ('gil_probe', phase_gil_probe),
+                            ('graph_gc', phase_graph_gc),
+                            ('disk_cache', lambda: phase_disk_cache(fa, url, tmp)),
+                            ('trace', lambda: phase_trace(url, tmp))):
             t0 = time.monotonic()
             paths[name] = phase()
             log('phase %s: %.1f s' % (name, time.monotonic() - t0))

@@ -24,8 +24,10 @@ _LAZY = {
     'DataLoader': 'petastorm_tpu_torch.gpu.loader',
     'InMemDataLoader': 'petastorm_tpu_torch.gpu.loader',
     'DeviceInMemDataLoader': 'petastorm_tpu_torch.gpu.loader',
+    'DiskCachedDataLoader': 'petastorm_tpu_torch.gpu.loader',
     'PackedDataLoader': 'petastorm_tpu_torch.gpu.loader',
     'StallMonitor': 'petastorm_tpu_torch.benchmark.stall_profiler',
+    'TraceRecorder': 'petastorm_tpu_torch.benchmark.trace',
     'train': 'petastorm_tpu_torch.train',
 }
 

@@ -13,12 +13,19 @@ for data (inside ``__next__``) or to the step (between yields)::
 PyTorch launches device work asynchronously, so the card is stalled only
 while ``__next__`` blocks, which is what this measures.  With
 ``annotate=True`` each wait is a ``torch.profiler.record_function`` range
-named ``petastorm_tpu.data_wait`` in a profiler trace.
+named ``petastorm_tpu.data_wait`` in a profiler trace.  With a
+:class:`~petastorm_tpu_torch.benchmark.TraceRecorder` each wait and step is
+also a ``data_wait`` and a ``step`` span (``data_wait_warmup`` and
+``step_warmup`` during the warm-up), and :meth:`StallMonitor.report` splits
+the wait by the pipeline's spans (:func:`~petastorm_tpu_torch.telemetry.
+attribute_stalls`).
 """
 
 import time
 
 import torch
+
+from petastorm_tpu_torch.telemetry.spans import attribute_stalls
 
 __all__ = ['StallMonitor']
 
@@ -27,9 +34,10 @@ class StallMonitor(object):
     """Wait and step time of a wrapped iterator; the first
     ``warmup_steps`` pairs (pipeline fill, first compiles) are skipped."""
 
-    def __init__(self, annotate=False, warmup_steps=1):
+    def __init__(self, annotate=False, warmup_steps=1, trace_recorder=None):
         self._annotate = annotate
         self._warmup_steps = warmup_steps
+        self._trace = trace_recorder
         self.reset()
 
     def reset(self):
@@ -53,7 +61,14 @@ class StallMonitor(object):
             wait_end = time.monotonic()
             yield batch
             step_end = time.monotonic()
-            if self._skipped < self._warmup_steps:
+            warmup = self._skipped < self._warmup_steps
+            if self._trace is not None:
+                # warm-up pairs keep their own names: the breakdown covers
+                # the waits that stall_pct counts
+                suffix = '_warmup' if warmup else ''
+                self._trace.event('data_wait' + suffix, wait_start, wait_end)
+                self._trace.event('step' + suffix, wait_end, step_end)
+            if warmup:
                 self._skipped += 1
                 continue
             self.wait_time += wait_end - wait_start
@@ -65,10 +80,24 @@ class StallMonitor(object):
         total = self.wait_time + self.step_time
         return (self.wait_time / total) if total > 0 else 0.0
 
+    def stall_breakdown(self):
+        """The recorded ``data_wait`` time split by pipeline component
+        (:func:`~petastorm_tpu_torch.telemetry.attribute_stalls`); None
+        without a recorder or waits."""
+        if self._trace is None:
+            return None
+        return attribute_stalls(self._trace.events)
+
     def report(self):
-        return {
+        out = {
             'stall_pct': round(100.0 * self.stall_fraction, 2),
             'steps': self.steps,
             'data_wait_s': round(self.wait_time, 4),
             'step_s': round(self.step_time, 4),
         }
+        breakdown = self.stall_breakdown()
+        if breakdown:
+            out['stall_breakdown'] = breakdown['pct']
+            out['stall_top_component'] = '%s:%.0f%%' % (breakdown['top'],
+                                                        breakdown['pct'][breakdown['top']])
+        return out

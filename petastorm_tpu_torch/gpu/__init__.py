@@ -5,9 +5,11 @@ Counterpart of ``petastorm_tpu.jax``.
 """
 
 from petastorm_tpu_torch.gpu import augment, graphs, packing
-from petastorm_tpu_torch.gpu.loader import (DataLoader, DeviceInMemDataLoader, InMemDataLoader,
+from petastorm_tpu_torch.gpu.loader import (DataLoader, DeviceInMemDataLoader,
+                                            DiskCachedDataLoader, InMemDataLoader,
                                             PackedDataLoader)
 from petastorm_tpu_torch.gpu.transfer import resolve_device
 
-__all__ = ['DataLoader', 'InMemDataLoader', 'DeviceInMemDataLoader', 'PackedDataLoader',
+__all__ = ['DataLoader', 'InMemDataLoader', 'DeviceInMemDataLoader', 'DiskCachedDataLoader',
+           'PackedDataLoader',
            'augment', 'graphs', 'packing', 'resolve_device']

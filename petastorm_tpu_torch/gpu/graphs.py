@@ -41,9 +41,25 @@ the caller's ``cuda_graph`` keyword: the CPU runs the eager loop, which the
 tests hold against the JAX package and which the card's replay is held
 against; asking for a graph on the CPU raises.  Nothing falls back: a
 capture or replay that fails raises.
+
+A capture runs with every loader's transfer thread parked
+(:func:`~petastorm_tpu_torch.gpu.transfer.pumps_paused`): that thread
+pins, copies and waits on events, and a CUDA call of another thread during
+a capture fails it (in CUDA's default global mode).  The threads resume
+after the capture.  It also runs with Python's cyclic garbage collector
+collected first and then held off: a collection during the capture that
+frees an unreachable CUDA graph (:class:`_EpochGraph` of the device cache
+is one: it refers to itself through its step) destroys that graph inside
+the capture, which invalidates the capture ("operation not permitted when
+stream is capturing").
 """
 
+import contextlib
+import gc
+
 import torch
+
+from petastorm_tpu_torch.gpu.transfer import pumps_paused
 
 __all__ = ['resolve', 'StepGraph', 'counts_launches', 'signature', 'tree_map', 'copy_into',
            'write_at']
@@ -185,6 +201,20 @@ class _Cuda(object):
 BACKEND = _Cuda
 
 
+@contextlib.contextmanager
+def _collector_held():
+    """Collect Python's cyclic garbage, then keep the collector off for the
+    duration (see the module docstring)."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 class StepGraph(object):
     """``step(*inputs) -> outputs``, one call per step: the first call runs
     ``fn`` eagerly (the warm-up), the second captures it on its inputs and
@@ -230,8 +260,9 @@ class StepGraph(object):
             raise RuntimeError('this step is captured already')
         self._slots = tree_map(torch.clone, inputs)
         before = _launch_counts()
-        self._graph, self.outputs = BACKEND.capture(self._fn, self._slots, self._stream,
-                                                    self._generators)
+        with pumps_paused(), _collector_held():
+            self._graph, self.outputs = BACKEND.capture(self._fn, self._slots, self._stream,
+                                                        self._generators)
         after = _launch_counts()
         self._per_replay = [(a - b, {d: n - by_b[d] for d, n in by_a.items()})
                             for (a, by_a), (b, by_b) in zip(after, before)]

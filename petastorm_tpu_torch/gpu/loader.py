@@ -1,13 +1,19 @@
-"""Device loader: columnar reader batches -> dicts of device tensors.
+"""Device loader: reader batches -> dicts of device tensors.
 
-Counterpart of ``petastorm_tpu/jax/loader.py::DataLoader`` on its columnar
-path: the reader's per-row-group column chunks are re-batched with numpy
-slicing and concatenation (no per-row Python), optionally mixed through a
-windowed shuffling buffer, non-numeric columns are dropped (they cannot
-live on the card), and each batch goes to the device through
-:class:`~petastorm_tpu_torch.gpu.transfer.TransferPlane` with ``prefetch``
-batches in flight.  Batches equal the JAX loader's bit for bit, dtypes
-included, for the same reader, seed and batch size.
+Counterpart of ``petastorm_tpu/jax/loader.py::DataLoader``: a columnar
+reader's per-row-group column chunks are re-batched with numpy slicing and
+concatenation (no per-row Python), optionally mixed through a windowed
+shuffling buffer, or a row reader's rows are stacked; non-numeric columns
+are dropped (they cannot live on the card), and each batch goes to the
+device through :class:`~petastorm_tpu_torch.gpu.transfer.TransferPlane`
+with ``prefetch`` batches in flight.  With the plane on (``transfer='auto'``
+on the card) a :class:`~petastorm_tpu_torch.gpu.transfer.DispatchPump`
+thread pulls, transforms and moves each batch in one coalesced copy, and
+the consuming thread only takes finished batches; off, all of it runs on
+the consuming thread.  Batches equal the JAX loader's bit for bit, dtypes
+included, for the same reader, seed and batch size, either way.
+``DataLoader.stats`` holds each stage's seconds, and a trace recorder takes
+its spans.
 
 :class:`InMemDataLoader` reads the dataset once into host memory and serves
 shuffled epochs from there; :class:`DeviceInMemDataLoader` keeps that cache
@@ -16,6 +22,9 @@ step function with :meth:`~DeviceInMemDataLoader.scan_epochs`.  Both give
 the JAX loaders' batches bit for bit: the host loader draws its epoch
 orders from numpy's ``default_rng(seed)``, the device loader from
 :mod:`petastorm_tpu_torch.random` (``jax.random`` reproduced).
+:class:`DiskCachedDataLoader` decodes once into per-field files on local
+disk and streams later epochs from them, files the JAX loader's byte for
+byte.
 
 :class:`PackedDataLoader` packs a variable-length sequence column of a row
 reader into fixed-shape LM batches (:mod:`~petastorm_tpu_torch.gpu.packing`)
@@ -26,15 +35,18 @@ The JAX loaders' one-dispatch consumers, :meth:`DataLoader.scan_batches`
 CUDA graph of the step on the card (:mod:`~petastorm_tpu_torch.gpu.graphs`)
 and run the step eagerly on the CPU.
 
-``DataLoader`` on row readers (``columnar_decode=False``), ``state_dict``/
-resume (``PackedDataLoader.state_dict`` included), autotuning, data echoing,
-sharding, ``DiskCachedDataLoader`` and ``ResidentDataLoader`` are later
-slices of the port.
+``state_dict``/resume (``DiskCachedDataLoader``'s and the pump's part in it
+included), the row readers' shuffling buffer, autotuning, data echoing,
+sharding and ``ResidentDataLoader`` are later slices of the port.
 """
 
 import hashlib
 import itertools
+import json
 import logging
+import os
+import shutil
+import time
 from collections import deque
 
 import numpy as np
@@ -43,35 +55,63 @@ import torch
 from petastorm_tpu_torch import random as prng
 from petastorm_tpu_torch.gpu import graphs
 from petastorm_tpu_torch.gpu.packing import StreamPacker
-from petastorm_tpu_torch.gpu.transfer import TransferPlane, canonical_dtype, resolve_device
+from petastorm_tpu_torch.gpu.transfer import (DONE, DispatchPump, TransferPlane, canonical_dtype,
+                                              plane_enabled, resolve_device, validate_transfer)
+from petastorm_tpu_torch.telemetry.registry import MetricsRegistry
 
 logger = logging.getLogger(__name__)
 
-__all__ = ['DataLoader', 'InMemDataLoader', 'DeviceInMemDataLoader', 'PackedDataLoader']
+__all__ = ['DataLoader', 'InMemDataLoader', 'DeviceInMemDataLoader', 'DiskCachedDataLoader',
+           'PackedDataLoader']
 
 
 class DataLoader(object):
-    """Iterate device-resident batches (``{field: tensor}``) from a reader
-    made with ``make_reader(..., columnar_decode=True)``.
+    """Iterate device-resident batches (``{field: tensor}``) from a reader.
 
     Args:
-        reader: the columnar reader.
+        reader: a columnar reader (``make_reader(..., columnar_decode=True)``),
+            whose row-group chunks are re-batched, or a row reader, whose
+            rows are stacked.
         batch_size: rows per batch.
         shuffling_queue_capacity: >0 mixes rows through a buffer of at least
-            this many rows (uniform draws, seeded by ``seed``).
+            this many rows (uniform draws, seeded by ``seed``); columnar
+            readers only (the row readers' shuffling buffer is a later
+            slice).
         drop_last: drop the trailing partial batch.
         prefetch: batches kept in flight ahead of the consumer.
         device: target device; ``None`` means the card (raises without one).
         seed: shuffling seed.
         transform_fn: applied to each host batch (a dict of numpy arrays)
             before it moves to the device; its result is what moves.
+        trace_recorder: a :class:`~petastorm_tpu_torch.benchmark.TraceRecorder`
+            that takes a span for each timed section (``host_batch``,
+            ``transform``, ``device_put``) and the plane's ``h2d/*`` spans.
+        transfer: the transfer plane (:mod:`~petastorm_tpu_torch.gpu.transfer`):
+            ``'auto'`` on the card, ``True`` on (the CPU tests force it so),
+            ``False``/``None`` off.  On, a :class:`~petastorm_tpu_torch.gpu.
+            transfer.DispatchPump` thread pulls host batches, runs
+            ``transform_fn`` and moves each batch to the card in one
+            coalesced copy, and the consuming thread only takes finished
+            batches; a structure the plane cannot pack moves column by column
+            on that thread.  Off, all of it runs on the consuming thread.
+        wire_dtypes: the plane's opt-in wire narrowing (``'auto'``: float
+            leaves travel as bfloat16; or a ``{field: dtype}`` dict).
+        ring_slots: the plane's pinned slabs (default ``prefetch + 1``).
     """
 
     def __init__(self, reader, batch_size, shuffling_queue_capacity=0, drop_last=True,
-                 prefetch=2, device=None, seed=None, transform_fn=None):
+                 prefetch=2, device=None, seed=None, transform_fn=None, trace_recorder=None,
+                 transfer='auto', wire_dtypes=None, ring_slots=None):
         if batch_size <= 0:
             raise ValueError('batch_size must be positive')
-        self._check_reader(reader)
+        validate_transfer(transfer)
+        if reader is not None:
+            self._check_reader(reader)
+        self._batched_input = getattr(reader, 'batched_output', False)
+        if shuffling_queue_capacity and reader is not None and not self._batched_input:
+            raise ValueError('shuffling_queue_capacity on a row reader (its shuffling buffer) '
+                             'is a later slice of the port: shuffle row groups in the reader '
+                             'or use columnar_decode=True')
         self.device = resolve_device(device)
         self.reader = reader
         self.batch_size = int(batch_size)
@@ -81,25 +121,164 @@ class DataLoader(object):
         self._seed = seed
         self._transform_fn = transform_fn
         self._warned_fields = set()
+        self._trace = trace_recorder
+        self._transfer = transfer
+        self._wire_dtypes = wire_dtypes
+        self._ring_slots = ring_slots
+        self._plane = None
+        self._pump = None
+        # Per-stage wall time: 'host_batch' waits on the decode plane and
+        # collates, 'transform' runs the user hook, 'device_put' the put (on
+        # the plane: pack, copy dispatch and any ring wait; the h2d_*
+        # histograms hold the split).  ``stats`` is a view of these.
+        self.metrics = MetricsRegistry('loader')
+        self._m_batches = self.metrics.counter('batches')
+        self._m_stage = {stage: (self.metrics.counter(stage + '_s'),
+                                 self.metrics.histogram(stage))
+                         for stage in ('host_batch', 'transform', 'device_put')}
 
     @staticmethod
     def _check_reader(reader):
-        if not getattr(reader, 'batched_output', False):
-            raise ValueError('DataLoader takes a columnar reader (make_reader(..., '
-                             'columnar_decode=True)): its row-reader path is a later slice '
-                             'of the port (PackedDataLoader takes row readers)')
+        """Subclasses refuse the readers they cannot take."""
+
+    def _observe(self, stage, t0, t1):
+        counter, hist = self._m_stage[stage]
+        counter.inc(t1 - t0)
+        hist.observe(t1 - t0)
+
+    @property
+    def stats(self):
+        """Seconds spent in each stage and the batches delivered (the JAX
+        loader's ``stats``)."""
+        return {'host_batch_s': self._m_stage['host_batch'][0].value,
+                'transform_s': self._m_stage['transform'][0].value,
+                'device_put_s': self._m_stage['device_put'][0].value,
+                'batches': int(self._m_batches.value)}
+
+    @property
+    def diagnostics(self):
+        """The loader's registry (per-stage seconds and p50/p99, the plane's
+        ``h2d_*`` counters) merged with the reader's pool diagnostics."""
+        out = self.metrics.as_dict()
+        out['batches'] = int(out.get('batches', 0))
+        if self.reader is not None:
+            out.update(getattr(self.reader, 'diagnostics', None) or {})
+        return out
+
+    def _transfer_plane(self):
+        """The loader's transfer plane (built once, sharing its registry and
+        trace recorder), or None when the plane is off."""
+        if not plane_enabled(self._transfer, self.device):
+            return None
+        if self._plane is None:
+            ring = self._ring_slots if self._ring_slots is not None else self._prefetch + 1
+            self._plane = TransferPlane(self.device, wire_dtypes=self._wire_dtypes,
+                                        ring_slots=ring, metrics=self.metrics,
+                                        trace_recorder=self._trace)
+        return self._plane
 
     def __iter__(self):
-        plane = TransferPlane(self.device, ring_slots=self._prefetch + 2)
-        pending = deque()
-        for host_batch in self._host_batches():
+        plane = self._transfer_plane()
+        if plane is None:
+            return self._iter_inline()
+        if self._pump is not None and self._pump.alive:
+            # an earlier iteration's thread is still winding down: never
+            # share a ring with it
+            self._plane = None
+            plane = self._transfer_plane()
+        return self._iter_pumped(plane)
+
+    def _iter_pumped(self, plane):
+        """The plane on: a :class:`DispatchPump` thread pulls, transforms and
+        puts; this generator only hands finished batches over."""
+        def ship(host_batch):
+            t1 = time.monotonic()
             if self._transform_fn is not None:
                 host_batch = self._transform_fn(host_batch)
-            pending.append(plane.put(_filter_numeric(host_batch, self._warned_fields)))
+            t2 = time.monotonic()
+            numeric = _filter_numeric(host_batch, self._warned_fields)
+            shipped = plane.put(numeric)
+            degraded = shipped is None
+            if degraded:   # a structure the plane cannot pack: column by column
+                shipped = plane.put_inline(numeric)
+            t3 = time.monotonic()
+            self._observe('transform', t1, t2)
+            self._observe('device_put', t2, t3)
+            self._m_batches.inc()
+            if self._trace is not None:
+                n = int(self._m_batches.value)
+                if self._transform_fn is not None:
+                    self._trace.event('transform', t1, t2, batch=n)
+                if degraded:
+                    # a coalesced put has its h2d/* spans in this window: a
+                    # device_put span around them would count the staging
+                    # copy as link time
+                    self._trace.event('device_put', t2, t3, batch=n)
+            return shipped
+
+        pump = DispatchPump(self._timed_pulls(self._host_batches()), ship, self._prefetch,
+                            device=self.device)
+        self._pump = pump
+        pump.start()
+        try:
+            while True:
+                item = pump.get()
+                if item is DONE:
+                    break
+                yield plane.ready(*item)
+        finally:
+            # an early break or an error: a thread parked in a slow pull is
+            # released by reader.stop() in __exit__
+            pump.stop(join_timeout_s=0.2)
+            if not pump.alive:
+                plane.drain()
+
+    def _iter_inline(self):
+        """The plane off: pull, transform and put on this thread, one pinned
+        buffer and one copy per column."""
+        plane = TransferPlane(self.device, ring_slots=self._prefetch + 2, metrics=self.metrics)
+        pending = deque()
+        batches = self._host_batches()
+        while True:
+            t0 = time.monotonic()
+            try:
+                host_batch = next(batches)
+            except StopIteration:
+                break
+            t1 = time.monotonic()
+            if self._transform_fn is not None:
+                host_batch = self._transform_fn(host_batch)
+            t2 = time.monotonic()
+            pending.append(plane.put_inline(_filter_numeric(host_batch, self._warned_fields)))
+            t3 = time.monotonic()
+            self._observe('host_batch', t0, t1)
+            self._observe('transform', t1, t2)
+            self._observe('device_put', t2, t3)
+            self._m_batches.inc()
+            if self._trace is not None:
+                n = int(self._m_batches.value)
+                self._trace.event('host_batch', t0, t1, batch=n)
+                if self._transform_fn is not None:
+                    self._trace.event('transform', t1, t2, batch=n)
+                self._trace.event('device_put', t2, t3, batch=n)
             if len(pending) > self._prefetch:
                 yield plane.ready(*pending.popleft())
         while pending:
             yield plane.ready(*pending.popleft())
+
+    def _timed_pulls(self, gen):
+        """``gen``'s items, with the wait for each in ``host_batch``."""
+        while True:
+            t0 = time.monotonic()
+            try:
+                host_batch = next(gen)
+            except StopIteration:
+                return
+            t1 = time.monotonic()
+            self._observe('host_batch', t0, t1)
+            if self._trace is not None:
+                self._trace.event('host_batch', t0, t1)
+            yield host_batch
 
     def scan_batches(self, step_fn, carry, steps_per_call=8, cuda_graph=None, generators=()):
         """Consume the stream ``steps_per_call`` steps at a time, as the JAX
@@ -108,8 +287,9 @@ class DataLoader(object):
         ``step_fn(carry, batch) -> (carry, out)`` sees exactly the batches
         ``__iter__`` would deliver.  Each chunk of ``steps_per_call`` host
         batches is stacked to ``(k, batch, ...)`` and moved to the device
-        in one transfer; a ragged tail batch (``drop_last=False``) flushes
-        the chunk before it and becomes a chunk of its own.  Yields
+        in one transfer (the plane's coalesced put when it is on, on this
+        thread: there is no pump); a ragged tail batch (``drop_last=False``)
+        flushes the chunk before it and becomes a chunk of its own.  Yields
         ``(carry, outs)`` per chunk, ``outs`` stacked along a leading axis
         of length k.
 
@@ -135,14 +315,32 @@ class DataLoader(object):
                 outs.append(out)
             return carry, _stack(outs)
 
-        plane = TransferPlane(self.device, ring_slots=2)
+        plane = self._transfer_plane()
+        coalesce = plane is not None
+        if not coalesce:
+            plane = TransferPlane(self.device, ring_slots=2, metrics=self.metrics)
         by_signature = {}   # graphs.signature of (carry, chunk) -> StepGraph
 
         def put(chunk):
-            host = [_filter_numeric(self._transform_fn(b) if self._transform_fn else b,
-                                    self._warned_fields) for b in chunk]
-            return plane.ready(*plane.put({name: np.stack([b[name] for b in host])
-                                           for name in host[0]}))
+            t0 = time.monotonic()
+            if self._transform_fn is not None:
+                chunk = [self._transform_fn(b) for b in chunk]
+            t1 = time.monotonic()
+            host = [_filter_numeric(b, self._warned_fields) for b in chunk]
+            stacked = {name: np.stack([b[name] for b in host]) for name in host[0]}
+            shipped = plane.put(stacked) if coalesce else None
+            planed = shipped is not None
+            if not planed:
+                shipped = plane.put_inline(stacked)
+            t2 = time.monotonic()
+            self._observe('transform', t0, t1)
+            self._observe('device_put', t1, t2)
+            if self._trace is not None:
+                if self._transform_fn is not None:
+                    self._trace.event('transform', t0, t1, chunk=len(chunk))
+                if not planed:
+                    self._trace.event('device_put', t1, t2, chunk=len(chunk))
+            return plane.ready(*shipped)
 
         def run(carry, chunk):
             stacked = put(chunk)
@@ -154,12 +352,13 @@ class DataLoader(object):
             return by_signature[key](carry, stacked)
 
         chunk = []
-        for host_batch in self._host_batches():
+        for host_batch in self._timed_pulls(self._host_batches()):
             if chunk and _rows(host_batch) != _rows(chunk[0]):
                 carry, outs = run(carry, chunk)
                 chunk = []
                 yield carry, outs
             chunk.append(host_batch)
+            self._m_batches.inc()
             if len(chunk) == steps_per_call:
                 carry, outs = run(carry, chunk)
                 chunk = []
@@ -168,7 +367,7 @@ class DataLoader(object):
             yield run(carry, chunk)
 
     def _host_batches(self):
-        return self._columnar_batches()
+        return self._columnar_batches() if self._batched_input else self._row_batches()
 
     def _chunk_source(self):
         for chunk in self.reader:
@@ -179,6 +378,17 @@ class DataLoader(object):
         without its resume pushback, which comes with ``state_dict``)."""
         for row in self.reader:
             yield row._asdict() if hasattr(row, '_asdict') else dict(row)
+
+    def _row_batches(self):
+        """Row readers: stack every ``batch_size`` rows, in reader order."""
+        rows = []
+        for row in self._row_source():
+            rows.append(row)
+            if len(rows) == self.batch_size:
+                yield _stack_rows(rows)
+                rows = []
+        if rows and not self._drop_last:
+            yield _stack_rows(rows)
 
     def _columnar_batches(self):
         """Re-batch column chunks: a chunk exactly batch_size long passes
@@ -243,8 +453,19 @@ class DataLoader(object):
         return self
 
     def __exit__(self, exc_type, exc_value, tb):
-        self.reader.stop()
-        self.reader.join()
+        pump = self._pump
+        if pump is not None:
+            # ask the dispatch thread out first; a pull blocked in the reader
+            # is released by reader.stop() below
+            pump.stop(join_timeout_s=0.5)
+        if self.reader is not None:
+            self.reader.stop()
+            self.reader.join()
+        if pump is not None:
+            pump.join()
+        if self._plane is not None and (pump is None or not pump.alive):
+            # only once the dispatch thread is out: it may still use the ring
+            self._plane.close()
 
 
 class PackedDataLoader(DataLoader):
@@ -328,6 +549,23 @@ def _rows(cache):
     return len(next(iter(cache.values())))
 
 
+def _stack_rows(rows):
+    """Stack row dicts into one batch; a column of strings (or Nones) stays
+    an object array (dropped before the device), a None cell among arrays
+    becomes zeros, as in the JAX loader."""
+    out = {}
+    for key in rows[0]:
+        cells = [row[key] for row in rows]
+        first = next((c for c in cells if c is not None), None)
+        if first is None or isinstance(first, (str, bytes)):
+            column = np.empty(len(cells), dtype=object)
+            column[:] = cells
+        else:
+            column = np.stack([c if c is not None else np.zeros_like(first) for c in cells])
+        out[key] = column
+    return out
+
+
 def _canonical_row_order(cache):
     """Sort the rows of a ``{field: (N, ...) array}`` cache by a blake2b
     digest of each row over its fields in name order: any pool then yields
@@ -384,7 +622,7 @@ class InMemDataLoader(DataLoader):
             # drop_last applies per epoch, not to the one read that fills the cache
             drop_last, self._drop_last = self._drop_last, False
             try:
-                parts = list(super(InMemDataLoader, self)._columnar_batches())
+                parts = list(super(InMemDataLoader, self)._host_batches())
             finally:
                 self._drop_last = drop_last
             if not parts:
@@ -408,7 +646,7 @@ class InMemDataLoader(DataLoader):
                            'batches to serve', n, self.batch_size)
         return starts
 
-    def _columnar_batches(self):
+    def _host_batches(self):
         cache = self._build_cache()
         if cache is None:
             return
@@ -457,10 +695,14 @@ class DeviceInMemDataLoader(InMemDataLoader):
             if self._build_cache() is None:
                 return None
             numeric = _filter_numeric(self._cache, self._warned_fields)
-            self._dev_cache = {
-                name: torch.from_numpy(np.ascontiguousarray(
-                    column, dtype=canonical_dtype(column.dtype))).to(self.device)
-                for name, column in numeric.items()}
+            plane = self._transfer_plane()
+            # the plane moves the whole cache in one coalesced copy
+            self._dev_cache = plane.put_once(numeric) if plane is not None else None
+            if self._dev_cache is None:
+                self._dev_cache = {
+                    name: torch.from_numpy(np.ascontiguousarray(
+                        column, dtype=canonical_dtype(column.dtype))).to(self.device)
+                    for name, column in numeric.items()}
             self._cache = None   # never read again: release the host copy
         return self._dev_cache
 
@@ -548,6 +790,130 @@ class DeviceInMemDataLoader(InMemDataLoader):
                     outs = _stack(outs)
                 epochs.append(outs)
             yield carry, (epochs[0] if epochs_per_call == 1 else _stack(epochs))
+
+
+class DiskCachedDataLoader(DataLoader):
+    """Decode once, stream every later epoch from local disk.
+
+    Epoch 0 reads through the reader, serves its batches and appends each
+    numeric field's rows to ``<field>.bin`` under ``decoded_cache_dir``,
+    then writes ``manifest.json`` (``{'version': 1, 'rows', 'fields'}``) and,
+    through ``os.replace``, the ``_COMPLETE`` marker.  Later epochs
+    ``np.memmap`` the files and serve batches in a
+    ``np.random.default_rng(seed)`` permutation per epoch (``shuffle=False``:
+    file order), with no Parquet or decode work.  The files are the JAX
+    ``DiskCachedDataLoader``'s byte for byte, so either package serves a
+    cache the other built.
+
+    The reader must be built with ``num_epochs=1`` (epochs repeat here;
+    ``num_epochs=None`` is endless); ``reader=None`` serves a complete cache
+    (:meth:`cache_complete`) with no reader at all.  A directory without the
+    marker (a build cut short) is removed and built again.
+    ``shuffling_queue_capacity`` is refused; ``transform_fn`` runs on every
+    served batch, so random augmentation stays fresh per epoch.  Other
+    keyword arguments go to :class:`DataLoader`.
+    """
+
+    _MANIFEST = 'manifest.json'
+    _COMPLETE = '_COMPLETE'
+
+    def __init__(self, reader, batch_size, decoded_cache_dir, num_epochs=1, shuffle=True,
+                 seed=None, **kwargs):
+        if kwargs.get('shuffling_queue_capacity'):
+            raise ValueError('DiskCachedDataLoader shuffles via per-epoch permutation; '
+                             'shuffling_queue_capacity is not supported')
+        if reader is not None:
+            reader_epochs = getattr(reader, 'num_epochs', 1)
+            if reader_epochs != 1:
+                raise ValueError('DiskCachedDataLoader requires a reader built with '
+                                 'num_epochs=1 (got num_epochs=%r); epoch repetition happens '
+                                 'in the loader' % (reader_epochs,))
+        super(DiskCachedDataLoader, self).__init__(reader, batch_size, seed=seed, **kwargs)
+        self._cache_dir = decoded_cache_dir
+        self._num_epochs = num_epochs
+        self._shuffle = shuffle
+
+    @classmethod
+    def cache_complete(cls, decoded_cache_dir):
+        """True when ``decoded_cache_dir`` holds a finished cache: a loader
+        over it may take ``reader=None``."""
+        return os.path.exists(os.path.join(decoded_cache_dir, cls._COMPLETE))
+
+    def _open_cache(self):
+        """Every field's file memory-mapped; returns ``(fields, rows)``."""
+        with open(os.path.join(self._cache_dir, self._MANIFEST)) as f:
+            manifest = json.load(f)
+        fields = {name: np.memmap(os.path.join(self._cache_dir, spec['file']),
+                                  dtype=np.dtype(spec['dtype']), mode='r',
+                                  shape=tuple([manifest['rows']] + spec['shape']))
+                  for name, spec in manifest['fields'].items()}
+        return fields, manifest['rows']
+
+    def _build_and_serve_epoch0(self):
+        """Epoch 0: serve the reader's batches while writing their rows."""
+        if os.path.isdir(self._cache_dir):
+            shutil.rmtree(self._cache_dir)   # a build cut short: start clean
+        os.makedirs(self._cache_dir)
+        sinks, specs, rows = {}, {}, 0
+        drop_last, self._drop_last = self._drop_last, False   # the cache holds every row
+        try:
+            for batch in super(DiskCachedDataLoader, self)._host_batches():
+                # sorted, as the JAX loader's filter orders a dict
+                batch = dict(sorted(_filter_numeric(batch, self._warned_fields).items()))
+                for name, value in batch.items():
+                    value = np.ascontiguousarray(value)
+                    if name not in sinks:
+                        specs[name] = {'file': '%s.bin' % name, 'dtype': value.dtype.str,
+                                       'shape': list(value.shape[1:])}
+                        sinks[name] = open(os.path.join(self._cache_dir, specs[name]['file']),
+                                           'wb')
+                    elif list(value.shape[1:]) != specs[name]['shape']:
+                        raise ValueError('field %r changed shape %r -> %r; the decoded cache '
+                                         'requires fixed-shape fields'
+                                         % (name, specs[name]['shape'], list(value.shape[1:])))
+                    sinks[name].write(memoryview(value))
+                n = _rows(batch)
+                rows += n
+                if n == self.batch_size or not drop_last:
+                    yield batch
+        finally:
+            self._drop_last = drop_last
+            for sink in sinks.values():
+                sink.close()
+        with open(os.path.join(self._cache_dir, self._MANIFEST), 'w') as f:
+            json.dump({'version': 1, 'rows': rows, 'fields': specs}, f)
+        # the marker is the atomicity boundary: no marker, a rebuild
+        tmp = os.path.join(self._cache_dir, self._COMPLETE + '.tmp')
+        with open(tmp, 'w') as f:
+            f.write('%d rows\n' % rows)
+        os.replace(tmp, os.path.join(self._cache_dir, self._COMPLETE))
+
+    def _host_batches(self):
+        epoch = 0
+        if not self.cache_complete(self._cache_dir):
+            if self.reader is None:
+                raise ValueError('reader=None serves a COMPLETE cache only; %r has no '
+                                 '_COMPLETE marker' % (self._cache_dir,))
+            yield from self._build_and_serve_epoch0()
+            epoch = 1
+            if self._num_epochs is not None and epoch >= self._num_epochs:
+                return
+        fields, n = self._open_cache()
+        if n == 0:
+            return
+        if self._drop_last and n < self.batch_size:
+            logger.warning('decoded cache holds %d rows < batch_size=%d with drop_last: no '
+                           'batches to serve', n, self.batch_size)
+            return
+        rng = np.random.default_rng(self._seed)
+        stop = n - self.batch_size + 1 if self._drop_last else n
+        while self._num_epochs is None or epoch < self._num_epochs:
+            order = rng.permutation(n) if self._shuffle else np.arange(n)
+            for start in range(0, max(stop, 0), self.batch_size):
+                idx = order[start:start + self.batch_size]
+                # fancy indexing a memmap reads just this batch
+                yield {name: np.asarray(buf[idx]) for name, buf in fields.items()}
+            epoch += 1
 
 
 class _EpochGraph(object):

@@ -25,10 +25,20 @@ one graph launch per step (per chunk of ``k`` steps with ``scan_steps``).
 The CPU runs the same step eagerly, and so does the card with
 ``cuda_graph=False``, the loop the replay is held against.
 
+Streaming, the loader's transfer plane (``transfer='auto'``) moves each
+batch to the card from a thread of its own, in one coalesced copy.  With
+``decoded_cache_dir`` the loader is a
+:class:`~petastorm_tpu_torch.gpu.DiskCachedDataLoader`: epoch 0 decodes and
+writes the cache, later epochs (and later runs, with no reader at all once
+the cache is complete) stream from it.  With ``trace_path`` the loader,
+its transfer plane and the stall monitor record into a
+:class:`~petastorm_tpu_torch.benchmark.TraceRecorder` dumped there as a
+Chrome trace.  After every streaming run the example's bottleneck report
+(:func:`~petastorm_tpu_torch.benchmark.diagnose`) is printed and returned.
+
 Run ``python -m petastorm_tpu_torch.train --dataset-url URL`` with the
-example's ``--steps``, ``--batch-size``, ``--model``, ``--hbm-cache`` and
-``--scan-steps``.  The example's disk cache and tracing are later slices of
-the port.
+example's ``--steps``, ``--batch-size``, ``--model``, ``--hbm-cache``,
+``--scan-steps``, ``--decoded-cache-dir`` and ``--trace``.
 """
 
 import argparse
@@ -38,8 +48,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from petastorm_tpu_torch.benchmark import StallMonitor
-from petastorm_tpu_torch.gpu import DataLoader, DeviceInMemDataLoader, augment, graphs
+from petastorm_tpu_torch.benchmark import StallMonitor, TraceRecorder, diagnose, format_report
+from petastorm_tpu_torch.gpu import (DataLoader, DeviceInMemDataLoader, DiskCachedDataLoader,
+                                     augment, graphs)
 from petastorm_tpu_torch.gpu.transfer import resolve_device
 from petastorm_tpu_torch.models.resnet import ResNet50
 from petastorm_tpu_torch.models.vit import ViT
@@ -76,7 +87,8 @@ def _make_model(model_name, image_hw, model_kwargs):
 
 def train(dataset_url, steps, batch_size=64, image_hw=(224, 224), lr=0.1, device=None, *,
           model_name='resnet50', hbm_cache=False, scan_steps=0, model_kwargs=None,
-          cuda_graph=None, reader_pool_type='thread', workers_count=8, warmup_steps=2):
+          cuda_graph=None, reader_pool_type='thread', workers_count=8, warmup_steps=2,
+          decoded_cache_dir=None, trace_path=None, transfer='auto'):
     """Run ``steps`` training steps; returns the losses, the timings and the
     trained ``model``.
 
@@ -111,6 +123,18 @@ def train(dataset_url, steps, batch_size=64, image_hw=(224, 224), lr=0.1, device
     time are taken over the epochs after the first, whose time holds the
     one read of the dataset (None when only one epoch ran), and
     ``stall_pct`` is 0: no step waits for the host's data path.
+
+    Streaming and ``scan_steps`` runs take the example's last flags:
+    ``transfer`` is the loader's (``'auto'``: the transfer plane and its
+    dispatch thread on the card; ``False``: every put on the training
+    thread); ``decoded_cache_dir`` reads through a
+    :class:`~petastorm_tpu_torch.gpu.DiskCachedDataLoader` (with no reader
+    once the cache there is complete); ``trace_path`` dumps a Chrome trace of
+    the run there (``trace_events`` in the result; skipped with a message
+    under ``hbm_cache``, which has no host spans).  Their results also hold
+    the bottleneck ``report`` (printed) and its ``diagnosis``, the loader's
+    ``loader_stats`` and ``loader_metrics`` (``h2d_degraded`` among them)
+    and, traced, ``stall_top_component``.
     """
     if steps < 1:
         raise ValueError('steps must be at least 1, got %r' % (steps,))
@@ -159,27 +183,68 @@ def train(dataset_url, steps, batch_size=64, image_hw=(224, 224), lr=0.1, device
     if hbm_cache:
         result = _train_hbm_cache(dataset_url, steps, batch_size, device, scan_step,
                                   reader_kwargs, scan_kwargs)
-    elif scan_steps:
-        result = _train_scan(dataset_url, steps, batch_size, device, scan_step, reader_kwargs,
-                             dict(scan_kwargs, steps_per_call=scan_steps))
+        if trace_path:
+            print('trace skipped: --hbm-cache folds whole epochs into on-device scans (no '
+                  'host-side spans); no trace file written to %s' % trace_path)
+        result.update(trace_events=None)
     else:
-        step = graphs.StepGraph(train_step, generators=[aug_gen]) if graphed else train_step
-        result = _train_streaming(dataset_url, steps, batch_size, device, step, check_batch,
-                                  reader_kwargs, warmup_steps)
+        tracer = TraceRecorder() if trace_path else None
+        stream = _Stream(dataset_url, batch_size, device, reader_kwargs, decoded_cache_dir,
+                         tracer, transfer)
+        if scan_steps:
+            result = _train_scan(stream, steps, device, scan_step,
+                                 dict(scan_kwargs, steps_per_call=scan_steps))
+        else:
+            step = graphs.StepGraph(train_step, generators=[aug_gen]) if graphed else train_step
+            result = _train_streaming(stream, steps, batch_size, device, step, check_batch,
+                                      warmup_steps)
+        print(result['report'])
+        result.update(trace_events=None)
+        if tracer is not None:
+            result['trace_events'] = tracer.dump(trace_path)
+            print('trace: %d spans -> %s (open in chrome://tracing)'
+                  % (result['trace_events'], trace_path))
     result.update(batch_devices=sorted(batch_devices), device=str(device), model=model,
                   cuda_graph=graphed)
     return result
 
 
-def _train_streaming(dataset_url, steps, batch_size, device, step, check_batch, reader_kwargs,
-                     warmup_steps):
+class _Stream(object):
+    """The streaming runs' reader and loader: a ``DataLoader`` over an
+    endless reader, or with ``decoded_cache_dir`` a ``DiskCachedDataLoader``
+    (whose reader reads one epoch, and which takes none once the cache is
+    complete)."""
+
+    def __init__(self, dataset_url, batch_size, device, reader_kwargs, decoded_cache_dir,
+                 tracer, transfer):
+        self.tracer = tracer
+        cached = decoded_cache_dir and DiskCachedDataLoader.cache_complete(decoded_cache_dir)
+        self.reader = None if cached else make_reader(
+            dataset_url, num_epochs=1 if decoded_cache_dir else None, **reader_kwargs)
+        kwargs = dict(batch_size=batch_size, device=device, trace_recorder=tracer,
+                      transfer=transfer)
+        if decoded_cache_dir:
+            self.loader = DiskCachedDataLoader(self.reader, decoded_cache_dir=decoded_cache_dir,
+                                               num_epochs=None, **kwargs)
+        else:
+            self.loader = DataLoader(self.reader, **kwargs)
+
+    def results(self, monitor=None):
+        """What every streaming result holds besides its timings."""
+        diagnosis = diagnose(self.loader, monitor)
+        return {'reader_diagnostics': self.reader.diagnostics if self.reader else {},
+                'report': format_report(diagnosis), 'diagnosis': diagnosis,
+                'loader_stats': self.loader.stats,
+                'loader_metrics': self.loader.metrics.as_dict()}
+
+
+def _train_streaming(stream, steps, batch_size, device, step, check_batch, warmup_steps):
     warmup = min(warmup_steps, steps - 1)
     losses = []
     t_start = None
     host_s = 0.0
-    monitor = StallMonitor(warmup_steps=warmup_steps)
-    reader = make_reader(dataset_url, num_epochs=None, **reader_kwargs)
-    with DataLoader(reader, batch_size=batch_size, device=device) as loader:
+    monitor = StallMonitor(warmup_steps=warmup_steps, trace_recorder=stream.tracer)
+    with stream.loader as loader:
         batches = monitor.wrap(loader)
         for i in range(steps):
             if i == warmup:
@@ -191,26 +256,28 @@ def _train_streaming(dataset_url, steps, batch_size, device, step, check_batch, 
             losses.append(step(batch))
             if i >= warmup:
                 host_s += time.perf_counter() - t0
+        batches.close()   # ends the loader's iteration (and its transfer thread) here
     _sync(device)
     elapsed = time.perf_counter() - t_start
     timed = steps - warmup
-    return {'steps': steps,
-            'losses': [float(v) for v in torch.stack(losses).cpu()],
-            'images_per_s': timed * batch_size / elapsed,
-            'step_ms': 1e3 * elapsed / timed,
-            'host_ms': 1e3 * host_s / timed,
-            'data_wait_ms': 1e3 * monitor.wait_time / monitor.steps if monitor.steps else None,
-            'stall_pct': monitor.report()['stall_pct'],
-            'reader_diagnostics': reader.diagnostics}
+    report = monitor.report()
+    return dict(stream.results(monitor), steps=steps,
+                losses=[float(v) for v in torch.stack(losses).cpu()],
+                images_per_s=timed * batch_size / elapsed,
+                step_ms=1e3 * elapsed / timed,
+                host_ms=1e3 * host_s / timed,
+                data_wait_ms=1e3 * monitor.wait_time / monitor.steps if monitor.steps else None,
+                stall_pct=report['stall_pct'],
+                stall_top_component=report.get('stall_top_component'))
 
 
-def _train_scan(dataset_url, steps, batch_size, device, scan_step, reader_kwargs, scan_kwargs):
+def _train_scan(stream, steps, device, scan_step, scan_kwargs):
     losses = []
     done = timed = 0
     t_start = None
     host_s = 0.0
-    reader = make_reader(dataset_url, num_epochs=None, **reader_kwargs)
-    with DataLoader(reader, batch_size=batch_size, device=device) as loader:
+    batch_size = stream.loader.batch_size
+    with stream.loader as loader:
         chunks = loader.scan_batches(scan_step, None, **scan_kwargs)
         while done < steps:
             t0 = time.perf_counter()
@@ -226,13 +293,12 @@ def _train_scan(dataset_url, steps, batch_size, device, scan_step, reader_kwargs
         chunks.close()
     _sync(device)
     elapsed = time.perf_counter() - t_start if timed else None
-    return {'steps': done,
-            'losses': [float(v) for v in torch.cat(losses).cpu()],
-            'images_per_s': timed * batch_size / elapsed if timed else None,
-            'step_ms': 1e3 * elapsed / timed if timed else None,
-            'host_ms': 1e3 * host_s / timed if timed else None,
-            'data_wait_ms': None, 'stall_pct': None,
-            'reader_diagnostics': reader.diagnostics}
+    return dict(stream.results(), steps=done,
+                losses=[float(v) for v in torch.cat(losses).cpu()],
+                images_per_s=timed * batch_size / elapsed if timed else None,
+                step_ms=1e3 * elapsed / timed if timed else None,
+                host_ms=1e3 * host_s / timed if timed else None,
+                data_wait_ms=None, stall_pct=None, stall_top_component=None)
 
 
 def _train_hbm_cache(dataset_url, steps, batch_size, device, scan_step, reader_kwargs,
@@ -292,9 +358,17 @@ def main(argv=None):
     parser.add_argument('--scan-steps', type=int, default=0,
                         help='stream k batches per transfer and per graph launch '
                              '(DataLoader.scan_batches); 0 runs one step per batch')
+    parser.add_argument('--decoded-cache-dir', default=None,
+                        help='decode once into per-field files here (DiskCachedDataLoader) '
+                             'and stream later epochs from them; a complete cache is read '
+                             'with no reader')
+    parser.add_argument('--trace', default=None, metavar='PATH',
+                        help='write a Chrome trace of the loader, its transfer plane and the '
+                             'stall monitor to PATH (not with --hbm-cache)')
     args = parser.parse_args(argv)
     result = train(args.dataset_url, args.steps, args.batch_size, model_name=args.model,
-                   hbm_cache=args.hbm_cache, scan_steps=args.scan_steps)
+                   hbm_cache=args.hbm_cache, scan_steps=args.scan_steps,
+                   decoded_cache_dir=args.decoded_cache_dir, trace_path=args.trace)
     rate, stall = result['images_per_s'], result['stall_pct']
     print('%s on %s: steps=%d loss=%.3f images/s=%s stall=%s'
           % (args.model, result['device'], result['steps'], result['losses'][-1],

@@ -123,7 +123,7 @@ def _check_batch(tokens, device, batch_devices):
 
 
 def train_lm(dataset_url, steps, batch_size=8, strategy='flash', device=None, cuda_graph=None, *,
-             reader_pool_type='thread', workers_count=4):
+             reader_pool_type='thread', workers_count=4, transfer='auto'):
     """Run ``steps`` steps of the long-context example; returns the losses,
     the timings and the trained ``model``.
 
@@ -132,8 +132,11 @@ def train_lm(dataset_url, steps, batch_size=8, strategy='flash', device=None, cu
     synchronized at both ends; ``host_ms`` is the host's time per step
     inside the step call; the data wait per step and ``stall_pct`` are the
     ``StallMonitor``'s (warm-up 2).  The model is :data:`LONG_CONTEXT_LM`.
-    ``cuda_graph``, ``reader_pool_type`` and ``workers_count`` (4 threads,
-    the example's) as in :func:`petastorm_tpu_torch.train.train`.
+    ``cuda_graph``, ``reader_pool_type``, ``workers_count`` (4 threads,
+    the example's) and ``transfer`` (the loader's transfer plane) as in
+    :func:`petastorm_tpu_torch.train.train`; ``loader_metrics`` holds the
+    loader's counters (``h2d_degraded``: the one ``tokens`` column is a
+    structure the plane moves column by column, on its thread).
     """
     if steps < 1:
         raise ValueError('steps must be at least 1, got %r' % (steps,))
@@ -162,7 +165,7 @@ def train_lm(dataset_url, steps, batch_size=8, strategy='flash', device=None, cu
     reader = make_reader(dataset_url, num_epochs=None, columnar_decode=True,
                          reader_pool_type=reader_pool_type, workers_count=workers_count)
     with DataLoader(reader, batch_size=batch_size, prefetch=2, drop_last=True,
-                    device=device) as loader:
+                    device=device, transfer=transfer) as loader:
         batches = monitor.wrap(loader)
         for step in range(steps):
             if step == warmup:
@@ -186,6 +189,7 @@ def train_lm(dataset_url, steps, batch_size=8, strategy='flash', device=None, cu
             'data_wait_ms': 1e3 * monitor.wait_time / monitor.steps if monitor.steps else None,
             'stall_pct': monitor.report()['stall_pct'],
             'reader_diagnostics': reader.diagnostics,
+            'loader_metrics': loader.metrics.as_dict(),
             'batch_devices': sorted(batch_devices), 'device': str(device), 'model': model,
             'cuda_graph': graphed}
 
@@ -213,7 +217,7 @@ def packed_loss(model, batch, attn='dense'):
 
 
 def train_packed(dataset_url, steps=20, rows_per_batch=4, attn='dense', device=None,
-                 cuda_graph=None):
+                 cuda_graph=None, transfer='auto'):
     """Run ``steps`` steps of the packed example (model :data:`PACKED_LM`);
     returns the losses, the packing utilisation and real tokens/s as the
     example computes them (non-padding tokens over the tokens of every
@@ -221,8 +225,10 @@ def train_packed(dataset_url, steps=20, rows_per_batch=4, attn='dense', device=N
     reader to the last loss), the step time and real tokens/s over the
     steps after the first two (warm-up), timed as :func:`train_lm` times
     them, and the trained ``model`` (whose own ``attn_fn`` stays the flash
-    kernels, as ``sample`` uses it).  ``cuda_graph`` as in
-    :func:`petastorm_tpu_torch.train.train`."""
+    kernels, as ``sample`` uses it).  ``cuda_graph`` and ``transfer`` as in
+    :func:`petastorm_tpu_torch.train.train` (with the plane on, the packing
+    runs on the loader's transfer thread); ``loader_metrics`` holds the
+    loader's counters."""
     if steps < 1:
         raise ValueError('steps must be at least 1, got %r' % (steps,))
     device = resolve_device(device)
@@ -257,7 +263,7 @@ def train_packed(dataset_url, steps=20, rows_per_batch=4, attn='dense', device=N
                      workers_count=4) as reader:
         loader = PackedDataLoader(reader, 'tokens', max_len=model.max_seq_len,
                                   rows_per_batch=rows_per_batch, prefetch=2,
-                                  transform_fn=count_tokens, device=device)
+                                  transform_fn=count_tokens, device=device, transfer=transfer)
         for step, batch in enumerate(loader):
             if step == warmup:
                 _sync(device)
@@ -279,6 +285,7 @@ def train_packed(dataset_url, steps=20, rows_per_batch=4, attn='dense', device=N
             'step_ms': 1e3 * elapsed / (len(losses) - warmup),
             'host_ms': 1e3 * host_s / (len(losses) - warmup),
             'step_tokens_per_s': timed_real / elapsed,
+            'loader_metrics': loader.metrics.as_dict(),
             'batch_devices': sorted(batch_devices), 'device': str(device), 'model': model,
             'cuda_graph': graphed}
 

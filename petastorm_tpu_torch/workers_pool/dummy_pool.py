@@ -19,9 +19,14 @@ class DummyPool(object):
         self._worker = None
         self._ventilator = None
         self._stopped = False
+        self.items_processed = 0
+        self.busy_time = 0.0
+        self._started_at = None
+        self._stopped_at = None
 
     def start(self, worker_class, worker_setup_args=None, ventilator=None):
         self._worker = worker_class(0, self._results.append, worker_setup_args)
+        self._started_at = time.monotonic()
         self._ventilator = ventilator
         if ventilator is not None:
             ventilator.start()
@@ -33,7 +38,10 @@ class DummyPool(object):
         deadline = None if timeout is None else time.monotonic() + timeout
         while not self._results:
             if self._pending:
+                started = time.monotonic()
                 self._worker.process(*self._pending.popleft())
+                self.items_processed += 1
+                self.busy_time += time.monotonic() - started
                 if self._ventilator is not None:
                     self._ventilator.processed_item()
             elif self._ventilator is not None and not self._ventilator.completed():
@@ -47,7 +55,20 @@ class DummyPool(object):
                 raise EmptyResultError()
         return self._results.popleft()
 
+    @property
+    def diagnostics(self):
+        """The JAX dummy pool's: items, queue depths, decode seconds and
+        their share of the wall time since ``start`` (to ``stop``)."""
+        end = self._stopped_at if self._stopped_at is not None else time.monotonic()
+        wall = (end - self._started_at) if self._started_at else 0.0
+        return {'pool': 'dummy', 'items_processed': self.items_processed,
+                'pending': len(self._pending), 'results_ready': len(self._results),
+                'decode_busy_s': round(self.busy_time, 4),
+                'decode_utilization': round(self.busy_time / wall, 4) if wall else 0.0}
+
     def stop(self):
+        if self._stopped_at is None:
+            self._stopped_at = time.monotonic()
         self._stopped = True
         if self._ventilator is not None:
             self._ventilator.stop()

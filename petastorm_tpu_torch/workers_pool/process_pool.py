@@ -79,11 +79,14 @@ class ProcessPool(object):
         self._inflight = 0
         self._inflight_lock = threading.Lock()
         self._stopped = False
+        self._started_at = None
+        self._stopped_at = None
 
     def start(self, worker_class, worker_setup_args=None, ventilator=None):
         """Spawn the workers.  Raises, with nothing left bound or spawned,
         when ``worker_class`` or ``worker_setup_args`` cannot be pickled
         (a transform that is a closure, say)."""
+        self._started_at = time.monotonic()
         self._pickle_ser = PickleSerializer()
         self._arrow_ser = ArrowTableSerializer()
         endpoint_dir = tempfile.mkdtemp(prefix='pstpu_torch_zmq_')
@@ -211,6 +214,7 @@ class ProcessPool(object):
         if self._stopped:
             return
         self._stopped = True
+        self._stopped_at = time.monotonic()
         if self._ventilator is not None:
             self._ventilator.stop()
         self._send_stops(len(self._processes))
@@ -259,7 +263,13 @@ class ProcessPool(object):
 
     @property
     def diagnostics(self):
+        end = self._stopped_at if self._stopped_at is not None else time.monotonic()
+        wall = (end - self._started_at) if self._started_at else 0.0
         return {'pool': 'process', 'workers_count': self.workers_count,
+                # the workers' busy share of their wall time since start (to
+                # stop), their start-up included, as the JAX pool reads it
+                'decode_utilization': round(self.busy_time / (wall * self.workers_count), 4)
+                if wall else 0.0,
                 'items_processed': self.items_processed, 'busy_time': self.busy_time,
                 'warm_items': self.warm_items, 'warm_busy_time': self.warm_busy_time,
                 'shm_results': self.shm_results,

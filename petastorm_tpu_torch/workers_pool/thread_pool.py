@@ -4,15 +4,19 @@ decode scales across host cores.
 Counterpart of ``petastorm_tpu/workers_pool/thread_pool.py``: input queue +
 bounded results queue, worker exceptions re-raised in the caller, acks
 flowing back to the ventilator.  Delivery is in completion order (FIFO
-scheduling); the reorder stage, metrics registry and provenance records are
-later slices.
+scheduling); each item's decode time goes to a metrics registry, which
+:attr:`ThreadPool.diagnostics` reads (``decode_utilization`` is the share of
+the workers' wall time spent decoding).  The reorder stage and provenance
+records are later slices.
 """
 
 import queue
 import sys
 import threading
+import time
 import traceback
 
+from petastorm_tpu_torch.telemetry.registry import MetricsRegistry, ms
 from petastorm_tpu_torch.workers_pool import (DEFAULT_TIMEOUT_S, EmptyResultError,
                                               TimeoutWaitingForResultError)
 
@@ -38,9 +42,16 @@ class ThreadPool(object):
         self._stop_event = threading.Event()
         self._inflight_lock = threading.Lock()
         self._inflight = 0  # ventilated but not yet fully processed
+        self.metrics = MetricsRegistry('thread_pool')
+        self._m_items = self.metrics.counter('items_processed')
+        self._m_busy = self.metrics.counter('decode_busy_s')
+        self._m_decode = self.metrics.histogram('decode')
+        self._started_at = None
+        self._stopped_at = None
 
     def start(self, worker_class, worker_setup_args=None, ventilator=None):
         self._ventilator = ventilator
+        self._started_at = time.monotonic()
         for worker_id in range(self.workers_count):
             worker = worker_class(worker_id, self._put_result, worker_setup_args)
             self._workers.append(worker)
@@ -75,11 +86,16 @@ class ThreadPool(object):
                     continue
                 if item is _SENTINEL:
                     break
+                started = time.monotonic()
                 try:
                     worker.process(*item)
                 except Exception as e:  # noqa: BLE001 — travels to the caller
                     self._put_result(_WorkerError(e, traceback.format_exc()))
                 finally:
+                    elapsed = time.monotonic() - started
+                    self._m_items.inc()
+                    self._m_busy.inc(elapsed)
+                    self._m_decode.observe(elapsed)
                     with self._inflight_lock:
                         self._inflight -= 1
                     if self._ventilator is not None:
@@ -116,7 +132,38 @@ class ThreadPool(object):
             inflight = self._inflight
         return inflight == 0 and self._input_queue.empty() and self._results_queue.empty()
 
+    @property
+    def items_processed(self):
+        return self._m_items.value
+
+    @property
+    def busy_time(self):
+        return self._m_busy.value
+
+    @property
+    def diagnostics(self):
+        """The JAX thread pool's: items, queue depths, decode seconds, the
+        share of the workers' wall time spent decoding (to ``stop``), and
+        each item's decode p50/p99."""
+        end = self._stopped_at if self._stopped_at is not None else time.monotonic()
+        wall = (end - self._started_at) if self._started_at else 0.0
+        return {
+            'pool': 'thread',
+            'workers_count': self.workers_count,
+            'items_processed': self.items_processed,
+            'inflight': self._inflight,
+            'input_qsize': self._input_queue.qsize(),
+            'results_qsize': self._results_queue.qsize(),
+            'decode_busy_s': round(self.busy_time, 4),
+            'decode_utilization': round(
+                self.busy_time / (wall * self.workers_count), 4) if wall else 0.0,
+            'decode_p50_ms': ms(self._m_decode.quantile(0.5)),
+            'decode_p99_ms': ms(self._m_decode.quantile(0.99)),
+        }
+
     def stop(self):
+        if self._stopped_at is None:
+            self._stopped_at = time.monotonic()
         if self._ventilator is not None:
             self._ventilator.stop()
         self._stop_event.set()

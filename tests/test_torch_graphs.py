@@ -303,3 +303,74 @@ def test_graphed_generate_matches_eager(fake_graphs, knobs):
     got = decoding.generate(model, prompt, 9, rng=rng, **knobs)
     assert fake_graphs == ['warmup', 'capture'] + ['replay'] * 7
     assert torch.equal(got, want)
+
+
+def test_a_capture_parks_every_live_transfer_thread(fake_graphs, monkeypatch):
+    """A loader's transfer thread pins, copies and waits on events: a CUDA
+    call of another thread can fail a capture, so the thread is parked for
+    the capture (it pulls nothing while the consumer drains its queue) and
+    resumes after it; the cyclic garbage collector, which could destroy an
+    unreachable graph inside the capture, is held off for it."""
+    import gc
+    import itertools
+    import time
+    from petastorm_tpu_torch.gpu import transfer
+
+    pulled = []
+
+    def source():
+        for i in itertools.count():
+            pulled.append(i)
+            yield i
+
+    pump = transfer.DispatchPump(source(), lambda x: x, prefetch=2).start()
+    seen = {}
+    fake_capture = _FakeCuda.capture
+
+    def capture(fn, args, stream, generators):
+        before = len(pulled)
+        drained = [pump.get() for _ in range(len(pump.pending))]
+        time.sleep(0.05)
+        seen.update(paused=pump._pause, frozen=len(pulled) == before, drained=drained,
+                    collector=gc.isenabled())
+        return fake_capture(fn, args, stream, generators)
+
+    monkeypatch.setattr(_FakeCuda, 'capture', staticmethod(capture))
+    try:
+        graphed = graphs.StepGraph(lambda x: x * 2)
+        assert pump.get() == 0
+        for _ in range(3):
+            graphed(torch.ones(2))
+        assert seen['paused'] == 1 and seen['frozen'] and seen['drained']
+        # the cyclic collector is held off through the capture, and back after it
+        assert seen['collector'] is False and gc.isenabled()
+        assert fake_graphs == ['warmup', 'capture', 'replay', 'replay']
+        assert pump._pause == 0
+        assert pump.get() == seen['drained'][-1] + 1   # resumed in order
+    finally:
+        pump.stop()
+    assert not pump.alive
+
+
+def test_graphed_steps_on_the_pumped_loader_match_eager(fake_graphs):
+    """A step graph fed by the pumped loader (its transfer thread live
+    through the warm-up, the capture and the replays) computes what the
+    eager step computes on the inline loader's batches."""
+    def run(cuda_graph, transfer):
+        state = torch.zeros(2)
+
+        def step(batch):
+            state.mul_(0.5).add_(batch['x'].sum(0))
+            return state.sum() + batch['idx'].sum()
+
+        fn = graphs.StepGraph(step) if cuda_graph is not False else step
+        with DataLoader(_CacheReader(64), 8, transfer=transfer, device='cpu') as loader:
+            outs = [fn(batch) for batch in loader]
+            pump = loader._pump
+        assert (pump is not None) == transfer and not (pump and pump.alive)
+        return torch.stack(outs), state
+
+    want, want_state = run(False, False)
+    got, got_state = run(None, True)
+    assert fake_graphs == ['warmup', 'capture'] + ['replay'] * 7
+    assert torch.equal(got, want) and torch.equal(got_state, want_state)

@@ -158,4 +158,5 @@ def test_unsupported_options_name_the_later_slice(datasets):
             make_reader(url, **kwargs)
     with make_reader(url, reader_pool_type='dummy') as reader:
         with pytest.raises(ValueError, match='later slice'):
-            DataLoader(reader, 4, device='cpu')      # a row reader
+            # a row reader's shuffling buffer
+            DataLoader(reader, 4, shuffling_queue_capacity=8, device='cpu')

@@ -45,7 +45,10 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     for module in ('native.py', 'train_transform.py', 'workers_pool/process_pool.py',
                    'workers_pool/process_worker.py', 'workers_pool/shm_plane.py',
                    'workers_pool/exec_in_new_process.py', 'reader_impl/pickle_serializer.py',
-                   'reader_impl/arrow_table_serializer.py'):
+                   'reader_impl/arrow_table_serializer.py', 'gpu/transfer.py', 'gpu/loader.py',
+                   'telemetry/__init__.py', 'telemetry/registry.py', 'telemetry/spans.py',
+                   'benchmark/trace.py', 'benchmark/advisor.py', 'benchmark/stall_profiler.py',
+                   'train.py'):
         assert os.path.join(PACKAGE, module) in sources, module
     offenders = []
     for path in sources:
@@ -96,6 +99,69 @@ def test_training_on_cpu_never_loads_jax(tmp_path):
     ''').replace('FORBIDDEN', repr(FORBIDDEN))
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, '-c', script, str(tmp_path / 'ds')], env=env,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert 'LOADED []' in proc.stdout
+
+
+def test_pumped_disk_cached_traced_training_on_cpu(tmp_path):
+    """The example's last flags on the CPU: ``train`` streaming through the
+    pumped loader (``transfer=True``) from a decoded disk cache (built, then
+    read with no reader) with a trace, and ``--scan-steps``: nothing of JAX
+    is loaded, no transfer thread outlives a run, and the trace holds the
+    monitor's ``data_wait``, the loader's ``host_batch`` and the plane's
+    ``h2d/stage`` spans, the loader's on the transfer thread."""
+    script = textwrap.dedent('''
+        import json, sys, threading
+        import numpy as np, pyarrow as pa
+        import petastorm_tpu_torch
+        from petastorm_tpu_torch import codecs, unischema
+        from petastorm_tpu_torch.etl.dataset_metadata import DatasetWriter
+        schema = unischema.Unischema('S', [
+            unischema.UnischemaField('noun_id', np.str_, (), codecs.ScalarCodec(pa.string()), False),
+            unischema.UnischemaField('image', np.uint8, (None, None, 3),
+                                     codecs.CompressedImageCodec('jpeg'), False)])
+        root = sys.argv[1]
+        url = 'file://' + root + '/ds'
+        rng = np.random.default_rng(0)
+        with DatasetWriter(url, schema, rows_per_rowgroup=4) as w:
+            for i in range(12):
+                w.write({'noun_id': 'n%d' % i,
+                         'image': rng.integers(0, 256, (32, 40 if i % 2 else 32, 3),
+                                               dtype=np.uint8)})
+        vit = dict(model_name='vit', model_kwargs=dict(num_layers=1, d_model=32, num_heads=2,
+                                                       d_ff=64))
+        cache = root + '/cache'
+        for i, extra in enumerate([dict(decoded_cache_dir=cache), dict(decoded_cache_dir=cache),
+                                   dict(scan_steps=2)]):
+            trace = root + '/trace%d.json' % i
+            result = petastorm_tpu_torch.train(url, steps=4, batch_size=4, image_hw=(32, 32),
+                                               device='cpu', transfer=True, trace_path=trace,
+                                               **dict(vit, **extra))
+            assert len(result['losses']) == 4 and all(np.isfinite(result['losses'])), result
+            assert result['report'].startswith('pipeline regime: ')
+            # a batch per put streaming, a chunk of two per put with scan_steps=2
+            assert result['loader_metrics']['h2d_batches'] >= (2 if i == 2 else 4), \
+                result['loader_metrics']
+            assert petastorm_tpu_torch.DiskCachedDataLoader.cache_complete(cache)
+            events = json.load(open(trace))['traceEvents']
+            assert result['trace_events'] == len(events)
+            tids = {}
+            for e in events:
+                tids.setdefault(e['name'], set()).add(e['tid'])
+            want = {'host_batch', 'h2d/stage'} | ({'data_wait'} if i < 2 else set())
+            assert want <= set(tids), sorted(tids)
+            if i < 2:
+                assert not (tids['host_batch'] | tids['h2d/stage']) & tids['data_wait']
+                assert result['stall_top_component'] is not None
+            left = [t.name for t in threading.enumerate() if t.name.endswith('h2d-dispatch')]
+            assert not left, left
+        loaded = sorted(m for m in sys.modules if m.split('.')[0] in FORBIDDEN)
+        print('LOADED', loaded)
+        sys.exit(1 if loaded else 0)
+    ''').replace('FORBIDDEN', repr(FORBIDDEN))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, '-c', script, str(tmp_path)], env=env,
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert 'LOADED []' in proc.stdout
@@ -168,7 +234,8 @@ def test_process_pool_training_on_cpu_equals_the_thread_pools(tmp_path):
                 model_kwargs=dict(num_layers=1), reader_pool_type=pool, workers_count=1)
         print('LOSSES', results['thread']['losses'], results['process']['losses'])
         assert results['thread']['losses'] == results['process']['losses']
-        assert results['thread']['reader_diagnostics'] == {}
+        thread_diag = results['thread']['reader_diagnostics']
+        assert thread_diag['pool'] == 'thread' and 'shm_results' not in thread_diag
         diag = results['process']['reader_diagnostics']
         assert diag['shm_results'] > 0, diag
         assert shm_plane.residue(diag['worker_pids']) == set()
