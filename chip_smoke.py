@@ -107,7 +107,17 @@ Phases, in order; any failure propagates and exits nonzero:
    cache pumped and inline, bit for bit;
 16. trace (``--trace``): ResNet-50 through the command line; the Chrome
    trace holds ``data_wait``, ``step``, ``host_batch`` and the plane's
-   ``h2d/*`` spans, the loader's on the dispatch thread.
+   ``h2d/*`` spans, the loader's on the dispatch thread;
+17. resume (exact data checkpoints): the MNIST example at the training
+   split's size (60,000 PNG rows, batch 128, graphed) timed with its 4
+   decode threads, then checkpointed with ``TrainStateManager`` at step 200
+   and resumed in fresh objects, the remaining batches (sha256) and final
+   parameters equal to the uninterrupted run's bit for bit on the dummy
+   pool, and every row at most once on 4 threads; the pumped L1 token
+   loader and the float32 image loader under ``wire_dtypes='auto'``
+   resumed from tokens taken with batches in flight on the ring, bit for
+   bit; the HBM cache's ``scan_epochs`` resumed from an epoch boundary and
+   from mid-epoch; each ``state_dict()``'s ms and token bytes.
 
 Every streaming path moves its batches through the loader's transfer
 plane (``transfer='auto'``): a dispatch thread pulls, transforms and puts
@@ -133,9 +143,11 @@ is one JSON object ``{"kernels": [...]}``; the last line is ``{"ok": true,
 """
 
 import contextlib
+import hashlib
 import importlib
 import json
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -2180,6 +2192,276 @@ def phase_trace(url, tmp):
     SUMMARY['trace'] = dict(spans=counts_, stall_top_component=result['stall_top_component'])
 
 
+MNIST_ROWS = 60000      # the MNIST training split
+MNIST_CUT = 200         # the step the resumed MNIST runs checkpoint at
+MNIST_SNAPSHOT_EVERY = 30   # batches between two timed snapshots
+SNAPSHOT_CALLS = 5
+
+
+def batch_digest(batch):
+    """sha256 of a device batch's bytes, fields in name order."""
+    h = hashlib.sha256()
+    for name in sorted(batch):
+        h.update(batch[name].cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def snapshot_cost(loader, batches=None, between=0):
+    """Median ms of ``SNAPSHOT_CALLS`` ``state_dict()`` calls on a live loader
+    (each drains the reader and keeps serving), ``between`` batches of the
+    iterator ``batches`` taken before each (so that the rows a call drained
+    are served before the next, as between a training job's checkpoints),
+    and the median token's pickled bytes."""
+    times, sizes = [], []
+    for _ in range(SNAPSHOT_CALLS):
+        for _ in range(between):
+            next(batches)
+        t0 = time.perf_counter()
+        token = loader.state_dict()
+        times.append(1e3 * (time.perf_counter() - t0))
+        sizes.append(len(pickle.dumps(token)))
+    return {'state_dict_ms': float(np.median(times)), 'token_bytes': int(np.median(sizes))}
+
+
+def wait_for_pending(loader, timeout_s=30.0):
+    """Until the loader's dispatch thread holds a batch on the card that
+    the consumer has not taken (the case the snapshot must carry back)."""
+    deadline = time.monotonic() + timeout_s
+    while not loader._pump.pending and time.monotonic() < deadline:
+        time.sleep(0.005)
+    return len(loader._pump.pending)
+
+
+def resume_pair(label, make_loader, cut):
+    """``make_loader(resume_state)`` -> a loader over a fresh reader.  The
+    uninterrupted stream; then ``cut`` batches, ``state_dict()`` with device
+    batches in flight on the ring, every object dropped, and the remaining
+    batches from fresh ones: they must equal the uninterrupted run's bit
+    for bit (sha256 of every batch)."""
+    with make_loader(None) as loader:
+        full = [batch_digest(b) for b in loader]
+    loader = make_loader(None)
+    with loader:
+        it = iter(loader)
+        consumed = [batch_digest(next(it)) for _ in range(cut)]
+        in_flight = wait_for_pending(loader)
+        token = pickle.loads(pickle.dumps(loader.state_dict()))
+        it.close()
+    with make_loader(token) as resumed:
+        rest = [batch_digest(b) for b in resumed]
+    equal = consumed + rest == full
+    log('resume [%s]: %d batches, token after %d with %d in flight on the ring (%d pending in '
+        'the token): remaining %d equal to the uninterrupted run bit for bit: %s'
+        % (label, len(full), cut, in_flight, len(token['pending']), len(rest), equal))
+    if not equal or not in_flight or not token['pending']:
+        raise AssertionError('resume [%s]: equal %s, in flight %d, pending %d'
+                             % (label, equal, in_flight, len(token['pending'])))
+    return {'batches': len(full), 'cut': cut, 'pending': len(token['pending']), 'equal': equal}
+
+
+def phase_resume(fa, url, lm_url, tmp):
+    """Exact data checkpoints on the card.
+
+    (a) MNIST at the training split's size (60,000 synthetic PNG rows,
+    batch 128, one epoch, graphed): ``train_mnist.train`` with the example's
+    4 decode threads, timed; then on the dummy pool the epoch uninterrupted,
+    and stopped after a ``TrainStateManager`` checkpoint at step 200 and
+    resumed in fresh objects: the same batches (sha256) and final parameters
+    bit for bit; on 4 threads, the same rows (``idx``), none lost or twice.
+    (b) The pumped loader with device batches in flight: L1's token reader
+    (columnar, one decode thread, no row-group shuffle), batch 8, a token
+    after 10 batches; and the image path as float32 under
+    ``wire_dtypes='auto'`` (narrowed on the wire), a token after 3.  (c) The
+    HBM cache: ``DeviceInMemDataLoader.scan_epochs`` resumed from an epoch
+    boundary and, with ``deterministic_cache_order=True``, from step 3 of an
+    epoch.  (d) Each snapshot's cost (median ms of 5 ``state_dict()`` calls,
+    MNIST's one every 30 batches, L1's every 4) and its token's pickled
+    bytes.  No flash kernel runs here."""
+    from petastorm_tpu_torch import train_mnist
+    from petastorm_tpu_torch.gpu import DataLoader, DeviceInMemDataLoader
+    from petastorm_tpu_torch.reader import make_reader
+    from petastorm_tpu_torch.train import make_transform
+    reset_counts(fa)
+    out = {}
+    # (a) MNIST
+    mnist = 'file://' + os.path.join(tmp, 'mnist')
+    t0 = time.monotonic()
+    train_mnist.write_mnist_dataset(mnist, MNIST_ROWS)
+    log('mnist dataset: %d PNG rows written in %.1f s' % (MNIST_ROWS, time.monotonic() - t0))
+    idx = {}
+
+    def record_idx(key):
+        idx[key] = []
+        return lambda step, batch: idx[key].append(batch['idx'].clone())
+
+    timed = train_mnist.train(mnist, epochs=1, on_batch=record_idx('thread'))
+    epoch = timed['epochs_run'][0]
+    log('mnist (4 decode threads, graphed: %s): %d steps, loss %.4f, acc %.3f; rows/s %.1f '
+        '(timed after 2 steps; %.1f over the whole epoch) step_ms %.3f data_wait_ms %.3f '
+        'stall_pct %.2f' % (timed['cuda_graph'], epoch['steps'], epoch['loss'], epoch['acc'],
+                            epoch['timed_rows_per_s'], epoch['rows_per_s'], epoch['step_ms'],
+                            epoch['data_wait_ms'], epoch['stall_pct']))
+    if epoch['steps'] != MNIST_ROWS // 128 or not np.isfinite(timed['losses']).all() \
+            or timed['device'] != 'cuda' or not timed['cuda_graph']:
+        raise AssertionError('mnist: %r' % epoch)
+    out['mnist'] = {k: epoch[k] for k in ('steps', 'loss', 'acc', 'timed_rows_per_s',
+                                          'rows_per_s', 'step_ms', 'data_wait_ms', 'stall_pct')}
+    digests = {}
+
+    def record(key):
+        digests[key] = []
+        return lambda step, batch: digests[key].append(batch_digest(batch))
+
+    whole = train_mnist.train(mnist, epochs=1, reader_pool_type='dummy', on_batch=record('full'))
+    ckpt = os.path.join(tmp, 'mnist_ckpt')
+    cut = train_mnist.train(mnist, epochs=1, reader_pool_type='dummy', checkpoint_dir=ckpt,
+                            save_every=MNIST_CUT, stop_after_step=MNIST_CUT,
+                            on_batch=record('first'))
+    del cut   # the loader, reader and model of the cut run go with it
+    rest = train_mnist.train(mnist, epochs=1, reader_pool_type='dummy', checkpoint_dir=ckpt,
+                             save_every=MNIST_CUT, on_batch=record('rest'))
+    same_batches = digests['first'] + digests['rest'] == digests['full']
+    w, r = whole['model'].state_dict(), rest['model'].state_dict()
+    same_params = all(torch.equal(w[k], r[k]) for k in w)
+    log('mnist resume (dummy pool): checkpoint at step %d, resumed at %s in fresh objects: '
+        '%d + %d batches equal the uninterrupted %d (sha256): %s; final parameters equal bit '
+        'for bit: %s' % (MNIST_CUT, rest['resumed_at'], len(digests['first']),
+                         len(digests['rest']), len(digests['full']), same_batches, same_params))
+    if not (same_batches and same_params and rest['resumed_at'] == MNIST_CUT):
+        raise AssertionError('mnist resume: batches %s, parameters %s'
+                             % (same_batches, same_params))
+    ckpt = os.path.join(tmp, 'mnist_ckpt_thread')
+    train_mnist.train(mnist, epochs=1, checkpoint_dir=ckpt, save_every=MNIST_CUT,
+                      stop_after_step=MNIST_CUT, on_batch=record_idx('first'))
+    train_mnist.train(mnist, epochs=1, checkpoint_dir=ckpt, save_every=MNIST_CUT,
+                      on_batch=record_idx('rest'))
+    # drop_last leaves out the epoch's last partial batch, whose rows the
+    # threads' completion order picks: each run holds as many rows, none twice
+    rows = {k: torch.cat(v).tolist() for k, v in idx.items()}
+    got = rows['first'] + rows['rest']
+    full_batches = (MNIST_ROWS // 128) * 128
+    multiset = len(set(got)) == len(got) == full_batches \
+        and len(set(rows['thread'])) == len(rows['thread']) == full_batches \
+        and set(got) <= set(range(MNIST_ROWS))
+    log('mnist resume (4 decode threads): %d + %d rows, each at most once, %d in all as in the '
+        'uninterrupted run (the last %d rows of the epoch form no full batch): %s'
+        % (len(rows['first']), len(rows['rest']), len(got), MNIST_ROWS - full_batches,
+           multiset))
+    if not multiset:
+        raise AssertionError('mnist resume on 4 threads lost or repeated rows')
+    out['mnist'].update(resume_bitwise=same_batches and same_params, resume_multiset=multiset)
+    with DataLoader(make_reader(mnist, num_epochs=1, workers_count=4), batch_size=128,
+                    shuffling_queue_capacity=2048, seed=0) as loader:
+        out['mnist'].update(snapshot_cost(loader, iter(loader), MNIST_SNAPSHOT_EVERY))
+    log('mnist: state_dict %.3f ms (median of %d, 4 decode threads, one every %d batches), '
+        'token %d bytes' % (out['mnist']['state_dict_ms'], SNAPSHOT_CALLS, MNIST_SNAPSHOT_EVERY,
+                            out['mnist']['token_bytes']))
+    # (b) the pumped loader with batches in flight
+    def lm_loader(token):
+        reader = make_reader(lm_url, num_epochs=1, columnar_decode=True, workers_count=1,
+                             shuffle_row_groups=False,
+                             resume_state=None if token is None else token['reader'])
+        return DataLoader(reader, batch_size=8, prefetch=2, resume_state=token)
+
+    out['lm'] = resume_pair('L1 tokens', lm_loader, 10)
+    with lm_loader(None) as loader:
+        out['lm'].update(snapshot_cost(loader, iter(loader), 4))
+    log('resume [L1 tokens]: state_dict %.3f ms (median of %d, one every 4 batches), token %d '
+        'bytes' % (out['lm']['state_dict_ms'], SNAPSHOT_CALLS, out['lm']['token_bytes']))
+
+    def to_float(batch):
+        return dict(batch, image=batch['image'].astype(np.float32) / 255.0)
+
+    def image_loader(token):
+        reader = make_reader(url, schema_fields=['image', 'noun_id'], columnar_decode=True,
+                             transform_spec=make_transform((224, 224)), workers_count=1,
+                             shuffle_row_groups=False, num_epochs=1,
+                             resume_state=None if token is None else token['reader'])
+        return DataLoader(reader, batch_size=BATCH, prefetch=2, transform_fn=to_float,
+                          wire_dtypes='auto', resume_state=token)
+
+    out['image_wire'] = resume_pair('images, float32 narrowed on the wire', image_loader, 3)
+    with image_loader(None) as loader:
+        it = iter(loader)
+        for _ in range(3):
+            next(it)
+        wait_for_pending(loader)
+        narrowed = loader.metrics.counter('h2d_bytes_wire').value \
+            < loader.metrics.counter('h2d_bytes_logical').value
+        out['image_wire'].update(snapshot_cost(loader), narrowed=narrowed)
+    log('resume [images, wire narrowed: %s]: state_dict %.3f ms (median of %d back to back '
+        'after 3 batches), token %d bytes'
+        % (narrowed, out['image_wire']['state_dict_ms'], SNAPSHOT_CALLS,
+           out['image_wire']['token_bytes']))
+    if not narrowed:
+        raise AssertionError('resume [images]: the wire was not narrowed')
+    # (c) the HBM cache
+    def hbm_loader(token, deterministic):
+        # at an epoch boundary any complete cache serves, but the same
+        # batches need the same cache order: one decode thread, no shuffle
+        threads = 8 if deterministic else 1
+        reader = make_reader(url, schema_fields=['image', 'noun_id'], columnar_decode=True,
+                             transform_spec=make_transform((224, 224)), workers_count=threads,
+                             shuffle_row_groups=deterministic, num_epochs=1)
+        return DeviceInMemDataLoader(reader, BATCH, num_epochs=3, seed=29, resume_state=token,
+                                     deterministic_cache_order=deterministic)
+
+    def step(carry, batch):
+        pixels = batch['image'].float().sum(dim=(1, 2, 3))
+        return carry + pixels.mean(), {'label': batch['label'], 'pixels': pixels}
+
+    def scan(loader, carry, max_yields=None):
+        outs = []
+        gen = loader.scan_epochs(step, carry)
+        for carry, o in gen:
+            outs.append((carry.clone(), {k: v.clone() for k, v in o.items()}))
+            if len(outs) == max_yields:
+                gen.close()
+                break
+        return outs
+
+    def flat(outs):
+        return {k: torch.cat([o[k].reshape((-1,) + tuple(o[k].shape[2:])) for _, o in outs])
+                .cpu() for k in ('label', 'pixels')}
+
+    zero = torch.zeros((), device='cuda')
+    hbm = {}
+    for label, deterministic, cut in (('epoch boundary', False, None), ('mid-epoch', True, 3)):
+        with hbm_loader(None, deterministic) as loader:
+            full = scan(loader, zero)
+        with hbm_loader(None, deterministic) as loader:
+            if cut is None:   # one scan yield: the first epoch
+                head = scan(loader, zero, max_yields=1)
+                carry = head[-1][0]
+            else:             # cut steps of the per-step iterator
+                head, carry = [], None
+                it = iter(loader)
+                for _ in range(cut):
+                    next(it)
+            cost = snapshot_cost(loader)
+            token = pickle.loads(pickle.dumps(loader.state_dict()))
+        with hbm_loader(token, deterministic) as loader:
+            rest = scan(loader, zero if carry is None else carry)
+        want, got = flat(full), flat(head + rest)
+        skip = 0 if cut is None else cut * BATCH
+        equal = all(torch.equal(got[k], want[k][skip:]) for k in want)
+        if carry is not None:   # the carry went on from the checkpointed one
+            equal = equal and torch.equal(rest[-1][0], full[-1][0])
+        log('resume [hbm cache, %s]: token %s; %d + %d scan yields; the outs%s equal the '
+            'uninterrupted run bit for bit: %s (state_dict %.4f ms, %d bytes)'
+            % (label, token['device_inmem'], len(head), len(rest),
+               ' and the final carry' if carry is not None else '', equal,
+               cost['state_dict_ms'], cost['token_bytes']))
+        if not equal:
+            raise AssertionError('resume [hbm cache, %s] differs' % label)
+        hbm[label] = dict(cost, equal=equal)
+    out['hbm_cache'] = hbm
+    launches, _ = counts(fa)
+    if any(launches.values()):
+        raise AssertionError('resume: flash launches %s on a path without attention' % launches)
+    SUMMARY['resume'] = out
+
+
 def main():
     # The kernels' module (petastorm_tpu_torch.ops re-exports its function
     # under the same name).  Imported first: outside a checkout this fails
@@ -2221,7 +2503,9 @@ def main():
                             ('gil_probe', phase_gil_probe),
                             ('graph_gc', phase_graph_gc),
                             ('disk_cache', lambda: phase_disk_cache(fa, url, tmp)),
-                            ('trace', lambda: phase_trace(url, tmp))):
+                            ('trace', lambda: phase_trace(url, tmp)),
+                            ('resume', lambda: phase_resume(
+                                fa, url, 'file://' + os.path.join(tmp, 'lc_tokens'), tmp))):
             t0 = time.monotonic()
             paths[name] = phase()
             log('phase %s: %.1f s' % (name, time.monotonic() - t0))

@@ -4,9 +4,11 @@ A second package beside ``petastorm_tpu`` (the JAX reference, which it is
 held against and never imports): the same reader and decode plane, a
 loader that moves batches to an NVIDIA GPU (streaming, or from an epoch
 cache in host or device memory, or packed into fixed-shape LM batches),
-on-device augmentation, the ResNet-50, ViT and decoder-only LM models (with
-KV-cache generation), and the flash-attention kernels as hand-written CUDA
-for Hopper (``csrc/``).  Entry points run on the card unless the caller passes
+on-device augmentation, exact data checkpoints (every loader's
+``state_dict``/``resume_state``, ``checkpoint.TrainStateManager``), the
+ResNet-50, ViT, MNIST MLP and decoder-only LM models (with KV-cache
+generation), and the flash-attention kernels as hand-written CUDA for
+Hopper (``csrc/``).  Entry points run on the card unless the caller passes
 ``device='cpu'``.
 
 Imports are lazy (PEP 562) so ``import petastorm_tpu_torch`` stays cheap.
@@ -29,6 +31,7 @@ _LAZY = {
     'StallMonitor': 'petastorm_tpu_torch.benchmark.stall_profiler',
     'TraceRecorder': 'petastorm_tpu_torch.benchmark.trace',
     'train': 'petastorm_tpu_torch.train',
+    'TrainStateManager': 'petastorm_tpu_torch.checkpoint',
 }
 
 __all__ = list(_LAZY)

@@ -8,7 +8,8 @@ configuration; ``block_params_from_flax`` and
 ``attention_params_from_flax`` do the same for one ``Block`` or
 ``Attention``.  ``resnet_params_from_flax(params, batch_stats)`` does the
 same for ``petastorm_tpu.models.resnet.ResNet50``, running statistics
-included, and ``bottleneck_params_from_flax`` for one ``BottleneckBlock``.
+included, and ``bottleneck_params_from_flax`` for one ``BottleneckBlock``;
+``mlp_params_from_flax`` for the MNIST example's ``MLP``.
 Layouts:
 
 =======================================  ====================================
@@ -33,7 +34,7 @@ import torch
 
 __all__ = ['vit_params_from_flax', 'block_params_from_flax', 'attention_params_from_flax',
            'transformer_lm_params_from_flax', 'resnet_params_from_flax',
-           'bottleneck_params_from_flax']
+           'bottleneck_params_from_flax', 'mlp_params_from_flax']
 
 
 def _t(x):
@@ -146,4 +147,14 @@ def resnet_params_from_flax(params, batch_stats=None):
             params[name], stats.get(name)).items()})
         i += 1
     out.update(_dense('head', params['Dense_0']))
+    return out
+
+
+def mlp_params_from_flax(params):
+    """flax ``MLP`` params (``Dense_0`` .. ``Dense_k``) -> port
+    :class:`~petastorm_tpu_torch.models.mlp.MLP` state_dict: each kernel
+    ``(in, out)`` becomes the weight ``(out, in)``."""
+    out = {}
+    for i in range(len(params)):
+        out.update(_dense('layers.%d' % i, params['Dense_%d' % i]))
     return out

@@ -35,9 +35,19 @@ The JAX loaders' one-dispatch consumers, :meth:`DataLoader.scan_batches`
 CUDA graph of the step on the card (:mod:`~petastorm_tpu_torch.gpu.graphs`)
 and run the step eagerly on the CPU.
 
-``state_dict``/resume (``DiskCachedDataLoader``'s and the pump's part in it
-included), the row readers' shuffling buffer, autotuning, data echoing,
-sharding and ``ResidentDataLoader`` are later slices of the port.
+Every loader takes exact checkpoints, as the JAX loaders do:
+``state_dict()`` between batches returns a picklable token (the JAX
+loader's keys) and a loader built with ``resume_state=token`` over a reader
+built with ``resume_state=token['reader']`` yields exactly the batches the
+uninterrupted run had not yet yielded (the same order for a seeded dummy
+pool, the same rows for the thread and process pools).  The snapshot parks
+the dispatch thread, drains the reader's results in flight, and carries the
+shuffling buffer, the partial batch, the chunk residue and the batches
+already on the card (waited for, then copied back to the host).  A JAX
+loader's token resumes the port's loader.
+
+Autotuning, data echoing, sharding and ``ResidentDataLoader`` are later
+slices of the port.
 """
 
 import hashlib
@@ -48,6 +58,7 @@ import os
 import shutil
 import time
 from collections import deque
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -57,6 +68,8 @@ from petastorm_tpu_torch.gpu import graphs
 from petastorm_tpu_torch.gpu.packing import StreamPacker
 from petastorm_tpu_torch.gpu.transfer import (DONE, DispatchPump, TransferPlane, canonical_dtype,
                                               plane_enabled, resolve_device, validate_transfer)
+from petastorm_tpu_torch.reader_impl.shuffling_buffer import (NoopShufflingBuffer,
+                                                              RandomShufflingBuffer)
 from petastorm_tpu_torch.telemetry.registry import MetricsRegistry
 
 logger = logging.getLogger(__name__)
@@ -73,10 +86,12 @@ class DataLoader(object):
             whose row-group chunks are re-batched, or a row reader, whose
             rows are stacked.
         batch_size: rows per batch.
-        shuffling_queue_capacity: >0 mixes rows through a buffer of at least
-            this many rows (uniform draws, seeded by ``seed``); columnar
-            readers only (the row readers' shuffling buffer is a later
-            slice).
+        shuffling_queue_capacity: >0 mixes rows, seeded by ``seed``: a row
+            reader's through a
+            :class:`~petastorm_tpu_torch.reader_impl.shuffling_buffer.RandomShufflingBuffer`
+            of this capacity (draws while it holds more than half of it), a
+            columnar reader's with uniform draws from a buffer of at least
+            this many rows.
         drop_last: drop the trailing partial batch.
         prefetch: batches kept in flight ahead of the consumer.
         device: target device; ``None`` means the card (raises without one).
@@ -97,21 +112,37 @@ class DataLoader(object):
         wire_dtypes: the plane's opt-in wire narrowing (``'auto'``: float
             leaves travel as bfloat16; or a ``{field: dtype}`` dict).
         ring_slots: the plane's pinned slabs (default ``prefetch + 1``).
+        resume_state: a token of :meth:`state_dict` (this loader's class, or
+            the JAX package's): the loader serves what it holds first, then
+            continues from its reader, which must be built with
+            ``resume_state=resume_state['reader']``.
     """
 
     def __init__(self, reader, batch_size, shuffling_queue_capacity=0, drop_last=True,
                  prefetch=2, device=None, seed=None, transform_fn=None, trace_recorder=None,
-                 transfer='auto', wire_dtypes=None, ring_slots=None):
+                 transfer='auto', wire_dtypes=None, ring_slots=None, resume_state=None):
         if batch_size <= 0:
             raise ValueError('batch_size must be positive')
         validate_transfer(transfer)
         if reader is not None:
             self._check_reader(reader)
         self._batched_input = getattr(reader, 'batched_output', False)
-        if shuffling_queue_capacity and reader is not None and not self._batched_input:
-            raise ValueError('shuffling_queue_capacity on a row reader (its shuffling buffer) '
-                             'is a later slice of the port: shuffle row groups in the reader '
-                             'or use columnar_decode=True')
+        if resume_state is not None and 'batched' in resume_state \
+                and bool(resume_state['batched']) != self._batched_input:
+            raise ValueError('resume_state came from a %s loader but this reader is %s: its '
+                             'buffered data would be misread'
+                             % ('columnar' if resume_state['batched'] else 'row',
+                                'columnar' if self._batched_input else 'row'))
+        # -- exact resume (see state_dict) --
+        #: rows or chunks served before the reader's: a token's, then those
+        #: a state_dict() drained from the reader
+        self._pushback = list((resume_state or {}).get('pushback', []))
+        self._resume_state = resume_state
+        self._pending = deque()   # (batch, event) on the device, not yet yielded
+        self._shuffle_buf = None
+        self._partial_rows = []
+        self._col_chunks = None
+        self._colsh = None
         self.device = resolve_device(device)
         self.reader = reader
         self.batch_size = int(batch_size)
@@ -218,6 +249,9 @@ class DataLoader(object):
 
         pump = DispatchPump(self._timed_pulls(self._host_batches()), ship, self._prefetch,
                             device=self.device)
+        # a token's batches from the card come first, put as they left
+        pump.pending.extend(self._restore_pending(plane))
+        self._pending = pump.pending
         self._pump = pump
         pump.start()
         try:
@@ -237,7 +271,7 @@ class DataLoader(object):
         """The plane off: pull, transform and put on this thread, one pinned
         buffer and one copy per column."""
         plane = TransferPlane(self.device, ring_slots=self._prefetch + 2, metrics=self.metrics)
-        pending = deque()
+        pending = self._pending = deque(self._restore_pending(plane))
         batches = self._host_batches()
         while True:
             t0 = time.monotonic()
@@ -265,6 +299,21 @@ class DataLoader(object):
                 yield plane.ready(*pending.popleft())
         while pending:
             yield plane.ready(*pending.popleft())
+
+    def _take_restored(self):
+        """The host batches a token carried from the card (post-transform),
+        handed out once."""
+        restored = (self._resume_state or {}).get('pending')
+        if not restored:
+            return []
+        self._resume_state = dict(self._resume_state, pending=[])
+        return restored
+
+    def _restore_pending(self, plane):
+        """The token's batches back on the device: the inline put, which
+        gives the bits they had there."""
+        return [plane.put_inline(_filter_numeric(b, self._warned_fields))
+                for b in self._take_restored()]
 
     def _timed_pulls(self, gen):
         """``gen``'s items, with the wait for each in ``host_batch``."""
@@ -321,9 +370,9 @@ class DataLoader(object):
             plane = TransferPlane(self.device, ring_slots=2, metrics=self.metrics)
         by_signature = {}   # graphs.signature of (carry, chunk) -> StepGraph
 
-        def put(chunk):
+        def put(chunk, transformed):
             t0 = time.monotonic()
-            if self._transform_fn is not None:
+            if self._transform_fn is not None and not transformed:
                 chunk = [self._transform_fn(b) for b in chunk]
             t1 = time.monotonic()
             host = [_filter_numeric(b, self._warned_fields) for b in chunk]
@@ -336,14 +385,14 @@ class DataLoader(object):
             self._observe('transform', t0, t1)
             self._observe('device_put', t1, t2)
             if self._trace is not None:
-                if self._transform_fn is not None:
+                if self._transform_fn is not None and not transformed:
                     self._trace.event('transform', t0, t1, chunk=len(chunk))
                 if not planed:
                     self._trace.event('device_put', t1, t2, chunk=len(chunk))
             return plane.ready(*shipped)
 
-        def run(carry, chunk):
-            stacked = put(chunk)
+        def run(carry, chunk, transformed=False):
+            stacked = put(chunk, transformed)
             if not graphed:
                 return run_chunk(carry, stacked)
             key = graphs.signature((carry, stacked))
@@ -351,6 +400,15 @@ class DataLoader(object):
                 by_signature[key] = graphs.StepGraph(run_chunk, generators)
             return by_signature[key](carry, stacked)
 
+        # A token's batches from the card come first, one chunk each: they
+        # are post-transform and numeric only, so they do not stack with
+        # fresh ones.  Every full chunk is run before its yield, so a
+        # state_dict() between yields loses nothing.
+        self._pending = deque()
+        for host_batch in self._take_restored():
+            self._m_batches.inc()
+            carry, outs = run(carry, [host_batch], transformed=True)
+            yield carry, outs
         chunk = []
         for host_batch in self._timed_pulls(self._host_batches()):
             if chunk and _rows(host_batch) != _rows(chunk[0]):
@@ -369,38 +427,83 @@ class DataLoader(object):
     def _host_batches(self):
         return self._columnar_batches() if self._batched_input else self._row_batches()
 
+    def _source(self, convert):
+        """Pushback items (a token's, then those a snapshot drained) first,
+        then the reader's, converted; pushback is checked before every pull
+        so that what a snapshot drains keeps its place in the stream."""
+        reader_iter = iter(self.reader)
+        while True:
+            if self._pushback:
+                yield self._pushback.pop(0)
+                continue
+            try:
+                item = next(reader_iter)
+            except StopIteration:
+                if self._pushback:
+                    continue
+                return
+            yield convert(item)
+
     def _chunk_source(self):
-        for chunk in self.reader:
-            yield chunk._asdict() if hasattr(chunk, '_asdict') else dict(chunk)
+        return self._source(_as_dict)
 
     def _row_source(self):
-        """A row reader's rows as dicts (the JAX loader's ``_row_source``
-        without its resume pushback, which comes with ``state_dict``)."""
-        for row in self.reader:
-            yield row._asdict() if hasattr(row, '_asdict') else dict(row)
+        """A row reader's rows as dicts."""
+        return self._source(_as_dict)
 
     def _row_batches(self):
-        """Row readers: stack every ``batch_size`` rows, in reader order."""
-        rows = []
+        """Row readers: rows through the shuffling buffer (a FIFO without
+        ``shuffling_queue_capacity``), stacked every ``batch_size``.  The
+        buffer and the partial batch live on the loader, and each batch is
+        detached from them before its yield, where a snapshot may look."""
+        if self._shuffle_capacity > 0:
+            buffer = RandomShufflingBuffer(self._shuffle_capacity,
+                                           self._shuffle_capacity // 2, seed=self._seed)
+        else:
+            buffer = NoopShufflingBuffer()
+        rs = self._resume_state or {}
+        if rs.get('shuffle_buffer'):
+            buffer.load_state_dict(rs['shuffle_buffer'])
+        self._shuffle_buf = buffer
+        self._partial_rows = list(rs.get('partial_rows', []))
+        bs = self.batch_size
         for row in self._row_source():
-            rows.append(row)
-            if len(rows) == self.batch_size:
-                yield _stack_rows(rows)
-                rows = []
-        if rows and not self._drop_last:
-            yield _stack_rows(rows)
+            buffer.add_many([row])
+            while buffer.can_retrieve():
+                self._partial_rows.append(buffer.retrieve())
+                if len(self._partial_rows) >= bs:
+                    out, self._partial_rows = self._partial_rows[:bs], self._partial_rows[bs:]
+                    yield _stack_rows(out)
+        buffer.finish()
+        while not buffer.finished:
+            self._partial_rows.append(buffer.retrieve())
+            if len(self._partial_rows) >= bs:
+                out, self._partial_rows = self._partial_rows[:bs], self._partial_rows[bs:]
+                yield _stack_rows(out)
+        if self._partial_rows and not self._drop_last:
+            out, self._partial_rows = self._partial_rows, []
+            yield _stack_rows(out)
 
     def _columnar_batches(self):
         """Re-batch column chunks: a chunk exactly batch_size long passes
         through; otherwise batches are views across a chunk deque with at
-        most one concatenate per batch that straddles chunks."""
+        most one concatenate per batch that straddles chunks.  The deque
+        lives on the loader for snapshots."""
         if self._shuffle_capacity > 0:
             yield from self._columnar_batches_shuffled()
             return
-        chunks = deque()   # (chunk_dict, start_offset)
+        chunks = self._col_chunks = deque()   # (chunk_dict, start_offset)
         count = 0
+        for chunk_dict in (self._resume_state or {}).get('chunks') or ():
+            chunks.append((chunk_dict, 0))
+            count += _rows(chunk_dict)
+        # a token's residue may hold whole batches (a chunk longer than the
+        # batch), served before the next chunk as the interrupted run would
+        while count >= self.batch_size:
+            yield _take_front(chunks, self.batch_size)
+            count -= self.batch_size
         for chunk_dict in self._chunk_source():
-            n = len(next(iter(chunk_dict.values())))
+            n = _rows(chunk_dict)
             if count == 0 and n == self.batch_size:
                 yield chunk_dict
                 continue
@@ -414,40 +517,141 @@ class DataLoader(object):
 
     def _columnar_batches_shuffled(self):
         """Windowed columnar shuffle: uniform draws from a buffer of at least
-        ``shuffling_queue_capacity`` rows."""
-        rng = np.random.default_rng(self._seed)
-        columns = None  # field -> [np.ndarray]
-        count = 0
+        ``shuffling_queue_capacity`` rows.  Its state (the columns, their
+        row count, the generator, and once the stream ended whether the
+        remainder is already in its final order) lives in ``self._colsh`` so
+        that a snapshot can take it between batches."""
+        st = self._colsh = {'rng': np.random.default_rng(self._seed), 'columns': None,
+                            'count': 0, 'ordered': False}
+        saved = (self._resume_state or {}).get('col_shuffle')
+        if saved:
+            st['rng'].bit_generator.state = saved['rng_state']
+            if saved['columns'] is not None:
+                st['columns'] = {k: [v] for k, v in saved['columns'].items()}
+                st['count'] = _rows(saved['columns'])
+                st['ordered'] = bool(saved.get('ordered', False))
         threshold = max(self.batch_size, self._shuffle_capacity)
+
+        def draws():
+            # a snapshot may fall between two draws of one chunk: a restored
+            # buffer draws on before it takes the next chunk
+            while not st['ordered'] and st['count'] >= threshold:
+                columns = {k: np.concatenate(v) if len(v) > 1 else v[0]
+                           for k, v in st['columns'].items()}
+                take = st['rng'].permutation(st['count'])[:self.batch_size]
+                batch = {k: np.take(v, take, axis=0) for k, v in columns.items()}
+                keep = np.ones(st['count'], dtype=bool)
+                keep[take] = False
+                st['columns'] = {k: [v[keep]] for k, v in columns.items()}
+                st['count'] -= self.batch_size
+                yield batch
+
+        yield from draws()
         for chunk_dict in self._chunk_source():
-            if columns is None:
-                columns = {k: [v] for k, v in chunk_dict.items()}
+            if st['columns'] is None:
+                st['columns'] = {k: [v] for k, v in chunk_dict.items()}
             else:
                 for k, v in chunk_dict.items():
-                    columns[k].append(v)
-            count += len(next(iter(chunk_dict.values())))
-            while count >= threshold:
-                columns = {k: [np.concatenate(v)] if len(v) > 1 else v
-                           for k, v in columns.items()}
-                take = rng.permutation(count)[:self.batch_size]
-                batch = {k: np.take(v[0], take, axis=0) for k, v in columns.items()}
-                keep = np.ones(count, dtype=bool)
-                keep[take] = False
-                columns = {k: [v[0][keep]] for k, v in columns.items()}
-                count -= self.batch_size
-                yield batch
-        if count and columns:
-            columns = {k: np.concatenate(v) if len(v) > 1 else v[0]
-                       for k, v in columns.items()}
-            order = rng.permutation(count)
-            start = 0
-            while count - start >= self.batch_size:
-                take = order[start:start + self.batch_size]
-                yield {k: np.take(v, take, axis=0) for k, v in columns.items()}
-                start += self.batch_size
-            if count - start > 0 and not self._drop_last:
-                take = order[start:]
-                yield {k: np.take(v, take, axis=0) for k, v in columns.items()}
+                    st['columns'][k].append(v)
+            st['count'] += _rows(chunk_dict)
+            yield from draws()
+        if not st['count']:
+            return
+        # The remainder: one permutation, then batches off its front (the
+        # rows left stay in st, in that order, for a snapshot).
+        columns = {k: np.concatenate(v) if len(v) > 1 else v[0]
+                   for k, v in st['columns'].items()}
+        if not st['ordered']:
+            order = st['rng'].permutation(st['count'])
+            columns = {k: np.take(v, order, axis=0) for k, v in columns.items()}
+            st['ordered'] = True
+        while st['count'] >= self.batch_size or (st['count'] and not self._drop_last):
+            size = min(self.batch_size, st['count'])
+            batch = {k: v[:size] for k, v in columns.items()}
+            columns = {k: v[size:] for k, v in columns.items()}
+            st['columns'] = {k: [v] for k, v in columns.items()}
+            st['count'] -= size
+            yield batch
+
+    # -- exact checkpoints ---------------------------------------------------
+
+    def state_dict(self):
+        """An exact snapshot of the stream between two batches; resume with
+        ``DataLoader(reader2, batch_size, ..., resume_state=state)`` over
+        ``reader2 = make_reader(..., resume_state=state['reader'])``.
+
+        The restored loader yields precisely the batches the uninterrupted
+        run had not yet yielded: the same rows always, the same order for a
+        seeded dummy pool.  The snapshot parks the dispatch thread, drains
+        the reader's results in flight (they are served next, here and after
+        a resume), and takes the batches already moved to the card (each
+        waited for, then copied to the host), the shuffling buffer with its
+        generator, the partial batch and the chunk residue.  The keys are
+        the JAX loader's: ``version``, ``batched``, ``reader``, ``pending``,
+        ``pushback``, ``partial_rows``, ``shuffle_buffer``, ``chunks``,
+        ``col_shuffle``.  Call it from the consuming thread between
+        batches; the loader keeps serving afterwards.  The token pickles
+        (numpy arrays, dicts; a bfloat16 leaf, which numpy cannot hold, as
+        a CPU tensor)."""
+        with self._pump_paused():
+            return self._state_dict_quiesced()
+
+    @contextmanager
+    def _pump_paused(self):
+        """Hold the dispatch thread parked around a snapshot: every
+        ``state_dict`` of the loaders reads their buffers inside this.  The
+        pause counts, so brackets nest; a thread that ended on an error
+        raises it here."""
+        pump = self._pump
+        if pump is None:
+            yield
+            return
+        pump.pause()
+        try:
+            pump.check()
+            yield
+        finally:
+            pump.resume()
+
+    def _pending_on_host(self):
+        """The batches moved to the card and not yet yielded, copied back to
+        the host once their copies completed."""
+        return [_to_host(batch, event) for batch, event in self._pending]
+
+    def _state_dict_quiesced(self):
+        drained = [_as_dict(item) for item in self.reader.drain_in_flight()]
+        # A restored loader takes the token's pieces lazily (pending at the
+        # first __iter__, buffers at the first host batch): until then a
+        # snapshot carries them forward.
+        rs = self._resume_state or {}
+        iterating = self._shuffle_buf is not None or self._col_chunks is not None \
+            or self._colsh is not None
+        state = {
+            'version': 1,
+            'batched': self._batched_input,
+            'reader': self.reader.state_dict(),
+            'pending': self._pending_on_host() + list(rs.get('pending', [])),
+            'pushback': list(self._pushback) + drained,
+            'partial_rows': (list(self._partial_rows) if iterating
+                             else list(rs.get('partial_rows', []))),
+            'shuffle_buffer': (self._shuffle_buf.state_dict() if self._shuffle_buf is not None
+                               else rs.get('shuffle_buffer')),
+            'chunks': ([{k: v[start:] for k, v in chunk.items()}
+                        for chunk, start in self._col_chunks]
+                       if self._col_chunks is not None else list(rs.get('chunks', []))),
+            'col_shuffle': rs.get('col_shuffle'),
+        }
+        if self._colsh is not None:
+            cols = self._colsh['columns']
+            state['col_shuffle'] = {
+                'rng_state': self._colsh['rng'].bit_generator.state,
+                'columns': None if cols is None else {
+                    k: np.concatenate(v) if len(v) > 1 else v[0] for k, v in cols.items()},
+                'ordered': self._colsh['ordered'],
+            }
+        self._pushback.extend(drained)
+        self.reader.resume_dispatch()
+        return state
 
     def __enter__(self):
         return self
@@ -483,7 +687,8 @@ class PackedDataLoader(DataLoader):
     Order comes from the reader (shuffle row groups there):
     ``shuffling_queue_capacity`` is rejected, as are columnar readers.
     With ``drop_last=False`` the final short batch is padded with
-    all-padding rows.
+    all-padding rows.  ``state_dict`` adds the packer's residue (open and
+    closed rows) and the packed batches not yet served to the loader's.
     """
 
     def __init__(self, reader, tokens_field, max_len, rows_per_batch, pad_id=0, open_rows=32,
@@ -496,6 +701,8 @@ class PackedDataLoader(DataLoader):
         self._max_len = int(max_len)
         self._pad_id = pad_id
         self._open_rows = int(open_rows)
+        self._packer = None
+        self._packed_ready = []
 
     @staticmethod
     def _check_reader(reader):
@@ -507,9 +714,36 @@ class PackedDataLoader(DataLoader):
     def _host_batches(self):
         packer = StreamPacker(self._max_len, self.batch_size, pad_id=self._pad_id,
                               open_rows=self._open_rows, drop_last=self._drop_last)
+        rs = self._resume_state or {}
+        if rs.get('packer'):
+            packer.load_state_dict(rs['packer'])
+        self._packer = packer
+        # batches packed and not yet served wait here, where a snapshot
+        # between two yields of one add() finds them
+        self._packed_ready = list(rs.get('packed_ready', []))
         for row in self._row_source():
-            yield from packer.add(row[self._tokens_field])
-        yield from packer.flush()
+            self._packed_ready.extend(packer.add(row[self._tokens_field]))
+            while self._packed_ready:
+                yield self._packed_ready.pop(0)
+        self._packed_ready.extend(packer.flush())
+        while self._packed_ready:
+            yield self._packed_ready.pop(0)
+
+    def state_dict(self):
+        """The loader's snapshot plus the packer's residue and the packed
+        batches not yet served, all read inside one pause of the dispatch
+        thread (a thread resumed between the two reads could pack rows the
+        first read drained and count them twice)."""
+        with self._pump_paused():
+            state = super().state_dict()
+            if self._packer is not None:
+                state['packer'] = self._packer.state_dict()
+                state['packed_ready'] = list(self._packed_ready)
+            else:   # restored, not yet iterated
+                rs = self._resume_state or {}
+                state['packer'] = rs.get('packer')
+                state['packed_ready'] = list(rs.get('packed_ready', []))
+            return state
 
 
 def _take_front(chunks, size):
@@ -534,6 +768,9 @@ def _filter_numeric(batch, warned):
     """Drop object/string columns: they cannot live on the device."""
     out = {}
     for name, value in batch.items():
+        if isinstance(value, torch.Tensor):   # a bfloat16 leaf of a token
+            out[name] = value
+            continue
         arr = np.asarray(value)
         if arr.dtype == object or arr.dtype.kind in ('U', 'S'):
             if name not in warned:
@@ -547,6 +784,24 @@ def _filter_numeric(batch, warned):
 
 def _rows(cache):
     return len(next(iter(cache.values())))
+
+
+def _as_dict(item):
+    """A reader's namedtuple (or mapping) as a dict."""
+    return item._asdict() if hasattr(item, '_asdict') else dict(item)
+
+
+def _to_host(batch, event):
+    """A device batch on the host, once the copy that made it (``event``)
+    completed: numpy arrays, and a bfloat16 leaf (which numpy cannot hold)
+    as a CPU tensor; either goes back to the device as the same bits."""
+    if event is not None:
+        event.synchronize()
+    out = {}
+    for name, tensor in batch.items():
+        tensor = tensor.detach().to('cpu', copy=True)
+        out[name] = tensor if tensor.dtype == torch.bfloat16 else tensor.numpy()
+    return out
 
 
 def _stack_rows(rows):
@@ -581,7 +836,44 @@ def _canonical_row_order(cache):
     return {name: column[idx] for name, column in cache.items()}
 
 
-class InMemDataLoader(DataLoader):
+class _EpochServer(object):
+    """Epochs over ``n`` cached rows, each in an order drawn from
+    ``np.random.default_rng(seed)`` (``shuffle=False``: row order), and their
+    position for an exact token: the in-memory and disk caches'."""
+
+    def _epoch_batches(self, n, epoch, resumed, gather):
+        """The batches ``gather(idx)`` of the epochs from ``epoch`` (or the
+        token position ``resumed``) to ``num_epochs``; the position, in
+        ``self._epoch_pos``, is set before each yield, where a snapshot
+        looks."""
+        rng = np.random.default_rng(self._seed)
+        pos = self._epoch_pos = {'rng': rng, 'epoch': epoch, 'order': None, 'offset': 0}
+        if resumed:
+            rng.bit_generator.state = resumed['rng_state']
+            pos.update(epoch=int(resumed['epoch']), offset=int(resumed['offset']),
+                       order=None if resumed['order'] is None else np.asarray(resumed['order']))
+        stop = n - self.batch_size + 1 if self._drop_last else n
+        while self._num_epochs is None or pos['epoch'] < self._num_epochs:
+            if pos['order'] is None:
+                pos['order'] = rng.permutation(n) if self._shuffle else np.arange(n)
+            order = pos['order']
+            for start in range(pos['offset'], max(stop, 0), self.batch_size):
+                pos['offset'] = start + self.batch_size
+                yield gather(order[start:start + self.batch_size])
+            pos.update(epoch=pos['epoch'] + 1, order=None, offset=0)
+
+    def _epoch_token(self, key):
+        """The token: the position under ``key``, and the batches already on
+        the device."""
+        with self._pump_paused():
+            pos = self._epoch_pos
+            return {'version': 1, 'pending': self._pending_on_host(),
+                    key: {'rng_state': pos['rng'].bit_generator.state,
+                          'epoch': int(pos['epoch']), 'offset': int(pos['offset']),
+                          'order': None if pos['order'] is None else np.asarray(pos['order'])}}
+
+
+class InMemDataLoader(_EpochServer, DataLoader):
     """Reads the dataset once into host memory, then serves ``num_epochs``
     (``None``: endless) epochs from there, reshuffled each epoch with
     ``np.random.default_rng(seed)``.
@@ -591,8 +883,13 @@ class InMemDataLoader(DataLoader):
     ``deterministic_cache_order=True`` sorts the cache into a
     content-defined order (numeric fields only), so the epochs are a pure
     function of the dataset and the seed, whatever the pool's delivery
-    order.  Other keyword arguments go to :class:`DataLoader`.
+    order; it is what makes :meth:`state_dict` exact mid-epoch (a
+    pool-ordered cache does not survive a restart, and the token is
+    refused without it).  Other keyword arguments go to :class:`DataLoader`.
     """
+
+    #: The entry of this loader's state in its token.
+    _TOKEN_KEY = 'inmem_cache'
 
     def __init__(self, reader, batch_size, num_epochs=1, shuffle=True, seed=None,
                  deterministic_cache_order=False, echo=1, resume_state=None, **kwargs):
@@ -600,20 +897,21 @@ class InMemDataLoader(DataLoader):
             raise ValueError('%s does not support echo (epochs serve from an in-memory '
                              'cache; echo addresses decode-bound streaming)'
                              % type(self).__name__)
-        if resume_state is not None:
-            raise ValueError('%s does not take resume_state yet: resume tokens of the '
-                             'in-memory loaders are a later slice of the port'
-                             % type(self).__name__)
+        if resume_state is not None and not resume_state.get(self._TOKEN_KEY):
+            raise ValueError('resume_state holds no %r entry: it is not a token of %s'
+                             % (self._TOKEN_KEY, type(self).__name__))
         reader_epochs = getattr(reader, 'num_epochs', 1)
         if reader_epochs != 1:
             raise ValueError('InMemDataLoader requires a reader built with num_epochs=1 '
                              '(got num_epochs=%r); epoch repetition happens in the loader'
                              % (reader_epochs,))
-        super(InMemDataLoader, self).__init__(reader, batch_size, seed=seed, **kwargs)
+        super(InMemDataLoader, self).__init__(reader, batch_size, seed=seed,
+                                              resume_state=resume_state, **kwargs)
         self._num_epochs = num_epochs
         self._shuffle = shuffle
         self._deterministic = bool(deterministic_cache_order)
         self._cache = None
+        self._epoch_pos = None
 
     def _build_cache(self):
         """Read the whole dataset once into ``self._cache`` (``{field: (N, ...)
@@ -654,14 +952,29 @@ class InMemDataLoader(DataLoader):
         starts = self._batch_starts(n)
         if not starts:
             return
-        rng = np.random.default_rng(self._seed)
-        epoch = 0
-        while self._num_epochs is None or epoch < self._num_epochs:
-            order = rng.permutation(n) if self._shuffle else np.arange(n)
-            for start in starts:
-                idx = order[start:start + self.batch_size]
-                yield {name: column[idx] for name, column in cache.items()}
-            epoch += 1
+        resumed = (self._resume_state or {}).get(self._TOKEN_KEY)
+        if resumed and not self._deterministic:
+            raise ValueError('this resume token needs deterministic_cache_order=True (the '
+                             'rebuilt cache must hold the checkpointed row order)')
+        yield from self._epoch_batches(
+            n, 0, resumed, lambda idx: {name: column[idx] for name, column in cache.items()})
+
+    def state_dict(self):
+        """An exact resume token mid-epoch: the generator's state, the epoch,
+        its order and the offset in it, and the batches already on the
+        device.  It needs ``deterministic_cache_order=True`` and an
+        iteration begun; the loader that resumes it is built the same way
+        with ``resume_state=token``."""
+        if not self._deterministic:
+            raise NotImplementedError(
+                'the in-memory cache is rebuilt from the reader, whose delivery order depends '
+                'on the pool, so a mid-epoch token cannot survive a restart: build the loader '
+                'with deterministic_cache_order=True (a content-sorted cache), checkpoint at '
+                'epoch boundaries, or use DiskCachedDataLoader')
+        if self._epoch_pos is None:
+            raise ValueError('state_dict() is supported once iteration has begun; call it '
+                             'between batches')
+        return self._epoch_token(self._TOKEN_KEY)
 
 
 class DeviceInMemDataLoader(InMemDataLoader):
@@ -677,7 +990,15 @@ class DeviceInMemDataLoader(InMemDataLoader):
     ``seed=None`` draws fresh entropy.  ``transform_fn`` and
     ``shuffling_queue_capacity`` are rejected: batches never exist on the
     host.
+
+    :meth:`state_dict` is ``(epochs_done, steps_into_epoch)`` with the
+    batch size, ``drop_last`` and the explicit seed the orders derive from;
+    a token mid-epoch needs ``deterministic_cache_order=True``.  A loader
+    built with the same seed and ``resume_state=token`` continues the
+    stream, per step or through :meth:`scan_epochs`.
     """
+
+    _TOKEN_KEY = 'device_inmem'
 
     def __init__(self, reader, batch_size, num_epochs=1, shuffle=True, seed=None,
                  device=None, **kwargs):
@@ -688,6 +1009,38 @@ class DeviceInMemDataLoader(InMemDataLoader):
             reader, batch_size, num_epochs=num_epochs, shuffle=shuffle, seed=seed,
             device=device, **kwargs)
         self._dev_cache = None
+        #: (epochs, steps) skipped at the head of every pass: a token's
+        #: position, the same for every pass over the loader
+        self._start_epoch = self._start_step = 0
+        #: the current pass's position, which state_dict reads
+        self._epochs_done = self._steps_into_epoch = 0
+        #: drop_last of the run that took the token (None: no token, or one
+        #: without the flag): only a drop_last=False pass parks the cursor
+        #: at the count of full batches
+        self._token_drop_last = None
+        resumed = (self._resume_state or {}).get(self._TOKEN_KEY)
+        if resumed:
+            if seed is None or int(resumed['seed']) != int(seed):
+                raise ValueError('the device_inmem resume token was taken with seed=%r; build '
+                                 'the loader with that explicit seed (the epoch orders derive '
+                                 'from it)' % (resumed['seed'],))
+            self._start_epoch = int(resumed['epochs_done'])
+            self._start_step = int(resumed.get('steps_into_epoch', 0))
+            if resumed.get('drop_last') is not None:
+                self._token_drop_last = bool(resumed['drop_last'])
+            token_bs = resumed.get('batch_size')
+            if self._start_step and token_bs is not None and int(token_bs) != int(batch_size):
+                # only a cursor inside an epoch counts batches of one size
+                raise ValueError('the device_inmem resume token was taken %d steps into an '
+                                 'epoch of batch_size=%d batches; resume with that batch_size '
+                                 '(got %d), or checkpoint at an epoch boundary to change it'
+                                 % (self._start_step, int(token_bs), int(batch_size)))
+            if self._start_step and not self._deterministic:
+                raise ValueError('a mid-epoch device_inmem token needs '
+                                 'deterministic_cache_order=True: its cursor indexes the cached '
+                                 'row order, which only the content-sorted cache reproduces')
+            # a snapshot before the first batch re-emits the token's cursor
+            self._epochs_done, self._steps_into_epoch = self._start_epoch, self._start_step
 
     def _materialize(self):
         """The device cache (built once), or None for an empty dataset."""
@@ -707,7 +1060,8 @@ class DeviceInMemDataLoader(InMemDataLoader):
         return self._dev_cache
 
     def _epoch_orders(self, n):
-        """Each epoch's row order, an int64 tensor on the device."""
+        """Each epoch's row order, an int64 tensor on the device, from the
+        token's epoch on (the earlier epochs' keys are split and skipped)."""
         seed = self._seed if self._seed is not None \
             else int(np.random.default_rng().integers(2 ** 31))
         key = prng.PRNGKey(seed)
@@ -716,9 +1070,10 @@ class DeviceInMemDataLoader(InMemDataLoader):
         while self._num_epochs is None or epoch < self._num_epochs:
             if self._shuffle:
                 key, sub = prng.split(key)
-                order = torch.from_numpy(prng.permutation(sub, n).astype(np.int64))
-                yield order.to(self.device)
-            else:
+                if epoch >= self._start_epoch:
+                    order = torch.from_numpy(prng.permutation(sub, n).astype(np.int64))
+                    yield order.to(self.device)
+            elif epoch >= self._start_epoch:
                 if identity is None:
                     identity = torch.arange(n, device=self.device)
                 yield identity
@@ -732,9 +1087,44 @@ class DeviceInMemDataLoader(InMemDataLoader):
         starts = self._batch_starts(n)
         if not starts:
             return
+        self._epochs_done, self._steps_into_epoch = self._start_epoch, self._start_step
+        skip = self._start_step   # the token's cursor: its first epoch only
         for order in self._epoch_orders(n):
-            for start in starts:
-                yield _gather(cache, order[start:start + self.batch_size])
+            if skip >= len(starts) and skip:
+                raise ValueError('the device_inmem resume token is %d steps into an epoch of '
+                                 '%d steps: the dataset or batch geometry changed since the '
+                                 'checkpoint' % (skip, len(starts)))
+            for j, start in enumerate(starts):
+                if j < skip:
+                    continue
+                batch = _gather(cache, order[start:start + self.batch_size])
+                # accounted before the yield: a snapshot taken while the
+                # consumer holds an epoch's last batch reads a boundary
+                if j + 1 == len(starts):
+                    self._epochs_done, self._steps_into_epoch = self._epochs_done + 1, 0
+                else:
+                    self._steps_into_epoch = j + 1
+                yield batch
+            skip = 0
+
+    def state_dict(self):
+        """The resume token: ``(epochs_done, steps_into_epoch)`` with the batch
+        size, ``drop_last`` and the seed.  It needs an explicit ``seed``, and
+        mid-epoch ``deterministic_cache_order=True`` (the cursor indexes the
+        cached row order, which only the content-sorted cache reproduces
+        after a restart; at an epoch boundary any complete cache does)."""
+        if self._seed is None:
+            raise ValueError('a resume token needs an explicit seed= (the epoch orders must be '
+                             'derived again after a restart)')
+        if self._steps_into_epoch and not self._deterministic:
+            raise ValueError('a mid-epoch checkpoint (%d steps into the epoch) needs '
+                             'deterministic_cache_order=True; finish the epoch, or use '
+                             'DiskCachedDataLoader' % self._steps_into_epoch)
+        return {'version': 1,
+                self._TOKEN_KEY: {'epochs_done': int(self._epochs_done),
+                                  'steps_into_epoch': int(self._steps_into_epoch),
+                                  'batch_size': int(self.batch_size),
+                                  'drop_last': bool(self._drop_last), 'seed': int(self._seed)}}
 
     def scan_epochs(self, step_fn, carry, epochs_per_call=1, cuda_graph=None, generators=()):
         """Run the epochs through ``step_fn(carry, batch) -> (carry, out)``,
@@ -757,6 +1147,15 @@ class DeviceInMemDataLoader(InMemDataLoader):
         of tensors (dicts, lists, tuples; None): a Python number in it raises
         ``TypeError``.  ``generators`` are the device generators ``step_fn``
         draws from.  The CPU runs the steps eagerly, one after the other.
+
+        A loader resumed from a mid-epoch token (taken per step, with
+        ``deterministic_cache_order=True``) finishes that epoch first, as a
+        yield of its remaining ``steps - cursor`` steps (with a leading
+        epochs axis of 1 when ``epochs_per_call > 1``), through the same
+        graph; a cursor in the ragged tail (all full batches taken, which
+        only a ``drop_last=False`` pass can leave) resumes at the next epoch,
+        and a cursor past what the geometry allows raises.  Between yields
+        :meth:`state_dict` reads epoch boundaries.
         """
         if epochs_per_call < 1:
             raise ValueError('epochs_per_call must be >= 1')
@@ -772,27 +1171,49 @@ class DeviceInMemDataLoader(InMemDataLoader):
             return
         if graphed:
             scan = _EpochGraph(cache, n, self.batch_size, steps, step_fn, carry, generators)
+
+        def run_epoch(carry, order, start=0):
+            if graphed:
+                return scan.epoch(order, start)
+            outs = []
+            for i in range(start, steps):
+                idx = order[i * self.batch_size:(i + 1) * self.batch_size]
+                carry, out = step_fn(carry, _gather(cache, idx))
+                outs.append(out)
+            return carry, _stack(outs)
+
+        self._epochs_done, self._steps_into_epoch = self._start_epoch, 0
         orders = self._epoch_orders(n)
+        start = self._start_step
+        if start:
+            ragged_tail = bool(n % self.batch_size) and self._token_drop_last is False
+            max_cursor = steps if ragged_tail else steps - 1
+            if start > max_cursor:
+                raise ValueError('the device_inmem resume token is %d steps into an epoch of %d '
+                                 'full batches (at most %d for a token taken with drop_last=%r): '
+                                 'the dataset or batch geometry changed since the checkpoint'
+                                 % (start, steps, max_cursor, self._token_drop_last))
+            first = next(orders, None)
+            if first is None:
+                return
+            self._epochs_done += 1
+            if start < steps:
+                carry, outs = run_epoch(carry, first, start)
+                yield carry, (outs if epochs_per_call == 1
+                              else graphs.tree_map(lambda o: o[None], outs))
         while True:
             group = list(itertools.islice(orders, epochs_per_call))
             if not group:
                 return
             epochs = []
             for order in group:
-                if graphed:
-                    carry, outs = scan.epoch(order)
-                else:
-                    outs = []
-                    for i in range(steps):
-                        idx = order[i * self.batch_size:(i + 1) * self.batch_size]
-                        carry, out = step_fn(carry, _gather(cache, idx))
-                        outs.append(out)
-                    outs = _stack(outs)
+                carry, outs = run_epoch(carry, order)
                 epochs.append(outs)
+            self._epochs_done += len(group)   # a yield is an epoch boundary
             yield carry, (epochs[0] if epochs_per_call == 1 else _stack(epochs))
 
 
-class DiskCachedDataLoader(DataLoader):
+class DiskCachedDataLoader(_EpochServer, DataLoader):
     """Decode once, stream every later epoch from local disk.
 
     Epoch 0 reads through the reader, serves its batches and appends each
@@ -811,7 +1232,9 @@ class DiskCachedDataLoader(DataLoader):
     marker (a build cut short) is removed and built again.
     ``shuffling_queue_capacity`` is refused; ``transform_fn`` runs on every
     served batch, so random augmentation stays fresh per epoch.  Other
-    keyword arguments go to :class:`DataLoader`.
+    keyword arguments go to :class:`DataLoader`.  :meth:`state_dict` is
+    exact over a complete cache (the files are the persisted row order),
+    whatever pool built it; during the epoch-0 build it raises.
     """
 
     _MANIFEST = 'manifest.json'
@@ -832,6 +1255,7 @@ class DiskCachedDataLoader(DataLoader):
         self._cache_dir = decoded_cache_dir
         self._num_epochs = num_epochs
         self._shuffle = shuffle
+        self._epoch_pos = None   # set once the cache is complete
 
     @classmethod
     def cache_complete(cls, decoded_cache_dir):
@@ -890,7 +1314,11 @@ class DiskCachedDataLoader(DataLoader):
 
     def _host_batches(self):
         epoch = 0
+        resumed = (self._resume_state or {}).get('disk_cache')
         if not self.cache_complete(self._cache_dir):
+            if resumed:
+                raise ValueError('resume_state needs the complete decoded cache; the epoch-0 '
+                                 'build was cut short: start again from the beginning')
             if self.reader is None:
                 raise ValueError('reader=None serves a COMPLETE cache only; %r has no '
                                  '_COMPLETE marker' % (self._cache_dir,))
@@ -905,15 +1333,21 @@ class DiskCachedDataLoader(DataLoader):
             logger.warning('decoded cache holds %d rows < batch_size=%d with drop_last: no '
                            'batches to serve', n, self.batch_size)
             return
-        rng = np.random.default_rng(self._seed)
-        stop = n - self.batch_size + 1 if self._drop_last else n
-        while self._num_epochs is None or epoch < self._num_epochs:
-            order = rng.permutation(n) if self._shuffle else np.arange(n)
-            for start in range(0, max(stop, 0), self.batch_size):
-                idx = order[start:start + self.batch_size]
-                # fancy indexing a memmap reads just this batch
-                yield {name: np.asarray(buf[idx]) for name, buf in fields.items()}
-            epoch += 1
+        # fancy indexing a memmap reads just this batch
+        yield from self._epoch_batches(
+            n, epoch, resumed, lambda idx: {name: np.asarray(buf[idx])
+                                            for name, buf in fields.items()})
+
+    def state_dict(self):
+        """An exact token over the complete cache: the epoch, its order, the
+        offset in it and the generator's state, with the batches already on
+        the device.  During the epoch-0 build it raises: checkpoint at the
+        epoch boundary instead."""
+        if self._epoch_pos is None:
+            raise ValueError('state_dict() is supported once the decoded cache is complete '
+                             '(from epoch 1 on); during the epoch-0 build checkpoint at the '
+                             'epoch boundary instead')
+        return self._epoch_token('disk_cache')
 
 
 class _EpochGraph(object):
@@ -944,13 +1378,15 @@ class _EpochGraph(object):
         graphs.write_at(self._outs, self._cursor, out)
         self._cursor.add_(1)
 
-    def epoch(self, order):
-        """Run one epoch in ``order``; returns ``(carry, outs)``."""
+    def epoch(self, order, start=0):
+        """Run one epoch in ``order`` from step ``start`` (a resumed
+        cursor: the same graph, its cursor set there); returns ``(carry,
+        outs)``, the outs of the steps run."""
         self._order.copy_(order)
-        self._cursor.zero_()
-        for _ in range(self._steps):
+        self._cursor.fill_(start)
+        for _ in range(start, self._steps):
             self._graph()
-        return self.carry, graphs.tree_map(torch.clone, self._outs)
+        return self.carry, graphs.tree_map(lambda o: o[start:].clone(), self._outs)
 
 
 def _gather(cache, idx):

@@ -432,11 +432,13 @@ class TransferPlane(object):
 
     def put_inline(self, host_batch):
         """One pinned buffer of a ring slot and one ``non_blocking`` copy per
-        column of the flat dict ``host_batch``, narrowed to the device dtype;
+        column of the flat dict ``host_batch`` (numpy arrays, or CPU tensors
+        moved as they are), narrowed to the device dtype;
         returns ``(batch, event)`` for :meth:`ready` (None on the CPU, where
         the batch is only narrowed and wrapped)."""
         if not self._cuda:
-            return {name: torch.from_numpy(np.asarray(arr).astype(canonical_dtype(arr.dtype)))
+            return {name: arr.clone() if isinstance(arr, torch.Tensor) else
+                    torch.from_numpy(np.asarray(arr).astype(canonical_dtype(arr.dtype)))
                     for name, arr in host_batch.items()}, None
         slot = self._slots[self._next]
         self._next = (self._next + 1) % len(self._slots)
@@ -445,6 +447,9 @@ class TransferPlane(object):
         out = {}
         with torch.cuda.stream(self._stream):
             for name, arr in host_batch.items():
+                if isinstance(arr, torch.Tensor):   # bfloat16, which numpy cannot hold
+                    out[name] = arr.to(self.device)
+                    continue
                 arr = np.asarray(arr)
                 dtype = canonical_dtype(arr.dtype)
                 buf = slot['buffers'].get(name)
@@ -613,6 +618,11 @@ class DispatchPump(object):
         with self._cond:
             self._pause = max(0, self._pause - 1)
             self._cond.notify_all()
+
+    def check(self):
+        """Raise the error the thread ended with, if it did."""
+        if self._error is not None:
+            raise self._error
 
     def stop(self, join_timeout_s=2.0):
         with self._cond:

@@ -1,13 +1,15 @@
 """Synchronous in-caller-thread pool: deterministic ordering for tests/debug.
 
 Counterpart of ``petastorm_tpu/workers_pool/dummy_pool.py``: work items run
-lazily inside ``get_results``, one at a time, in ventilation order.
+lazily inside ``get_results``, one at a time, in ventilation order, each
+acked by its position after its results are published.
 """
 
 import time
 from collections import deque
 
-from petastorm_tpu_torch.workers_pool import EmptyResultError, TimeoutWaitingForResultError
+from petastorm_tpu_torch.workers_pool import (EmptyResultError, TimeoutWaitingForResultError,
+                                              unpack_item)
 
 
 class DummyPool(object):
@@ -38,18 +40,20 @@ class DummyPool(object):
         deadline = None if timeout is None else time.monotonic() + timeout
         while not self._results:
             if self._pending:
+                position, args = unpack_item(self._pending.popleft())
                 started = time.monotonic()
-                self._worker.process(*self._pending.popleft())
+                self._worker.process(*args)
                 self.items_processed += 1
                 self.busy_time += time.monotonic() - started
                 if self._ventilator is not None:
-                    self._ventilator.processed_item()
+                    self._ventilator.processed_item(position)
             elif self._ventilator is not None and not self._ventilator.completed():
                 # The ventilator thread may still be filling us; spin briefly
-                # but honor the timeout.
+                # but honor the timeout (a paused ventilator never completes,
+                # and a reader's drain probes with short timeouts).
                 if deadline is not None and time.monotonic() >= deadline:
                     raise TimeoutWaitingForResultError(
-                        'no results within %ss (ventilator idle)' % timeout)
+                        'no results within %ss (ventilator idle or paused)' % timeout)
                 time.sleep(0.001)
             else:
                 raise EmptyResultError()

@@ -36,7 +36,8 @@ import zmq
 from petastorm_tpu_torch.reader_impl.arrow_table_serializer import ArrowTableSerializer
 from petastorm_tpu_torch.reader_impl.pickle_serializer import PickleSerializer
 from petastorm_tpu_torch.workers_pool import (DEFAULT_TIMEOUT_S, EmptyResultError,
-                                              TimeoutWaitingForResultError, shm_plane)
+                                              TimeoutWaitingForResultError, shm_plane,
+                                              unpack_item)
 from petastorm_tpu_torch.workers_pool.exec_in_new_process import exec_in_new_process
 from petastorm_tpu_torch.workers_pool.process_worker import worker_main
 
@@ -126,7 +127,9 @@ class ProcessPool(object):
     def ventilate(self, *args, **kwargs):
         with self._inflight_lock:
             self._inflight += 1
-        message = pickle.dumps((None, args, kwargs), protocol=4)
+        # the position rides the work message and comes back in the ack
+        position, args = unpack_item(args)
+        message = pickle.dumps((position, args, kwargs), protocol=4)
         self._await_workers()
         # A send blocks while no worker has room: poll, so that stop() ends
         # the ventilator whatever the workers do.
@@ -172,7 +175,7 @@ class ProcessPool(object):
                     self.shm_results += 1
                     return result
                 if tag == b'K':
-                    _, busy_s, first = pickle.loads(payload)
+                    position, busy_s, first = pickle.loads(payload)
                     with self._inflight_lock:
                         self._inflight -= 1
                     self.items_processed += 1
@@ -181,7 +184,7 @@ class ProcessPool(object):
                         self.warm_items += 1
                         self.warm_busy_time += busy_s
                     if self._ventilator is not None:
-                        self._ventilator.processed_item()
+                        self._ventilator.processed_item(position)
                     continue
                 if tag == b'E':
                     exc, tb_str = pickle.loads(payload)

@@ -4,7 +4,9 @@ decode scales across host cores.
 Counterpart of ``petastorm_tpu/workers_pool/thread_pool.py``: input queue +
 bounded results queue, worker exceptions re-raised in the caller, acks
 flowing back to the ventilator.  Delivery is in completion order (FIFO
-scheduling); each item's decode time goes to a metrics registry, which
+scheduling), and each item is acked by its position once its results are
+published (the order a reader's drain for an exact snapshot relies on);
+each item's decode time goes to a metrics registry, which
 :attr:`ThreadPool.diagnostics` reads (``decode_utilization`` is the share of
 the workers' wall time spent decoding).  The reorder stage and provenance
 records are later slices.
@@ -18,7 +20,7 @@ import traceback
 
 from petastorm_tpu_torch.telemetry.registry import MetricsRegistry, ms
 from petastorm_tpu_torch.workers_pool import (DEFAULT_TIMEOUT_S, EmptyResultError,
-                                              TimeoutWaitingForResultError)
+                                              TimeoutWaitingForResultError, unpack_item)
 
 _SENTINEL = object()
 
@@ -86,9 +88,10 @@ class ThreadPool(object):
                     continue
                 if item is _SENTINEL:
                     break
+                position, args = unpack_item(item)
                 started = time.monotonic()
                 try:
-                    worker.process(*item)
+                    worker.process(*args)
                 except Exception as e:  # noqa: BLE001 — travels to the caller
                     self._put_result(_WorkerError(e, traceback.format_exc()))
                 finally:
@@ -99,7 +102,9 @@ class ThreadPool(object):
                     with self._inflight_lock:
                         self._inflight -= 1
                     if self._ventilator is not None:
-                        self._ventilator.processed_item()
+                        # after the publish: a drain that sees no item
+                        # outstanding finds every result queued
+                        self._ventilator.processed_item(position)
         finally:
             # The owning thread closes its own worker's files: closing them
             # from another thread could unmap a file mid-read.

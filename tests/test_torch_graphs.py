@@ -289,6 +289,56 @@ def test_graphed_scan_epochs_matches_eager(fake_graphs, epochs_per_call):
         assert torch.equal(o['idx'], wo['idx']) and torch.equal(o['s'], wo['s'])
 
 
+@pytest.mark.parametrize('epochs_per_call', [1, 2])
+def test_graphed_scan_epochs_resumes_mid_epoch_in_one_capture(fake_graphs, epochs_per_call):
+    """A mid-epoch token: the partial epoch runs through the same graph as
+    the epochs after it (its cursor set to the token's step), one warm-up
+    and one capture in all, and the outs equal the eager scan's."""
+    token = {'version': 1, 'device_inmem': {'epochs_done': 1, 'steps_into_epoch': 2,
+                                            'batch_size': 5, 'drop_last': True, 'seed': 9}}
+
+    def run(cuda_graph):
+        loader = DeviceInMemDataLoader(_CacheReader(23), 5, num_epochs=4, seed=9, device='cpu',
+                                       deterministic_cache_order=True, resume_state=token)
+        step = lambda carry, batch: (carry + batch['idx'].sum(), batch['idx'])  # noqa: E731
+        return [(c.clone(), o) for c, o in loader.scan_epochs(
+            step, torch.tensor(0), epochs_per_call=epochs_per_call, cuda_graph=cuda_graph)]
+
+    want = run(False)
+    got = run(None)
+    assert fake_graphs.count('warmup') == 1 and fake_graphs.count('capture') == 1
+    assert fake_graphs.count('replay') == (4 - 2) + 2 * 4 - 1
+    assert [o.shape for _, o in got] == [o.shape for _, o in want]
+    assert want[0][1].shape == ((2, 5) if epochs_per_call == 1 else (1, 2, 5))
+    for (c, o), (wc, wo) in zip(got, want):
+        assert torch.equal(c, wc) and torch.equal(o, wo)
+
+
+def test_graphed_mnist_checkpoints_and_resumes_with_one_capture_each(fake_graphs, tmp_path):
+    """The MNIST example graphed: a checkpoint every step (a drain of the
+    reader and the batches on the card carried to the host between two
+    replays) recaptures nothing, and a run resumed from a mid-epoch
+    checkpoint feeds the token's batches through its graph's input slots
+    like fresh ones: losses and parameters equal the eager runs'."""
+    from petastorm_tpu_torch import train_mnist
+    url = train_mnist.write_mnist_dataset('file://%s' % (tmp_path / 'mnist'), 640)
+    runs = {}
+    for mode, flag in (('eager', False), ('graphed', None)):
+        ckpt = str(tmp_path / mode)
+        kwargs = dict(epochs=1, device='cpu', reader_pool_type='dummy', checkpoint_dir=ckpt,
+                      save_every=1, cuda_graph=flag)
+        del fake_graphs[:]
+        cut = train_mnist.train(url, stop_after_step=1, **kwargs)
+        captures = fake_graphs.count('capture')
+        rest = train_mnist.train(url, **kwargs)
+        runs[mode] = (cut['losses'] + rest['losses'], rest['model'].state_dict(),
+                      captures, fake_graphs.count('capture'), fake_graphs.count('warmup'))
+    losses, params, first, both, warmups = runs['graphed']
+    assert (first, both, warmups) == (1, 2, 2)
+    assert len(losses) == 5 and losses == runs['eager'][0]
+    assert all(torch.equal(v, runs['eager'][1][k]) for k, v in params.items())
+
+
 @pytest.mark.parametrize('knobs', [dict(), dict(temperature=0.9, top_p=0.9),
                                    dict(temperature=1.2, top_k=4, eos_id=5, pad_id=0)])
 def test_graphed_generate_matches_eager(fake_graphs, knobs):

@@ -156,7 +156,3 @@ def test_unsupported_options_name_the_later_slice(datasets):
                    dict(cache_type='local-disk')):
         with pytest.raises(ValueError, match='later slice'):
             make_reader(url, **kwargs)
-    with make_reader(url, reader_pool_type='dummy') as reader:
-        with pytest.raises(ValueError, match='later slice'):
-            # a row reader's shuffling buffer
-            DataLoader(reader, 4, shuffling_queue_capacity=8, device='cpu')

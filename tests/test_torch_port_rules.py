@@ -48,7 +48,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                    'reader_impl/arrow_table_serializer.py', 'gpu/transfer.py', 'gpu/loader.py',
                    'telemetry/__init__.py', 'telemetry/registry.py', 'telemetry/spans.py',
                    'benchmark/trace.py', 'benchmark/advisor.py', 'benchmark/stall_profiler.py',
-                   'train.py'):
+                   'train.py', 'train_mnist.py', 'checkpoint.py', 'models/mlp.py',
+                   'reader_impl/shuffling_buffer.py'):
         assert os.path.join(PACKAGE, module) in sources, module
     offenders = []
     for path in sources:
@@ -62,7 +63,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
 
 def test_training_on_cpu_never_loads_jax(tmp_path):
     """ViT and ResNet-50 training on the CPU, streaming and from the epoch
-    cache, load nothing of JAX."""
+    cache, and the MNIST example with a checkpoint and a resume, load nothing
+    of JAX (nor orbax, nor optax)."""
     script = textwrap.dedent('''
         import sys
         import numpy as np, pyarrow as pa
@@ -93,6 +95,13 @@ def test_training_on_cpu_never_loads_jax(tmp_path):
             assert len(result['losses']) == expected and all(np.isfinite(result['losses'])), \
                 result
             assert result['batch_devices'] == ['cpu']
+        from petastorm_tpu_torch import train_mnist
+        mnist = train_mnist.write_mnist_dataset(url + '_mnist', 256)
+        ckpt = sys.argv[1] + '_ckpt'
+        cut = train_mnist.train(mnist, epochs=1, device='cpu', checkpoint_dir=ckpt,
+                                save_every=1, stop_after_step=0)
+        rest = train_mnist.train(mnist, epochs=1, device='cpu', checkpoint_dir=ckpt)
+        assert (cut['steps_run'], rest['resumed_at'], rest['steps_run']) == (1, 0, 1), rest
         loaded = sorted(m for m in sys.modules if m.split('.')[0] in FORBIDDEN)
         print('LOADED', loaded)
         sys.exit(1 if loaded else 0)
