@@ -117,7 +117,16 @@ Phases, in order; any failure propagates and exits nonzero:
    loader and the float32 image loader under ``wire_dtypes='auto'``
    resumed from tokens taken with batches in flight on the ring, bit for
    bit; the HBM cache's ``scan_epochs`` resumed from an epoch boundary and
-   from mid-epoch; each ``state_dict()``'s ms and token bytes.
+   from mid-epoch; each ``state_dict()``'s ms and token bytes;
+18. batch reader (``make_batch_reader`` over plain Parquet): a Criteo-shaped
+   store of 2^20 rows read back equal to ``pq.read_table`` on the dummy
+   pool, the same multiset of row groups on 4 threads and 8 processes (the
+   reader's rows/s alone), a predicate and a ``filters`` case against numpy
+   masks; DLRM at the Criteo example's width for one epoch graphed, eager
+   and with ``--scan-steps 4`` (rows/s, step and host ms, data wait,
+   ``stall_pct``, busy share, kernels per step), eager and graphed equal bit
+   for bit over 20 steps; both hello-world flows; the DataFrame converter's
+   example; and a pumped batch loader cut and resumed bit for bit.
 
 Every streaming path moves its batches through the loader's transfer
 plane (``transfer='auto'``): a dispatch thread pulls, transforms and puts
@@ -2461,6 +2470,251 @@ def phase_resume(fa, url, lm_url, tmp):
         raise AssertionError('resume: flash launches %s on a path without attention' % launches)
     SUMMARY['resume'] = out
 
+BR_ROWS = 1 << 20       # the batch phase's Criteo-shaped store: 256 row groups of 4096
+BR_GROUP = 4096
+DLRM_BATCH = 2048       # the Criteo example's batch
+DLRM_EQ_STEPS = 20      # eager against graphed, bit for bit
+BR_RESUME_SHARDS = 8    # the resumed loader reads one shard of this many (32 row groups)
+
+
+def table_digests(batches):
+    """One sha256 per batch (a row group of the batch reader): its columns'
+    bytes in name order, sorted; the multiset of what was read."""
+    out = []
+    for b in batches:
+        h = hashlib.sha256()
+        for name in sorted(b):
+            h.update(np.ascontiguousarray(b[name]).tobytes())
+        out.append(h.hexdigest())
+    return sorted(out)
+
+
+def read_all(url, **kwargs):
+    """Every batch of ``make_batch_reader(url, **kwargs)`` as dicts, the
+    reader's diagnostics and the rows/s of the read (host only)."""
+    from petastorm_tpu_torch.reader import make_batch_reader
+    t0 = time.perf_counter()
+    reader = make_batch_reader(url, **kwargs)
+    with reader:
+        batches = [b._asdict() for b in reader]
+    elapsed = time.perf_counter() - t0
+    return batches, reader.diagnostics, sum(len(b['label']) for b in batches) / elapsed
+
+
+def scan_profile(run, tmp, label, k):
+    """Device busy ms and share and kernels per step of ``run()``, a
+    ``scan_batches`` run of ``k`` steps a chunk, under torch.profiler, from
+    the start of the second chunk replayed after the capture to the start of
+    the last (:func:`_step_starts`: the warm-up chunk's ``k`` eager steps
+    start first, then each replayed chunk, the capture's included)."""
+    from torch.profiler import ProfilerActivity, profile
+    path = os.path.join(tmp, 'trace_%s.json' % label.replace(' ', '_'))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)['traceEvents']
+    events = sorted((e for e in trace if e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset')),
+                    key=lambda e: e['ts'])
+    replays = _step_starts(trace, events)[k:]
+    if len(replays) < 4:
+        raise AssertionError('profile %s: %d chunk replays' % (label, len(replays)))
+    lo, hi = replays[1][0], replays[-1][0]
+    busy, end = 0.0, lo
+    for e in events:
+        t0, t1 = max(e['ts'], lo), min(e['ts'] + e['dur'], hi)
+        if t1 > max(t0, end):
+            busy += t1 - max(t0, end)
+            end = t1
+    steps = (len(replays) - 2) * k
+    kernels = sum(1 for e in events if e.get('cat') == 'kernel' and lo <= e['ts'] < hi)
+    return dict(steps=steps, step_ms=(hi - lo) / steps / 1e3, busy_ms=busy / steps / 1e3,
+                busy_pct=100.0 * busy / (hi - lo), kernels=kernels / steps)
+
+
+def phase_batch_reader(fa, tmp):
+    """The batch path over plain Parquet (``make_batch_reader``), BASELINE
+    configs #4 and #2 and the DataFrame converter.
+
+    (a) A Criteo-shaped store of ``BR_ROWS`` rows (``train_dlrm``'s
+    generator: 13 float32, 26 int32 ids, an int32 label; row groups of
+    4096).  The dummy pool without shuffle reads it back equal to
+    ``pq.read_table``, column by column; 4 threads and 8 processes read
+    the dummy pool's multiset of row groups (sha256 each), the processes
+    through /dev/shm, leaving no slab and no child; each read's rows/s
+    (the reader alone, host only).  A predicate (``in_set`` on ``cat_0``,
+    evaluated per row in Python) keeps exactly the rows a numpy mask over
+    the table keeps, and ``filters=[('dense_0', '>', 40.0)]`` exactly the
+    row groups whose values pass (statistics prune whole row groups).
+    (b) DLRM at the example's width (batch 2048, the 26 tables, embedding
+    dim 16, 64-32-16 and 64-32-1) for one epoch of the store (512 steps)
+    graphed, pumped, 4 decode threads: rows/s, step ms, host ms, data wait
+    and ``stall_pct``; a profile of its step (``phase_profile``); the same
+    eagerly (and its profile) and with ``--scan-steps 4`` (its profile over
+    the chunks replayed); then eager and graphed from the same weights and data
+    order (one decode thread, no shuffle) for 20 steps: losses and
+    parameters equal bit for bit.  (c) Both hello-world flows on the card,
+    ids and shapes against the generators.  (d) The converter example: its
+    512-row frame materialized, the logistic regression trained 2 epochs on
+    the card, the cache deleted and gone.  (e) A pumped batch loader (one
+    thread, no shuffle, one shard of 8) cut after 10 batches with device
+    batches in flight, resumed in fresh objects: the rest bit for bit.  No
+    flash kernel runs here."""
+    import pyarrow.parquet as pq
+    from petastorm_tpu_torch import hello_world, predicates, train_dlrm
+    from petastorm_tpu_torch.gpu import DataLoader
+    from petastorm_tpu_torch.reader import make_batch_reader
+    from petastorm_tpu_torch.spark import converter_example
+    reset_counts(fa)
+    out = {}
+    # (a) the reader
+    url = 'file://' + os.path.join(tmp, 'criteo')
+    t0 = time.monotonic()
+    train_dlrm.generate_criteo_parquet(url, rows_count=BR_ROWS, rows_per_group=BR_GROUP)
+    table = pq.read_table(os.path.join(tmp, 'criteo', 'data.parquet'))
+    out['store'] = {'rows': table.num_rows, 'row_groups': BR_ROWS // BR_GROUP,
+                    'mb': os.path.getsize(os.path.join(tmp, 'criteo', 'data.parquet')) / 1e6,
+                    'write_s': time.monotonic() - t0}
+    log('batch reader: Criteo-shaped store, %d rows in %d row groups, %.1f MB, written in %.1f s'
+        % (table.num_rows, out['store']['row_groups'], out['store']['mb'],
+           out['store']['write_s']))
+    columns = {name: table.column(name).to_numpy() for name in table.column_names}
+    dummy, _, rate = read_all(url, reader_pool_type='dummy', shuffle_row_groups=False)
+    equal = sorted(dummy[0]) == sorted(columns) and all(
+        np.array_equal(np.concatenate([b[k] for b in dummy]), v) for k, v in columns.items())
+    want = table_digests(dummy)
+    reads = {'dummy': {'rows_per_s': rate, 'equal_to_read_table': equal}}
+    log('batch reader [dummy, no shuffle]: %d batches, equal to pq.read_table column by column: '
+        '%s; %.0f rows/s' % (len(dummy), equal, rate))
+    if not equal or len(dummy) != BR_ROWS // BR_GROUP:
+        raise AssertionError('batch reader: the dummy pool does not read the table back')
+    del dummy
+    for pool, workers in (('thread', 4), ('process', 8)):
+        got, diag, rate = read_all(url, reader_pool_type=pool, workers_count=workers)
+        same = table_digests(got) == want
+        del got
+        reads['%s %d' % (pool, workers)] = {'rows_per_s': rate, 'multiset_equal': same,
+                                             'shm_results': diag.get('shm_results')}
+        log('batch reader [%s %d]: the dummy pool\'s multiset of row groups: %s; %.0f rows/s%s'
+            % (pool, workers, same, rate, '; %d tables through /dev/shm' % diag['shm_results']
+               if pool == 'process' else ''))
+        if not same:
+            raise AssertionError('batch reader [%s %d]: another multiset' % (pool, workers))
+        if pool == 'process':
+            check_process_run('batch reader [process 8]', diag)
+    keep = set(range(0, 1000, 100))
+    t0 = time.perf_counter()
+    got, _, _ = read_all(url, reader_pool_type='dummy', shuffle_row_groups=False,
+                         predicate=predicates.in_set(keep, 'cat_0'))
+    pred_rate = BR_ROWS / (time.perf_counter() - t0)
+    mask = np.isin(columns['cat_0'], list(keep))
+    same_pred = all(np.array_equal(np.concatenate([b[k] for b in got]), v[mask])
+                    for k, v in columns.items())
+    groups = np.unique(np.nonzero(columns['dense_0'] > 40.0)[0] // BR_GROUP)
+    got_f, _, _ = read_all(url, reader_pool_type='dummy', shuffle_row_groups=False,
+                           filters=[('dense_0', '>', 40.0)])
+    rows_f = np.isin(np.arange(BR_ROWS) // BR_GROUP, groups)
+    same_filter = len(got_f) == len(groups) and all(
+        np.array_equal(np.concatenate([b[k] for b in got_f]), v[rows_f])
+        for k, v in columns.items())
+    reads['predicate'] = {'rows_kept': int(mask.sum()), 'equal_to_mask': same_pred,
+                          'rows_per_s': pred_rate}
+    reads['filters'] = {'row_groups_kept': len(got_f), 'equal_to_mask': same_filter}
+    log('batch reader: predicate in_set(cat_0) kept %d rows, equal to the numpy mask: %s (%.0f '
+        'rows/s read, Python per row); filters dense_0 > 40 kept %d of %d row groups, equal to '
+        'the mask of row groups: %s' % (mask.sum(), same_pred, pred_rate, len(got_f),
+                                        BR_ROWS // BR_GROUP, same_filter))
+    if not (same_pred and same_filter):
+        raise AssertionError('batch reader: predicate %s, filters %s' % (same_pred, same_filter))
+    del got, got_f, columns, table
+    out['reads'] = reads
+    # (b) DLRM
+    def dlrm(**kwargs):
+        return train_dlrm.train(url, epochs=1, batch_size=DLRM_BATCH, **kwargs)
+
+    dlrm_out = {}
+    for mode, kwargs in (('graphed', {}), ('eager', dict(cuda_graph=False)),
+                         ('scan 4', dict(scan_steps=4))):
+        result = dlrm(**kwargs)
+        e = result['epochs_run'][0]
+        row = {k: e[k] for k in ('steps', 'loss', 'rows_per_s', 'timed_rows_per_s', 'step_ms',
+                                 'host_ms', 'data_wait_ms', 'stall_pct')}
+        dlrm_out[mode] = row
+        log('dlrm [%s, pumped, 4 decode threads, graph: %s]: %d steps, loss %.4f; rows/s %.1f '
+            '(timed after the warm-up; %.1f over the epoch) step_ms %.4f host_ms %.4f '
+            'data_wait_ms %s stall_pct %s'
+            % (mode, result['cuda_graph'], e['steps'], e['loss'], e['timed_rows_per_s'],
+               e['rows_per_s'], e['step_ms'], e['host_ms'], e['data_wait_ms'], e['stall_pct']))
+        if e['steps'] != BR_ROWS // DLRM_BATCH or not np.isfinite(result['losses']).all() \
+                or result['device'] != 'cuda' or result['cuda_graph'] != (mode != 'eager'):
+            raise AssertionError('dlrm [%s]: %r' % (mode, row))
+    for mode, flag in (('graphed', None), ('eager', False)):
+        dlrm_out[mode]['profile'] = phase_profile(
+            lambda steps: dlrm(max_steps=steps, cuda_graph=flag), 'dlrm ' + mode, tmp)
+    scan_busy = scan_profile(lambda: dlrm(scan_steps=4, max_steps=64), tmp, 'dlrm scan', 4)
+    dlrm_out['scan 4']['profile'] = scan_busy
+    log('profile dlrm scan 4 (the chunks replayed after the capture\'s, %d steps under '
+        'torch.profiler, %.3f ms per step): device busy %.3f ms per step (%.1f%%); %.1f kernels '
+        'per step' % (scan_busy['steps'], scan_busy['step_ms'], scan_busy['busy_ms'],
+                      scan_busy['busy_pct'], scan_busy['kernels']))
+    ordered = dict(reader_kwargs=dict(workers_count=1, shuffle_row_groups=False),
+                   max_steps=DLRM_EQ_STEPS)
+    eager, graphed = dlrm(cuda_graph=False, **ordered), dlrm(**ordered)
+    loss_rel, differ, worst, n_state = _differences(graphed, eager)
+    bitwise = loss_rel == 0.0 and differ == 0
+    dlrm_out['eager_vs_graphed'] = dict(steps=len(eager['losses']), loss_rel=loss_rel,
+                                        state_differ=differ, state_rel=worst, bitwise=bitwise)
+    log('dlrm eager vs graphed, same weights and data order, %d steps: %s; losses %s'
+        % (len(eager['losses']), 'equal bit for bit' if bitwise else
+           'loss off by %.3g (relative), %d of %d state tensors differ, worst %.3g'
+           % (loss_rel, differ, n_state, worst),
+           ' '.join('%.6f' % x for x in graphed['losses'])))
+    if not bitwise:
+        raise AssertionError('dlrm: the graphed run is not the eager one bit for bit')
+    out['dlrm'] = dlrm_out
+    # (c) hello world
+    hw = os.path.join(tmp, 'hello_world')
+    seen = hello_world.petastorm_hello_world(hello_world.generate_petastorm_dataset(
+        'file://' + os.path.join(hw, 'petastorm')), device='cuda')
+    ids = sorted(int(i) for batch_ids, _ in seen for i in batch_ids)
+    shapes = {shape for _, shape in seen}
+    external = hello_world.python_hello_world(hello_world.generate_external_dataset(
+        'file://' + os.path.join(hw, 'external')))
+    ext_ids = sorted(int(i) for b in external for i in b)
+    ok = len(seen) == 2 and len(set(ids)) == 8 and set(ids) <= set(range(10)) \
+        and shapes == {(4, 128, 256, 3)} and ext_ids == list(range(100)) and len(external) == 4
+    log('hello world: petastorm flow %d batches on the card, ids %s, image1 %s; external flow %d '
+        'batches, ids 0..99 once each: %s' % (len(seen), ids, sorted(shapes), len(external),
+                                              ext_ids == list(range(100))))
+    if not ok:
+        raise AssertionError('hello world: %r %r' % (ids, shapes))
+    out['hello_world'] = {'petastorm_batches': len(seen), 'external_batches': len(external)}
+    # (d) the converter
+    conv = converter_example.main(['--parent-cache-dir-url',
+                                   'file://' + os.path.join(tmp, 'converter_cache')])
+    gone = not os.path.exists(conv['cache_dir_url'][len('file://'):])
+    log('converter: %d steps on %s, loss %.4f -> %.4f, cache deleted and gone: %s'
+        % (conv['steps'], conv['w'].device, conv['losses'][0], conv['losses'][-1], gone))
+    if conv['steps'] != 16 or conv['w'].device.type != 'cuda' or not gone \
+            or not np.isfinite(conv['losses']).all():
+        raise AssertionError('converter: %r' % {k: conv[k] for k in ('steps', 'losses')})
+    out['converter'] = {'steps': conv['steps'], 'loss_first': conv['losses'][0],
+                        'loss_last': conv['losses'][-1], 'deleted': gone}
+    # (e) a resume on the batch path
+    def batch_loader(token):
+        reader = make_batch_reader(url, num_epochs=1, workers_count=1, shuffle_row_groups=False,
+                                   cur_shard=0, shard_count=BR_RESUME_SHARDS,
+                                   resume_state=None if token is None else token['reader'])
+        return DataLoader(reader, batch_size=DLRM_BATCH, prefetch=2,
+                          transform_fn=train_dlrm.pack_columns, resume_state=token)
+
+    out['resume'] = resume_pair('criteo batch reader', batch_loader, 10)
+    launches, _ = counts(fa)
+    if any(launches.values()):
+        raise AssertionError('batch reader: flash launches %s on a path without attention'
+                             % launches)
+    SUMMARY['batch_reader'] = out
+
 
 def main():
     # The kernels' module (petastorm_tpu_torch.ops re-exports its function
@@ -2505,7 +2759,8 @@ def main():
                             ('disk_cache', lambda: phase_disk_cache(fa, url, tmp)),
                             ('trace', lambda: phase_trace(url, tmp)),
                             ('resume', lambda: phase_resume(
-                                fa, url, 'file://' + os.path.join(tmp, 'lc_tokens'), tmp))):
+                                fa, url, 'file://' + os.path.join(tmp, 'lc_tokens'), tmp)),
+                            ('batch_reader', lambda: phase_batch_reader(fa, tmp))):
             t0 = time.monotonic()
             paths[name] = phase()
             log('phase %s: %.1f s' % (name, time.monotonic() - t0))

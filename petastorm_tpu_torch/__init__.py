@@ -1,13 +1,15 @@
 """petastorm_tpu_torch — the PyTorch/CUDA port of petastorm_tpu.
 
 A second package beside ``petastorm_tpu`` (the JAX reference, which it is
-held against and never imports): the same reader and decode plane, a
+held against and never imports): the same readers (``make_reader`` over
+petastorm datasets, ``make_batch_reader`` over any Parquet store, with
+predicates, ``filters`` and ``shard_seed``) and decode plane, a
 loader that moves batches to an NVIDIA GPU (streaming, or from an epoch
 cache in host or device memory, or packed into fixed-shape LM batches),
 on-device augmentation, exact data checkpoints (every loader's
 ``state_dict``/``resume_state``, ``checkpoint.TrainStateManager``), the
-ResNet-50, ViT, MNIST MLP and decoder-only LM models (with KV-cache
-generation), and the flash-attention kernels as hand-written CUDA for
+ResNet-50, ViT, MNIST MLP, DLRM and decoder-only LM models (with KV-cache
+generation), the pandas DataFrame converter, and the flash-attention kernels as hand-written CUDA for
 Hopper (``csrc/``).  Entry points run on the card unless the caller passes
 ``device='cpu'``.
 
@@ -18,6 +20,7 @@ __version__ = '0.1.0'
 
 _LAZY = {
     'make_reader': 'petastorm_tpu_torch.reader',
+    'make_batch_reader': 'petastorm_tpu_torch.reader',
     'Reader': 'petastorm_tpu_torch.reader',
     'TransformSpec': 'petastorm_tpu_torch.transform',
     'Unischema': 'petastorm_tpu_torch.unischema',
@@ -28,6 +31,7 @@ _LAZY = {
     'DeviceInMemDataLoader': 'petastorm_tpu_torch.gpu.loader',
     'DiskCachedDataLoader': 'petastorm_tpu_torch.gpu.loader',
     'PackedDataLoader': 'petastorm_tpu_torch.gpu.loader',
+    'make_loader': 'petastorm_tpu_torch.gpu.loader',
     'StallMonitor': 'petastorm_tpu_torch.benchmark.stall_profiler',
     'TraceRecorder': 'petastorm_tpu_torch.benchmark.trace',
     'train': 'petastorm_tpu_torch.train',

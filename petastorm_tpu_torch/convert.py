@@ -9,7 +9,8 @@ configuration; ``block_params_from_flax`` and
 ``Attention``.  ``resnet_params_from_flax(params, batch_stats)`` does the
 same for ``petastorm_tpu.models.resnet.ResNet50``, running statistics
 included, and ``bottleneck_params_from_flax`` for one ``BottleneckBlock``;
-``mlp_params_from_flax`` for the MNIST example's ``MLP``.
+``mlp_params_from_flax`` for the MNIST example's ``MLP``;
+``dlrm_params_from_flax`` for ``petastorm_tpu.models.dlrm.DLRM``.
 Layouts:
 
 =======================================  ====================================
@@ -34,7 +35,7 @@ import torch
 
 __all__ = ['vit_params_from_flax', 'block_params_from_flax', 'attention_params_from_flax',
            'transformer_lm_params_from_flax', 'resnet_params_from_flax',
-           'bottleneck_params_from_flax', 'mlp_params_from_flax']
+           'bottleneck_params_from_flax', 'mlp_params_from_flax', 'dlrm_params_from_flax']
 
 
 def _t(x):
@@ -157,4 +158,20 @@ def mlp_params_from_flax(params):
     out = {}
     for i in range(len(params)):
         out.update(_dense('layers.%d' % i, params['Dense_%d' % i]))
+    return out
+
+
+def dlrm_params_from_flax(params):
+    """flax ``DLRM`` params -> port :class:`~petastorm_tpu_torch.models.dlrm.DLRM`
+    state_dict: the bottom MLP (``MLP_0``) and the top one (``MLP_1``) by
+    :func:`mlp_params_from_flax`'s rule, each ``table_i`` embedding
+    ``(vocab, dim)`` as it is."""
+    out = {}
+    for flax_name, name in (('MLP_0', 'bottom'), ('MLP_1', 'top')):
+        mlp = params[flax_name]
+        for i in range(len(mlp)):
+            out.update(_dense('%s.layers.%d' % (name, i), mlp['Dense_%d' % i]))
+    for key, p in params.items():
+        if key.startswith('table_'):
+            out['tables.%d.weight' % int(key[len('table_'):])] = _t(p['embedding'])
     return out

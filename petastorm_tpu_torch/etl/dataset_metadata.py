@@ -6,11 +6,13 @@ other.  The pickled Unischema names its classes by module; the unpickler
 here maps the JAX package's module names onto this package, and the JAX
 package resolves this package's names by import.
 
-Cut to this slice: the read side (``get_schema``, ``load_row_groups``) and
-a streaming :class:`DatasetWriter` of one file.  Spark materialization,
-multi-file and multi-host writes, the writer's encode thread pool,
-hive-partitioned directories and the footer scans of the adaptive
-scheduler are later slices.
+Cut to this slice: the read side (``get_schema``, ``load_row_groups``
+over petastorm datasets and plain Parquet stores, hive ``key=value``
+directories included, and ``infer_or_load_unischema`` for the batch
+reader) and a streaming :class:`DatasetWriter` of one file.  Spark
+materialization, multi-file and multi-host writes, the writer's encode
+thread pool and the footer scans of the adaptive scheduler are later
+slices.
 """
 
 import io
@@ -28,7 +30,7 @@ import pyarrow.parquet as pq
 
 from petastorm_tpu_torch.errors import MetadataError
 from petastorm_tpu_torch.fs_utils import get_filesystem_and_path
-from petastorm_tpu_torch.unischema import encode_row
+from petastorm_tpu_torch.unischema import Unischema, encode_row
 
 logger = logging.getLogger(__name__)
 
@@ -48,6 +50,7 @@ class RowGroupPiece:
     path: str            # filesystem path of the parquet file
     row_group: int       # row-group ordinal within the file
     num_rows: int = -1   # row count when known from metadata (-1 = unknown)
+    partition_values: tuple = ()  # ((key, value), ...) from hive directories
 
 
 # -- pickle compatibility ----------------------------------------------------
@@ -84,6 +87,18 @@ def _is_metadata_or_hidden(path):
     return base.startswith('_') or base.startswith('.') or base.endswith('.crc')
 
 
+def _partition_values_for(path, root):
+    """The hive ``key=value`` directory partition values of ``path`` below
+    ``root``, outermost first."""
+    rel = path[len(root):].lstrip('/')
+    values = []
+    for part in rel.split('/')[:-1]:
+        if '=' in part:
+            key, _, value = part.partition('=')
+            values.append((key, value))
+    return tuple(values)
+
+
 # -- write side --------------------------------------------------------------
 
 class DatasetWriter(object):
@@ -113,6 +128,11 @@ class DatasetWriter(object):
         self._writer = None
         self._sink = None
         self._closed = False
+
+    def write_many(self, rows):
+        """:meth:`write` each row of an iterable."""
+        for row in rows:
+            self.write(row)
 
     def write(self, row_dict):
         """Encode and buffer one row; may flush a row group."""
@@ -242,10 +262,30 @@ def get_schema(fs, path):
     return _loads_schema(arrow_schema.metadata[UNISCHEMA_KEY])
 
 
+def infer_or_load_unischema(fs, path):
+    """The stored Unischema when the dataset has one, else one inferred
+    from the first data file's arrow schema (scalar and list columns), as
+    for a plain Parquet store."""
+    try:
+        return get_schema(fs, path)
+    except MetadataError:
+        pass
+    except Exception as e:  # noqa: BLE001 — an unreadable pickle: infer instead
+        logger.warning('Failed to unpickle stored Unischema (%s); inferring from '
+                       'arrow schema instead', e)
+    files = _list_parquet_files(fs, path)
+    if not files:
+        raise MetadataError('No parquet files found under %r' % (path,))
+    with fs.open(files[0], 'rb') as handle:
+        arrow_schema = pq.ParquetFile(handle).schema_arrow
+    return Unischema.from_arrow_schema(arrow_schema)
+
+
 def load_row_groups(fs, path):
     """Enumerate all row-group pieces of the dataset: from the footer's
     per-file row-group counts when present (no file footer opened),
-    otherwise by scanning file footers in a thread pool."""
+    otherwise (a plain Parquet store) by scanning file footers in a thread
+    pool; each piece carries its hive partition values."""
     files = _list_parquet_files(fs, path)
     if not files:
         raise MetadataError('No parquet files found under %r' % (path,))
@@ -267,10 +307,11 @@ def load_row_groups(fs, path):
             if full is None:
                 logger.warning('File %r in footer metadata is missing on disk; skipping', rel)
                 continue
+            parts = _partition_values_for(full, path)
             per_rg = (row_counts or {}).get(rel)
             per_rg = per_rg if per_rg is not None and len(per_rg) == int(n) else None
             pieces.extend(
-                RowGroupPiece(full, i, per_rg[i] if per_rg else -1)
+                RowGroupPiece(full, i, per_rg[i] if per_rg else -1, parts)
                 for i in range(int(n)))
         return pieces
 
@@ -279,7 +320,8 @@ def load_row_groups(fs, path):
     def scan(f):
         with fs.open(f, 'rb') as handle:
             md = pq.ParquetFile(handle).metadata
-            found = [RowGroupPiece(f, i, md.row_group(i).num_rows)
+            found = [RowGroupPiece(f, i, md.row_group(i).num_rows,
+                                   _partition_values_for(f, path))
                      for i in range(md.num_row_groups)]
         with lock:
             pieces.extend(found)

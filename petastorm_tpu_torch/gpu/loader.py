@@ -46,8 +46,17 @@ shuffling buffer, the partial batch, the chunk residue and the batches
 already on the card (waited for, then copied back to the host).  A JAX
 loader's token resumes the port's loader.
 
+Any reader feeds them: ``make_reader`` (rows, or ``columnar_decode=True``
+chunks) or ``make_batch_reader`` over a plain Parquet store (one chunk per
+row group; a rectangular list column arrives as a 2-D leaf).
+:func:`make_loader` builds the reader and the loader in one call, the JAX
+package's ``make_jax_loader``.  String and object columns are dropped with
+one warning per field; a ``datetime64`` column raises ``TypeError``, as
+``jax.device_put`` does; a nullable int column with nulls arrives as
+float32 with NaN (pandas' float64, narrowed), as in the JAX loader.
+
 Autotuning, data echoing, sharding and ``ResidentDataLoader`` are later
-slices of the port.
+slices of the port (ROADMAP.md, Queue A items 4, 6 and 7).
 """
 
 import hashlib
@@ -75,7 +84,7 @@ from petastorm_tpu_torch.telemetry.registry import MetricsRegistry
 logger = logging.getLogger(__name__)
 
 __all__ = ['DataLoader', 'InMemDataLoader', 'DeviceInMemDataLoader', 'DiskCachedDataLoader',
-           'PackedDataLoader']
+           'PackedDataLoader', 'make_loader']
 
 
 class DataLoader(object):
@@ -764,14 +773,38 @@ def _take_front(chunks, size):
     return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
 
 
+def make_loader(dataset_url, batch_size, batched=True, loader_kwargs=None, **reader_kwargs):
+    """A reader and a :class:`DataLoader` over it in one call (the JAX
+    package's ``make_jax_loader``): ``batched=True`` reads through
+    ``make_batch_reader`` (any Parquet store), ``False`` through
+    ``make_reader`` (a petastorm dataset, codec-decoded).  ``reader_kwargs``
+    go to the reader, ``loader_kwargs`` to the loader (``device``,
+    ``transform_fn``, ...).  Use it as a context manager: leaving it stops
+    the reader."""
+    from petastorm_tpu_torch.reader import make_batch_reader, make_reader
+    factory = make_batch_reader if batched else make_reader
+    reader = factory(dataset_url, **reader_kwargs)
+    try:
+        return DataLoader(reader, batch_size, **(loader_kwargs or {}))
+    except BaseException:
+        reader.stop()
+        reader.join()
+        raise
+
+
 def _filter_numeric(batch, warned):
-    """Drop object/string columns: they cannot live on the device."""
+    """Drop object/string columns: they cannot live on the device.  A
+    datetime64 or timedelta64 column raises, as JAX refuses it."""
     out = {}
     for name, value in batch.items():
         if isinstance(value, torch.Tensor):   # a bfloat16 leaf of a token
             out[name] = value
             continue
         arr = np.asarray(value)
+        if arr.dtype.kind in ('M', 'm'):
+            raise TypeError('Field %s: dtype %s is not a valid device array type; only numeric '
+                            'columns move to the device (convert it in transform_fn)'
+                            % (name, arr.dtype))
         if arr.dtype == object or arr.dtype.kind in ('U', 'S'):
             if name not in warned:
                 warned.add(name)

@@ -6,9 +6,12 @@ one dict of stacked column arrays per row group (the columns are stacked
 here, in the worker pool, so the consumer thread does no per-row work).
 There a static-shape column decodes whole through the native decode plane
 where it can, and a declared resize (``ResizeImages``) fuses into the
-decode.  Predicates, NGram windows, row-drop partitions and hive partition
-columns are later slices.  Nothing here imports ``torch``: the process
-pool's children unpickle this module's worker.
+decode.  A predicate is read and evaluated first, on its own columns, and
+the other columns are decoded for the rows that pass (on the row path; the
+columnar path masks them), as the JAX package's worker does; hive partition
+values are injected where the view asks for them.  NGram windows and
+row-drop partitions are later slices.  Nothing here imports ``torch``: the
+process pool's children unpickle this module's worker.
 """
 
 from dataclasses import dataclass, field as dataclass_field
@@ -27,6 +30,10 @@ class RowWorkerArgs:
     schema_view: object           # selected fields of the stored Unischema (codec source)
     transform_spec: object = None
     cache: object = dataclass_field(default_factory=NullCache)
+    #: The stored Unischema, whose fields a predicate may read beyond the
+    #: view (None: the view).
+    schema: object = None
+    predicate: object = None
     #: Publish one dict of stacked column arrays per row group instead of a
     #: list of row dicts.
     columnar_output: bool = False
@@ -56,6 +63,14 @@ def columnar_fast_path(transform_spec):
 
 class PyDictReaderWorker(ParquetWorkerBase):
 
+    def __init__(self, worker_id, publish_func, args):
+        super(PyDictReaderWorker, self).__init__(worker_id, publish_func, args)
+        self._stored = args.schema if args.schema is not None else args.schema_view
+        #: Each field by name, the stored schema's first (a predicate may
+        #: read fields beyond the view); read per cell on the row path.
+        self._fields = dict(args.schema_view.fields)
+        self._fields.update(self._stored.fields)
+
     def process(self, piece_index):
         piece = self._a.pieces[piece_index]
         cache_key = piece_cache_key(piece, self._a.schema_view, self._a.transform_spec)
@@ -64,7 +79,7 @@ class PyDictReaderWorker(ParquetWorkerBase):
             columns = self._a.cache.get(
                 cache_key + ':c',
                 lambda: self._read_with_retry(piece, lambda pf: self._load_columns(pf, piece)))
-            if columns and len(next(iter(columns.values()))) > 0:
+            if columns and len(next(iter(columns.values()), ())) > 0:
                 self.publish_func(columns)
             return
         rows = self._a.cache.get(
@@ -81,13 +96,57 @@ class PyDictReaderWorker(ParquetWorkerBase):
             return None
         return ts.resize_targets.get(name)
 
+    def _predicate_fields(self):
+        fields = set(self._a.predicate.get_fields())
+        first_pass = sorted(fields & set(self._stored.fields))
+        if not first_pass:
+            raise ValueError('Predicate fields %s not in schema' % sorted(fields))
+        return fields, first_pass
+
+    def _partition_cells(self, piece, present):
+        """``(key, value)`` of each hive partition key the view asks for and
+        ``present`` lacks: the directory's value, as the field's dtype."""
+        for key, value in piece.partition_values:
+            if key in self._a.schema_view.fields and key not in present:
+                dtype = np.dtype(self._fields[key].numpy_dtype)
+                yield key, value if dtype.kind in ('U', 'S', 'O') else dtype.type(value)
+
     def _load_columns(self, pf, piece):
-        """Decode a row group column-wise into stacked arrays."""
-        names = sorted(self._a.schema_view.fields)
-        table = pf.read_row_group(piece.row_group, columns=names)
+        """A row group decoded column-wise into stacked arrays: the
+        predicate's columns first, then the rest, masked; then the
+        partition values."""
+        wanted = set(self._a.schema_view.fields) - _injected(pf, piece)
+        predicate = self._a.predicate
+        mask = None
+        out = {}
+        if predicate is not None:
+            _, pred_fields = self._predicate_fields()
+            pred_cols = self._decode_columns(pf, piece, pred_fields)
+            num_rows = len(next(iter(pred_cols.values())))
+            mask = np.fromiter(
+                (predicate.do_include({n: pred_cols[n][i] for n in pred_fields})
+                 for i in range(num_rows)), dtype=bool, count=num_rows)
+            if not mask.any():
+                return None
+            out.update((n, pred_cols[n][mask]) for n in pred_fields if n in wanted)
+            remaining = sorted(wanted - set(pred_fields))
+        else:
+            remaining = sorted(wanted)
+        for name, arr in self._decode_columns(pf, piece, remaining).items():
+            out[name] = arr[mask] if mask is not None else arr
+        for key, cell in list(self._partition_cells(piece, out)):
+            out[key] = np.full(len(next(iter(out.values()))), cell,
+                               dtype=object if isinstance(cell, str) else None)
+        return out
+
+    def _decode_columns(self, pf, piece, names):
+        """The columns ``names`` of a row group, each decoded whole."""
+        if not names:
+            return {}
+        table = pf.read_row_group(piece.row_group, columns=list(names))
         out = {}
         for name in names:
-            f = self._a.schema_view.fields[name]
+            f = self._fields.get(name)
             column = table.column(name)
             target = self._resize_target(name)
             codec = f.codec_or_default
@@ -152,23 +211,58 @@ class PyDictReaderWorker(ParquetWorkerBase):
     # -- row path -------------------------------------------------------------
 
     def _load_rows(self, pf, piece):
-        columns = sorted(self._a.schema_view.fields)
-        table = pf.read_row_group(piece.row_group, columns=columns)
-        cols = {name: table.column(name).to_pylist() for name in columns}
-        rows = [{name: self._decode_cell(name, cols[name][i]) for name in columns}
-                for i in range(table.num_rows)]
+        wanted = set(self._a.schema_view.fields) - _injected(pf, piece)
+        predicate = self._a.predicate
+        if predicate is not None:
+            predicate_fields, first_pass = self._predicate_fields()
+            table = pf.read_row_group(piece.row_group, columns=first_pass)
+            columns = {name: table.column(name).to_pylist() for name in first_pass}
+            decoded = [{name: self._decode_cell(name, columns[name][i]) for name in first_pass}
+                       for i in range(table.num_rows)]
+            mask = [predicate.do_include(values) for values in decoded]
+            if not any(mask):
+                return []
+            rows = [dict(v) for v, keep in zip(decoded, mask) if keep]
+            # the other columns, decoded for the rows that pass only
+            remaining = sorted(wanted - predicate_fields)
+            if remaining:
+                rest = pf.read_row_group(piece.row_group, columns=remaining)
+                rest_cols = {name: rest.column(name).to_pylist() for name in remaining}
+                kept = [i for i, keep in enumerate(mask) if keep]
+                for row, i in zip(rows, kept):
+                    for name in remaining:
+                        row[name] = self._decode_cell(name, rest_cols[name][i])
+            extra = predicate_fields - wanted   # read for the predicate only
+            if extra:
+                rows = [{k: v for k, v in r.items() if k not in extra} for r in rows]
+        else:
+            columns = sorted(wanted)
+            table = pf.read_row_group(piece.row_group, columns=columns)
+            cols = {name: table.column(name).to_pylist() for name in columns}
+            rows = [{name: self._decode_cell(name, cols[name][i]) for name in columns}
+                    for i in range(table.num_rows)]
+        for key, cell in self._partition_cells(piece, wanted):
+            for r in rows:
+                r[key] = cell
         if self._a.transform_spec is not None and self._a.transform_spec.func is not None:
             rows = [self._a.transform_spec.func(r) for r in rows]
         return rows
 
     def _decode_cell(self, name, value):
-        f = self._a.schema_view.fields[name]
-        if value is None:
+        f = self._fields.get(name)
+        if value is None or f is None:
             return value
         try:
             return f.codec_or_default.decode(f, value)
         except Exception as e:
             raise DecodeFieldError('Failed to decode field %r: %s' % (name, e)) from e
+
+
+def _injected(pf, piece):
+    """The partition keys of ``piece`` that its file does not store: they
+    come from the directory names, not from a read."""
+    physical = set(pf.schema_arrow.names)
+    return {key for key, _ in piece.partition_values if key not in physical}
 
 
 def _resize_cells(batch, target):

@@ -1,32 +1,47 @@
-"""Reader orchestration: ``make_reader`` and ``Reader``.
+"""Reader orchestration: ``make_reader``, ``make_batch_reader`` and ``Reader``.
 
 Counterpart of ``petastorm_tpu/reader.py``: row-group enumeration from the
-footer metadata, sharding, row-group shuffling, epochs, the worker pool,
-the iterator protocol, the ``columnar_decode`` fast path the loader
-consumes, and exact checkpoints: ``state_dict`` (the ventilator's resume
-token with the shard topology), ``make_reader(..., resume_state=)``,
-``drain_in_flight`` and ``resume_dispatch``.
+footer metadata (or, for a plain Parquet store, from the file footers),
+``filters`` that prune row groups, sharding (``shard_seed`` permutes the
+row groups before the modulo split), row-group shuffling, epochs, the
+worker pool, the iterator protocol, and exact checkpoints: ``state_dict``
+(the ventilator's resume token with the shard topology),
+``resume_state=``, ``drain_in_flight`` and ``resume_dispatch``.
 
-Cut to what the port holds (each option outside it raises ``ValueError``
-naming where it will come): the thread, process and dummy pools, FIFO
-scheduling, synchronous reads (no ingest plane), the null cache.  The
-shard default is 0 of 1: nothing here probes a multi-host topology.
+:func:`make_reader` reads a petastorm dataset through the row worker
+(codec-decoded rows, or with ``columnar_decode=True`` one namedtuple of
+stacked columns per row group); :func:`make_batch_reader` reads any Parquet
+store through :class:`~petastorm_tpu_torch.arrow_reader_worker.ArrowReaderWorker`
+(one namedtuple of numpy arrays per row group, the schema inferred when
+the store has no petastorm metadata).  Both take a ``predicate``
+(:mod:`petastorm_tpu_torch.predicates`), ``filters`` and ``shard_seed``.
+
+Cut to what the port holds.  Each option outside it raises ``ValueError``
+naming the ``ROADMAP.md`` item that brings it: the thread, process and
+dummy pools, FIFO scheduling, synchronous reads of local files (no ingest
+plane, no HDFS or object store), the null cache; no ``rowgroup_selector``,
+``piece_indices``, row-drop partitions or NGram windows.  The shard default
+is 0 of 1: nothing here probes a multi-host topology.
 """
 
 import numpy as np
 
 from petastorm_tpu_torch.cache import NullCache
 from petastorm_tpu_torch.errors import NoDataAvailableError
-from petastorm_tpu_torch.etl.dataset_metadata import get_schema, load_row_groups
-from petastorm_tpu_torch.fs_utils import get_filesystem_and_path
+from petastorm_tpu_torch.etl.dataset_metadata import (get_schema, infer_or_load_unischema,
+                                                      load_row_groups)
+from petastorm_tpu_torch.fs_utils import get_filesystem_and_path, get_filesystem_and_path_or_paths
 from petastorm_tpu_torch.py_dict_reader_worker import PyDictReaderWorker, RowWorkerArgs
 from petastorm_tpu_torch.transform import transform_schema
+from petastorm_tpu_torch.unischema import match_unischema_fields
 from petastorm_tpu_torch.workers_pool import EmptyResultError, TimeoutWaitingForResultError
 from petastorm_tpu_torch.workers_pool.dummy_pool import DummyPool
 from petastorm_tpu_torch.workers_pool.thread_pool import ThreadPool
 from petastorm_tpu_torch.workers_pool.ventilator import ConcurrentVentilator
 
 _LATER = 'a later slice of the port'
+#: Where the host planes this slice refuses are queued.
+_HOST_PLANES = 'ROADMAP.md, Queue A item 7'
 
 
 def _make_pool(reader_pool_type, workers_count, results_queue_size, zmq_copy_buffers=True):
@@ -41,97 +56,233 @@ def _make_pool(reader_pool_type, workers_count, results_queue_size, zmq_copy_buf
                      % (reader_pool_type,))
 
 
-def _shard_indices(num_pieces, cur_shard, shard_count):
-    """Piece indices of this shard: ``i % shard_count == cur_shard``."""
+def _refuse_outside_slice(scheduling, ingest, cache_type, storage_options=None,
+                          filesystem=None, rowgroup_selector=None, piece_indices=None,
+                          shuffle_row_drop_partitions=1):
+    """Raise for each option whose plane the port does not hold yet.
+    ``'auto'`` scheduling and ingest read local files in FIFO order
+    synchronously, as the JAX package's do there."""
+    refused = []
+    if scheduling not in ('fifo', 'auto'):
+        refused.append('scheduling=%r: only FIFO dispatch is in this slice; adaptive '
+                       'scheduling is %s' % (scheduling, _LATER))
+    if ingest not in ('off', 'auto'):
+        refused.append('ingest=%r: only synchronous reads are in this slice; the async ingest '
+                       'plane is %s' % (ingest, _LATER))
+    if cache_type not in (None, 'null', 'none'):
+        refused.append("cache_type=%r: only 'null' is in this slice; the local-disk cache and "
+                       'the cache plane are %s' % (cache_type, _LATER))
+    if storage_options is not None or filesystem is not None:
+        refused.append('storage_options/filesystem: only local files are in this slice; HDFS '
+                       'and object stores are %s' % _LATER)
+    if rowgroup_selector is not None:
+        refused.append('rowgroup_selector needs the row-group indexes, %s' % _LATER)
+    if piece_indices is not None:
+        refused.append('piece_indices (the data service client\'s split) is %s' % _LATER)
+    if shuffle_row_drop_partitions not in (None, 1):
+        refused.append('shuffle_row_drop_partitions=%r: row-drop partitions are %s'
+                       % (shuffle_row_drop_partitions, _LATER))
+    if refused:
+        raise ValueError('; '.join(refused) + ' (%s)' % _HOST_PLANES)
+
+
+def _shard_indices(num_pieces, cur_shard, shard_count, shard_seed=None):
+    """Piece indices of this shard: ``i % shard_count == cur_shard`` over the
+    row groups' order, which ``shard_seed`` first permutes with numpy's
+    ``RandomState(shard_seed & 0xffffffff)`` (a pure function of the seed
+    across numpy versions; every host must pass the same one)."""
     if shard_count is None:
         if cur_shard is not None:
             raise ValueError('cur_shard requires shard_count')
         return list(range(num_pieces))
     if cur_shard is None or not 0 <= cur_shard < shard_count:
         raise ValueError('cur_shard must be in [0, %d), got %r' % (shard_count, cur_shard))
-    return [i for i in range(num_pieces) if i % shard_count == cur_shard]
+    order = list(range(num_pieces))
+    if shard_seed is not None:
+        order = np.random.RandomState(int(shard_seed) & 0xffffffff) \
+            .permutation(num_pieces).tolist()
+    return [order[i] for i in range(num_pieces) if i % shard_count == cur_shard]
+
+
+def _topology(cur_shard, shard_count, shard_seed, num_pieces, shuffle_row_groups):
+    """The JAX reader's topology keys, at the values this reader has (no
+    row-drop partitions)."""
+    return {'cur_shard': cur_shard, 'shard_count': shard_count,
+            'shard_seed': None if shard_seed is None else int(shard_seed),
+            'shard_scheme': None if shard_seed is None else 'rs-perm-v1',
+            'num_global_pieces': num_pieces, 'drop_partitions': 1,
+            'shuffle': bool(shuffle_row_groups)}
+
+
+def _local_pieces(fs, pieces, filters, stored_schema, cur_shard, shard_count, shard_seed,
+                  dataset_url):
+    """The pieces after ``filters``, and this shard's indices into them."""
+    if filters is not None:
+        from petastorm_tpu_torch.etl.rowgroup_filtering import apply_arrow_filters
+        pieces = apply_arrow_filters(fs, pieces, filters, stored_schema)
+    local_indices = _shard_indices(len(pieces), cur_shard, shard_count, shard_seed)
+    if not local_indices:
+        raise NoDataAvailableError(
+            'No row groups to read from %r after sharding/selection' % (dataset_url,))
+    return pieces, local_indices
 
 
 def make_reader(dataset_url,
                 schema_fields=None,
                 reader_pool_type='thread', workers_count=10, results_queue_size=50,
-                shuffle_row_groups=True,
+                shuffle_row_groups=True, shuffle_row_drop_partitions=1,
+                predicate=None, rowgroup_selector=None,
                 num_epochs=1,
-                cur_shard=None, shard_count=None,
+                cur_shard=None, shard_count=None, shard_seed=None,
                 cache_type='null',
-                transform_spec=None,
+                transform_spec=None, filters=None,
                 seed=None, resume_state=None, zmq_copy_buffers=True,
                 columnar_decode=False, read_retries=2, retry_backoff_s=0.1,
-                scheduling='fifo', ingest='off'):
+                piece_indices=None, scheduling='fifo', ingest='off'):
     """Reader over a petastorm-format dataset (codec-decoded rows).
 
     Yields namedtuple rows, or with ``columnar_decode=True`` one namedtuple
     of stacked column arrays per row group (the fast path for
     :class:`petastorm_tpu_torch.gpu.DataLoader`).  Argument names and
-    defaults follow ``petastorm_tpu.make_reader``; ``scheduling`` and
-    ``ingest`` take only the values this slice implements.
+    defaults follow ``petastorm_tpu.make_reader``; the options this slice
+    does not hold raise (see the module docstring).
+
+    ``predicate`` (a :class:`~petastorm_tpu_torch.predicates.PredicateBase`)
+    is evaluated in the workers on its own columns first; the other columns
+    are decoded for the rows that pass.  ``filters`` (pyarrow's DNF) prune
+    row groups by footer statistics and partition values.  ``shard_seed``
+    permutes the row groups before ``cur_shard``/``shard_count`` split them.
 
     ``reader_pool_type='process'`` decodes in ``workers_count`` processes of
     their own (:class:`~petastorm_tpu_torch.workers_pool.process_pool.ProcessPool`),
     outside this interpreter's lock; results come back through
-    ``/dev/shm``.  Its transform must then be picklable (a module-level
-    function or callable class): one that is not raises here.
-    ``zmq_copy_buffers=False`` sends byte-path results without ZeroMQ's copy.
+    ``/dev/shm``.  Its transform and predicate must then be picklable (a
+    module-level function or callable class): a transform that is not
+    raises here.  ``zmq_copy_buffers=False`` sends byte-path results
+    without ZeroMQ's copy.
 
     ``resume_state`` is a token of :meth:`Reader.state_dict` (or the
     ``'reader'`` entry of a loader's token, the JAX package's included):
     the reader starts at its position.  A token taken under another shard
     topology raises.
     """
-    if scheduling != 'fifo':
-        raise ValueError("scheduling=%r: only 'fifo' is in this slice; adaptive "
-                         "scheduling is %s" % (scheduling, _LATER))
-    if ingest != 'off':
-        raise ValueError("ingest=%r: only 'off' is in this slice; the async ingest "
-                         "plane is %s" % (ingest, _LATER))
-    if cache_type not in (None, 'null', 'none'):
-        raise ValueError("cache_type=%r: only 'null' is in this slice; the local-disk "
-                         "cache and the cache plane are %s" % (cache_type, _LATER))
+    if type(schema_fields).__name__ == 'NGram':
+        raise ValueError('NGram windows are %s (ROADMAP.md, Queue A item 3)' % _LATER)
+    _refuse_outside_slice(scheduling, ingest, cache_type, rowgroup_selector=rowgroup_selector,
+                          piece_indices=piece_indices,
+                          shuffle_row_drop_partitions=shuffle_row_drop_partitions)
     fs, path = get_filesystem_and_path(dataset_url)
     stored_schema = get_schema(fs, path)
     schema_view = (stored_schema.create_schema_view(schema_fields)
                    if schema_fields is not None else stored_schema)
-
-    pieces = load_row_groups(fs, path)
-    local_indices = _shard_indices(len(pieces), cur_shard, shard_count)
-    if not local_indices:
-        raise NoDataAvailableError(
-            'No row groups to read from %r after sharding' % (dataset_url,))
-
+    pieces, local_indices = _local_pieces(fs, load_row_groups(fs, path), filters,
+                                          stored_schema, cur_shard, shard_count, shard_seed,
+                                          dataset_url)
     worker_args = RowWorkerArgs(
-        pieces=pieces, schema_view=schema_view,
+        pieces=pieces, schema_view=schema_view, schema=stored_schema, predicate=predicate,
         transform_spec=transform_spec, cache=NullCache(),
         columnar_output=columnar_decode, read_retries=read_retries,
         retry_backoff_s=retry_backoff_s)
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size, zmq_copy_buffers)
     result_schema = transform_schema(schema_view, transform_spec) \
         if transform_spec is not None else schema_view
-    # the JAX reader's topology keys, at the values this reader has (no shard
-    # permutation, no row-drop partitions)
-    topology = {'cur_shard': cur_shard, 'shard_count': shard_count, 'shard_seed': None,
-                'shard_scheme': None, 'num_global_pieces': len(pieces), 'drop_partitions': 1,
-                'shuffle': bool(shuffle_row_groups)}
-    return Reader(pool=pool, worker_args=worker_args,
+    return Reader(pool=pool, worker_class=PyDictReaderWorker, worker_args=worker_args,
                   items=[(i,) for i in local_indices], schema=result_schema,
                   shuffle_items=shuffle_row_groups, num_epochs=num_epochs, seed=seed,
-                  batched_output=columnar_decode, resume_state=resume_state,
-                  topology=topology)
+                  result_converter=_ColumnarDictConverter(result_schema)
+                  if columnar_decode else None,
+                  resume_state=resume_state,
+                  topology=_topology(cur_shard, shard_count, shard_seed, len(pieces),
+                                     shuffle_row_groups))
+
+
+def make_batch_reader(dataset_url_or_urls,
+                      schema_fields=None,
+                      reader_pool_type='thread', workers_count=10, results_queue_size=50,
+                      shuffle_row_groups=True,
+                      predicate=None,
+                      num_epochs=1,
+                      cur_shard=None, shard_count=None, shard_seed=None,
+                      cache_type='null', cache_location=None, cache_size_limit=None,
+                      cache_row_size_estimate=None, cache_extra_settings=None,
+                      transform_spec=None, filters=None,
+                      storage_options=None, filesystem=None, hdfs_driver='libhdfs',
+                      seed=None, resume_state=None, zmq_copy_buffers=True,
+                      read_retries=2, retry_backoff_s=0.1, piece_indices=None,
+                      scheduling='auto', ingest='auto', ingest_window=None):
+    """Columnar reader over any Parquet store (petastorm metadata optional).
+
+    Yields one namedtuple of numpy arrays per row group: a rectangular list
+    column as a 2-D array, a ragged one (or strings) as an object array.
+    Argument names and defaults follow ``petastorm_tpu.make_batch_reader``:
+    ``dataset_url_or_urls`` is one URL or a list of them (one filesystem);
+    the schema is the stored Unischema, or one inferred from the first
+    file's arrow schema; ``schema_fields`` are regex strings;
+    ``transform_spec.func`` takes and returns a ``pandas.DataFrame`` (and
+    may drop rows: :attr:`Reader.transform_may_change_row_count`).
+    ``predicate``, ``filters``, ``shard_seed``, the pools and
+    ``resume_state`` work as in :func:`make_reader`.  The cache, HDFS and
+    object-store options, ``piece_indices``, adaptive scheduling and the
+    ingest plane raise (``'auto'`` reads local files synchronously, in FIFO
+    order).
+    """
+    from petastorm_tpu_torch.arrow_reader_worker import (ArrowReaderWorker, ArrowResultConverter,
+                                                         BatchWorkerArgs)
+    _refuse_outside_slice(scheduling, ingest, cache_type, storage_options=storage_options,
+                          filesystem=filesystem, piece_indices=piece_indices)
+    fs, path_or_paths = get_filesystem_and_path_or_paths(dataset_url_or_urls)
+    paths = path_or_paths if isinstance(path_or_paths, list) else [path_or_paths]
+    stored_schema = infer_or_load_unischema(fs, paths[0])
+    if schema_fields is not None:
+        if not all(isinstance(f, str) for f in schema_fields):
+            raise ValueError('make_batch_reader schema_fields must be regex strings')
+        matched = match_unischema_fields(stored_schema, schema_fields)
+        schema_view = stored_schema.create_schema_view(matched) if matched else stored_schema
+    else:
+        schema_view = stored_schema
+    pieces = []
+    for p in paths:
+        pieces.extend(load_row_groups(fs, p))
+    pieces, local_indices = _local_pieces(fs, pieces, filters, stored_schema, cur_shard,
+                                          shard_count, shard_seed, dataset_url_or_urls)
+    worker_args = BatchWorkerArgs(pieces=pieces, schema_view=schema_view,
+                                  transform_spec=transform_spec, predicate=predicate,
+                                  cache=NullCache(), read_retries=read_retries,
+                                  retry_backoff_s=retry_backoff_s)
+    pool = _make_pool(reader_pool_type, workers_count, results_queue_size, zmq_copy_buffers)
+    result_schema = transform_schema(schema_view, transform_spec) \
+        if transform_spec is not None else schema_view
+    return Reader(pool=pool, worker_class=ArrowReaderWorker, worker_args=worker_args,
+                  items=[(i,) for i in local_indices], schema=result_schema,
+                  shuffle_items=shuffle_row_groups, num_epochs=num_epochs, seed=seed,
+                  result_converter=ArrowResultConverter(result_schema),
+                  resume_state=resume_state,
+                  topology=_topology(cur_shard, shard_count, shard_seed, len(pieces),
+                                     shuffle_row_groups))
+
+
+class _ColumnarDictConverter(object):
+    """A columnar row worker's dict of stacked columns -> a namedtuple."""
+
+    def __init__(self, schema):
+        self._schema = schema
+
+    def convert(self, columns):
+        return self._schema.make_namedtuple_from_dict(columns)
 
 
 class Reader(object):
     """Iterator over the dataset; owns the pool + ventilator lifecycle."""
 
-    def __init__(self, *, pool, worker_args, items, schema, shuffle_items,
-                 num_epochs, seed, topology, batched_output=False, resume_state=None):
+    def __init__(self, *, pool, worker_class, worker_args, items, schema, shuffle_items,
+                 num_epochs, seed, topology, result_converter=None, resume_state=None):
         self.schema = schema
-        #: True for the columnar path: __next__ yields namedtuples of column
-        #: arrays instead of single rows.
-        self.batched_output = batched_output
+        #: True for the columnar and batch paths: __next__ yields namedtuples
+        #: of column arrays (``result_converter`` builds one from each
+        #: result) instead of single rows.
+        self.batched_output = result_converter is not None
+        self._result_converter = result_converter
+        self._worker_class = worker_class
         self._pool = pool
         self._worker_args = worker_args
         self._items = items
@@ -164,7 +315,7 @@ class Reader(object):
             random_seed=self._seed,
             max_ventilation_queue_size=max(1, min(len(self._items), window)),
             start_epoch=start_epoch, start_cursor=start_cursor)
-        self._pool.start(PyDictReaderWorker, self._worker_args, ventilator=self._ventilator)
+        self._pool.start(worker_class, self._worker_args, ventilator=self._ventilator)
 
     def _check_resume_topology(self, resume_state):
         """A token's position indexes one shard's permutation: under another
@@ -236,12 +387,24 @@ class Reader(object):
 
     def _drained(self, result):
         if self.batched_output:
-            return [self.schema.make_namedtuple_from_dict(_owned(result))]
+            # a batch worker's table converts into owned arrays
+            return [self._result_converter.convert(
+                _owned(result) if isinstance(result, dict) else result)]
         return [self.schema.make_namedtuple_from_dict(_owned(row)) for row in result]
 
     def resume_dispatch(self):
         """Resume dispatch after :meth:`drain_in_flight`."""
         self._ventilator.unpause()
+
+    @property
+    def transform_may_change_row_count(self):
+        """True when this reader's transform runs on a DataFrame (the batch
+        worker), where ``func`` may drop rows; the row worker applies
+        ``func`` to each row, one for one."""
+        spec = self._worker_args.transform_spec
+        if spec is None or spec.func is None:
+            return False
+        return getattr(self._worker_class, 'DATAFRAME_TRANSFORM', False)
 
     @property
     def num_epochs(self):
@@ -254,7 +417,7 @@ class Reader(object):
     def __next__(self):
         if self.batched_output:
             try:
-                return self.schema.make_namedtuple_from_dict(self._pool.get_results())
+                return self._result_converter.convert(self._pool.get_results())
             except EmptyResultError:
                 self.last_row_consumed = True
                 raise StopIteration from None

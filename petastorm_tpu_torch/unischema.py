@@ -2,10 +2,10 @@
 projections.
 
 Counterpart of ``petastorm_tpu/unischema.py`` without its JAX projection
-(``field_shape_dtype_struct``), its Spark projections and the inferred
-list codec of the batch reader (a later slice).  Instances pickle exactly as
-the JAX package's do, so footers written by either package read in the
-other.
+(``field_shape_dtype_struct``) and its Spark projections.
+:meth:`Unischema.from_arrow_schema` infers a schema from a plain Parquet
+store's arrow schema for the batch reader.  Instances pickle exactly as the
+JAX package's do, so footers written by either package read in the other.
 """
 
 import re
@@ -14,7 +14,7 @@ from collections import OrderedDict, namedtuple
 import numpy as np
 import pyarrow as pa
 
-from petastorm_tpu_torch.codecs import ScalarCodec
+from petastorm_tpu_torch.codecs import ScalarCodec, _arrow_type_for_numpy
 
 __all__ = [
     'Unischema',
@@ -131,6 +131,30 @@ class Unischema(object):
             for f in self._fields.values()
         ])
 
+    @classmethod
+    def from_arrow_schema(cls, arrow_schema, omit_unsupported_fields=True):
+        """A scalar Unischema inferred from a plain Parquet store's arrow
+        schema (the batch reader's path): a list column becomes a ``(None,)``
+        field of its value type, string, binary and decimal columns object
+        fields, timestamps and dates ``datetime64[ns]``; a column of another
+        type is omitted (or raises, with ``omit_unsupported_fields=False``)."""
+        fields = []
+        for arrow_field in arrow_schema:
+            np_dtype = _numpy_dtype_for_arrow(arrow_field.type)
+            if np_dtype is None:
+                if omit_unsupported_fields:
+                    continue
+                raise ValueError('Unsupported arrow type %r for field %r'
+                                 % (arrow_field.type, arrow_field.name))
+            if pa.types.is_list(arrow_field.type) or pa.types.is_large_list(arrow_field.type):
+                fields.append(UnischemaField(arrow_field.name, np_dtype, (None,),
+                                             codec=_PassthroughListCodec(np_dtype),
+                                             nullable=arrow_field.nullable))
+            else:
+                fields.append(UnischemaField(arrow_field.name, np_dtype, (),
+                                             codec=None, nullable=arrow_field.nullable))
+        return cls('inferred', fields)
+
     def __str__(self):
         return 'Unischema(%s, %s)' % (self._name, list(self._fields))
 
@@ -146,6 +170,46 @@ class Unischema(object):
     def __reduce__(self):
         # Stable pickling independent of the lazily-built namedtuple cache.
         return (self.__class__, (self._name, list(self._fields.values())))
+
+
+class _PassthroughListCodec(object):
+    """The codec of an inferred list column (batch path): cells are arrow
+    lists, decoded to arrays of the value type."""
+
+    def __init__(self, np_dtype):
+        self._np_dtype = np.dtype(np_dtype)
+
+    def encode(self, unischema_field, value):
+        return np.asarray(value, dtype=self._np_dtype).tolist()
+
+    def decode(self, unischema_field, value):
+        return np.asarray(value, dtype=self._np_dtype)
+
+    def arrow_dtype(self):
+        return pa.list_(_arrow_type_for_numpy(self._np_dtype))
+
+    def __eq__(self, other):
+        return isinstance(other, _PassthroughListCodec) and self._np_dtype == other._np_dtype
+
+    def __hash__(self):
+        return hash(('_PassthroughListCodec', self._np_dtype.str))
+
+
+def _numpy_dtype_for_arrow(arrow_type):
+    """The numpy dtype of an arrow column's values, or None when it has
+    none."""
+    try:
+        if pa.types.is_list(arrow_type) or pa.types.is_large_list(arrow_type):
+            return _numpy_dtype_for_arrow(arrow_type.value_type)
+        if pa.types.is_string(arrow_type) or pa.types.is_large_string(arrow_type) \
+                or pa.types.is_binary(arrow_type) or pa.types.is_large_binary(arrow_type) \
+                or pa.types.is_decimal(arrow_type):
+            return np.dtype('O')
+        if pa.types.is_timestamp(arrow_type) or pa.types.is_date(arrow_type):
+            return np.dtype('datetime64[ns]')
+        return np.dtype(arrow_type.to_pandas_dtype())
+    except (NotImplementedError, TypeError):
+        return None
 
 
 def match_unischema_fields(schema, field_regex):

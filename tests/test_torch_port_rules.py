@@ -49,7 +49,10 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                    'telemetry/__init__.py', 'telemetry/registry.py', 'telemetry/spans.py',
                    'benchmark/trace.py', 'benchmark/advisor.py', 'benchmark/stall_profiler.py',
                    'train.py', 'train_mnist.py', 'checkpoint.py', 'models/mlp.py',
-                   'reader_impl/shuffling_buffer.py'):
+                   'reader_impl/shuffling_buffer.py', 'arrow_reader_worker.py', 'predicates.py',
+                   'etl/rowgroup_filtering.py', 'models/dlrm.py', 'optim.py', 'train_dlrm.py',
+                   'hello_world.py', 'spark/spark_dataset_converter.py',
+                   'spark/converter_example.py'):
         assert os.path.join(PACKAGE, module) in sources, module
     offenders = []
     for path in sources:
@@ -211,6 +214,85 @@ def test_decode_workers_load_neither_torch_nor_jax(tmp_path):
     assert 'LOADED []' in proc.stdout
 
 
+def test_batch_path_on_cpu_never_loads_jax(tmp_path):
+    """The Criteo trainer (streaming and ``--scan-steps``, with the process
+    pool's batch workers), both hello-world flows and the converter example
+    on the CPU load nothing of JAX, flax or optax."""
+    script = textwrap.dedent('''
+        import sys
+        import numpy as np
+        from petastorm_tpu_torch import hello_world, train_dlrm
+        from petastorm_tpu_torch.spark import converter_example
+        root = sys.argv[1]
+        url = train_dlrm.generate_criteo_parquet('file://' + root + '/criteo', rows_count=1024,
+                                                 rows_per_group=256)
+        for scan in (0, 2):
+            result = train_dlrm.train(url, batch_size=128, scan_steps=scan, device='cpu',
+                                      reader_kwargs=dict(reader_pool_type='process',
+                                                         workers_count=2))
+            assert len(result['losses']) == 8 and np.isfinite(result['losses']).all(), result
+        out = hello_world.main(['--root', root, '--device', 'cpu'])
+        assert len(out['petastorm']) == 2 and len(out['external']) == 4
+        result = converter_example.main(['--device', 'cpu', '--parent-cache-dir-url',
+                                         'file://' + root + '/cache'])
+        assert result['steps'] == 16
+        loaded = sorted(m for m in sys.modules if m.split('.')[0] in FORBIDDEN)
+        print('LOADED', loaded)
+        sys.exit(1 if loaded else 0)
+    ''').replace('FORBIDDEN', repr(FORBIDDEN))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, '-c', script, str(tmp_path)], env=env,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert 'LOADED []' in proc.stdout
+
+
+def test_batch_decode_workers_load_neither_torch_nor_jax(tmp_path):
+    """What a process-pool child of ``make_batch_reader`` imports and
+    unpickles (the batch worker, its arguments with an inferred schema, a
+    predicate and a pandas transform, the row-group filters) loads neither
+    torch nor JAX; and a batch reader on the process pool delivers."""
+    import pickle
+    import pyarrow as pa
+    from petastorm_tpu_torch.arrow_reader_worker import ArrowReaderWorker, BatchWorkerArgs
+    from petastorm_tpu_torch.predicates import in_set
+    from petastorm_tpu_torch.reader import make_batch_reader
+    from petastorm_tpu_torch.transform import TransformSpec
+    from petastorm_tpu_torch.unischema import Unischema
+    from petastorm_tpu_torch.workers_pool.process_worker import worker_main
+    schema = Unischema.from_arrow_schema(pa.schema([('a', pa.int64()),
+                                                    ('b', pa.list_(pa.float32()))]))
+    payload = tmp_path / 'payload.pkl'
+    payload.write_bytes(pickle.dumps(
+        (worker_main, ArrowReaderWorker,
+         BatchWorkerArgs(pieces=[], schema_view=schema, predicate=in_set({1}, 'a'),
+                         transform_spec=TransformSpec(removed_fields=['b'])))))
+    script = textwrap.dedent('''
+        import pickle, sys
+        import petastorm_tpu_torch.arrow_reader_worker
+        import petastorm_tpu_torch.etl.rowgroup_filtering
+        import petastorm_tpu_torch.workers_pool.process_worker
+        with open(sys.argv[1], 'rb') as f:
+            worker_main, worker, args = pickle.load(f)
+        assert worker.DATAFRAME_TRANSFORM and args.predicate.do_include({'a': 1})
+        loaded = sorted(m for m in sys.modules if m.split('.')[0] in FORBIDDEN + ('torch',))
+        print('LOADED', loaded)
+        sys.exit(1 if loaded else 0)
+    ''').replace('FORBIDDEN', repr(FORBIDDEN))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, '-c', script, str(payload)], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert 'LOADED []' in proc.stdout
+    import pyarrow.parquet as pq
+    (tmp_path / 'ds').mkdir()
+    pq.write_table(pa.table({'a': list(range(40))}), str(tmp_path / 'ds' / 'data.parquet'),
+                   row_group_size=10)
+    with make_batch_reader('file://%s' % (tmp_path / 'ds'), reader_pool_type='process',
+                           workers_count=2, predicate=in_set({1, 15}, 'a')) as reader:
+        assert sorted(int(v) for b in reader for v in b.a) == [1, 15]
+
+
 def test_process_pool_training_on_cpu_equals_the_thread_pools(tmp_path):
     """ViT (one layer) trained 2 steps on the CPU with the process pool
     gives the thread pool's losses, one worker each (one data order), under
@@ -330,6 +412,26 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_pa
     for flags in ([], ['--packed'], ['--packed', '--strategy', 'flash', '--sample']):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             lm.main(['--dataset-url', 'file://%s' % tmp_path, '--steps', '1'] + flags)
+
+
+def test_batch_path_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch,
+                                                                       tmp_path):
+    from petastorm_tpu_torch import hello_world, make_loader, train_dlrm
+    from petastorm_tpu_torch.spark import converter_example
+    from petastorm_tpu_torch.spark.spark_dataset_converter import SparkDatasetConverter
+    url = hello_world.generate_external_dataset('file://%s' % (tmp_path / 'ext'))
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        make_loader(url, 4)
+    with make_loader(url, 4, loader_kwargs=dict(device='cpu')) as loader:
+        assert next(iter(loader))['id'].device.type == 'cpu'
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        SparkDatasetConverter(url, 100).make_loader(4)
+    for entry in (lambda: train_dlrm.train(url), lambda: train_dlrm.main(['--dataset-url', url]),
+                  lambda: converter_example.main([]),
+                  lambda: hello_world.main(['--root', str(tmp_path), '--flow', 'petastorm'])):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            entry()
 
 
 def test_kernel_wrappers_never_fall_back():
