@@ -126,7 +126,21 @@ Phases, in order; any failure propagates and exits nonzero:
    and with ``--scan-steps 4`` (rows/s, step and host ms, data wait,
    ``stall_pct``, busy share, kernels per step), eager and graphed equal bit
    for bit over 20 steps; both hello-world flows; the DataFrame converter's
-   example; and a pumped batch loader cut and resumed bit for bit.
+   example; and a pumped batch loader cut and resumed bit for bit;
+19. reference footer: in a process of its own, a store whose footer holds
+   upstream petastorm's frozen bytes (``petastorm.*`` classes, Spark SQL
+   types, no pyspark on this host) read through ``make_reader`` on three
+   pools (every codec column equal to the written rows) and
+   ``make_batch_reader`` (the stored schema); neither ``petastorm`` nor
+   ``petastorm_tpu`` nor ``jax`` loaded afterwards;
+20. NGram (BASELINE config #5): the sensor log at 2^17 rows (1,311 row
+   groups, 125,828 windows); the reader alone on the dummy pool, 4 threads
+   and 8 processes (the same multiset of windows, windows/s); the
+   example's loop on the card, pumped, ``predict_speed`` graphed and eager
+   for one epoch (windows/s, step and host ms, data wait, ``stall_pct``, the
+   device's share and kernels per step of each under the profiler) and bit for bit over 300 batches in one data order; a
+   shard resumed bit for bit with the shuffling buffer and batches in
+   flight; the same shard with ``echo=2``.
 
 Every streaming path moves its batches through the loader's transfer
 plane (``transfer='auto'``): a dispatch thread pulls, transforms and puts
@@ -758,12 +772,18 @@ def _family(name):
 
 
 def _step_starts(trace, events):
-    """``(device time, host time)`` at which each profiled step starts: the
-    first device event launched from inside each ``train_step`` range of
-    the host (matched by the launch's correlation id; every kernel of a
-    graph replay carries its graph launch's), and the range's start.  Only
-    the training thread's calls count: the loader's transfer thread copies
-    meanwhile."""
+    """``(device time, host time)`` at which each profiled step starts, one
+    per ``train_step`` range of the training thread outside a graph capture
+    (``graphs.CAPTURE_RANGE``: a capture runs nothing), in order: the first
+    device event launched from inside the range (matched by the launch's
+    correlation id; every kernel of a graph replay carries its graph
+    launch's), and the range's start.  The device time is None where the
+    trace holds no device record of any launch from the range: the
+    profiler's CUDA tracing loses records now and then (on the H100 a
+    whole step's, once in many runs), while the ranges are the profiler's
+    own host records.  Only the training thread's calls count: the
+    loader's transfer thread copies meanwhile."""
+    from petastorm_tpu_torch.gpu.graphs import CAPTURE_RANGE
     main_tid = _step_tid(trace)
     device_ts = {}
     for e in events:
@@ -773,13 +793,35 @@ def _step_starts(trace, events):
     launches = sorted((e['ts'], e['args']['correlation']) for e in trace
                       if e.get('cat') in ('cuda_runtime', 'cuda_driver') and e['tid'] == main_tid
                       and e.get('args', {}).get('correlation') in device_ts)
+    captures = [(e['ts'], e['ts'] + e['dur']) for e in trace
+                if e.get('cat') == 'user_annotation' and e['name'] == CAPTURE_RANGE
+                and e['tid'] == main_tid]
     starts = []
     for step in sorted((e for e in trace if e.get('cat') == 'user_annotation'
-                        and e['name'] == 'train_step'), key=lambda e: e['ts']):
-        inside = [device_ts[c] for t, c in launches if step['ts'] <= t <= step['ts'] + step['dur']]
-        if inside:
-            starts.append((min(inside), step['ts']))
+                        and e['name'] == 'train_step' and e['tid'] == main_tid),
+                       key=lambda e: e['ts']):
+        lo, hi = step['ts'], step['ts'] + step['dur']
+        if any(c0 <= lo and hi <= c1 for c0, c1 in captures):
+            continue
+        inside = [device_ts[c] for t, c in launches if lo <= t <= hi]
+        starts.append((min(inside) if inside else None, lo))
     return starts
+
+
+def _recorded_span(starts, first, last, label):
+    """``(i, j)``: the first and the last step of ``starts[first..last]``
+    whose device start the trace holds (see :func:`_step_starts`); logs the
+    steps of the run whose device records it lost, and raises if fewer
+    than two of those steps are left."""
+    lost = [k + 1 for k, (t, _) in enumerate(starts) if t is None]
+    if lost:
+        log('profile %s: the trace holds no device record of steps %s (lost by the '
+            'profiler); measured between the recorded steps around them' % (label, lost))
+    held = [k for k in range(first, last + 1) if starts[k][0] is not None]
+    if len(held) < 2:
+        raise AssertionError('profile %s: device records of %d of steps %d..%d'
+                             % (label, len(held), first + 1, last + 1))
+    return held[0], held[-1]
 
 
 def _step_tid(trace):
@@ -796,7 +838,9 @@ def phase_profile(run, label, tmp, steps=8):
     """Where the time of a training step goes: ``run(steps)``, a short
     training run, under torch.profiler (host and device activity).  Over
     steps 3..steps-1 (:func:`_step_starts` finds where each starts on the
-    device and on the host): the device busy time per step and its split by
+    device and on the host; a step whose device records the trace lost
+    narrows the window to the recorded steps around it, and launches left
+    without a device record are counted): the device busy time per step and its split by
     kernel family, the kernels per step, and on the host the time per step
     inside CUDA launch calls (kernel launches and graph launches, also
     counted apart; a graph launch waits while the device is still busy with
@@ -817,9 +861,10 @@ def phase_profile(run, label, tmp, steps=8):
     events.sort(key=lambda e: e['ts'])
     starts = _step_starts(trace, events)
     if len(starts) != steps:
-        raise AssertionError('profile %s: found %d step starts for %d steps'
+        raise AssertionError('profile %s: found %d train_step ranges for %d steps'
                              % (label, len(starts), steps))
-    (lo, host_lo), (hi, host_hi) = starts[2], starts[-1]
+    i, j = _recorded_span(starts, 2, steps - 1, label)
+    (lo, host_lo), (hi, host_hi) = starts[i], starts[j]
     busy, end, families, names = 0.0, lo, {}, {}
     for e in events:
         t0, t1 = max(e['ts'], lo), min(e['ts'] + e['dur'], hi)
@@ -831,15 +876,20 @@ def phase_profile(run, label, tmp, steps=8):
         if t1 > end:
             busy += t1 - max(t0, end)
             end = t1
-    n = len(starts) - 3
+    n = j - i
     kernels = sum(1 for e in events if e.get('cat') == 'kernel' and lo <= e['ts'] < hi)
     launch_us = wait_us = 0.0
     graph_launches = kernel_launches = 0
     launched = {}    # device kernel name -> launches from the host (not by a graph)
     kernel_name = {e['args']['correlation']: e['name'] for e in events
                    if e.get('cat') == 'kernel' and 'correlation' in e.get('args', {})}
+    recorded = {e['args'].get('correlation') for e in events}
+    unrecorded = 0   # launches, copies and sets with no device record in the trace
     for e in runtime:   # the host's calls from the start of step 3 to that of the last
         if host_lo <= e['ts'] < host_hi:
+            if any(k in e['name'] for k in ('Launch', 'Memcpy', 'Memset')) \
+                    and e.get('args', {}).get('correlation') not in recorded:
+                unrecorded += 1
             if 'Launch' in e['name']:
                 launch_us += e.get('dur', 0)
                 if 'GraphLaunch' in e['name']:
@@ -850,9 +900,12 @@ def phase_profile(run, label, tmp, steps=8):
                     launched[name] = launched.get(name, 0) + 1
             elif 'Synchronize' in e['name'] or e['name'] in ('cudaMemcpy', 'cuMemcpy'):
                 wait_us += e.get('dur', 0)
-    log('profile %s (steps 3..%d under torch.profiler, %.2f ms per step): device busy %.2f ms '
+    if unrecorded:
+        log('profile %s: %d launches and copies of the window have no device record in the '
+            'trace: the busy time below misses their work' % (label, unrecorded))
+    log('profile %s (steps %d..%d under torch.profiler, %.2f ms per step): device busy %.2f ms '
         'per step (%.1f%%); kernel time by family, ms per step: %s'
-        % (label, steps - 1, (hi - lo) / n / 1e3, busy / n / 1e3, 100.0 * busy / (hi - lo),
+        % (label, i + 1, j, (hi - lo) / n / 1e3, busy / n / 1e3, 100.0 * busy / (hi - lo),
            ', '.join('%s %.2f' % (k, v / n / 1e3)
                      for k, v in sorted(families.items(), key=lambda kv: -kv[1]))))
     longest = {}
@@ -878,7 +931,8 @@ def phase_profile(run, label, tmp, steps=8):
                 busy_pct=100.0 * busy / (hi - lo), kernels=kernels / n,
                 launch_ms=launch_us / n / 1e3, graph_launches=graph_launches / n,
                 kernel_launches=kernel_launches / n, wait_ms=wait_us / n / 1e3,
-                host_launched={k: v / n for k, v in launched.items()})
+                host_launched={k: v / n for k, v in launched.items()}, steps=n,
+                unrecorded_launches=unrecorded)
 
 
 #: Per path: the graphed run, the eager run beside it, the profile of the
@@ -2519,14 +2573,15 @@ def scan_profile(run, tmp, label, k):
     replays = _step_starts(trace, events)[k:]
     if len(replays) < 4:
         raise AssertionError('profile %s: %d chunk replays' % (label, len(replays)))
-    lo, hi = replays[1][0], replays[-1][0]
+    i, j = _recorded_span(replays, 1, len(replays) - 1, label)
+    lo, hi = replays[i][0], replays[j][0]
     busy, end = 0.0, lo
     for e in events:
         t0, t1 = max(e['ts'], lo), min(e['ts'] + e['dur'], hi)
         if t1 > max(t0, end):
             busy += t1 - max(t0, end)
             end = t1
-    steps = (len(replays) - 2) * k
+    steps = (j - i) * k
     kernels = sum(1 for e in events if e.get('cat') == 'kernel' and lo <= e['ts'] < hi)
     return dict(steps=steps, step_ms=(hi - lo) / steps / 1e3, busy_ms=busy / steps / 1e3,
                 busy_pct=100.0 * busy / (hi - lo), kernels=kernels / steps)
@@ -2716,6 +2771,312 @@ def phase_batch_reader(fa, tmp):
     SUMMARY['batch_reader'] = out
 
 
+FOOTER_FIXTURE = os.path.join('tests', 'data', 'reference_unischema_footer.b64')
+FOOTER_ROWS = 12
+
+
+def footer_rows():
+    """The rows of ``tests/test_reference_compat.py``'s store: an int32 id,
+    a nullable string, a Decimal, a (4, 3) float32 ``NdarrayCodec``, an (8,)
+    float64 ``CompressedNdarrayCodec`` and a 6x5x3 PNG."""
+    from decimal import Decimal
+    rng = np.random.default_rng(7)
+    return [{'id': np.int32(i), 'label': 'item-%d' % i if i % 3 else None,
+             'price': Decimal('%d.%02d' % (i, i)),
+             'matrix': rng.standard_normal((4, 3)).astype(np.float32),
+             'sparse': rng.standard_normal(8).astype(np.float64),
+             'image': rng.integers(0, 255, (6, 5, 3), dtype=np.uint8)}
+            for i in range(FOOTER_ROWS)]
+
+
+def footer_reads(root):
+    """Write the store of ``tests/test_reference_compat.py`` under ``root``
+    with the port's writer, put the frozen upstream footer bytes in its
+    ``_common_metadata``, and read it through ``make_reader`` (dummy, 4
+    threads, 2 processes) and ``make_batch_reader``; returns what matched
+    the written rows."""
+    import base64
+    from decimal import Decimal
+    import pyarrow.parquet as pq
+    from petastorm_tpu_torch.etl import dataset_metadata as dm
+    from petastorm_tpu_torch.reader import make_batch_reader, make_reader
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), FOOTER_FIXTURE)) as f:
+        blob = base64.b64decode(f.read())
+    path = os.path.join(root, 'reference_footer')
+    rows = footer_rows()
+    with dm.DatasetWriter('file://' + path, dm._loads_schema(blob), rows_per_rowgroup=4) as w:
+        w.write_many(rows)
+    meta = os.path.join(path, '_common_metadata')
+    arrow_schema = pq.read_schema(meta)
+    metadata = dict(arrow_schema.metadata)
+    metadata[dm.UNISCHEMA_KEY] = blob
+    pq.write_metadata(arrow_schema.with_metadata(metadata), meta)
+    out = {'upstream_bytes': b'petastorm.unischema' in blob and b'petastorm_tpu' not in blob}
+    for pool, workers in (('dummy', 1), ('thread', 4), ('process', 2)):
+        with make_reader('file://' + path, reader_pool_type=pool, workers_count=workers) as r:
+            got = sorted((x._asdict() for x in r), key=lambda x: int(x['id']))
+        out['make_reader ' + pool] = len(got) == len(rows) and all(
+            int(g['id']) == int(w['id']) and g['label'] == w['label']
+            and Decimal(g['price']) == w['price']
+            and all(g[k].dtype == w[k].dtype and np.array_equal(g[k], w[k])
+                    for k in ('matrix', 'sparse', 'image'))
+            for g, w in zip(got, rows))
+    with make_batch_reader('file://' + path, reader_pool_type='dummy',
+                           shuffle_row_groups=False) as r:
+        batches = list(r)
+    out['make_batch_reader'] = r.schema.name == 'RefSchema' and \
+        np.concatenate([b.id for b in batches]).tolist() == list(range(len(rows))) and \
+        [Decimal(p) for b in batches for p in b.price] == [w['price'] for w in rows] and \
+        [s for b in batches for s in b.label] == [w['label'] for w in rows]
+    return out
+
+
+FOOTER_SCRIPT = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+out = chip_smoke.footer_reads(sys.argv[2])
+out['loaded'] = sorted(m for m in sys.modules
+                       if m.split('.')[0] in ('petastorm', 'petastorm_tpu', 'jax', 'pyspark'))
+print(json.dumps(out))
+"""
+
+
+def phase_reference_footer(tmp):
+    """A store whose footer is upstream petastorm's (the frozen bytes of
+    ``tests/data/reference_unischema_footer.b64``: ``petastorm.unischema``
+    and ``petastorm.codecs`` classes, Spark SQL types in ``ScalarCodec``)
+    on this host, which has no pyspark, in a process of its own: every
+    column of ``make_reader`` decoded equal to the written rows (the
+    Decimal and the nullable string included) on the dummy pool, 4 threads
+    and 2 processes, ``make_batch_reader`` with the stored schema, and
+    afterwards neither ``petastorm`` nor ``petastorm_tpu`` nor ``jax`` (nor
+    ``pyspark``) in ``sys.modules``."""
+    root = os.path.join(tmp, 'footer')
+    os.makedirs(root)
+    proc = subprocess.run([sys.executable, '-c', FOOTER_SCRIPT,
+                           os.path.dirname(os.path.abspath(__file__)), root],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError('reference footer: the reads failed:\n' + proc.stdout
+                             + proc.stderr[-4000:])
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    log('reference footer: upstream bytes %s; make_reader rows equal to the written ones '
+        '(every codec column decoded) on dummy %s, 4 threads %s, 2 processes %s; '
+        'make_batch_reader with the stored schema %s; modules loaded of petastorm, '
+        'petastorm_tpu, jax, pyspark: %s'
+        % (out['upstream_bytes'], out['make_reader dummy'], out['make_reader thread'],
+           out['make_reader process'], out['make_batch_reader'], out['loaded'] or 'none'))
+    if out['loaded'] or not all(v for k, v in out.items() if k != 'loaded'):
+        raise AssertionError('reference footer: %r' % out)
+    SUMMARY['reference_footer'] = out
+    return out
+
+
+NGRAM_ROWS = 1 << 17        # 3.6 h of a 10 Hz sensor log: 1,311 row groups of up to 100
+NGRAM_WINDOWS = 125828      # the windows of one epoch, from the example's generator
+NGRAM_BATCH = 32            # the example's batch
+NGRAM_EQ_STEPS = 300        # eager against graphed, bit for bit
+NGRAM_SHARDS = 8            # the resume and echo runs read one shard of this many
+
+
+def loop_profile(run, label, tmp, steps=64):
+    """The device's share of a loop of small steps: ``run(steps)`` under
+    torch.profiler, over the host window of steps 3..steps, from the start
+    of their first ``train_step`` range to the end of the last (the loop's
+    thread's; a graphed run's capture adds one range of its own before the
+    second step's replay): the kernels that start in it per step and the
+    union of device activity in it.  No launch is matched to its step (:func:`phase_profile` does that,
+    and with steps of a few microsecond kernels a run can lose some of
+    those records): the card, almost idle, runs each kernel right after its
+    launch."""
+    from torch.profiler import ProfilerActivity, profile
+    path = os.path.join(tmp, 'trace_%s.json' % label.replace(' ', '_'))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run(steps)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)['traceEvents']
+    tid = _step_tid(trace)
+    ranges = sorted((e['ts'], e['ts'] + e['dur']) for e in trace
+                    if e.get('cat') == 'user_annotation' and e['name'] == 'train_step'
+                    and e['tid'] == tid)
+    if len(ranges) < steps:
+        raise AssertionError('profile %s: %d train_step ranges for %d steps'
+                             % (label, len(ranges), steps))
+    n = steps - 2
+    lo, hi = ranges[-n][0], ranges[-1][1]
+    events = sorted((e for e in trace if e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset')
+                     and lo <= e['ts'] < hi), key=lambda e: e['ts'])
+    busy, end = 0.0, lo
+    for e in events:
+        t1 = min(e['ts'] + e['dur'], hi)
+        if t1 > end:
+            busy += t1 - max(e['ts'], end)
+            end = t1
+    kernels = sum(1 for e in events if e['cat'] == 'kernel')
+    out = dict(step_ms=(hi - lo) / n / 1e3, busy_ms=busy / n / 1e3,
+               busy_pct=100.0 * busy / (hi - lo), kernels=kernels / n)
+    log('profile %s (steps 3..%d under torch.profiler, %.3f ms per step): device busy %.4f ms '
+        'per step (%.2f%%); %.2f kernels per step'
+        % (label, steps, out['step_ms'], out['busy_ms'], out['busy_pct'], out['kernels']))
+    return out
+
+
+def window_digests(reader):
+    """One blake2b per window of an NGram reader (each offset's fields, in
+    order, name and bytes), sorted: the multiset of what was read; and
+    the windows/s of the read (the reader alone, host only)."""
+    t0 = time.perf_counter()
+    out = []
+    for window in reader:
+        h = hashlib.blake2b(digest_size=16)
+        for offset in sorted(window):
+            for name, value in window[offset]._asdict().items():
+                h.update(b'%d %s ' % (offset, name.encode()))
+                h.update(np.ascontiguousarray(value).tobytes())
+        out.append(h.digest())
+    rate = len(out) / (time.perf_counter() - t0)
+    return sorted(out), rate
+
+
+def phase_ngram(fa, tmp):
+    """NGram windows over the sensor log (BASELINE config #5,
+    ``examples/ngram_sensor/jax_example.py``) through
+    ``petastorm_tpu_torch.ngram_sensor``.
+
+    (a) The example's generator at ``NGRAM_ROWS`` rows (its schema, widths,
+    100-row row groups and dropout every 50 rows as they are).  (b) The
+    reader alone (host only): the example's NGram over one epoch on the
+    dummy pool, 4 threads and 8 processes, each ``NGRAM_WINDOWS`` windows,
+    the pools' multisets of windows (digests of each offset's fields)
+    equal to the dummy pool's, windows/s each; the processes through
+    /dev/shm, leaving no slab and no child.  (c) The example's loop on the
+    card: ``DataLoader(batch_size=32, transform_fn=collate)``, pumped, 4
+    decode threads, ``predict_speed`` graphed and eager over one epoch
+    (3,932 batches): windows/s, step ms, host ms, data wait and
+    ``stall_pct``; the device's share and kernels per step of each
+    (:func:`loop_profile`); then
+    eager and graphed over ``NGRAM_EQ_STEPS`` batches in one data order
+    (the dummy pool): equal bit for bit.  (d) One shard of ``NGRAM_SHARDS``
+    with ``shuffling_queue_capacity=2048, seed=0``, pumped: a token taken
+    with batches in flight resumes bit for bit.  (e) The same shard with
+    ``echo=2``: twice the batches, each repeat equal to its batch, and the
+    batches once each equal to the run without echo.  No flash kernel runs
+    here."""
+    from petastorm_tpu_torch import ngram_sensor
+    from petastorm_tpu_torch.gpu import DataLoader
+    from petastorm_tpu_torch.reader import make_reader
+    reset_counts(fa)
+    out = {}
+    url = 'file://' + os.path.join(tmp, 'ngram_sensor')
+    t0 = time.monotonic()
+    ngram_sensor.generate(url, rows=NGRAM_ROWS)
+    size = sum(os.path.getsize(os.path.join(tmp, 'ngram_sensor', f))
+               for f in os.listdir(os.path.join(tmp, 'ngram_sensor')))
+    with make_reader(url, reader_pool_type='dummy') as reader:
+        row_groups = len(reader._worker_args.pieces)
+        rows = reader.num_local_rows()
+    out['store'] = {'rows': rows, 'row_groups': row_groups, 'mb': size / 1e6,
+                    'write_s': time.monotonic() - t0}
+    log('ngram: sensor log of %d rows in %d row groups, %.1f MB, written in %.1f s'
+        % (rows, row_groups, size / 1e6, out['store']['write_s']))
+    if rows != NGRAM_ROWS or row_groups != -(-NGRAM_ROWS // 100):
+        raise AssertionError('ngram: the store holds %d rows in %d row groups'
+                             % (rows, row_groups))
+    # (b) the reader alone
+    reads, want = {}, None
+    for pool, workers in (('dummy', 1), ('thread', 4), ('process', 8)):
+        reader = make_reader(url, schema_fields=ngram_sensor.make_ngram(),
+                             reader_pool_type=pool, workers_count=workers,
+                             shuffle_row_groups=False)
+        with reader:
+            digests, rate = window_digests(reader)
+        want = digests if want is None else want
+        same = digests == want
+        reads['%s %d' % (pool, workers)] = {'windows': len(digests), 'windows_per_s': rate,
+                                             'multiset_equal': same}
+        log('ngram reader [%s %d]: %d windows, the dummy pool\'s multiset: %s; %.0f windows/s'
+            % (pool, workers, len(digests), same, rate))
+        if len(digests) != NGRAM_WINDOWS or not same:
+            raise AssertionError('ngram reader [%s %d]: %d windows, same %s'
+                                 % (pool, workers, len(digests), same))
+        if pool == 'process':
+            # a row group's windows (100 rows of 140 B of arrays) stay under
+            # the shm plane's 32 kB floor: they take the byte path
+            from petastorm_tpu_torch.workers_pool import shm_plane
+            diag = reader.diagnostics
+            reads['process 8']['shm_results'] = diag['shm_results']
+            left = shm_plane.residue(diag['worker_pids'])
+            if left or live_children():
+                raise AssertionError('ngram reader [process 8]: left slabs %s and children %s'
+                                     % (sorted(left), live_children()))
+    del want
+    out['reads'] = reads
+    # (c) the example's loop on the card
+    loops = {}
+    batches = NGRAM_WINDOWS // NGRAM_BATCH
+    for mode, flag in (('graphed', None), ('eager', False)):
+        result = ngram_sensor.run(url, device='cuda', cuda_graph=flag, verbose=mode == 'graphed',
+                                  reader_kwargs=dict(workers_count=4))
+        row = {k: result[k] for k in ('batches', 'windows', 'windows_per_s', 'step_ms',
+                                      'host_ms', 'data_wait_ms', 'stall_pct')}
+        loops[mode] = row
+        log('ngram [%s, pumped, 4 decode threads, graph: %s]: %d batches of %d windows; '
+            'windows/s %.1f (timed after the warm-up) step_ms %.4f host_ms %.4f data_wait_ms '
+            '%.4f stall_pct %s'
+            % (mode, result['cuda_graph'], result['batches'], NGRAM_BATCH,
+               result['windows_per_s'], result['step_ms'], result['host_ms'],
+               result['data_wait_ms'], result['stall_pct']))
+        finite = all(bool(torch.isfinite(o).all()) for o in result['outputs'])
+        if result['batches'] != batches or result['cuda_graph'] != (mode == 'graphed') \
+                or not finite or result['outputs'][0].device.type != 'cuda':
+            raise AssertionError('ngram [%s]: %r, finite %s' % (mode, row, finite))
+    for mode, flag in (('graphed', None), ('eager', False)):
+        loops[mode]['profile'] = loop_profile(
+            lambda steps: ngram_sensor.run(url, device='cuda', cuda_graph=flag, verbose=False,
+                                           reader_kwargs=dict(workers_count=4),
+                                           max_steps=steps), 'ngram ' + mode, tmp)
+    ordered = dict(reader_kwargs=dict(reader_pool_type='dummy'), max_steps=NGRAM_EQ_STEPS,
+                   verbose=False, device='cuda')
+    eager = ngram_sensor.run(url, cuda_graph=False, **ordered)['outputs']
+    graphed = ngram_sensor.run(url, **ordered)['outputs']
+    bitwise = len(eager) == len(graphed) == NGRAM_EQ_STEPS and all(
+        torch.equal(a, b) for a, b in zip(eager, graphed))
+    loops['eager_vs_graphed'] = {'steps': len(eager), 'bitwise': bitwise}
+    log('ngram eager vs graphed, one data order, %d batches: %s'
+        % (len(eager), 'equal bit for bit' if bitwise else 'DIFFERENT'))
+    if not bitwise:
+        raise AssertionError('ngram: the graphed run is not the eager one bit for bit')
+    out['loop'] = loops
+    # (d) a resume with the shuffling buffer, (e) echo
+    def shard_loader(token, **loader_kwargs):
+        reader = make_reader(url, schema_fields=ngram_sensor.make_ngram(), num_epochs=1,
+                             workers_count=1, shuffle_row_groups=False, cur_shard=0,
+                             shard_count=NGRAM_SHARDS,
+                             resume_state=None if token is None else token['reader'])
+        return DataLoader(reader, batch_size=NGRAM_BATCH, transform_fn=ngram_sensor.collate,
+                          resume_state=token, **loader_kwargs)
+
+    out['resume'] = resume_pair('ngram, shuffling buffer 2048', lambda token: shard_loader(
+        token, shuffling_queue_capacity=2048, seed=0), 40)
+    with shard_loader(None) as loader:
+        plain = [batch_digest(b) for b in loader]
+    with shard_loader(None, echo=2) as loader:
+        echoed = [batch_digest(b) for b in loader]
+    pairs = echoed[::2] == echoed[1::2] == plain and len(echoed) == 2 * len(plain)
+    out['echo'] = {'batches': len(plain), 'echoed': len(echoed), 'pairs_equal': pairs}
+    log('ngram echo=2: %d batches -> %d, each repeat equal to its batch and the batches those '
+        'of the run without echo: %s' % (len(plain), len(echoed), pairs))
+    if not pairs:
+        raise AssertionError('ngram echo: %r' % out['echo'])
+    launches, _ = counts(fa)
+    if any(launches.values()):
+        raise AssertionError('ngram: flash launches %s on a path without attention' % launches)
+    SUMMARY['ngram'] = out
+    return out
+
+
 def main():
     # The kernels' module (petastorm_tpu_torch.ops re-exports its function
     # under the same name).  Imported first: outside a checkout this fails
@@ -2760,7 +3121,9 @@ def main():
                             ('trace', lambda: phase_trace(url, tmp)),
                             ('resume', lambda: phase_resume(
                                 fa, url, 'file://' + os.path.join(tmp, 'lc_tokens'), tmp)),
-                            ('batch_reader', lambda: phase_batch_reader(fa, tmp))):
+                            ('batch_reader', lambda: phase_batch_reader(fa, tmp)),
+                            ('reference_footer', lambda: phase_reference_footer(tmp)),
+                            ('ngram', lambda: phase_ngram(fa, tmp))):
             t0 = time.monotonic()
             paths[name] = phase()
             log('phase %s: %.1f s' % (name, time.monotonic() - t0))

@@ -2,8 +2,10 @@
 
 A second package beside ``petastorm_tpu`` (the JAX reference, which it is
 held against and never imports): the same readers (``make_reader`` over
-petastorm datasets, ``make_batch_reader`` over any Parquet store, with
-predicates, ``filters`` and ``shard_seed``) and decode plane, a
+petastorm datasets, NGram windows over timestamped rows included,
+``make_batch_reader`` over any Parquet store, with predicates, ``filters``
+and ``shard_seed``; stores written by upstream petastorm open as they are)
+and decode plane, a
 loader that moves batches to an NVIDIA GPU (streaming, or from an epoch
 cache in host or device memory, or packed into fixed-shape LM batches),
 on-device augmentation, exact data checkpoints (every loader's
@@ -22,6 +24,7 @@ _LAZY = {
     'make_reader': 'petastorm_tpu_torch.reader',
     'make_batch_reader': 'petastorm_tpu_torch.reader',
     'Reader': 'petastorm_tpu_torch.reader',
+    'NGram': 'petastorm_tpu_torch.ngram',
     'TransformSpec': 'petastorm_tpu_torch.transform',
     'Unischema': 'petastorm_tpu_torch.unischema',
     'UnischemaField': 'petastorm_tpu_torch.unischema',

@@ -117,16 +117,54 @@ def _arrow_type_for_numpy(np_dtype):
     raise TypeError('No arrow mapping for numpy dtype %r' % (np_dtype,))
 
 
+#: Spark SQL type class name -> arrow storage type (``DecimalType`` takes its
+#: precision and scale from the instance).
+_SPARK_TO_ARROW = {
+    'BooleanType': pa.bool_(),
+    'ByteType': pa.int8(),
+    'ShortType': pa.int16(),
+    'IntegerType': pa.int32(),
+    'LongType': pa.int64(),
+    'FloatType': pa.float32(),
+    'DoubleType': pa.float64(),
+    'StringType': pa.string(),
+    'BinaryType': pa.binary(),
+    'DateType': pa.date32(),
+    'TimestampType': pa.timestamp('ns'),
+}
+
+
 class ScalarCodec(DataframeColumnCodec):
     """Stores a scalar natively in its Parquet column.
 
-    Accepts a numpy dtype / dtype name or a ``pyarrow.DataType``, normalized
-    to a pyarrow storage type.
+    Accepts a numpy dtype / dtype name, a ``pyarrow.DataType`` or a Spark SQL
+    type instance (pyspark's, or the stub an upstream footer unpickles into
+    without pyspark), normalized to a pyarrow storage type.
     """
 
     def __init__(self, storage_type):
-        self._arrow_type = (storage_type if isinstance(storage_type, pa.DataType)
-                            else _arrow_type_for_numpy(storage_type))
+        self._arrow_type = self._normalize(storage_type)
+
+    def __setstate__(self, state):
+        # An upstream petastorm pickle holds {'_spark_type': <Spark SQL type>}.
+        if '_arrow_type' not in state and '_spark_type' in state:
+            state = {'_arrow_type': self._normalize(state['_spark_type'])}
+        self.__dict__.update(state)
+
+    @staticmethod
+    def _normalize(storage_type):
+        if isinstance(storage_type, pa.DataType):
+            return storage_type
+        # a Spark SQL type, duck-typed so that pyspark stays optional
+        type_name = type(storage_type).__name__
+        if hasattr(storage_type, 'typeName'):
+            if type_name in _SPARK_TO_ARROW:
+                return _SPARK_TO_ARROW[type_name]
+            if type_name == 'DecimalType':
+                # Spark's defaults are precision 10, scale 0
+                return pa.decimal128(getattr(storage_type, 'precision', 10),
+                                     getattr(storage_type, 'scale', 0))
+        return _arrow_type_for_numpy(storage_type)
 
     def encode(self, unischema_field, value):
         # 0-d arrays / numpy scalars -> python scalars so pyarrow builds a

@@ -3,8 +3,10 @@
 Counterpart of ``petastorm_tpu/etl/dataset_metadata.py``: the footer keys
 are byte-identical, so a dataset written by either package reads in the
 other.  The pickled Unischema names its classes by module; the unpickler
-here maps the JAX package's module names onto this package, and the JAX
-package resolves this package's names by import.
+here maps upstream petastorm's and the JAX package's module names onto
+this package (the Spark SQL types of an upstream footer become stubs when
+pyspark is absent), and the JAX package resolves this package's names by
+import.
 
 Cut to this slice: the read side (``get_schema``, ``load_row_groups``
 over petastorm datasets and plain Parquet stores, hive ``key=value``
@@ -55,17 +57,57 @@ class RowGroupPiece:
 
 # -- pickle compatibility ----------------------------------------------------
 
+#: Module paths of pickled Unischemas -> this package's.  Upstream petastorm
+#: writes ``petastorm.*``, the JAX package ``petastorm_tpu.*``; the rename
+#: happens before any import, so neither package is ever loaded.
 _MODULE_RENAMES = {
+    'petastorm.unischema': 'petastorm_tpu_torch.unischema',
+    'petastorm.codecs': 'petastorm_tpu_torch.codecs',
     'petastorm_tpu.unischema': 'petastorm_tpu_torch.unischema',
     'petastorm_tpu.codecs': 'petastorm_tpu_torch.codecs',
 }
 
+_PYSPARK_TYPES = 'pyspark.sql.types'
+
+_pyspark_stub_cache = {}
+
+
+def _pyspark_stub(module, name):
+    """A stand-in for a pyspark class named by an upstream pickle
+    (``ScalarCodec._spark_type`` holds Spark SQL type instances): footers
+    are written on Spark clusters, and hosts that read them rarely have
+    pyspark.  It instantiates under any pickle protocol, takes BUILD state,
+    and answers ``typeName`` as pyspark's class does, which is all that
+    ``ScalarCodec.__setstate__`` reads to recover the arrow type."""
+    key = (module, name)
+    if key not in _pyspark_stub_cache:
+        @classmethod
+        def type_name(cls):
+            return cls.__name__[:-4].lower() if cls.__name__.endswith('Type') \
+                else cls.__name__.lower()
+
+        _pyspark_stub_cache[key] = type(name, (object,), {
+            '__module__': module,
+            '__init__': lambda self, *a, **kw: None,
+            'typeName': type_name,
+            '__repr__': lambda self: '%s()' % type(self).__name__,
+        })
+    return _pyspark_stub_cache[key]
+
 
 class _CompatUnpickler(pickle.Unpickler):
-    """Unpickles Unischemas written by the JAX package by mapping its module
-    paths onto this package's copies."""
+    """Unpickles Unischemas written by upstream petastorm or the JAX package
+    by mapping their module paths onto this package's copies; the
+    ``pyspark.sql.types`` classes resolve to pyspark's when it is installed
+    and to stubs when it is not.  Any other module resolves as it is, so an
+    unknown one still fails."""
 
     def find_class(self, module, name):
+        if module == _PYSPARK_TYPES or module.startswith(_PYSPARK_TYPES + '.'):
+            try:
+                return super().find_class(module, name)
+            except (ImportError, AttributeError):
+                return _pyspark_stub(module, name)
         return super().find_class(_MODULE_RENAMES.get(module, module), name)
 
 
@@ -279,6 +321,21 @@ def infer_or_load_unischema(fs, path):
     with fs.open(files[0], 'rb') as handle:
         arrow_schema = pq.ParquetFile(handle).schema_arrow
     return Unischema.from_arrow_schema(arrow_schema)
+
+
+def read_row_group_num_rows(fs, file_row_groups):
+    """The rows of ``{path: [row_group, ...]}``, from the files' footers
+    (read in a thread pool)."""
+    def scan(item):
+        path, row_groups = item
+        with fs.open(path, 'rb') as handle:
+            md = pq.ParquetFile(handle).metadata
+            return sum(md.row_group(i).num_rows for i in row_groups)
+
+    if not file_row_groups:
+        return 0
+    with ThreadPoolExecutor(max_workers=min(16, len(file_row_groups))) as pool:
+        return sum(pool.map(scan, file_row_groups.items()))
 
 
 def load_row_groups(fs, path):

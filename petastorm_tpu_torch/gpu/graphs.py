@@ -32,9 +32,12 @@ with the graph, so each replay draws what the eager step would have drawn
 next.  Python inside the step runs once, at capture: the step must not
 branch on device values or keep host state.  A replay runs inside a
 ``torch.profiler.record_function`` range (``train_step`` unless named
-otherwise), where the eager step opens its own.  Kernel wrappers that count
-their launches register with :func:`counts_launches`: a capture adds nothing
-to their counters, and each replay adds the launches the capture recorded.
+otherwise), where the eager step opens its own; a capture runs inside one
+named :data:`CAPTURE_RANGE`, so that a profile tells the step's ranges
+recorded at capture (which run nothing) from those that ran.  Kernel
+wrappers that count their launches register with :func:`counts_launches`: a
+capture adds nothing to their counters, and each replay adds the launches
+the capture recorded.
 
 Graphs exist only on the card.  :func:`resolve` decides from the device and
 the caller's ``cuda_graph`` keyword: the CPU runs the eager loop, which the
@@ -163,6 +166,10 @@ def _add_launch_counts(delta):
             kernel.launches_by_design[design] += n
 
 
+#: The profiler range around each capture (see the module docstring).
+CAPTURE_RANGE = 'cuda_graph_capture'
+
+
 class _Cuda(object):
     """The CUDA side of a step graph (tests put a fake in its place)."""
 
@@ -260,7 +267,7 @@ class StepGraph(object):
             raise RuntimeError('this step is captured already')
         self._slots = tree_map(torch.clone, inputs)
         before = _launch_counts()
-        with pumps_paused(), _collector_held():
+        with pumps_paused(), _collector_held(), torch.profiler.record_function(CAPTURE_RANGE):
             self._graph, self.outputs = BACKEND.capture(self._fn, self._slots, self._stream,
                                                         self._generators)
         after = _launch_counts()

@@ -3,8 +3,10 @@
 Counterpart of ``petastorm_tpu/jax/loader.py::DataLoader``: a columnar
 reader's per-row-group column chunks are re-batched with numpy slicing and
 concatenation (no per-row Python), optionally mixed through a windowed
-shuffling buffer, or a row reader's rows are stacked; non-numeric columns
-are dropped (they cannot live on the card), and each batch goes to the
+shuffling buffer, or a row reader's rows are stacked (an NGram reader's
+windows into a batch of nested dicts, ``{offset: {field: array}}``);
+non-numeric leaves are dropped (they cannot live on the card), and with
+``echo`` each host batch repeats; each batch goes to the
 device through :class:`~petastorm_tpu_torch.gpu.transfer.TransferPlane`
 with ``prefetch`` batches in flight.  With the plane on (``transfer='auto'``
 on the card) a :class:`~petastorm_tpu_torch.gpu.transfer.DispatchPump`
@@ -55,8 +57,8 @@ one warning per field; a ``datetime64`` column raises ``TypeError``, as
 ``jax.device_put`` does; a nullable int column with nulls arrives as
 float32 with NaN (pandas' float64, narrowed), as in the JAX loader.
 
-Autotuning, data echoing, sharding and ``ResidentDataLoader`` are later
-slices of the port (ROADMAP.md, Queue A items 4, 6 and 7).
+Autotuning, sharding and ``ResidentDataLoader`` are later slices of the
+port (ROADMAP.md, Queue A items 4, 6 and 7).
 """
 
 import hashlib
@@ -98,15 +100,22 @@ class DataLoader(object):
         shuffling_queue_capacity: >0 mixes rows, seeded by ``seed``: a row
             reader's through a
             :class:`~petastorm_tpu_torch.reader_impl.shuffling_buffer.RandomShufflingBuffer`
-            of this capacity (draws while it holds more than half of it), a
-            columnar reader's with uniform draws from a buffer of at least
-            this many rows.
+            of this capacity (draws while it holds more than
+            ``min_after_retrieve`` rows), a columnar reader's with uniform
+            draws from a buffer of at least this many rows.
+        min_after_retrieve: the row buffer's least fill before a draw
+            (default ``shuffling_queue_capacity // 2``).
         drop_last: drop the trailing partial batch.
         prefetch: batches kept in flight ahead of the consumer.
         device: target device; ``None`` means the card (raises without one).
         seed: shuffling seed.
-        transform_fn: applied to each host batch (a dict of numpy arrays)
-            before it moves to the device; its result is what moves.
+        transform_fn: applied to each host batch (a dict of numpy arrays,
+            nested for an NGram reader) before it moves to the device; its
+            result is what moves.
+        echo: data echoing: each host batch repeats ``echo`` times in a
+            row, copied dict by dict down the tree, and ``transform_fn``
+            runs on each repeat.  A snapshot taken between two repeats
+            resumes at the next batch, not at the repeat.
         trace_recorder: a :class:`~petastorm_tpu_torch.benchmark.TraceRecorder`
             that takes a span for each timed section (``host_batch``,
             ``transform``, ``device_put``) and the plane's ``h2d/*`` spans.
@@ -127,11 +136,14 @@ class DataLoader(object):
             ``resume_state=resume_state['reader']``.
     """
 
-    def __init__(self, reader, batch_size, shuffling_queue_capacity=0, drop_last=True,
-                 prefetch=2, device=None, seed=None, transform_fn=None, trace_recorder=None,
-                 transfer='auto', wire_dtypes=None, ring_slots=None, resume_state=None):
+    def __init__(self, reader, batch_size, shuffling_queue_capacity=0, min_after_retrieve=None,
+                 drop_last=True, prefetch=2, device=None, seed=None, transform_fn=None,
+                 trace_recorder=None, transfer='auto', wire_dtypes=None, ring_slots=None,
+                 resume_state=None, echo=1):
         if batch_size <= 0:
             raise ValueError('batch_size must be positive')
+        if echo < 1:
+            raise ValueError('echo must be >= 1')
         validate_transfer(transfer)
         if reader is not None:
             self._check_reader(reader)
@@ -156,6 +168,9 @@ class DataLoader(object):
         self.reader = reader
         self.batch_size = int(batch_size)
         self._shuffle_capacity = shuffling_queue_capacity
+        self._min_after_retrieve = (min_after_retrieve if min_after_retrieve is not None
+                                    else shuffling_queue_capacity // 2)
+        self._echo = int(echo)
         self._drop_last = drop_last
         self._prefetch = max(1, int(prefetch))
         self._seed = seed
@@ -256,8 +271,8 @@ class DataLoader(object):
                     self._trace.event('device_put', t2, t3, batch=n)
             return shipped
 
-        pump = DispatchPump(self._timed_pulls(self._host_batches()), ship, self._prefetch,
-                            device=self.device)
+        pump = DispatchPump(self._timed_pulls(self._echoed_host_batches()), ship,
+                            self._prefetch, device=self.device)
         # a token's batches from the card come first, put as they left
         pump.pending.extend(self._restore_pending(plane))
         self._pending = pump.pending
@@ -281,7 +296,7 @@ class DataLoader(object):
         buffer and one copy per column."""
         plane = TransferPlane(self.device, ring_slots=self._prefetch + 2, metrics=self.metrics)
         pending = self._pending = deque(self._restore_pending(plane))
-        batches = self._host_batches()
+        batches = self._echoed_host_batches()
         while True:
             t0 = time.monotonic()
             try:
@@ -368,8 +383,8 @@ class DataLoader(object):
 
         def run_chunk(carry, chunk):
             outs = []
-            for i in range(len(next(iter(chunk.values())))):
-                carry, out = step_fn(carry, {name: v[i] for name, v in chunk.items()})
+            for i in range(_rows(chunk)):
+                carry, out = step_fn(carry, graphs.tree_map(lambda v: v[i], chunk))
                 outs.append(out)
             return carry, _stack(outs)
 
@@ -385,7 +400,7 @@ class DataLoader(object):
                 chunk = [self._transform_fn(b) for b in chunk]
             t1 = time.monotonic()
             host = [_filter_numeric(b, self._warned_fields) for b in chunk]
-            stacked = {name: np.stack([b[name] for b in host]) for name in host[0]}
+            stacked = _stack_rows(host)
             shipped = plane.put(stacked) if coalesce else None
             planed = shipped is not None
             if not planed:
@@ -419,7 +434,7 @@ class DataLoader(object):
             carry, outs = run(carry, [host_batch], transformed=True)
             yield carry, outs
         chunk = []
-        for host_batch in self._timed_pulls(self._host_batches()):
+        for host_batch in self._timed_pulls(self._echoed_host_batches()):
             if chunk and _rows(host_batch) != _rows(chunk[0]):
                 carry, outs = run(carry, chunk)
                 chunk = []
@@ -435,6 +450,22 @@ class DataLoader(object):
 
     def _host_batches(self):
         return self._columnar_batches() if self._batched_input else self._row_batches()
+
+    def _echoed_host_batches(self):
+        """The host batches, each repeated ``echo`` times in a row (data
+        echoing, for a decode-bound stream).  A repeat copies the dicts of
+        the tree, not the arrays: a ``transform_fn`` that rebinds keys runs
+        afresh on each, and one that changed arrays in place would change
+        every repeat."""
+        if self._echo <= 1:
+            return self._host_batches()
+
+        def gen():
+            for host_batch in self._host_batches():
+                yield host_batch
+                for _ in range(self._echo - 1):
+                    yield _copy_tree(host_batch)
+        return gen()
 
     def _source(self, convert):
         """Pushback items (a token's, then those a snapshot drained) first,
@@ -457,7 +488,7 @@ class DataLoader(object):
         return self._source(_as_dict)
 
     def _row_source(self):
-        """A row reader's rows as dicts."""
+        """A row reader's rows as dicts (an NGram window as a dict of dicts)."""
         return self._source(_as_dict)
 
     def _row_batches(self):
@@ -466,8 +497,8 @@ class DataLoader(object):
         buffer and the partial batch live on the loader, and each batch is
         detached from them before its yield, where a snapshot may look."""
         if self._shuffle_capacity > 0:
-            buffer = RandomShufflingBuffer(self._shuffle_capacity,
-                                           self._shuffle_capacity // 2, seed=self._seed)
+            buffer = RandomShufflingBuffer(self._shuffle_capacity, self._min_after_retrieve,
+                                           seed=self._seed)
         else:
             buffer = NoopShufflingBuffer()
         rs = self._resume_state or {}
@@ -792,11 +823,18 @@ def make_loader(dataset_url, batch_size, batched=True, loader_kwargs=None, **rea
         raise
 
 
-def _filter_numeric(batch, warned):
-    """Drop object/string columns: they cannot live on the device.  A
-    datetime64 or timedelta64 column raises, as JAX refuses it."""
+def _filter_numeric(batch, warned, path=''):
+    """Drop object/string leaves of a batch (a dict, nested dicts for an
+    NGram reader's windows): they cannot live on the device; one warning
+    per leaf, named by its key (a nested leaf by its path, as
+    ``jax.tree_util.keystr`` names it).  A datetime64 or timedelta64 leaf
+    raises, as JAX refuses it."""
     out = {}
     for name, value in batch.items():
+        if isinstance(value, dict):
+            out[name] = _filter_numeric(value, warned, '%s[%r]' % (path, name))
+            continue
+        key = '%s[%r]' % (path, name) if path else name
         if isinstance(value, torch.Tensor):   # a bfloat16 leaf of a token
             out[name] = value
             continue
@@ -804,24 +842,38 @@ def _filter_numeric(batch, warned):
         if arr.dtype.kind in ('M', 'm'):
             raise TypeError('Field %s: dtype %s is not a valid device array type; only numeric '
                             'columns move to the device (convert it in transform_fn)'
-                            % (name, arr.dtype))
+                            % (key, arr.dtype))
         if arr.dtype == object or arr.dtype.kind in ('U', 'S'):
-            if name not in warned:
-                warned.add(name)
+            if key not in warned:
+                warned.add(key)
                 logger.warning('Field %s has non-numeric dtype %s; kept on host '
-                               '(excluded from device batch)', name, arr.dtype)
+                               '(excluded from device batch)', key, arr.dtype)
             continue
         out[name] = value
     return out
 
 
 def _rows(cache):
-    return len(next(iter(cache.values())))
+    """The rows of a batch: the length of its first leaf."""
+    first = next(iter(cache.values()))
+    return _rows(first) if isinstance(first, dict) else len(first)
 
 
 def _as_dict(item):
-    """A reader's namedtuple (or mapping) as a dict."""
-    return item._asdict() if hasattr(item, '_asdict') else dict(item)
+    """A reader's item (a namedtuple or a dict; an NGram window, a dict of
+    namedtuples) as dicts all the way down."""
+    if hasattr(item, '_asdict'):
+        item = item._asdict()
+    if isinstance(item, dict):
+        return {k: _as_dict(v) for k, v in item.items()}
+    return item
+
+
+def _copy_tree(node):
+    """A copy of the dicts of a tree; the leaves are shared."""
+    if isinstance(node, dict):
+        return {k: _copy_tree(v) for k, v in node.items()}
+    return node
 
 
 def _to_host(batch, event):
@@ -832,18 +884,25 @@ def _to_host(batch, event):
         event.synchronize()
     out = {}
     for name, tensor in batch.items():
+        if isinstance(tensor, dict):
+            out[name] = _to_host(tensor, None)
+            continue
         tensor = tensor.detach().to('cpu', copy=True)
         out[name] = tensor if tensor.dtype == torch.bfloat16 else tensor.numpy()
     return out
 
 
 def _stack_rows(rows):
-    """Stack row dicts into one batch; a column of strings (or Nones) stays
-    an object array (dropped before the device), a None cell among arrays
-    becomes zeros, as in the JAX loader."""
+    """Stack row dicts into one batch, recursing into nested dicts (NGram
+    windows); a column of strings (or Nones) stays an object array (dropped
+    before the device), a None cell among arrays becomes zeros, as in the
+    JAX loader."""
     out = {}
     for key in rows[0]:
         cells = [row[key] for row in rows]
+        if isinstance(cells[0], dict):
+            out[key] = _stack_rows(cells)
+            continue
         first = next((c for c in cells if c is not None), None)
         if first is None or isinstance(first, (str, bytes)):
             column = np.empty(len(cells), dtype=object)
@@ -926,6 +985,8 @@ class InMemDataLoader(_EpochServer, DataLoader):
 
     def __init__(self, reader, batch_size, num_epochs=1, shuffle=True, seed=None,
                  deterministic_cache_order=False, echo=1, resume_state=None, **kwargs):
+        if getattr(reader, 'ngram', None) is not None:
+            raise ValueError('InMemDataLoader does not support NGram readers')
         if echo != 1:
             raise ValueError('%s does not support echo (epochs serve from an in-memory '
                              'cache; echo addresses decode-bound streaming)'
@@ -1279,6 +1340,9 @@ class DiskCachedDataLoader(_EpochServer, DataLoader):
             raise ValueError('DiskCachedDataLoader shuffles via per-epoch permutation; '
                              'shuffling_queue_capacity is not supported')
         if reader is not None:
+            if getattr(reader, 'ngram', None) is not None:
+                raise ValueError('DiskCachedDataLoader does not support NGram readers (windows '
+                                 'are not fixed-shape rows)')
             reader_epochs = getattr(reader, 'num_epochs', 1)
             if reader_epochs != 1:
                 raise ValueError('DiskCachedDataLoader requires a reader built with '

@@ -432,37 +432,40 @@ class TransferPlane(object):
 
     def put_inline(self, host_batch):
         """One pinned buffer of a ring slot and one ``non_blocking`` copy per
-        column of the flat dict ``host_batch`` (numpy arrays, or CPU tensors
-        moved as they are), narrowed to the device dtype;
-        returns ``(batch, event)`` for :meth:`ready` (None on the CPU, where
-        the batch is only narrowed and wrapped)."""
+        leaf of ``host_batch`` (a dict of numpy arrays, or of CPU tensors
+        moved as they are; nested dicts allowed, as :meth:`put` takes),
+        narrowed to the device dtype; returns ``(batch, event)`` for
+        :meth:`ready` (None on the CPU, where the batch is only narrowed and
+        wrapped)."""
+        pairs = list(_leaves(host_batch))
         if not self._cuda:
-            return {name: arr.clone() if isinstance(arr, torch.Tensor) else
-                    torch.from_numpy(np.asarray(arr).astype(canonical_dtype(arr.dtype)))
-                    for name, arr in host_batch.items()}, None
+            return _build([path for path, _ in pairs], [
+                arr.clone() if isinstance(arr, torch.Tensor) else
+                torch.from_numpy(np.asarray(arr).astype(canonical_dtype(arr.dtype)))
+                for _, arr in pairs]), None
         slot = self._slots[self._next]
         self._next = (self._next + 1) % len(self._slots)
         if slot['event'] is not None:
             slot['event'].synchronize()   # the copy that last read this slot is done
-        out = {}
+        values = []
         with torch.cuda.stream(self._stream):
-            for name, arr in host_batch.items():
+            for path, arr in pairs:
                 if isinstance(arr, torch.Tensor):   # bfloat16, which numpy cannot hold
-                    out[name] = arr.to(self.device)
+                    values.append(arr.to(self.device))
                     continue
                 arr = np.asarray(arr)
                 dtype = canonical_dtype(arr.dtype)
-                buf = slot['buffers'].get(name)
+                buf = slot['buffers'].get(path)
                 if buf is None or tuple(buf.shape) != arr.shape \
                         or buf.numpy().dtype != dtype:
                     buf = torch.from_numpy(np.empty(arr.shape, dtype)).pin_memory()
-                    slot['buffers'][name] = buf
+                    slot['buffers'][path] = buf
                 np.copyto(buf.numpy(), arr, casting='unsafe')
-                out[name] = buf.to(self.device, non_blocking=True)
+                values.append(buf.to(self.device, non_blocking=True))
             event = torch.cuda.Event()
             event.record(self._stream)
         slot['event'] = event
-        return out, event
+        return _build([path for path, _ in pairs], values), event
 
     def ready(self, batch, event):
         """Make the current stream wait for ``batch``'s copy and hand its

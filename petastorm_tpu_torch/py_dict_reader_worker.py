@@ -9,9 +9,12 @@ where it can, and a declared resize (``ResizeImages``) fuses into the
 decode.  A predicate is read and evaluated first, on its own columns, and
 the other columns are decoded for the rows that pass (on the row path; the
 columnar path masks them), as the JAX package's worker does; hive partition
-values are injected where the view asks for them.  NGram windows and
-row-drop partitions are later slices.  Nothing here imports ``torch``: the
-process pool's children unpickle this module's worker.
+values are injected where the view asks for them.  With an NGram
+(``RowWorkerArgs.ngram``) each row group's rows, decoded and transformed,
+are formed into windows ``{offset: row}`` before they are published, so a
+window never spans row groups; NGram never takes the columnar path.
+Row-drop partitions are a later slice.  Nothing here imports ``torch``:
+the process pool's children unpickle this module's worker.
 """
 
 from dataclasses import dataclass, field as dataclass_field
@@ -19,6 +22,7 @@ from dataclasses import dataclass, field as dataclass_field
 import numpy as np
 
 from petastorm_tpu_torch.cache import NullCache
+from petastorm_tpu_torch.codecs import NdarrayCodec
 from petastorm_tpu_torch.errors import DecodeFieldError
 from petastorm_tpu_torch.reader_impl.parquet_worker_base import ParquetWorkerBase
 
@@ -34,6 +38,9 @@ class RowWorkerArgs:
     #: view (None: the view).
     schema: object = None
     predicate: object = None
+    #: An :class:`~petastorm_tpu_torch.ngram.NGram` with its fields resolved:
+    #: publish its windows of each row group's rows.
+    ngram: object = None
     #: Publish one dict of stacked column arrays per row group instead of a
     #: list of row dicts.
     columnar_output: bool = False
@@ -74,7 +81,8 @@ class PyDictReaderWorker(ParquetWorkerBase):
     def process(self, piece_index):
         piece = self._a.pieces[piece_index]
         cache_key = piece_cache_key(piece, self._a.schema_view, self._a.transform_spec)
-        if self._a.columnar_output and columnar_fast_path(self._a.transform_spec):
+        columnar = self._a.columnar_output and self._a.ngram is None
+        if columnar and columnar_fast_path(self._a.transform_spec):
             # True columnar decode: no intermediate row dicts.
             columns = self._a.cache.get(
                 cache_key + ':c',
@@ -84,8 +92,10 @@ class PyDictReaderWorker(ParquetWorkerBase):
             return
         rows = self._a.cache.get(
             cache_key, lambda: self._read_with_retry(piece, lambda pf: self._load_rows(pf, piece)))
+        if self._a.ngram is not None:
+            rows = self._a.ngram.form_sequences(rows, self._a.schema_view)
         if rows:
-            self.publish_func(_stack_columnar(rows) if self._a.columnar_output else rows)
+            self.publish_func(_stack_columnar(rows) if columnar else rows)
 
     # -- columnar path --------------------------------------------------------
 
@@ -238,15 +248,38 @@ class PyDictReaderWorker(ParquetWorkerBase):
         else:
             columns = sorted(wanted)
             table = pf.read_row_group(piece.row_group, columns=columns)
-            cols = {name: table.column(name).to_pylist() for name in columns}
-            rows = [{name: self._decode_cell(name, cols[name][i]) for name in columns}
-                    for i in range(table.num_rows)]
+            cols = {name: self._decoded_cells(name, table.column(name)) for name in columns}
+            rows = [{name: cols[name][i] for name in columns} for i in range(table.num_rows)]
         for key, cell in self._partition_cells(piece, wanted):
             for r in rows:
                 r[key] = cell
         if self._a.transform_spec is not None and self._a.transform_spec.func is not None:
             rows = [self._a.transform_spec.func(r) for r in rows]
         return rows
+
+    def _decoded_cells(self, name, column):
+        """A column's cells decoded, each as :meth:`_decode_cell` gives it: a
+        native numeric scalar column through one arrow -> numpy conversion,
+        a static-shape ``NdarrayCodec`` column (exact bytes, so the same
+        arrays) in one whole-column native call (each cell a row of the
+        batch) where the library holds the function, any other column cell
+        by cell (images among them: the native decoders are not cv2's)."""
+        f = self._fields.get(name)
+        if f is not None and column.null_count == 0:
+            dtype = np.dtype(f.numpy_dtype)
+            if f.codec is None and dtype.kind in 'biuf':
+                return column.to_numpy(zero_copy_only=False).astype(dtype, copy=False)
+            shape = f.shape if f.shape is not None else ()
+            if isinstance(f.codec, NdarrayCodec) and shape \
+                    and all(s is not None for s in shape) and dtype.kind in 'biuf':
+                dst = np.empty((len(column),) + tuple(shape), dtype=dtype)
+                try:
+                    done = f.codec.decode_batch_into(f, column, dst)
+                except Exception as e:
+                    raise DecodeFieldError('Failed to decode field %r: %s' % (name, e)) from e
+                if done:
+                    return dst
+        return [self._decode_cell(name, cell) for cell in column.to_pylist()]
 
     def _decode_cell(self, name, value):
         f = self._fields.get(name)

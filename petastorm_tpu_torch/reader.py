@@ -4,13 +4,16 @@ Counterpart of ``petastorm_tpu/reader.py``: row-group enumeration from the
 footer metadata (or, for a plain Parquet store, from the file footers),
 ``filters`` that prune row groups, sharding (``shard_seed`` permutes the
 row groups before the modulo split), row-group shuffling, epochs, the
-worker pool, the iterator protocol, and exact checkpoints: ``state_dict``
-(the ventilator's resume token with the shard topology),
-``resume_state=``, ``drain_in_flight`` and ``resume_dispatch``.
+worker pool, the iterator protocol (``next``, ``reset`` after the last
+row), ``num_local_rows``, and exact checkpoints: ``state_dict`` (the
+ventilator's resume token with the shard topology), ``resume_state=``,
+``drain_in_flight`` and ``resume_dispatch``.
 
 :func:`make_reader` reads a petastorm dataset through the row worker
 (codec-decoded rows, or with ``columnar_decode=True`` one namedtuple of
-stacked columns per row group); :func:`make_batch_reader` reads any Parquet
+stacked columns per row group; an :class:`~petastorm_tpu_torch.ngram.NGram`
+as ``schema_fields`` yields windows ``{offset: namedtuple}`` of
+consecutive rows); :func:`make_batch_reader` reads any Parquet
 store through :class:`~petastorm_tpu_torch.arrow_reader_worker.ArrowReaderWorker`
 (one namedtuple of numpy arrays per row group, the schema inferred when
 the store has no petastorm metadata).  Both take a ``predicate``
@@ -20,8 +23,10 @@ Cut to what the port holds.  Each option outside it raises ``ValueError``
 naming the ``ROADMAP.md`` item that brings it: the thread, process and
 dummy pools, FIFO scheduling, synchronous reads of local files (no ingest
 plane, no HDFS or object store), the null cache; no ``rowgroup_selector``,
-``piece_indices``, row-drop partitions or NGram windows.  The shard default
-is 0 of 1: nothing here probes a multi-host topology.
+``piece_indices`` or row-drop partitions.  Both readers take the reference's
+argument names: an option outside the slice raises ``ValueError`` (never a
+``TypeError``) only when it asks for more than its default.  The shard
+default is 0 of 1: nothing here probes a multi-host topology.
 """
 
 import numpy as np
@@ -29,8 +34,9 @@ import numpy as np
 from petastorm_tpu_torch.cache import NullCache
 from petastorm_tpu_torch.errors import NoDataAvailableError
 from petastorm_tpu_torch.etl.dataset_metadata import (get_schema, infer_or_load_unischema,
-                                                      load_row_groups)
+                                                      load_row_groups, read_row_group_num_rows)
 from petastorm_tpu_torch.fs_utils import get_filesystem_and_path, get_filesystem_and_path_or_paths
+from petastorm_tpu_torch.ngram import NGram
 from petastorm_tpu_torch.py_dict_reader_worker import PyDictReaderWorker, RowWorkerArgs
 from petastorm_tpu_torch.transform import transform_schema
 from petastorm_tpu_torch.unischema import match_unischema_fields
@@ -58,11 +64,24 @@ def _make_pool(reader_pool_type, workers_count, results_queue_size, zmq_copy_buf
 
 def _refuse_outside_slice(scheduling, ingest, cache_type, storage_options=None,
                           filesystem=None, rowgroup_selector=None, piece_indices=None,
-                          shuffle_row_drop_partitions=1):
+                          shuffle_row_drop_partitions=1, cache_settings=None,
+                          hdfs_driver='libhdfs', ingest_window=None):
     """Raise for each option whose plane the port does not hold yet.
     ``'auto'`` scheduling and ingest read local files in FIFO order
-    synchronously, as the JAX package's do there."""
+    synchronously, as the JAX package's do there; the cache settings
+    (``cache_settings``: ``{name: value}``), ``hdfs_driver`` and
+    ``ingest_window`` raise only when they differ from their defaults."""
     refused = []
+    cache_set = sorted(name for name, value in (cache_settings or {}).items()
+                       if value is not None)
+    if cache_set:
+        refused.append('%s: only the null cache is in this slice; the local-disk cache and '
+                       'the cache plane are %s' % ('/'.join(cache_set), _LATER))
+    if hdfs_driver != 'libhdfs':
+        refused.append('hdfs_driver=%r: HDFS is %s' % (hdfs_driver, _LATER))
+    if ingest_window is not None:
+        refused.append('ingest_window=%r: the async ingest plane is %s'
+                       % (ingest_window, _LATER))
     if scheduling not in ('fifo', 'auto'):
         refused.append('scheduling=%r: only FIFO dispatch is in this slice; adaptive '
                        'scheduling is %s' % (scheduling, _LATER))
@@ -134,11 +153,13 @@ def make_reader(dataset_url,
                 predicate=None, rowgroup_selector=None,
                 num_epochs=1,
                 cur_shard=None, shard_count=None, shard_seed=None,
-                cache_type='null',
+                cache_type='null', cache_location=None, cache_size_limit=None,
+                cache_row_size_estimate=None, cache_extra_settings=None,
                 transform_spec=None, filters=None,
+                storage_options=None, filesystem=None, hdfs_driver='libhdfs',
                 seed=None, resume_state=None, zmq_copy_buffers=True,
                 columnar_decode=False, read_retries=2, retry_backoff_s=0.1,
-                piece_indices=None, scheduling='fifo', ingest='off'):
+                piece_indices=None, scheduling='fifo', ingest='off', ingest_window=None):
     """Reader over a petastorm-format dataset (codec-decoded rows).
 
     Yields namedtuple rows, or with ``columnar_decode=True`` one namedtuple
@@ -146,6 +167,12 @@ def make_reader(dataset_url,
     :class:`petastorm_tpu_torch.gpu.DataLoader`).  Argument names and
     defaults follow ``petastorm_tpu.make_reader``; the options this slice
     does not hold raise (see the module docstring).
+
+    ``schema_fields`` is a list of fields or regex strings, or an
+    :class:`~petastorm_tpu_torch.ngram.NGram`: then each item is a window
+    ``{offset: namedtuple}`` of the fields asked for at that offset, formed
+    in the workers from one row group's rows (after the transform), and
+    ``columnar_decode=True`` raises.
 
     ``predicate`` (a :class:`~petastorm_tpu_torch.predicates.PredicateBase`)
     is evaluated in the workers on its own columns first; the other columns
@@ -166,29 +193,42 @@ def make_reader(dataset_url,
     the reader starts at its position.  A token taken under another shard
     topology raises.
     """
-    if type(schema_fields).__name__ == 'NGram':
-        raise ValueError('NGram windows are %s (ROADMAP.md, Queue A item 3)' % _LATER)
-    _refuse_outside_slice(scheduling, ingest, cache_type, rowgroup_selector=rowgroup_selector,
+    _refuse_outside_slice(scheduling, ingest, cache_type, storage_options=storage_options,
+                          filesystem=filesystem, rowgroup_selector=rowgroup_selector,
                           piece_indices=piece_indices,
-                          shuffle_row_drop_partitions=shuffle_row_drop_partitions)
+                          shuffle_row_drop_partitions=shuffle_row_drop_partitions,
+                          cache_settings=dict(cache_location=cache_location,
+                                              cache_size_limit=cache_size_limit,
+                                              cache_row_size_estimate=cache_row_size_estimate,
+                                              cache_extra_settings=cache_extra_settings),
+                          hdfs_driver=hdfs_driver, ingest_window=ingest_window)
+    ngram = schema_fields if isinstance(schema_fields, NGram) else None
+    if columnar_decode and ngram is not None:
+        raise ValueError('columnar_decode is incompatible with NGram windows')
     fs, path = get_filesystem_and_path(dataset_url)
     stored_schema = get_schema(fs, path)
-    schema_view = (stored_schema.create_schema_view(schema_fields)
-                   if schema_fields is not None else stored_schema)
+    if ngram is not None:
+        schema_view = stored_schema.create_schema_view(ngram.get_field_names_at_all_timesteps())
+        ngram.resolve_regex_field_names(stored_schema)
+    elif schema_fields is not None:
+        schema_view = stored_schema.create_schema_view(schema_fields)
+    else:
+        schema_view = stored_schema
     pieces, local_indices = _local_pieces(fs, load_row_groups(fs, path), filters,
                                           stored_schema, cur_shard, shard_count, shard_seed,
                                           dataset_url)
     worker_args = RowWorkerArgs(
         pieces=pieces, schema_view=schema_view, schema=stored_schema, predicate=predicate,
-        transform_spec=transform_spec, cache=NullCache(),
+        transform_spec=transform_spec, cache=NullCache(), ngram=ngram,
         columnar_output=columnar_decode, read_retries=read_retries,
         retry_backoff_s=retry_backoff_s)
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size, zmq_copy_buffers)
     result_schema = transform_schema(schema_view, transform_spec) \
         if transform_spec is not None else schema_view
     return Reader(pool=pool, worker_class=PyDictReaderWorker, worker_args=worker_args,
-                  items=[(i,) for i in local_indices], schema=result_schema,
-                  shuffle_items=shuffle_row_groups, num_epochs=num_epochs, seed=seed,
+                  items=[(i,) for i in local_indices], schema=result_schema, ngram=ngram,
+                  filesystem=fs, shuffle_items=shuffle_row_groups, num_epochs=num_epochs,
+                  seed=seed,
                   result_converter=_ColumnarDictConverter(result_schema)
                   if columnar_decode else None,
                   resume_state=resume_state,
@@ -229,7 +269,12 @@ def make_batch_reader(dataset_url_or_urls,
     from petastorm_tpu_torch.arrow_reader_worker import (ArrowReaderWorker, ArrowResultConverter,
                                                          BatchWorkerArgs)
     _refuse_outside_slice(scheduling, ingest, cache_type, storage_options=storage_options,
-                          filesystem=filesystem, piece_indices=piece_indices)
+                          filesystem=filesystem, piece_indices=piece_indices,
+                          cache_settings=dict(cache_location=cache_location,
+                                              cache_size_limit=cache_size_limit,
+                                              cache_row_size_estimate=cache_row_size_estimate,
+                                              cache_extra_settings=cache_extra_settings),
+                          hdfs_driver=hdfs_driver, ingest_window=ingest_window)
     fs, path_or_paths = get_filesystem_and_path_or_paths(dataset_url_or_urls)
     paths = path_or_paths if isinstance(path_or_paths, list) else [path_or_paths]
     stored_schema = infer_or_load_unischema(fs, paths[0])
@@ -253,7 +298,7 @@ def make_batch_reader(dataset_url_or_urls,
     result_schema = transform_schema(schema_view, transform_spec) \
         if transform_spec is not None else schema_view
     return Reader(pool=pool, worker_class=ArrowReaderWorker, worker_args=worker_args,
-                  items=[(i,) for i in local_indices], schema=result_schema,
+                  items=[(i,) for i in local_indices], schema=result_schema, filesystem=fs,
                   shuffle_items=shuffle_row_groups, num_epochs=num_epochs, seed=seed,
                   result_converter=ArrowResultConverter(result_schema),
                   resume_state=resume_state,
@@ -275,8 +320,18 @@ class Reader(object):
     """Iterator over the dataset; owns the pool + ventilator lifecycle."""
 
     def __init__(self, *, pool, worker_class, worker_args, items, schema, shuffle_items,
-                 num_epochs, seed, topology, result_converter=None, resume_state=None):
+                 num_epochs, seed, topology, result_converter=None, resume_state=None,
+                 ngram=None, filesystem=None):
         self.schema = schema
+        #: The reader's :class:`~petastorm_tpu_torch.ngram.NGram`, or None:
+        #: then each item is ``{offset: namedtuple}``, one namedtuple type
+        #: per offset (the fields asked for there).
+        self.ngram = ngram
+        self._ngram_schemas = (
+            {offset: ngram.get_schema_at_timestep(schema, offset) for offset in ngram.fields}
+            if ngram is not None else None)
+        self._fs = filesystem
+        self._num_local_rows = None
         #: True for the columnar and batch paths: __next__ yields namedtuples
         #: of column arrays (``result_converter`` builds one from each
         #: result) instead of single rows.
@@ -304,6 +359,10 @@ class Reader(object):
             start_cursor = int(resume_state.get('cursor') or 0)
             if resume_state.get('seed') is not None:
                 self._seed = int(resume_state['seed'])
+        self._start(start_epoch, start_cursor)
+
+    def _start(self, start_epoch=0, start_cursor=0):
+        """A ventilator from the given position, and the pool started on it."""
         # Small in-flight window: bounds memory and keeps tokens tight, never
         # starves the workers.
         window = max(2 * self._pool.workers_count, 4)
@@ -315,7 +374,7 @@ class Reader(object):
             random_seed=self._seed,
             max_ventilation_queue_size=max(1, min(len(self._items), window)),
             start_epoch=start_epoch, start_cursor=start_cursor)
-        self._pool.start(worker_class, self._worker_args, ventilator=self._ventilator)
+        self._pool.start(self._worker_class, self._worker_args, ventilator=self._ventilator)
 
     def _check_resume_topology(self, resume_state):
         """A token's position indexes one shard's permutation: under another
@@ -366,7 +425,7 @@ class Reader(object):
         are views of shared-memory slabs.  :meth:`resume_dispatch`
         continues reading."""
         self._ventilator.pause()
-        drained = [self.schema.make_namedtuple_from_dict(row) for row in self._row_buffer]
+        drained = [self._convert_row(row) for row in self._row_buffer]
         self._row_buffer = []
         while self._ventilator.has_deliverable_outstanding():
             try:
@@ -390,18 +449,46 @@ class Reader(object):
             # a batch worker's table converts into owned arrays
             return [self._result_converter.convert(
                 _owned(result) if isinstance(result, dict) else result)]
-        return [self.schema.make_namedtuple_from_dict(_owned(row)) for row in result]
+        return [self._convert_row(_owned(row)) for row in result]
 
     def resume_dispatch(self):
         """Resume dispatch after :meth:`drain_in_flight`."""
         self._ventilator.unpause()
+
+    def num_local_rows(self):
+        """The rows of this shard's row groups: an upper bound of what one
+        epoch yields under a predicate or an NGram (both depend on the
+        data).  Counts come from the footer metadata, else from the files'
+        footers (read once; the result is kept)."""
+        if self._num_local_rows is None:
+            total = 0
+            unknown = {}
+            for idx in sorted({item[0] for item in self._items}):
+                piece = self._worker_args.pieces[idx]
+                if piece.num_rows >= 0:
+                    total += piece.num_rows
+                else:
+                    unknown.setdefault(piece.path, []).append(piece.row_group)
+            self._num_local_rows = total + read_row_group_num_rows(self._fs, unknown)
+        return self._num_local_rows
+
+    @property
+    def predicate(self):
+        """The workers' row predicate, or None (the yield depends on the data)."""
+        return self._worker_args.predicate
+
+    @property
+    def transform_spec(self):
+        """The workers' :class:`~petastorm_tpu_torch.transform.TransformSpec`,
+        or None."""
+        return self._worker_args.transform_spec
 
     @property
     def transform_may_change_row_count(self):
         """True when this reader's transform runs on a DataFrame (the batch
         worker), where ``func`` may drop rows; the row worker applies
         ``func`` to each row, one for one."""
-        spec = self._worker_args.transform_spec
+        spec = self.transform_spec
         if spec is None or spec.func is None:
             return False
         return getattr(self._worker_class, 'DATAFRAME_TRANSFORM', False)
@@ -428,7 +515,30 @@ class Reader(object):
                 self.last_row_consumed = True
                 raise StopIteration from None
             self._row_buffer = list(rows)
-        return self.schema.make_namedtuple_from_dict(self._row_buffer.pop(0))
+        return self._convert_row(self._row_buffer.pop(0))
+
+    def next(self):
+        return self.__next__()
+
+    def _convert_row(self, row):
+        if self.ngram is not None:
+            return {offset: self._ngram_schemas[offset].make_namedtuple_from_dict(cells)
+                    for offset, cells in row.items()}
+        return self.schema.make_namedtuple_from_dict(row)
+
+    def reset(self):
+        """Start again from the first epoch, after the last row was consumed;
+        mid-iteration it raises ``NotImplementedError``, as the reference
+        does.  The pool is replaced by a new one of its kind."""
+        if not self.last_row_consumed:
+            raise NotImplementedError('reset() mid-iteration is not supported; consume the '
+                                      'reader to its end first')
+        self._pool.stop()
+        self._pool.join()
+        self._pool = _clone_pool(self._pool)
+        self._row_buffer = []
+        self.last_row_consumed = False
+        self._start()
 
     @property
     def diagnostics(self):
@@ -452,5 +562,20 @@ class Reader(object):
 
 
 def _owned(result):
-    """``result`` (a dict of cells or columns) with every array copied."""
-    return {k: np.array(v) if isinstance(v, np.ndarray) else v for k, v in result.items()}
+    """``result`` (a dict of cells or columns, or an NGram window of such
+    dicts) with every array copied."""
+    return {k: _owned(v) if isinstance(v, dict) else np.array(v) if isinstance(v, np.ndarray)
+            else v for k, v in result.items()}
+
+
+def _clone_pool(pool):
+    """A new, unstarted pool of ``pool``'s kind and size."""
+    if isinstance(pool, DummyPool):
+        return DummyPool()
+    if isinstance(pool, ThreadPool):
+        return ThreadPool(pool.workers_count, pool._results_queue.maxsize)
+    from petastorm_tpu_torch.workers_pool.process_pool import ProcessPool
+    if isinstance(pool, ProcessPool):
+        return ProcessPool(pool.workers_count, pool.results_queue_size,
+                           zmq_copy_buffers=pool._zmq_copy_buffers)
+    raise TypeError('Unknown pool type %r' % type(pool))

@@ -20,6 +20,7 @@ __all__ = [
     'Unischema',
     'UnischemaField',
     'encode_row',
+    'insert_explicit_nulls',
     'match_unischema_fields',
 ]
 
@@ -115,13 +116,25 @@ class Unischema(object):
         view_fields.update({f.name: f for f in frozen})
         return Unischema('%s_view' % self._name, list(view_fields.values()))
 
+    def make_namedtuple(self, **kwargs):
+        """A row of this schema's namedtuple type."""
+        return self._get_namedtuple()(**kwargs)
+
     def make_namedtuple_from_dict(self, row):
         return self._get_namedtuple()(**{k: row.get(k) for k in self._fields})
 
     def _get_namedtuple(self):
-        if self._namedtuple is None:
+        if self.__dict__.get('_namedtuple') is None:
             self._namedtuple = namedtuple(self._name, list(self._fields))
         return self._namedtuple
+
+    def __setstate__(self, state):
+        # An upstream pickle's state: ``_name``, ``_fields`` and one
+        # attribute per field, with no namedtuple cache.
+        self.__dict__.update(state)
+        self.__dict__.setdefault('_namedtuple', None)
+        if not isinstance(self.__dict__.get('_fields'), OrderedDict):
+            self.__dict__['_fields'] = OrderedDict(self.__dict__.get('_fields') or {})
 
     def as_arrow_schema(self):
         """Storage projection: one pyarrow field per Unischema field, typed by
@@ -219,6 +232,18 @@ def match_unischema_fields(schema, field_regex):
     compiled = [re.compile(p) for p in field_regex]
     return [f for name, f in schema.fields.items()
             if any(c.fullmatch(name) for c in compiled)]
+
+
+def insert_explicit_nulls(unischema, row_dict):
+    """Set each nullable field missing from ``row_dict`` to None, in place;
+    a missing field that is not nullable raises.  Returns ``row_dict``."""
+    for name, field in unischema.fields.items():
+        if name not in row_dict or row_dict[name] is None:
+            if field.nullable:
+                row_dict[name] = None
+            else:
+                raise ValueError('Field %r is not nullable but is missing from the row' % (name,))
+    return row_dict
 
 
 def encode_row(unischema, row_dict):

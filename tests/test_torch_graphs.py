@@ -110,6 +110,37 @@ def test_graphed_step_replays_what_the_eager_loop_computes(fake_graphs):
     assert all(a.data_ptr() != b.data_ptr() for a, b in zip(got[1:], got[2:]))
 
 
+def test_a_profile_tells_the_capture_from_the_steps_that_ran(fake_graphs, tmp_path):
+    """The capture runs inside a ``CAPTURE_RANGE`` range: of four graphed
+    steps' ``train_step`` ranges (the warm-up's, the capture's, and three
+    replays', each replay's around the one the fake's rerun opens), exactly
+    the one opened at capture lies inside it, and one range outside it for
+    each step holds no other."""
+    import json
+    from torch.profiler import ProfilerActivity, profile
+
+    def step(batch):
+        with torch.profiler.record_function('train_step'):
+            return batch['x'] * 2
+    graphed = graphs.StepGraph(step)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for i in range(4):
+            graphed({'x': torch.full((3,), float(i))})
+    path = str(tmp_path / 'trace.json')
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)['traceEvents']
+    spans = lambda name: [(e['ts'], e['ts'] + e['dur']) for e in trace  # noqa: E731
+                          if e.get('cat') == 'user_annotation' and e['name'] == name]
+    captures, steps = spans(graphs.CAPTURE_RANGE), spans('train_step')
+    within = lambda a, b: b[0] <= a[0] and a[1] <= b[1] and a != b  # noqa: E731
+    assert len(captures) == 1
+    assert len([s for s in steps if within(s, captures[0])]) == 1
+    outer = [s for s in steps if not within(s, captures[0])
+             and not any(within(s, other) for other in steps)]
+    assert len(outer) == 4
+
+
 @pytest.mark.parametrize('rows', [1, 4])
 def test_a_replay_on_another_shape_raises(fake_graphs, rows):
     """A captured step replays only on inputs of its captured shape: a

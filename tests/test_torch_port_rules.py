@@ -52,7 +52,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                    'reader_impl/shuffling_buffer.py', 'arrow_reader_worker.py', 'predicates.py',
                    'etl/rowgroup_filtering.py', 'models/dlrm.py', 'optim.py', 'train_dlrm.py',
                    'hello_world.py', 'spark/spark_dataset_converter.py',
-                   'spark/converter_example.py'):
+                   'spark/converter_example.py', 'ngram.py', 'ngram_sensor.py'):
         assert os.path.join(PACKAGE, module) in sources, module
     offenders = []
     for path in sources:
@@ -293,6 +293,72 @@ def test_batch_decode_workers_load_neither_torch_nor_jax(tmp_path):
         assert sorted(int(v) for b in reader for v in b.a) == [1, 15]
 
 
+def test_ngram_path_on_cpu_never_loads_jax(tmp_path):
+    """The NGram sensor example on the CPU (its command line's ``main``,
+    then the loader over the process pool, pumped, and a footer of upstream
+    petastorm's) loads nothing of JAX, flax, optax or the JAX package."""
+    script = textwrap.dedent('''
+        import base64, sys
+        from petastorm_tpu_torch import ngram_sensor
+        from petastorm_tpu_torch.etl import dataset_metadata
+        url = 'file://' + sys.argv[1]
+        result = ngram_sensor.main(url, device='cpu')
+        assert (result['batches'], result['windows']) == (18, 576), result
+        again = ngram_sensor.run(url, device='cpu', verbose=False,
+                                 reader_kwargs=dict(reader_pool_type='process', workers_count=2),
+                                 loader_kwargs=dict(transfer=True, echo=2))
+        assert (again['batches'], again['windows']) == (36, 1152), again
+        with open(sys.argv[2]) as f:
+            schema = dataset_metadata._loads_schema(base64.b64decode(f.read()))
+        assert schema.name == 'RefSchema'
+        loaded = sorted(m for m in sys.modules if m.split('.')[0] in FORBIDDEN)
+        print('LOADED', loaded)
+        sys.exit(1 if loaded else 0)
+    ''').replace('FORBIDDEN', repr(FORBIDDEN))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    fixture = os.path.join(REPO, 'tests', 'data', 'reference_unischema_footer.b64')
+    proc = subprocess.run([sys.executable, '-c', script, str(tmp_path / 'ngram'), fixture],
+                          env=env, capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert 'LOADED []' in proc.stdout
+
+
+def test_ngram_decode_workers_load_neither_torch_nor_jax(tmp_path):
+    """What a process-pool child of an NGram reader unpickles (the row
+    worker and its arguments with a resolved ``NGram``) loads neither torch
+    nor JAX, and forms the windows there."""
+    import pickle
+    from petastorm_tpu_torch.ngram_sensor import SensorSchema, make_ngram
+    from petastorm_tpu_torch.py_dict_reader_worker import PyDictReaderWorker, RowWorkerArgs
+    from petastorm_tpu_torch.workers_pool.process_worker import worker_main
+    ngram = make_ngram()
+    ngram.resolve_regex_field_names(SensorSchema)
+    payload = tmp_path / 'payload.pkl'
+    payload.write_bytes(pickle.dumps(
+        (worker_main, PyDictReaderWorker,
+         RowWorkerArgs(pieces=[], schema_view=SensorSchema, ngram=ngram))))
+    script = textwrap.dedent('''
+        import pickle, sys
+        import numpy as np
+        import petastorm_tpu_torch.py_dict_reader_worker
+        import petastorm_tpu_torch.workers_pool.process_worker
+        with open(sys.argv[1], 'rb') as f:
+            worker_main, worker, args = pickle.load(f)
+        rows = [{'timestamp': np.int64(t), 'lidar': np.zeros(32, np.float32),
+                 'velocity': np.zeros(3, np.float32)} for t in (1, 2, 3, 50, 51)]
+        windows = args.ngram.form_sequences(rows, args.schema_view)
+        assert len(windows) == 1 and sorted(windows[0]) == [-2, -1, 0]
+        loaded = sorted(m for m in sys.modules if m.split('.')[0] in FORBIDDEN + ('torch',))
+        print('LOADED', loaded)
+        sys.exit(1 if loaded else 0)
+    ''').replace('FORBIDDEN', repr(FORBIDDEN))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, '-c', script, str(payload)], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert 'LOADED []' in proc.stdout
+
+
 def test_process_pool_training_on_cpu_equals_the_thread_pools(tmp_path):
     """ViT (one layer) trained 2 steps on the CPU with the process pool
     gives the thread pool's losses, one worker each (one data order), under
@@ -432,6 +498,17 @@ def test_batch_path_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypa
                   lambda: hello_world.main(['--root', str(tmp_path), '--flow', 'petastorm'])):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             entry()
+
+
+def test_ngram_sensor_needs_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
+    from petastorm_tpu_torch import ngram_sensor
+    url = ngram_sensor.generate('file://%s' % (tmp_path / 'ngram'), rows=200)
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    for entry in (lambda: ngram_sensor.main(url), lambda: ngram_sensor.run(url),
+                  lambda: ngram_sensor._cli(['--dataset-url', url])):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            entry()
+    assert ngram_sensor.run(url, device='cpu', verbose=False)['batches'] == 6
 
 
 def test_kernel_wrappers_never_fall_back():
