@@ -140,7 +140,21 @@ Phases, in order; any failure propagates and exits nonzero:
    for one epoch (windows/s, step and host ms, data wait, ``stall_pct``, the
    device's share and kernels per step of each under the profiler) and bit for bit over 300 batches in one data order; a
    shard resumed bit for bit with the shuffling buffer and batches in
-   flight; the same shard with ``echo=2``.
+   flight; the same shard with ``echo=2``;
+21. resident (``ResidentDataLoader``, the dataset in HBM in its wire
+   dtypes): ViT-S/16 at full width, 4 epochs of the JPEG store, graphed
+   with augment on the card: epoch 0 streams 8 host batches, epochs 1-3
+   none (24 hits), slabs of 77.07 MB, 12 launches of each flash kernel a
+   step, a second pass (every epoch warm) equal to a kill-switch loader's
+   bit for bit; DLRM at
+   the Criteo example's width, 3 epochs of the 2^20-row store with
+   ``pack_columns`` in the graphed step: 134 B a row on the wire against
+   160 at full width, epochs 1-2 with no host batch, rows/s, step and host
+   ms, data wait, ``stall_pct`` and the kernels per step of the streamed
+   and a warm epoch, the step graph alone; then a second pass (every epoch
+   warm), a budget of half the wire bytes (every epoch streams, evictions
+   and thrash, no hit) and the kill switch in lockstep, every batch equal
+   bit for bit; each epoch's permutation host ms.
 
 Every streaming path moves its batches through the loader's transfer
 plane (``transfer='auto'``): a dispatch thread pulls, transforms and puts
@@ -3077,6 +3091,448 @@ def phase_ngram(fa, tmp):
     return out
 
 
+RES_SEED = 17           # the resident loaders' epoch orders: fold_in(PRNGKey(17), epoch)
+RES_VIT_EPOCHS = 4      # 8 batches of 64 an epoch: epoch 0 streams, 1-3 are warm
+RES_DLRM_EPOCHS = 3     # 512 batches of 2048 an epoch
+RES_PROFILE_STEPS = 16  # DLRM steps profiled at the end of epochs 0 and 1
+
+
+def kill_switched(loader):
+    """``iter(loader)`` with the resident tier's kill switch set: the loader
+    reads it there, once."""
+    from petastorm_tpu_torch.gpu import residency
+    os.environ[residency.KILL_SWITCH] = '1'
+    try:
+        return iter(loader)
+    finally:
+        del os.environ[residency.KILL_SWITCH]
+
+
+def device_window(prof, wall_s, steps, tmp, label):
+    """Kernels, copies and device busy time per step of a window of ``steps``
+    steps under ``prof`` (every device record of it, the transfer thread's
+    included), and the host's ms per step inside graph launch, kernel launch
+    and copy calls (every thread's); ``wall_s`` is the window's host time."""
+    path = os.path.join(tmp, 'trace_%s.json' % label.replace(' ', '_'))
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)['traceEvents']
+    events = sorted((e for e in trace if e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset')),
+                    key=lambda e: e['ts'])
+    busy, end = 0.0, float('-inf')
+    for e in events:
+        t0, t1 = e['ts'], e['ts'] + e['dur']
+        if t1 > end:
+            busy += t1 - max(t0, end)
+            end = t1
+    kernels = sum(1 for e in events if e['cat'] == 'kernel')
+    calls = {'graph_launch': 'GraphLaunch', 'kernel_launch': 'LaunchKernel', 'copy': 'Memcpy'}
+    host = {k: sum(e.get('dur', 0) for e in trace if e.get('cat') in ('cuda_runtime', 'cuda_driver')
+                   and name in e['name']) / steps / 1e3 for k, name in calls.items()}
+    return dict(kernels=kernels / steps, copies=(len(events) - kernels) / steps,
+                busy_ms=busy / steps / 1e3, busy_pct=100.0 * busy / 1e6 / wall_s,
+                host_call_ms=host)
+
+
+def resident_epochs(loader, step, epochs, per_epoch, rows, label, tmp, warmup=2,
+                    profile_epochs=()):
+    """Run ``step`` on every batch of ``epochs`` epochs of ``per_epoch``
+    batches from a ``ResidentDataLoader`` (keeping none: a training loop
+    drops each batch after its step); returns the losses and a row per
+    epoch: rows/s, step ms, host ms per step inside ``step``, data wait per
+    step and ``stall_pct`` (the waits' share of wait plus step, as the stall
+    monitor counts it) over the steps after the first ``warmup`` of epoch 0
+    (the eager warm-up and the capture) and before a profiled window, with
+    the device synchronized at both ends; the residency counters the epoch
+    moved; with ``profile_epochs``, :func:`device_window` of the epoch's
+    last ``RES_PROFILE_STEPS`` steps under torch.profiler; the warm epochs
+    together.  The cache build (``iter``), each admission's host time and a
+    streamed batch's slice-and-narrow and put-and-widen host times (the
+    loader's ``stats``) are timed too."""
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    it = iter(loader)
+    build_s = time.perf_counter() - t0
+    admits = []
+    if loader.tier is not None:
+        admit = loader.tier.admit
+
+        def timed_admit(*args):
+            ta = time.perf_counter()
+            out = admit(*args)
+            admits.append(time.perf_counter() - ta)
+            return out
+        loader.tier.admit = timed_admit
+    losses, table = [], []
+    for epoch in range(epochs):
+        skip = warmup if epoch == 0 else 0
+        timed_end = per_epoch - (RES_PROFILE_STEPS if epoch in profile_epochs else 0)
+        before = loader.residency_stats
+        wait_s = host_s = 0.0
+        prof = None
+        for i in range(per_epoch):
+            if i == skip:
+                torch.cuda.synchronize()
+                t_start = time.perf_counter()
+            if i == timed_end:
+                torch.cuda.synchronize()
+                t_end = time.perf_counter()
+                prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                prof.__enter__()
+            tw = time.perf_counter()
+            batch = next(it)
+            tb = time.perf_counter()
+            losses.append(step(batch))
+            if skip <= i < timed_end:
+                wait_s += tb - tw
+                host_s += time.perf_counter() - tb
+        torch.cuda.synchronize()
+        if prof is None:
+            t_end = time.perf_counter()
+        else:
+            window_s = time.perf_counter() - t_end
+            prof.__exit__(None, None, None)
+        timed = timed_end - skip
+        wall = t_end - t_start
+        after = loader.residency_stats
+        row = dict(epoch=epoch, steps=per_epoch, timed_steps=timed,
+                   rows_per_s=timed * rows / wall, step_ms=1e3 * wall / timed,
+                   host_ms=1e3 * host_s / timed, data_wait_ms=1e3 * wait_s / timed,
+                   stall_pct=100.0 * wait_s / (wait_s + host_s),
+                   residency={k: after[k] - before[k] for k in after})
+        if prof is not None:
+            row['profile'] = device_window(prof, window_s, RES_PROFILE_STEPS, tmp,
+                                           '%s epoch %d' % (label, epoch))
+        table.append(row)
+        log('%s epoch %d (%s): %.1f rows/s, step_ms %.3f, host_ms %.3f, data_wait_ms %.3f, '
+            'stall_pct %.1f over %d steps; residency %s%s'
+            % (label, epoch, 'streamed' if row['residency']['host_batches'] else 'warm',
+               row['rows_per_s'], row['step_ms'], row['host_ms'], row['data_wait_ms'],
+               row['stall_pct'], timed, row['residency'],
+               '; profile of its last %d steps: %.1f kernels and %.1f copies per step, device '
+               'busy %.3f ms per step (%.1f%%); host ms per step in launch and copy calls %s'
+               % (RES_PROFILE_STEPS, row['profile']['kernels'], row['profile']['copies'],
+                  row['profile']['busy_ms'], row['profile']['busy_pct'],
+                  {k: round(v, 3) for k, v in row['profile']['host_call_ms'].items()})
+               if prof is not None else ''))
+    if next(it, None) is not None:
+        raise AssertionError('%s: the loader yields more than %d epochs' % (label, epochs))
+    warm = [e for e in table if not e['residency']['host_batches']]
+    together = None
+    if warm:
+        wall = sum(e['timed_steps'] * e['step_ms'] for e in warm)
+        steps = sum(e['timed_steps'] for e in warm)
+        together = dict(timed_steps=steps, rows_per_s=1e3 * steps * rows / wall,
+                        step_ms=wall / steps, **{k: sum(e['timed_steps'] * e[k] for e in warm)
+                                                  / steps for k in ('host_ms', 'data_wait_ms')})
+        log('%s warm epochs together: %.1f rows/s, step_ms %.3f, host_ms %.3f, data_wait_ms '
+            '%.3f over %d steps'
+            % (label, together['rows_per_s'], together['step_ms'], together['host_ms'],
+               together['data_wait_ms'], steps))
+    stats = loader.stats
+    streamed = loader.residency_stats['host_batches']
+    losses = torch.stack(losses).float().cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise AssertionError('%s: non-finite losses %s' % (label, losses))
+    return losses, dict(build_s=build_s, epochs=table, warm=together,
+                              admit_ms=1e3 * float(np.mean(admits)) if admits else None,
+                              admissions=len(admits),
+                              narrow_ms=1e3 * stats['host_batch_s'] / streamed,
+                              put_ms=1e3 * stats['device_put_s'] / streamed)
+
+
+def replay_ms(step, label, replays=20):
+    """The step's graph alone, replayed back to back on its last inputs: the
+    device's time for it (a replay costs the host microseconds), which a
+    step at the device's pace cannot beat.  Call it after the path's launch
+    counts are read: each replay counts its launches."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(replays):
+        step.replay()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / replays
+    log('%s: the step graph replayed alone, %.3f ms a replay' % (label, ms))
+    return ms
+
+
+def gather_host_ms(tier, n, batch, calls=200):
+    """Host ms of one warm gather with the card idle (nothing to wait for),
+    over ``calls`` gathers along an epoch order."""
+    from petastorm_tpu_torch.gpu import residency
+    order = torch.from_numpy(residency.epoch_permutation(RES_SEED, 1, n).astype(np.int64))
+    order = order.cuda()
+    tier.gather(order, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(calls):
+        tier.gather(order, (i % (n // batch)) * batch)
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * host / calls
+
+
+def same_batches(label, got, want):
+    """Every batch of ``got`` equal to ``want``'s bit for bit on the card,
+    field names and dtypes included."""
+    if len(got) != len(want):
+        raise AssertionError('%s: %d batches against %d' % (label, len(got), len(want)))
+    for i, (g, w) in enumerate(zip(got, want)):
+        if sorted(g) != sorted(w) or any(
+                g[k].device.type != 'cuda' or g[k].dtype != w[k].dtype
+                or not torch.equal(g[k], w[k]) for k in w):
+            raise AssertionError('%s: batch %d differs' % (label, i))
+
+
+def permutation_ms(n, epochs):
+    """Host ms of each epoch's order, ``epoch_permutation(RES_SEED, e, n)``."""
+    from petastorm_tpu_torch.gpu import residency
+    out = []
+    for e in range(epochs):
+        t0 = time.perf_counter()
+        residency.epoch_permutation(RES_SEED, e, n)
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def vit_resident_step():
+    """The ViT-S/16 step as ``train`` builds it (seed-0 weights, SGD with
+    momentum 0.9, crop, flip and normalize on the card from generator seed
+    17, softmax cross-entropy), graphed."""
+    from petastorm_tpu_torch.gpu import augment, graphs
+    from petastorm_tpu_torch.train import _make_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hw = (224, 224)
+    model = _make_model('vit', hw, {}).cuda().train()
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9, dampening=0, nesterov=False)
+    aug_gen = torch.Generator(device='cuda').manual_seed(17)
+
+    def train_step(batch):
+        with torch.profiler.record_function('train_step'):
+            x = augment.random_crop(batch['image'], hw, padding=4, generator=aug_gen)
+            x = augment.random_flip_left_right(x, generator=aug_gen)
+            x = augment.normalize(x, dtype=torch.float32)
+            loss = F.cross_entropy(model(x), batch['label'].long())
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+    return graphs.StepGraph(train_step, generators=[aug_gen])
+
+
+def dlrm_resident_step():
+    """The Criteo example's DLRM step (seed-0 weights, Adagrad 1e-3, mean
+    sigmoid cross-entropy) with its ``pack_columns`` moved onto the card:
+    the widened dense columns stacked and ``log1p``-ed, the ids stacked, the
+    label cast; graphed."""
+    from petastorm_tpu_torch.gpu import graphs
+    from petastorm_tpu_torch.models.dlrm import DLRM
+    from petastorm_tpu_torch.optim import Adagrad
+    from petastorm_tpu_torch.train_dlrm import NUM_CATEGORICAL, NUM_DENSE, VOCAB_SIZES
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = DLRM(VOCAB_SIZES, generator=torch.Generator().manual_seed(0)).cuda()
+    opt = Adagrad(model.parameters(), lr=1e-3)
+    dense = ['dense_%d' % i for i in range(NUM_DENSE)]
+    cats = ['cat_%d' % i for i in range(NUM_CATEGORICAL)]
+
+    def train_step(batch):
+        with torch.profiler.record_function('train_step'):
+            x = torch.log1p(torch.stack([batch[k] for k in dense], dim=1))
+            ids = torch.stack([batch[k] for k in cats], dim=1)
+            loss = F.binary_cross_entropy_with_logits(model(x, ids), batch['label'].float())
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+    return graphs.StepGraph(train_step)
+
+
+def phase_resident(fa, url, tmp):
+    """The device-resident loader (``ResidentDataLoader``: the dataset in HBM
+    in its wire dtypes, ``fold_in`` epoch orders, the batch LRU).
+
+    (a) ViT-S/16 at full width from the 512-row JPEG store (8 decode
+    threads, the content-sorted cache), batch 64, 4 epochs, seed 17, the
+    ``train`` step graphed: epoch 0 streams 8 host batches, epochs 1-3 none
+    (24 hits); the slabs hold 512 x 150,532 B (uint8 images, int32 labels,
+    ``hbm_ratio`` 1.0); the losses are finite; 12 launches of each flash
+    kernel a step, all on the tensor cores; the step graph replayed alone.
+    Then a second pass over the loader (the same epochs, every one served
+    from the tier): every batch equal, bit for bit on the card, to that of
+    a kill-switch loader at the same (seed, epoch).  The timed pass keeps no
+    batch, as a training loop does not.
+    (b) DLRM at the Criteo example's width from ``phase_batch_reader``'s
+    store of 2^20 rows (4 threads, the content-sorted cache), batch 2048,
+    ``wire_dtypes='auto'``, 3 epochs, ``pack_columns`` in the graphed step:
+    the loader with no budget (epochs 1-2 fetch no host batch; 160 B a row
+    at full width, 134 on the wire, 13 float32 columns as bfloat16), timed
+    per epoch with the kernels per step of the streamed epoch 0 and of the
+    warm epoch 1, the step graph replayed alone, a warm gather's host time
+    and a streamed batch's on the dispatch thread; then in lockstep a second
+    pass of that loader (every epoch from the tier), a loader with a budget
+    of half the wire bytes (every epoch streams, the LRU evicts and
+    thrashes, no hit) and a kill-switch loader, every batch equal bit for
+    bit.  Each epoch's permutation on the host is timed at both sizes."""
+    from petastorm_tpu_torch.gpu import ResidentDataLoader, residency
+    from petastorm_tpu_torch.reader import make_batch_reader, make_reader
+    from petastorm_tpu_torch.train import make_transform
+    out = {}
+    # (a) ViT-S/16
+    def vit_loader():
+        reader = make_reader(url, schema_fields=['image', 'noun_id'],
+                             transform_spec=make_transform((224, 224)), columnar_decode=True,
+                             workers_count=8, num_epochs=1)
+        return ResidentDataLoader(reader, BATCH, num_epochs=RES_VIT_EPOCHS, seed=RES_SEED,
+                                  deterministic_cache_order=True)
+
+    per_epoch = IMAGE_ROWS // BATCH
+    step = vit_resident_step()
+    reset_counts(fa)
+    with vit_loader() as loader:
+        losses, vit = resident_epochs(loader, step, RES_VIT_EPOCHS, per_epoch, BATCH,
+                                      'resident vit', tmp)
+        launches, by_design = counts(fa)
+        vit['replay_ms'] = replay_ms(step, 'resident vit')
+        stats = loader.residency_stats
+        slab_bytes = sum(t.nbytes for t in loader.tier.slabs.values())
+        plan = loader._plan
+        on_card = {t.device.type for t in loader.tier.slabs.values()}
+        # a second pass replays the same epochs, every one from the tier
+        warm_pass = list(loader)
+        second = {k: v - stats[k] for k, v in loader.residency_stats.items()}
+        vit['gather_host_ms'] = gather_host_ms(loader.tier, IMAGE_ROWS, BATCH)
+    check_launches('resident vit', launches, by_design,
+                   {name: 12 * RES_VIT_EPOCHS * per_epoch for name in launches})
+    with vit_loader() as killed:
+        plain = list(kill_switched(killed))
+        killed_stats = killed.residency_stats
+    same_batches('resident vit, every epoch warm, against the kill switch', warm_pass, plain)
+    if second != dict(admitted=0, evictions=0, hits=RES_VIT_EPOCHS * per_epoch, bypass=0,
+                      thrash=0, host_batches=0):
+        raise AssertionError('resident vit: the second pass moved %r' % second)
+    vit.update(stats=stats, killed_stats=killed_stats, slab_mb=slab_bytes / 1e6,
+               hbm_ratio=plan.logical_row_nbytes / plan.wire_row_nbytes,
+               launches=launches, losses=[float(x) for x in losses],
+               permutation_ms=permutation_ms(IMAGE_ROWS, RES_VIT_EPOCHS))
+    del warm_pass, plain
+    log('resident vit: cache built in %.2f s; %s; slabs %.2f MB on %s (hbm_ratio %.3f); a '
+        'second pass (every epoch warm) equal to the kill-switch loader\'s bit for bit (%s); '
+        'losses %s; flash launches '
+        '%s; a streamed batch on the dispatch thread: slice and narrow %.3f, put and widen '
+        '%.3f, admission %.3f host ms; a warm gather %.3f host ms (card idle); permutation of '
+        '%d rows %s host ms per epoch'
+        % (vit['build_s'], stats, vit['slab_mb'], on_card, vit['hbm_ratio'], killed_stats,
+           ' '.join('%.4f' % x for x in losses), launches, vit['narrow_ms'], vit['put_ms'],
+           vit['admit_ms'], vit['gather_host_ms'], IMAGE_ROWS,
+           ' '.join('%.3f' % x for x in vit['permutation_ms'])))
+    epochs = vit['epochs']
+    if epochs[0]['residency']['host_batches'] != per_epoch \
+            or any(e['residency']['host_batches'] for e in epochs[1:]) \
+            or stats['hits'] != (RES_VIT_EPOCHS - 1) * per_epoch \
+            or stats['admitted'] != per_epoch or stats['evictions'] or stats['bypass']:
+        raise AssertionError('resident vit: %r' % [e['residency'] for e in epochs])
+    if slab_bytes != IMAGE_ROWS * (224 * 224 * 3 + 4) or plan.narrowed or on_card != {'cuda'}:
+        raise AssertionError('resident vit: slabs of %d B on %s, narrowed %s'
+                             % (slab_bytes, on_card, plan.narrowed))
+    if killed_stats['host_batches'] != RES_VIT_EPOCHS * per_epoch or killed_stats['hits']:
+        raise AssertionError('resident vit: the kill-switch loader %r' % killed_stats)
+    out['vit'] = vit
+    # (b) Criteo -> DLRM
+    criteo = 'file://' + os.path.join(tmp, 'criteo')
+    dlrm_per_epoch = BR_ROWS // DLRM_BATCH
+
+    def dlrm_loader(**kwargs):
+        reader = make_batch_reader(criteo, num_epochs=1, workers_count=4)
+        return ResidentDataLoader(reader, DLRM_BATCH, num_epochs=RES_DLRM_EPOCHS,
+                                  seed=RES_SEED, wire_dtypes='auto',
+                                  deterministic_cache_order=True, **kwargs)
+
+    step = dlrm_resident_step()
+    reset_counts(fa)
+    total = RES_DLRM_EPOCHS * dlrm_per_epoch
+    with dlrm_loader() as loader:
+        losses, dlrm = resident_epochs(loader, step, RES_DLRM_EPOCHS, dlrm_per_epoch,
+                                       DLRM_BATCH, 'resident dlrm', tmp, profile_epochs=(0, 1))
+        dlrm['replay_ms'] = replay_ms(step, 'resident dlrm')
+        stats = loader.residency_stats
+        slab_bytes = sum(t.nbytes for t in loader.tier.slabs.values())
+        plan = loader._plan
+        dlrm['gather_host_ms'] = gather_host_ms(loader.tier, BR_ROWS, DLRM_BATCH)
+        wire_fields = {k: str(f.wire).replace('torch.', '') for k, f in plan.fields.items()}
+        dlrm.update(stats=stats, wire_bytes_per_row=plan.wire_row_nbytes,
+                    logical_bytes_per_row=plan.logical_row_nbytes,
+                    hbm_ratio=plan.logical_row_nbytes / plan.wire_row_nbytes,
+                    slab_mb=slab_bytes / 1e6,
+                    full_width_mb=BR_ROWS * plan.logical_row_nbytes / 1e6,
+                    losses_first_last=[float(losses[0]), float(losses[-1])],
+                    permutation_ms=permutation_ms(BR_ROWS, RES_DLRM_EPOCHS))
+        log('resident dlrm: cache built in %.2f s; %s; %d B a row on the wire, %d at full width '
+            '(hbm_ratio %.4f), slabs %.2f MB against %.2f MB at full width; bfloat16 fields %s; '
+            'a streamed batch on the dispatch thread: slice and narrow %.3f, put and widen %.3f, '
+            'admission %.3f host ms (over %d); a warm gather %.3f host ms (card idle); loss '
+            '%.4f -> %.4f; permutation of %d rows %s host ms per epoch'
+            % (dlrm['build_s'], stats, plan.wire_row_nbytes, plan.logical_row_nbytes,
+               dlrm['hbm_ratio'], dlrm['slab_mb'], dlrm['full_width_mb'],
+               sorted(k for k, w in wire_fields.items() if w == 'bfloat16'), dlrm['narrow_ms'],
+               dlrm['put_ms'], dlrm['admit_ms'], dlrm['admissions'], dlrm['gather_host_ms'],
+               losses[0], losses[-1], BR_ROWS,
+               ' '.join('%.1f' % x for x in dlrm['permutation_ms'])))
+        epochs = dlrm['epochs']
+        if epochs[0]['residency']['host_batches'] != dlrm_per_epoch \
+                or any(e['residency']['host_batches'] for e in epochs[1:]) \
+                or stats['hits'] != (RES_DLRM_EPOCHS - 1) * dlrm_per_epoch:
+            raise AssertionError('resident dlrm: %r' % [e['residency'] for e in epochs])
+        if (plan.wire_row_nbytes, plan.logical_row_nbytes) != (134, 160) \
+                or slab_bytes != BR_ROWS * 134:
+            raise AssertionError('resident dlrm: %d and %d B a row, slabs %d B'
+                                 % (plan.wire_row_nbytes, plan.logical_row_nbytes, slab_bytes))
+        # the three regimes in lockstep: a second pass of this loader (the same
+        # epochs, every one from the tier), a half budget and the kill switch
+        budget = BR_ROWS * plan.wire_row_nbytes // 2
+        with dlrm_loader(hbm_budget_bytes=budget) as tight, dlrm_loader() as killed:
+            t0 = time.perf_counter()
+            tight_it = iter(tight)
+            tight_build = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            killed_it = kill_switched(killed)
+            killed_build = time.perf_counter() - t0
+            before = loader.residency_stats
+            t0 = time.perf_counter()
+            for i, want in enumerate(loader):
+                same_batches('resident dlrm step %d: half budget' % i, [next(tight_it)], [want])
+                same_batches('resident dlrm step %d: kill switch' % i, [next(killed_it)], [want])
+            lockstep_s = time.perf_counter() - t0
+            if i + 1 != total or next(tight_it, None) is not None \
+                    or next(killed_it, None) is not None:
+                raise AssertionError('resident dlrm: the lockstep loaders yield other counts')
+            tight_stats, killed_stats = tight.residency_stats, killed.residency_stats
+        second = {k: v - before[k] for k, v in loader.residency_stats.items()}
+    dlrm.update(half_budget=dict(budget_bytes=budget, build_s=tight_build, stats=tight_stats),
+                killed=dict(build_s=killed_build, stats=killed_stats), lockstep_s=lockstep_s,
+                second_pass=second)
+    log('resident dlrm, three regimes in lockstep over %d batches (%.1f s): no budget (a second '
+        'pass, every epoch warm: %s), a budget of %d B (half the wire bytes; cache built in '
+        '%.2f s) %s, the kill switch (built in %.2f s) %s: every batch equal bit for bit'
+        % (total, lockstep_s, second, budget, tight_build, tight_stats, killed_build,
+           killed_stats))
+    if second != dict(admitted=0, evictions=0, hits=total, bypass=0, thrash=0, host_batches=0):
+        raise AssertionError('resident dlrm: the second pass moved %r' % second)
+    if tight_stats['hits'] or tight_stats['host_batches'] != total \
+            or not tight_stats['evictions'] or not tight_stats['thrash']:
+        raise AssertionError('resident dlrm half budget: %r' % tight_stats)
+    if killed_stats != dict(admitted=0, evictions=0, hits=0, bypass=0, thrash=0,
+                            host_batches=total):
+        raise AssertionError('resident dlrm kill switch: %r' % killed_stats)
+    launches, _ = counts(fa)
+    if any(launches.values()):
+        raise AssertionError('resident dlrm: flash launches %s on a path without attention'
+                             % launches)
+    out['dlrm'] = dlrm
+    SUMMARY['resident'] = out
+    return vit['launches']
+
+
 def main():
     # The kernels' module (petastorm_tpu_torch.ops re-exports its function
     # under the same name).  Imported first: outside a checkout this fails
@@ -3123,12 +3579,13 @@ def main():
                                 fa, url, 'file://' + os.path.join(tmp, 'lc_tokens'), tmp)),
                             ('batch_reader', lambda: phase_batch_reader(fa, tmp)),
                             ('reference_footer', lambda: phase_reference_footer(tmp)),
-                            ('ngram', lambda: phase_ngram(fa, tmp))):
+                            ('ngram', lambda: phase_ngram(fa, tmp)),
+                            ('resident', lambda: phase_resident(fa, url, tmp))):
             t0 = time.monotonic()
             paths[name] = phase()
             log('phase %s: %.1f s' % (name, time.monotonic() - t0))
     launches = {'vit': paths['vit'], 'lm': paths['lm'], 'packed': paths['packed'][0],
-                'generate': paths['generate']}
+                'generate': paths['generate'], 'resident': paths['resident']}
     kernels = [dict(name=name, route='cuda', design=MAIN_PATH_DESIGN[name],
                     source=SOURCES[name], replaces=REPLACES[name],
                     launches=sum(path[name] for path in launches.values()),

@@ -7,7 +7,8 @@ petastorm datasets, NGram windows over timestamped rows included,
 and ``shard_seed``; stores written by upstream petastorm open as they are)
 and decode plane, a
 loader that moves batches to an NVIDIA GPU (streaming, or from an epoch
-cache in host or device memory, or packed into fixed-shape LM batches),
+cache in host or device memory, or from a resident tier of the dataset in
+HBM in its wire dtypes, or packed into fixed-shape LM batches),
 on-device augmentation, exact data checkpoints (every loader's
 ``state_dict``/``resume_state``, ``checkpoint.TrainStateManager``), the
 ResNet-50, ViT, MNIST MLP, DLRM and decoder-only LM models (with KV-cache
@@ -32,6 +33,7 @@ _LAZY = {
     'DataLoader': 'petastorm_tpu_torch.gpu.loader',
     'InMemDataLoader': 'petastorm_tpu_torch.gpu.loader',
     'DeviceInMemDataLoader': 'petastorm_tpu_torch.gpu.loader',
+    'ResidentDataLoader': 'petastorm_tpu_torch.gpu.loader',
     'DiskCachedDataLoader': 'petastorm_tpu_torch.gpu.loader',
     'PackedDataLoader': 'petastorm_tpu_torch.gpu.loader',
     'make_loader': 'petastorm_tpu_torch.gpu.loader',

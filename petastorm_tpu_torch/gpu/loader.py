@@ -57,10 +57,16 @@ one warning per field; a ``datetime64`` column raises ``TypeError``, as
 ``jax.device_put`` does; a nullable int column with nulls arrives as
 float32 with NaN (pandas' float64, narrowed), as in the JAX loader.
 
-Autotuning, sharding and ``ResidentDataLoader`` are later slices of the
-port (ROADMAP.md, Queue A items 4, 6 and 7).
+:class:`ResidentDataLoader` keeps the dataset on the device in its wire
+dtypes (:mod:`~petastorm_tpu_torch.gpu.residency`): epoch 0 streams and
+admits each batch, later epochs are gathered there, in the JAX loader's
+``fold_in`` epoch orders.
+
+Autotuning and sharding are later slices of the port (ROADMAP.md, Queue A
+items 6 and 7).
 """
 
+import contextlib
 import hashlib
 import itertools
 import json
@@ -75,7 +81,7 @@ import numpy as np
 import torch
 
 from petastorm_tpu_torch import random as prng
-from petastorm_tpu_torch.gpu import graphs
+from petastorm_tpu_torch.gpu import graphs, residency
 from petastorm_tpu_torch.gpu.packing import StreamPacker
 from petastorm_tpu_torch.gpu.transfer import (DONE, DispatchPump, TransferPlane, canonical_dtype,
                                               plane_enabled, resolve_device, validate_transfer)
@@ -85,8 +91,8 @@ from petastorm_tpu_torch.telemetry.registry import MetricsRegistry
 
 logger = logging.getLogger(__name__)
 
-__all__ = ['DataLoader', 'InMemDataLoader', 'DeviceInMemDataLoader', 'DiskCachedDataLoader',
-           'PackedDataLoader', 'make_loader']
+__all__ = ['DataLoader', 'InMemDataLoader', 'DeviceInMemDataLoader', 'ResidentDataLoader',
+           'DiskCachedDataLoader', 'PackedDataLoader', 'make_loader']
 
 
 class DataLoader(object):
@@ -916,15 +922,18 @@ def _stack_rows(rows):
 def _canonical_row_order(cache):
     """Sort the rows of a ``{field: (N, ...) array}`` cache by a blake2b
     digest of each row over its fields in name order: any pool then yields
-    the same sequence (identical rows tie, and are interchangeable)."""
-    items = sorted(cache.items())
-    digests = []
-    for i in range(_rows(cache)):
-        h = hashlib.blake2b(digest_size=16)
-        for _, column in items:
-            h.update(np.ascontiguousarray(column[i]).tobytes())
-        digests.append(h.digest())
-    idx = np.asarray(sorted(range(len(digests)), key=digests.__getitem__))
+    the same sequence (identical rows tie, and are interchangeable).  Each
+    row's bytes, its fields' in name order, are one row of a byte matrix and
+    take one hash call: the digest of their concatenation is that of the
+    fields hashed one after the other."""
+    n = _rows(cache)
+    rows = np.concatenate([np.ascontiguousarray(column).reshape(n, -1).view(np.uint8)
+                           for _, column in sorted(cache.items())], axis=1)
+    digests = b''.join(hashlib.blake2b(row, digest_size=16).digest() for row in rows)
+    # the digests' byte order as two big-endian words; a stable sort keeps
+    # tied rows in cache order, as sorting the digests as bytes does
+    words = np.frombuffer(digests, dtype='>u8').reshape(n, 2)
+    idx = np.lexsort((words[:, 1], words[:, 0]))
     return {name: column[idx] for name, column in cache.items()}
 
 
@@ -1305,6 +1314,290 @@ class DeviceInMemDataLoader(InMemDataLoader):
                 epochs.append(outs)
             self._epochs_done += len(group)   # a yield is an epoch boundary
             yield carry, (epochs[0] if epochs_per_call == 1 else _stack(epochs))
+
+
+class ResidentDataLoader(InMemDataLoader):
+    """The dataset on the card in its wire dtypes, epoch orders keyed by
+    ``(seed, epoch)``, and a batch LRU under ``hbm_budget_bytes``
+    (:mod:`~petastorm_tpu_torch.gpu.residency`): the JAX package's
+    ``ResidentDataLoader``.
+
+    The dataset is read once into host memory, which is kept.  Epoch 0
+    streams: a :class:`~petastorm_tpu_torch.gpu.transfer.DispatchPump`
+    thread slices each batch out of the host cache, narrows it to its wire
+    dtypes (``wire_dtypes='auto'``: float32 and float64 as bfloat16; None:
+    the device dtypes; or a ``{field: dtype}`` dict) into page-locked memory,
+    copies it to the card on a stream of its own, admits it into the
+    :class:`~petastorm_tpu_torch.gpu.residency.ResidencyTier` and widens it
+    back; the training thread only takes finished batches.  Once every row
+    is resident, each later epoch is served from the tier, one gather per
+    batch on the card, with no host batch.
+
+    Every epoch's order is ``epoch_permutation(seed, epoch, n)``, so every
+    epoch delivers ``widen(narrow(rows))`` in the same order whether it
+    streams or is served warm: the batches of a loader under
+    ``PETASTORM_TPU_NO_RESIDENCY`` (the tier off, narrowing kept), of one
+    whose budget cannot hold the dataset (every epoch streams, the LRU
+    churns), and of one whose tier is dropped mid-epoch
+    (:meth:`drop_resident_tier`: the rest streams) are the same, bit for
+    bit, and the JAX loader's.  A dtype outside the wire support matrix
+    streams every epoch at full width.  ``seed=None`` draws fresh entropy
+    once, at the first iteration; every pass over the loader replays the
+    same epochs.
+
+    ``transform_fn`` and ``shuffling_queue_capacity`` are rejected (a warm
+    batch never exists on the host).  :meth:`state_dict` is
+    ``(epochs_done, steps_into_epoch)`` with the batch size, ``drop_last``
+    and the explicit seed, as the JAX loader's token; mid-epoch it needs
+    ``deterministic_cache_order=True``.
+    """
+
+    _TOKEN_KEY = 'resident'
+
+    def __init__(self, reader, batch_size, num_epochs=1, shuffle=True, seed=None, device=None,
+                 wire_dtypes='auto', hbm_budget_bytes=None, **kwargs):
+        for unsupported in ('transform_fn', 'shuffling_queue_capacity'):
+            if kwargs.get(unsupported):
+                raise ValueError('ResidentDataLoader does not support %s' % unsupported)
+        if wire_dtypes not in (None, 'auto') and not isinstance(wire_dtypes, dict):
+            raise ValueError("wire_dtypes must be None, 'auto', or a {field: dtype} dict "
+                             '(got %r)' % (wire_dtypes,))
+        super(ResidentDataLoader, self).__init__(
+            reader, batch_size, num_epochs=num_epochs, shuffle=shuffle, seed=seed,
+            device=device, wire_dtypes=wire_dtypes, **kwargs)
+        self._budget = hbm_budget_bytes
+        self._tier = None
+        self._plan = None
+        self._identity_order = None
+        self._copy_stream = None
+        #: every counter and gauge exists from here on, 0 while the tier is off
+        self._res_counters = residency.ensure_counters(self.metrics)
+        #: drawn at the first iteration, then fixed: every pass replays it
+        self._res_seed = None
+        self._start_epoch = self._start_step = 0
+        self._epochs_done = self._steps_into_epoch = 0
+        resumed = (self._resume_state or {}).get(self._TOKEN_KEY)
+        if resumed:
+            if seed is None or int(resumed['seed']) != int(seed):
+                raise ValueError(
+                    'resident resume token was taken with seed=%r; rebuild the loader with that '
+                    'explicit seed (every epoch order is derived from (seed, epoch))'
+                    % (resumed['seed'],))
+            self._start_epoch = int(resumed['epochs_done'])
+            self._start_step = int(resumed.get('steps_into_epoch', 0))
+            token_bs = resumed.get('batch_size')
+            if self._start_step and token_bs is not None and int(token_bs) != int(batch_size):
+                raise ValueError(
+                    'resident resume token was taken %d steps into an epoch of batch_size=%d '
+                    'batches; resume with that batch_size (got %d), or checkpoint at an epoch '
+                    'boundary to change it' % (self._start_step, int(token_bs), int(batch_size)))
+            if self._start_step and not self._deterministic:
+                raise ValueError(
+                    'mid-epoch resident resume requires deterministic_cache_order=True: the '
+                    'step cursor indexes into the cached row order, which only the canonical '
+                    'content-sorted cache reproduces across restarts')
+            self._epochs_done, self._steps_into_epoch = self._start_epoch, self._start_step
+
+    @property
+    def residency_stats(self):
+        """The residency counters: every key, whether the tier is on or not."""
+        c = self._res_counters
+        return {'admitted': int(c.admitted.value),
+                'evictions': int(c.evictions.value),
+                'hits': int(c.hits.value),
+                'bypass': int(c.bypass.value),
+                'thrash': int(c.thrash.value),
+                'host_batches': int(c.host_batches.value)}
+
+    @property
+    def tier(self):
+        """The loader's :class:`~petastorm_tpu_torch.gpu.residency.ResidencyTier`
+        (None before the first iteration, and with the tier off)."""
+        return self._tier
+
+    def drop_resident_tier(self):
+        """Release the tier now (to give its HBM to a model that grew, say).
+        Safe mid-epoch: the rest of the pass streams from the host cache with
+        the same batches."""
+        if self._tier is not None:
+            self._tier.drop()
+
+    def _epoch_order(self, epoch, n):
+        """Epoch ``epoch``'s row order: int64 on the host, the values of the
+        JAX loader's int32 order."""
+        if not self._shuffle:
+            if self._identity_order is None or len(self._identity_order) != n:
+                self._identity_order = np.arange(n, dtype=np.int64)
+            return self._identity_order
+        return residency.epoch_permutation(self._res_seed, epoch, n).astype(np.int64)
+
+    def __iter__(self):
+        if self._build_cache() is None:
+            return iter(())
+        numeric = _filter_numeric(self._cache, self._warned_fields)
+        if not numeric:
+            return iter(())
+        n = _rows(numeric)
+        if self._drop_last and n < self.batch_size:
+            logger.warning('epoch cache holds %d rows < batch_size=%d with drop_last: no '
+                           'batches to serve', n, self.batch_size)
+            return iter(())
+        # the kill switch turns the tier off, not the narrowing: a killed
+        # loader delivers what the tier would
+        plan = residency.wire_plan(numeric, self._wire_dtypes)
+        cuda = self.device.type == 'cuda'
+        if cuda and self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        tier = None
+        if plan is not None and not residency.killed():
+            if self._tier is None:
+                streams = (self._copy_stream, torch.cuda.current_stream(self.device)) \
+                    if cuda else ()
+                self._tier = residency.ResidencyTier(plan, n, self.batch_size, self._budget,
+                                                     self._res_counters, device=self.device,
+                                                     streams=streams)
+            tier = self._tier
+        self._plan = plan
+        if self._res_seed is None:
+            self._res_seed = self._seed if self._seed is not None \
+                else int(np.random.default_rng().integers(2 ** 31))
+        return self._gen(numeric, n, plan, tier)
+
+    def _gen(self, cache, n, plan, tier):
+        self._epochs_done, self._steps_into_epoch = self._start_epoch, self._start_step
+        skip = self._start_step   # the token's cursor: its first epoch only
+        epoch = self._start_epoch
+        while self._num_epochs is None or epoch < self._num_epochs:
+            order = self._epoch_order(epoch, n)
+            stop = n - self.batch_size + 1 if self._drop_last else n
+            starts = list(range(0, max(stop, 0), self.batch_size))
+            if skip and skip >= len(starts):
+                raise ValueError('resident resume token is %d steps into an epoch of %d steps '
+                                 '— the dataset or batch geometry changed since the checkpoint'
+                                 % (skip, len(starts)))
+            if tier is not None and tier.serving_ok():
+                batches = self._resident_epoch(cache, n, plan, tier, order, starts, skip)
+            else:
+                batches = self._streamed_epoch(cache, n, plan, tier, order, starts, skip)
+            for j, batch in batches:
+                self._m_batches.inc()
+                # accounted before the yield: a snapshot taken while the
+                # consumer holds an epoch's last batch reads a boundary
+                if j + 1 == len(starts):
+                    self._epochs_done, self._steps_into_epoch = self._epochs_done + 1, 0
+                else:
+                    self._steps_into_epoch = j + 1
+                yield batch
+            if tier is not None and not tier.fully_resident:
+                tier.backfill(cache, plan)
+            skip = 0
+            epoch += 1
+
+    def _stream_one(self, cache, n, plan, idx):
+        """Slice, narrow, move and widen one batch of rows ``idx``: the
+        streamed batch, ``widen(narrow(rows))`` as a warm gather gives it.
+        Returns the wire tensors on the device beside the batch."""
+        t0 = time.monotonic()
+        if plan is not None:
+            wire = plan.narrow(cache, idx, pin_memory=self.device.type == 'cuda')
+        else:
+            wire = {name: torch.from_numpy(np.ascontiguousarray(np.asarray(v)[idx],
+                                                                dtype=canonical_dtype(v.dtype)))
+                    for name, v in cache.items()}
+        t1 = time.monotonic()
+        if plan is not None:
+            wire_dev = plan.to_device(wire, self.device)
+            batch = plan.widen(wire_dev)
+        else:
+            wire_dev = batch = {k: v.to(self.device, non_blocking=True) for k, v in wire.items()}
+        t2 = time.monotonic()
+        self._observe('host_batch', t0, t1)
+        self._observe('device_put', t1, t2)
+        self._res_counters.host_batches.inc()
+        return wire_dev, batch
+
+    def _streamed_epoch(self, cache, n, plan, tier, order, starts, skip):
+        """One epoch through a dispatch thread, which slices, narrows, copies
+        (on the loader's copy stream), admits and widens each batch while the
+        consumer steps; the consumer's stream waits for each batch's event."""
+        bs = self.batch_size
+        copy_stream = self._copy_stream
+
+        def source():
+            for j, start in enumerate(starts):
+                if j >= skip:
+                    yield j, order[start:min(start + bs, n)]
+
+        def ship(item):
+            j, idx = item
+            with torch.cuda.stream(copy_stream) if copy_stream is not None \
+                    else contextlib.nullcontext():
+                wire_dev, batch = self._stream_one(cache, n, plan, idx)
+                if tier is not None:
+                    tier.admit(idx, wire_dev)
+                event = None
+                if copy_stream is not None:
+                    event = torch.cuda.Event()
+                    event.record(copy_stream)
+            return j, batch, event
+
+        pump = DispatchPump(source(), ship, self._prefetch, device=self.device)
+        self._pump = pump
+        pump.start()
+        try:
+            while True:
+                item = pump.get()
+                if item is DONE:
+                    return
+                j, batch, event = item
+                if event is not None:
+                    stream = torch.cuda.current_stream(self.device)
+                    stream.wait_event(event)
+                    for tensor in batch.values():
+                        # made on the copy stream, used on this one
+                        tensor.record_stream(stream)
+                yield j, batch
+        finally:
+            pump.stop(join_timeout_s=0.2)
+
+    def _resident_epoch(self, cache, n, plan, tier, order, starts, skip):
+        """One warm epoch: the order moved to the card once, then one gather
+        per batch.  A tier dropped mid-epoch leaves the rest to stream from
+        the host cache, on this thread: the same batches."""
+        bs = self.batch_size
+        order_dev = torch.from_numpy(order).to(self.device)
+        for j, start in enumerate(starts):
+            if j < skip:
+                continue
+            if tier.serving_ok():
+                if start + bs <= n:
+                    batch = tier.gather(order_dev, start)
+                else:   # the ragged tail (drop_last=False)
+                    batch = tier.gather_tail(order_dev, start)
+            else:
+                _, batch = self._stream_one(cache, n, plan, order[start:min(start + bs, n)])
+                self._res_counters.bypass.inc()
+            yield j, batch
+
+    def state_dict(self):
+        """The resume token: ``(epochs_done, steps_into_epoch)`` with the batch
+        size, ``drop_last`` and the seed (the JAX loader's keys).  It needs
+        an explicit ``seed``, and mid-epoch ``deterministic_cache_order=True``;
+        the tier of the loader that resumes it is rebuilt by streaming, with
+        the same batches."""
+        if self._seed is None:
+            raise ValueError('resume needs an explicit seed= (epoch orders must be '
+                             're-derivable after restart)')
+        if self._steps_into_epoch and not self._deterministic:
+            raise ValueError(
+                'mid-epoch checkpoint (%d steps into the current epoch) needs '
+                'deterministic_cache_order=True — the step cursor indexes into the cached row '
+                'order, which a pool-ordered rebuild does not reproduce' % self._steps_into_epoch)
+        return {'version': 1,
+                self._TOKEN_KEY: {'epochs_done': int(self._epochs_done),
+                                  'steps_into_epoch': int(self._steps_into_epoch),
+                                  'batch_size': int(self.batch_size),
+                                  'drop_last': bool(self._drop_last), 'seed': int(self._seed)}}
 
 
 class DiskCachedDataLoader(_EpochServer, DataLoader):

@@ -62,7 +62,8 @@ from petastorm_tpu_torch.telemetry.registry import MetricsRegistry
 logger = logging.getLogger(__name__)
 
 __all__ = ['resolve_device', 'canonical_dtype', 'validate_transfer', 'plane_enabled',
-           'TransferPlane', 'DispatchPump', 'pumps_paused', 'KILL_SWITCH']
+           'supported', 'wire_dtype_for', 'TransferPlane', 'DispatchPump', 'pumps_paused',
+           'KILL_SWITCH']
 
 #: Set to any non-empty value to keep every loader on the inline put.
 KILL_SWITCH = 'PETASTORM_TPU_NO_TRANSFER_PLANE'
@@ -157,6 +158,24 @@ def _resolve_wire(name, out_dtype, policy):
         return torch.bfloat16 if out_dtype.kind == 'f' and out_dtype.itemsize >= 4 else out
     want = policy.get(name)
     return out if want is None else _wire_of(want)
+
+
+def supported(dtype):
+    """The wire support matrix: fixed-width bool, int, uint and float dtypes
+    (numpy's or torch's), bfloat16 included; datetime, complex, object and
+    string dtypes are not."""
+    if isinstance(dtype, torch.dtype):
+        return dtype in _PACKABLE
+    dtype = np.dtype(dtype)
+    return dtype in _PACKABLE.values() or dtype.name == 'bfloat16'
+
+
+def wire_dtype_for(name, out_dtype, policy):
+    """The wire dtype (torch) of the leaf ``name`` whose device dtype is
+    ``out_dtype`` under the ``wire_dtypes`` policy: the rule the plane packs
+    by, which the resident tier (:mod:`~petastorm_tpu_torch.gpu.residency`)
+    stores its rows in."""
+    return _resolve_wire(name, np.dtype(out_dtype), policy)
 
 
 def _leaves(tree, prefix=()):

@@ -1,11 +1,14 @@
 """The part of ``jax.random`` the in-memory loaders use, bit for bit.
 
-``PRNGKey(seed)``, ``split(key)`` and ``permutation(key, n)`` compute what
-JAX 0.9.0 computes for them with the default threefry2x32 generator and
-``jax_threefry_partitionable=True``, in numpy ``uint32``: the epoch orders
-of :class:`~petastorm_tpu_torch.gpu.loader.DeviceInMemDataLoader` are then
-the JAX loader's, element for element.  Counterparts in ``jax/_src``:
-``prng.threefry_seed``, ``prng._threefry_split_foldlike``,
+``PRNGKey(seed)``, ``split(key)``, ``fold_in(key, data)`` and
+``permutation(key, n)`` compute what JAX 0.9.0 computes for them with the
+default threefry2x32 generator and ``jax_threefry_partitionable=True``, in
+numpy ``uint32``: the epoch orders of
+:class:`~petastorm_tpu_torch.gpu.loader.DeviceInMemDataLoader` (a chain of
+``split``) and of :class:`~petastorm_tpu_torch.gpu.loader.ResidentDataLoader`
+(``fold_in`` of the epoch) are then the JAX loaders', element for element.
+Counterparts in ``jax/_src``: ``prng.threefry_seed``,
+``prng._threefry_split_foldlike``, ``prng._threefry_fold_in``,
 ``prng._threefry_random_bits_partitionable``, ``prng._threefry2x32_lowering``
 and ``random._shuffle``.  A key is a ``uint32`` array of shape ``(2,)``.
 
@@ -21,7 +24,7 @@ in the last bit, which moves no sample short of an exact tie.
 import numpy as np
 import torch
 
-__all__ = ['PRNGKey', 'split', 'random_bits', 'permutation', 'threefry2x32', 'uniform',
+__all__ = ['PRNGKey', 'split', 'fold_in', 'random_bits', 'permutation', 'threefry2x32', 'uniform',
            'gumbel', 'gumbel_stack', 'categorical']
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -64,6 +67,14 @@ def split(key, num=2):
     """``jax.random.split(key, num)``: ``num`` new keys, shape ``(num, 2)``."""
     bits0, bits1 = threefry2x32(key, *_counters(num))
     return np.stack([bits0, bits1], axis=1)
+
+
+def fold_in(key, data):
+    """``jax.random.fold_in(key, data)``: the key of ``data`` (taken modulo
+    2^32) under ``key``, ``threefry2x32(key, [0], [data])``."""
+    bits0, bits1 = threefry2x32(key, np.zeros(1, np.uint32),
+                                np.array([int(data) & 0xFFFFFFFF], np.uint32))
+    return np.concatenate([bits0, bits1])
 
 
 def random_bits(key, n):

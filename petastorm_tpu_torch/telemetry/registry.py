@@ -1,17 +1,18 @@
-"""Named counters and latency histograms under one lock.
+"""Named counters, gauges and latency histograms under one lock.
 
 Counterpart of ``petastorm_tpu/telemetry/registry.py``, cut to what the
-transfer plane, the loader and the thread pool use (its gauges, merging
-across processes, exemplars and Prometheus text are not ported).  Histograms use fixed log2 buckets over microseconds: bucket ``i``
-counts observations in ``[2**i, 2**(i+1))`` us, and a quantile is the upper
-bound of the bucket it falls in.  The hot path is one lock and one add.
+transfer plane, the loaders, the resident tier and the thread pool use
+(merging across processes, exemplars and Prometheus text are not ported).
+Histograms use fixed log2 buckets over microseconds: bucket ``i`` counts
+observations in ``[2**i, 2**(i+1))`` us, and a quantile is the upper bound
+of the bucket it falls in.  The hot path is one lock and one add.
 """
 
 import bisect
 import math
 import threading
 
-__all__ = ['MetricsRegistry', 'Counter', 'Histogram', 'hist_quantile', 'ms']
+__all__ = ['MetricsRegistry', 'Counter', 'Gauge', 'Histogram', 'hist_quantile', 'ms']
 
 #: log2 buckets over microseconds: 1 us .. ~2.4 hours; index 0 takes the
 #: sub-microsecond observations, the last one the tail.
@@ -35,6 +36,20 @@ class Counter(object):
     def inc(self, n=1):
         with self._lock:
             self.value += n
+
+
+class Gauge(object):
+    """Last-write-wins sample (rows resident, bytes held, ...)."""
+
+    __slots__ = ('_lock', 'value')
+
+    def __init__(self, lock):
+        self._lock = lock
+        self.value = 0
+
+    def set(self, v):
+        with self._lock:
+            self.value = v
 
 
 class Histogram(object):
@@ -70,6 +85,7 @@ class MetricsRegistry(object):
         self.namespace = namespace
         self._lock = threading.Lock()
         self._counters = {}
+        self._gauges = {}
         self._histograms = {}
 
     def _get(self, table, name, factory):
@@ -82,6 +98,9 @@ class MetricsRegistry(object):
     def counter(self, name):
         return self._get(self._counters, name, Counter)
 
+    def gauge(self, name):
+        return self._get(self._gauges, name, Gauge)
+
     def histogram(self, name):
         return self._get(self._histograms, name, Histogram)
 
@@ -91,15 +110,17 @@ class MetricsRegistry(object):
             return {
                 'namespace': self.namespace,
                 'counters': {k: c.value for k, c in self._counters.items()},
+                'gauges': {k: g.value for k, g in self._gauges.items()},
                 'histograms': {k: {'counts': list(h.counts), 'sum': h.sum, 'count': h.count}
                                for k, h in self._histograms.items()},
             }
 
     def as_dict(self):
-        """Flat view: counters by name, and ``<hist>_count``,
+        """Flat view: counters and gauges by name, and ``<hist>_count``,
         ``<hist>_p50_ms`` and ``<hist>_p99_ms`` for each histogram."""
         snap = self.snapshot()
         out = dict(snap['counters'])
+        out.update(snap['gauges'])
         for name, hist in snap['histograms'].items():
             out[name + '_count'] = hist['count']
             for label, q in (('p50', 0.5), ('p99', 0.99)):

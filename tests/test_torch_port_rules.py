@@ -52,7 +52,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                    'reader_impl/shuffling_buffer.py', 'arrow_reader_worker.py', 'predicates.py',
                    'etl/rowgroup_filtering.py', 'models/dlrm.py', 'optim.py', 'train_dlrm.py',
                    'hello_world.py', 'spark/spark_dataset_converter.py',
-                   'spark/converter_example.py', 'ngram.py', 'ngram_sensor.py'):
+                   'spark/converter_example.py', 'ngram.py', 'ngram_sensor.py',
+                   'gpu/residency.py', 'random.py'):
         assert os.path.join(PACKAGE, module) in sources, module
     offenders = []
     for path in sources:
@@ -498,6 +499,62 @@ def test_batch_path_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypa
                   lambda: hello_world.main(['--root', str(tmp_path), '--flow', 'petastorm'])):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             entry()
+
+
+def test_resident_loader_needs_the_card_unless_asked_for_the_cpu(monkeypatch):
+    from petastorm_tpu_torch import ResidentDataLoader as Lazy
+    from petastorm_tpu_torch.gpu import ResidentDataLoader
+
+    class ColumnarReader(object):
+        batched_output = True
+
+    assert Lazy is ResidentDataLoader
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    for kwargs in (dict(), dict(device='cuda'), dict(hbm_budget_bytes=1 << 20, seed=3)):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            ResidentDataLoader(ColumnarReader(), 4, **kwargs)
+    assert ResidentDataLoader(ColumnarReader(), 4, device='cpu').device.type == 'cpu'
+
+
+def test_resident_loader_on_cpu_never_loads_jax(tmp_path):
+    """The resident loader on the CPU (streamed epoch, warm epochs, a tight
+    budget, the kill switch, a resume token) loads nothing of JAX or of the
+    JAX package."""
+    script = textwrap.dedent('''
+        import os, sys
+        from petastorm_tpu_torch import train_dlrm
+        from petastorm_tpu_torch.gpu import ResidentDataLoader, residency
+        from petastorm_tpu_torch.reader import make_batch_reader
+        url = train_dlrm.generate_criteo_parquet('file://' + sys.argv[1], rows_count=1000,
+                                                 rows_per_group=250)
+
+        def loader(**kwargs):
+            reader = make_batch_reader(url, workers_count=2, num_epochs=1)
+            return ResidentDataLoader(reader, 128, num_epochs=3, seed=5, device='cpu',
+                                      deterministic_cache_order=True, **kwargs)
+
+        with loader() as warm:
+            first = [b['dense_0'] for b in warm]
+        assert warm.residency_stats['hits'] == 14, warm.residency_stats
+        with loader(hbm_budget_bytes=100 * 134) as tight:
+            assert all((a == b['dense_0']).all() for a, b in zip(first, tight))
+        os.environ[residency.KILL_SWITCH] = '1'
+        with loader() as killed:
+            it = iter(killed)
+            assert all((first[i] == next(it)['dense_0']).all() for i in range(9))
+            token = killed.state_dict()
+        with loader(resume_state=token) as resumed:
+            assert all((a == b['dense_0']).all() for a, b in zip(first[9:], resumed))
+        loaded = sorted(m for m in sys.modules if m.split('.')[0] in FORBIDDEN)
+        print('LOADED', loaded)
+        sys.exit(1 if loaded else 0)
+    ''').replace('FORBIDDEN', repr(FORBIDDEN))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop('PETASTORM_TPU_NO_RESIDENCY', None)
+    proc = subprocess.run([sys.executable, '-c', script, str(tmp_path / 'criteo')], env=env,
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert 'LOADED []' in proc.stdout
 
 
 def test_ngram_sensor_needs_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
