@@ -154,7 +154,25 @@ Phases, in order; any failure propagates and exits nonzero:
    and a warm epoch, the step graph alone; then a second pass (every epoch
    warm), a budget of half the wire bytes (every epoch streams, evictions
    and thrash, no hit) and the kill switch in lockstep, every batch equal
-   bit for bit; each epoch's permutation host ms.
+   bit for bit; each epoch's permutation host ms;
+22. search: on the trained L2 model, two zipf prompts of 8 tokens, 64 new
+   tokens: ``beam_search`` (4 beams, and with an ``eos_id``) and
+   ``speculative_generate`` (``draft_len`` 4, greedy and sampled at 0.8
+   under ``PRNGKey(0)``, the model itself and a one-layer random model as
+   drafts), each graphed, eager, eager, graphed and all four equal bit for
+   bit, ``flash_fwd`` once per layer of each prefill and no backward launch;
+   on an fp32 copy a one-beam search and greedy speculative runs equal to
+   greedy ``generate``; ms per new token, rounds, drafts accepted per round
+   and host syncs per token;
+23. ViT recipe: ViT-S/16 at full width with ``remat=True``, streamed and
+   pumped from the JPEG store (8 threads), 24 graphed steps of crop, flip,
+   ``color_jitter``, cutout 56, ``normalize`` and ``mixup`` (alpha 0.8)
+   under ``mixup_loss`` and SGD momentum, 24 / 12 / 12 flash launches a step
+   on the tensor cores; the same without remat and 8 steps with ``cutmix``;
+   images/s, step ms and peak device memory of each; on one batch remat's
+   loss and gradients against none's; eager against graphed bit for bit from
+   one generator seed, two replays drawing anew; each inner augment op on
+   the card against the CPU on the same draws.
 
 Every streaming path moves its batches through the loader's transfer
 plane (``transfer='auto'``): a dispatch thread pulls, transforms and puts
@@ -3533,6 +3551,482 @@ def phase_resident(fa, url, tmp):
     return vit['launches']
 
 
+SEARCH_NEW = 64         # new tokens of each search, after two zipf prompts of 8
+SEARCH_BEAMS = 4
+SEARCH_DRAFT_LEN = 4
+SEARCH_TEMPERATURE = 0.8
+
+
+def share_equal(a, b):
+    """The share of tokens two searches agree on."""
+    return float((a == b).float().mean())
+
+
+def search_turns(label, call, counted, expect):
+    """``call(cuda_graph, new)`` graphed, eager, eager, graphed (a search
+    returns tokens or ``(tokens, scores)``; all four must be equal bit for
+    bit: graphed and eager, and under one key), the first graphed call
+    counted by ``counted`` and its launches checked against ``expect``.
+    Returns the result and ms per new token of each mode (host clock around
+    the call, device synchronized)."""
+    results, ms = [], {'graphed': [], 'eager': []}
+    launches = None
+    for i, mode in enumerate(('graphed', 'eager', 'eager', 'graphed')):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            out, launches = counted(lambda: call(None, SEARCH_NEW))
+        else:
+            out = call(False if mode == 'eager' else None, SEARCH_NEW)
+        torch.cuda.synchronize()
+        ms[mode].append(1e3 * (time.perf_counter() - t0) / SEARCH_NEW)
+        results.append(out if isinstance(out, tuple) else (out,))
+    for i, other in enumerate(results[1:], 1):
+        for a, b in zip(results[0], other):
+            if not torch.equal(a, b):
+                raise AssertionError('search [%s]: call %d (%s) differs from the first graphed '
+                                     'call' % (label, i + 1, ('graphed', 'eager', 'eager',
+                                                              'graphed')[i]))
+    check_launches('search [%s]' % label, launches[0], launches[1], expect)
+    return results[0], {m: float(np.mean(v)) for m, v in ms.items()}
+
+
+@contextlib.contextmanager
+def graph_times():
+    """The host ms of each ``StepGraph`` capture and replay made inside,
+    the device synchronized before and after each (two lists, filled as
+    they run)."""
+    from petastorm_tpu_torch.gpu import graphs
+    original = {name: getattr(graphs.StepGraph, name) for name in ('capture', 'replay')}
+    times = {name: [] for name in original}
+
+    def timed(name):
+        def call(self, *inputs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = original[name](self, *inputs)
+            torch.cuda.synchronize()
+            times[name].append(1e3 * (time.perf_counter() - t0))
+            return out
+        return call
+    for name in original:
+        setattr(graphs.StepGraph, name, timed(name))
+    try:
+        yield times
+    finally:
+        for name, fn in original.items():
+            setattr(graphs.StepGraph, name, fn)
+
+
+def search_costs(call):
+    """Where a search's time goes.  Eager: what one more new token costs,
+    ``call(False, new)`` at 16 and 64 new tokens in turns, ``(ms at 64 - ms
+    at 16) / 48``, and the rest of a call ``ms at 64 - 64 * marginal``.
+    Graphed (two calls at 64 new tokens; a capture's time varies from call
+    to call by more than 48 tokens take, so no difference is taken): each
+    capture's ms and the median ms of a replayed step (a token step or a
+    round), the device synchronized around each."""
+    totals = {}
+    for new in (16, SEARCH_NEW, SEARCH_NEW, 16):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call(False, new)
+        torch.cuda.synchronize()
+        totals.setdefault(new, []).append(1e3 * (time.perf_counter() - t0))
+    marginal = (np.mean(totals[SEARCH_NEW]) - np.mean(totals[16])) / (SEARCH_NEW - 16)
+    with graph_times() as times:
+        for _ in range(2):
+            call(None, SEARCH_NEW)
+    return dict(eager_marginal_ms=float(marginal),
+                eager_fixed_ms=float(np.mean(totals[SEARCH_NEW]) - SEARCH_NEW * marginal),
+                capture_ms=[float(t) for t in times['capture']],
+                replay_ms=float(np.median(times['replay'])), replays=len(times['replay']))
+
+
+def costs_text(costs, step):
+    return ('eager: %.4f ms per further token, %.1f ms of the rest of a call; graphed: a replayed '
+            '%s %.4f ms (median of %d), captures %s ms'
+            % (costs['eager_marginal_ms'], costs['eager_fixed_ms'], step, costs['replay_ms'],
+               costs['replays'], ' / '.join('%.1f' % t for t in costs['capture_ms'])))
+
+
+def gc_ms(calls=3):
+    """Host ms of each of ``calls`` full garbage collections (one runs in
+    every capture, :func:`graphs._collector_held`'s)."""
+    import gc
+    out = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        gc.collect()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def phase_search(fa, model):
+    """Beam search and speculative decoding on the trained L2 model (the one
+    ``phase_generate`` samples), two zipf prompts of 8 tokens as
+    ``train_lm.sample`` makes them, 64 new tokens.
+
+    ``beam_search`` with 4 beams, and again with an ``eos_id`` the first
+    search emits; ``speculative_generate`` with ``draft_len`` 4, greedy and
+    sampled (temperature 0.8, ``PRNGKey(0)``), against the model itself and
+    a one-layer model of its width and vocabulary at random weights (seed
+    99).  Each search graphed, eagerly twice and graphed again: all equal
+    bit for bit (the sampled ones under one key); ``flash_fwd`` launched
+    once per layer of each prefill (the beams' one prefill; the target's and
+    the draft's), no backward kernel.  On an fp32 copy of the weights (and
+    of the one-layer draft) a one-beam search and both greedy speculative
+    runs equal greedy ``generate``; in bf16 the share of tokens that agree
+    is logged.  Logged: ms per new token graphed and eager, rounds, drafts
+    accepted per round and host syncs per token.  Returns the flash
+    launches of the graphed searches."""
+    import petastorm_tpu_torch.train_lm as lm
+    from petastorm_tpu_torch import random as prng
+    from petastorm_tpu_torch.models.decoding import beam_search, generate, speculative_generate
+    from petastorm_tpu_torch.models.transformer import TransformerLM
+    model.eval()
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy((rng.zipf(1.4, (2, 8)) % model.vocab_size).astype(np.int32)).cuda()
+    layers = len(model.blocks)
+    draft = TransformerLM(generator=torch.Generator().manual_seed(99),
+                          **dict(lm.PACKED_LM, num_layers=1)).cuda().eval()
+    drafts = {'self': model, 'one-layer': draft}
+    total = {kernel.__name__: 0 for kernel in fa.KERNELS}
+    out = {}
+
+    def counted(fn):
+        reset_counts(fa)
+        result = fn()
+        launches, by_design = counts(fa)
+        for name, n in launches.items():
+            total[name] += n
+        return result, (launches, by_design)
+
+    def expect(fwd):
+        return {'flash_fwd': fwd, 'flash_bwd_dq': 0, 'flash_bwd_dkv': 0}
+
+    def beam(cg, new, **kw):
+        return beam_search(model, prompt, new, SEARCH_BEAMS, cuda_graph=cg, **kw)
+    (tokens, scores), ms = search_turns('beam', beam, counted, expect(layers))
+    eos = int(tokens[0, 1])
+    (eos_tokens, eos_scores), eos_ms = search_turns(
+        'beam eos', lambda cg, new: beam(cg, new, eos_id=eos), counted, expect(layers))
+    costs = search_costs(beam)
+    out['beam'] = dict(ms_per_token=ms, costs=costs, scores=scores.tolist(),
+                       eos_ms_per_token=eos_ms, eos_id=eos, eos_scores=eos_scores.tolist())
+    log('search beam (%d beams, %d new): graphed / eager equal bit for bit; ms per new token '
+        '(whole call) graphed %.4f, eager %.4f; %s; scores %s; with eos_id %d: %.4f / %.4f ms '
+        'per new token, scores %s, pad tokens %d'
+        % (SEARCH_BEAMS, SEARCH_NEW, ms['graphed'], ms['eager'], costs_text(costs, 'step'),
+           scores.tolist(), eos, eos_ms['graphed'], eos_ms['eager'], eos_scores.tolist(),
+           int((eos_tokens == 0).sum())))
+    greedy = generate(model, prompt, SEARCH_NEW)
+    agree = {'beam1': share_equal(beam_search(model, prompt, SEARCH_NEW, 1)[0], greedy)}
+    for name, dm in drafts.items():
+        for mode, kw in (('greedy', {}),
+                         ('sampled', dict(temperature=SEARCH_TEMPERATURE, rng=prng.PRNGKey(0)))):
+            stats = {}
+
+            def call(cg, new, dm=dm, kw=kw, stats=stats):
+                stats.clear()
+                return speculative_generate(model, dm, prompt, new, SEARCH_DRAFT_LEN,
+                                            cuda_graph=cg, stats=stats, **kw)
+            # stats: those of the last call, a graphed one
+            (spec,), ms = search_turns('speculative %s %s' % (mode, name), call, counted,
+                                          expect(layers + len(dm.blocks)))
+            row = dict(ms_per_token=ms, rounds=stats['rounds'],
+                       accepted_per_round=stats['accepted'] / stats['rounds'],
+                       host_syncs_per_token=stats['host_syncs'] / SEARCH_NEW)
+            row['costs'] = search_costs(call)
+            if mode == 'greedy':
+                agree['speculative ' + name] = row['greedy_agree'] = share_equal(spec, greedy)
+            out['speculative %s %s' % (mode, name)] = row
+            log('search speculative %s, draft %s (draft_len %d, %d new): graphed / eager equal '
+                'bit for bit; ms per new token (whole call) graphed %.4f, eager %.4f; %s; %d '
+                'rounds, %.2f drafts accepted per round, %.4f host syncs per token'
+                % (mode, name, SEARCH_DRAFT_LEN, SEARCH_NEW, ms['graphed'], ms['eager'],
+                   costs_text(row['costs'], 'round'), row['rounds'],
+                   row['accepted_per_round'], row['host_syncs_per_token']))
+    log('search bf16: share of tokens equal to greedy generate: %s'
+        % ', '.join('%s %.4f' % kv for kv in agree.items()))
+    # fp32 copies: the searches' greedy paths are greedy generate
+    f32 = TransformerLM(compute_dtype=torch.float32, **lm.PACKED_LM).cuda().eval()
+    f32.load_state_dict(model.state_dict())
+    f32_draft = TransformerLM(compute_dtype=torch.float32,
+                              **dict(lm.PACKED_LM, num_layers=1)).cuda().eval()
+    f32_draft.load_state_dict(draft.state_dict())
+    want = generate(f32, prompt, SEARCH_NEW)
+    for name, got in (('beam_search(num_beams=1)', beam_search(f32, prompt, SEARCH_NEW, 1)[0]),
+                      ('speculative, draft self', speculative_generate(
+                          f32, f32, prompt, SEARCH_NEW, SEARCH_DRAFT_LEN)),
+                      ('speculative, draft one-layer', speculative_generate(
+                          f32, f32_draft, prompt, SEARCH_NEW, SEARCH_DRAFT_LEN))):
+        if not torch.equal(got, want):
+            raise AssertionError('search fp32: %s differs from greedy generate at %d of %d '
+                                 'tokens' % (name, int((got != want).sum()), want.numel()))
+    log('search fp32: beam_search(num_beams=1) and greedy speculative (both drafts) equal '
+        'greedy generate, %d tokens each' % want.numel())
+    out['bf16_agree_with_greedy'] = agree
+    out['gc_ms'] = gc_ms()
+    log('search: a full garbage collection takes %s ms at this point of the script'
+        % ' / '.join('%.1f' % t for t in out['gc_ms']))
+    SUMMARY['search'] = out
+    log('search: launches of the graphed searches %s' % total)
+    return total
+
+
+RECIPE_HW = (224, 224)
+RECIPE_STEPS = 24       # graphed recipe steps, mixup
+RECIPE_CUTMIX_STEPS = 8
+RECIPE_EQ_STEPS = 6     # eager against graphed, bit for bit, on kept batches
+RECIPE_LR = 0.1
+
+
+def recipe_loss(model, batch, mix, generator):
+    """The recipe's augment on the card, ``random_crop(padding=4)``, flip,
+    ``color_jitter``, ``random_cutout(56)``, ``normalize``, then ``mixup``
+    (alpha 0.8) or ``cutmix`` (alpha 1.0), all drawn from ``generator``;
+    returns the ``mixup_loss`` and what the step drew (``lam``, the partner
+    labels, each mixed image's sum)."""
+    from petastorm_tpu_torch.gpu import augment
+    x = augment.random_crop(batch['image'], RECIPE_HW, padding=4, generator=generator)
+    x = augment.random_flip_left_right(x, generator=generator)
+    x = augment.color_jitter(x, generator=generator)
+    x = augment.random_cutout(x, 56, generator=generator)
+    x = augment.normalize(x, dtype=torch.float32)
+    if mix == 'mixup':
+        x, la, lb, lam = augment.mixup(x, batch['label'], alpha=0.8, generator=generator)
+    else:
+        x, la, lb, lam = augment.cutmix(x, batch['label'], alpha=1.0, generator=generator)
+    loss = augment.mixup_loss(model(x), la, lb, lam)
+    return loss, {'lam': lam, 'labels_b': lb, 'image_sums': x.sum(dim=(1, 2, 3))}
+
+
+def recipe_model(remat):
+    """ViT-S/16 at 224² from seed 0 (``train``'s), bf16, ``remat`` as given."""
+    from petastorm_tpu_torch.train import _make_model
+    return _make_model('vit', RECIPE_HW, {'remat': remat}).cuda().train()
+
+
+def recipe_step(model, mix, generator):
+    """One SGD step (momentum 0.9, as ``train``'s) of :func:`recipe_loss`;
+    returns the loss and the draws."""
+    opt = torch.optim.SGD(model.parameters(), lr=RECIPE_LR, momentum=0.9, dampening=0,
+                          nesterov=False)
+
+    def train_step(batch):
+        with torch.profiler.record_function('train_step'):
+            loss, drawn = recipe_loss(model, batch, mix, generator)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            return dict(drawn, loss=loss.detach())
+    return train_step
+
+
+def recipe_run(fa, url, steps, remat, mix, keep=0):
+    """``steps`` graphed recipe steps streamed from the JPEG store through
+    the pumped loader (8 decode threads), the counts set to 0 just before:
+    the losses, images/s and step ms over steps 3..``steps``, the peak
+    device memory, the flash launches, and the first ``keep`` batches."""
+    from petastorm_tpu_torch.gpu import DataLoader, graphs
+    from petastorm_tpu_torch.reader import make_reader
+    from petastorm_tpu_torch.train import make_transform
+    model = recipe_model(remat)
+    gen = torch.Generator(device='cuda').manual_seed(17)
+    step = graphs.StepGraph(recipe_step(model, mix, gen), generators=[gen])
+    reader = make_reader(url, num_epochs=None, schema_fields=['image', 'noun_id'],
+                         transform_spec=make_transform(RECIPE_HW), columnar_decode=True,
+                         workers_count=8)
+    kept, losses = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()   # the weights, and what earlier phases keep
+    reset_counts(fa)
+    with DataLoader(reader, batch_size=BATCH, device='cuda') as loader:
+        batches = iter(loader)
+        for i in range(steps):
+            if i == 2:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            batch = next(batches)
+            if batch['image'].device.type != 'cuda':
+                raise AssertionError('recipe: a batch reached the step on %s'
+                                     % batch['image'].device)
+            if len(kept) < keep:
+                kept.append({k: v.clone() for k, v in batch.items()})
+            losses.append(step(batch)['loss'])
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        batches.close()   # ends the iteration (and its transfer thread) here
+        h2d = loader.metrics.as_dict()
+    launches, by_design = counts(fa)
+    losses = [float(v) for v in torch.stack(losses).cpu()]
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError('recipe: non-finite loss %s' % losses)
+    if not h2d.get('h2d_batches', 0) + h2d.get('h2d_degraded', 0):
+        raise AssertionError('recipe: the batches did not go through the transfer plane: %s'
+                             % h2d)
+    per_step = 2 if remat else 1
+    check_launches('recipe %s remat=%s' % (mix, remat), launches, by_design,
+                   {'flash_fwd': 12 * per_step * steps, 'flash_bwd_dq': 12 * steps,
+                    'flash_bwd_dkv': 12 * steps})
+    return dict(losses=losses, images_per_s=(steps - 2) * BATCH / elapsed,
+                step_ms=1e3 * elapsed / (steps - 2),
+                peak_mb=torch.cuda.max_memory_allocated() / 1e6,
+                run_peak_mb=(torch.cuda.max_memory_allocated() - base) / 1e6, launches=launches,
+                kept=kept)
+
+
+def recipe_grads(batch, remat):
+    """The recipe's loss and gradients on one batch from seed-0 weights and
+    generator seed 5, with or without remat."""
+    model = recipe_model(remat)
+    loss, _ = recipe_loss(model, batch, 'mixup', torch.Generator(device='cuda').manual_seed(5))
+    loss.backward()
+    return loss.detach(), {n: p.grad for n, p in model.named_parameters()}
+
+
+def recipe_eager_vs_graphed(batches):
+    """The recipe step from one generator seed over the same kept batches,
+    eagerly and graphed: every step's draws, mixed images' sums and loss,
+    and the parameters after, bit for bit; then two replays on one batch
+    must draw another ``lam``, partner and images."""
+    from petastorm_tpu_torch.gpu import graphs
+    outs, params = {}, {}
+    for mode in ('eager', 'graphed'):
+        model = recipe_model(True)
+        gen = torch.Generator(device='cuda').manual_seed(23)
+        step = recipe_step(model, 'mixup', gen)
+        if mode == 'graphed':
+            step = graphs.StepGraph(step, generators=[gen])
+        outs[mode] = [step(b) for b in batches]
+        params[mode] = {n: p.detach().clone() for n, p in model.named_parameters()}
+    for i, (e, g) in enumerate(zip(outs['eager'], outs['graphed'])):
+        for k in e:
+            if not torch.equal(e[k], g[k]):
+                raise AssertionError('recipe eager vs graphed: step %d %s differs' % (i + 1, k))
+    differ = [n for n, p in params['eager'].items() if not torch.equal(p, params['graphed'][n])]
+    if differ:
+        raise AssertionError('recipe eager vs graphed: %d parameters differ, e.g. %s'
+                             % (len(differ), differ[:3]))
+    again = [step(batches[0]) for _ in range(2)]
+    for k in ('lam', 'labels_b', 'image_sums'):
+        if torch.equal(again[0][k], again[1][k]):
+            raise AssertionError('recipe: two replays on one batch drew the same %s' % k)
+    log('recipe eager vs graphed (%d steps, generator seed 23): draws, mixed images, losses and '
+        'parameters equal bit for bit; two replays on one batch drew lam %.4f / %.4f and other '
+        'partners and images' % (len(batches), float(again[0]['lam']), float(again[1]['lam'])))
+    return [float(o['loss']) for o in outs['graphed']]
+
+
+COLOR_ATOL = 1e-4   # the color ops and mixup, card against CPU, on the 0..255 scale
+
+
+def recipe_inner_ops(batch):
+    """Each inner augment op on the card against the same op on the CPU,
+    fed the same draws (made on the card): crops, flips, cutout and cutmix
+    exact, the color ops and mixup within ``COLOR_ATOL``."""
+    from petastorm_tpu_torch.gpu import augment
+    g = torch.Generator(device='cuda').manual_seed(31)
+    images, labels = batch['image'], batch['label']
+    n, h, w, _ = images.shape
+    pad_h, pad_w = h + 8, w + 8
+
+    def uniform(lo, hi):
+        return torch.empty(n, device='cuda').uniform_(lo, hi, generator=g)
+
+    x = augment.normalize(images, dtype=torch.float32) * 40.0 + 120.0   # a float batch
+    draws = {
+        'center_crop': (images, (192, 160)),
+        'crop_at': (images, torch.randint(0, pad_h - h + 1, (n,), generator=g, device='cuda'),
+                    torch.randint(0, pad_w - w + 1, (n,), generator=g, device='cuda'),
+                    RECIPE_HW, 4),
+        'flip_where': (images, torch.rand(n, generator=g, device='cuda') < 0.5),
+        'adjust_brightness': (images, uniform(-0.125, 0.125)),
+        'adjust_contrast': (x, uniform(0.8, 1.2)),
+        'adjust_saturation': (x, uniform(0.8, 1.2)),
+        'cutout_at': (x, torch.randint(0, h, (n,), generator=g, device='cuda'),
+                      torch.randint(0, w, (n,), generator=g, device='cuda'), 56),
+        'mixup_with': (x, labels, augment.sample_beta(0.8, 0.8, generator=g, device='cuda'),
+                       augment.random_permutation(n, g, images.device)),
+        'cutmix_with': (x, labels, augment.sample_beta(1.0, 1.0, generator=g, device='cuda'),
+                        augment.random_permutation(n, g, images.device),
+                        torch.randint(0, h, (), generator=g, device='cuda'),
+                        torch.randint(0, w, (), generator=g, device='cuda')),
+    }
+    errs = {}
+    for name, args in draws.items():
+        op = getattr(augment, name)
+        on_card = op(*args)
+        on_cpu = op(*(a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
+        on_card = on_card if isinstance(on_card, tuple) else (on_card,)
+        on_cpu = on_cpu if isinstance(on_cpu, tuple) else (on_cpu,)
+        exact = name not in ('adjust_brightness', 'adjust_contrast', 'adjust_saturation',
+                             'mixup_with')
+        errs[name] = 0.0
+        for a, b in zip(on_card, on_cpu):
+            a = a.cpu()
+            if exact or not a.is_floating_point():
+                if not torch.equal(a, b):
+                    raise AssertionError('recipe: %s on the card differs from the CPU' % name)
+            else:
+                errs[name] = max(errs[name], check('recipe %s card vs CPU' % name, a, b,
+                                                   (COLOR_ATOL, 0.0)))
+    log('recipe inner ops, card against CPU on the same draws: %s'
+        % ', '.join('%s %s' % (k, 'equal' if v == 0 else 'max err %.3g' % v)
+                    for k, v in errs.items()))
+    return errs
+
+
+def phase_vit_recipe(fa, url):
+    """ViT-S/16 at full width (224², bf16, batch 64) with ``remat=True``,
+    streamed and pumped from the 512-row JPEG store with 8 decode threads,
+    24 graphed steps of the augment recipe (crop with padding 4, flip,
+    ``color_jitter``, cutout 56, ``normalize``, ``mixup`` alpha 0.8) under
+    ``mixup_loss`` and SGD with momentum: 24 ``flash_fwd``, 12
+    ``flash_bwd_dq`` and 12 ``flash_bwd_dkv`` launches a step on the tensor
+    cores; the same without remat (12 of each); 8 steps with ``cutmix``
+    (alpha 1.0).  Then on one batch the loss and gradients of remat=True
+    against remat=False, within the kernels' bf16 tolerance; eager against
+    graphed from one generator seed, bit for bit, and two replays that draw
+    anew; each inner augment op on the card against the CPU.  Logged:
+    images/s, step ms and the peak device memory, with and without remat.
+    Returns the flash launches of the remat mixup run."""
+    runs = {}
+    for label, steps, remat, mix in (('remat', RECIPE_STEPS, True, 'mixup'),
+                                     ('no remat', RECIPE_STEPS, False, 'mixup'),
+                                     ('remat cutmix', RECIPE_CUTMIX_STEPS, True, 'cutmix')):
+        runs[label] = recipe_run(fa, url, steps, remat, mix,
+                                 keep=RECIPE_EQ_STEPS if label == 'remat' else 0)
+        r = runs[label]
+        log('recipe %s (%s, %d graphed steps): images/s %.1f, step_ms %.2f (steps 3..%d), peak '
+            'memory %.1f MB allocated, %.1f MB above what was allocated before the run, '
+            'launches %s; losses %s'
+            % (label, mix, steps, r['images_per_s'], r['step_ms'], steps, r['peak_mb'],
+               r['run_peak_mb'], r['launches'], ' '.join('%.4f' % v for v in r['losses'])))
+    batches = runs['remat']['kept']
+    for r in runs.values():
+        del r['kept']
+    losses, grads = {}, {}
+    for remat in (False, True):
+        losses[remat], grads[remat] = recipe_grads(batches[0], remat)
+    err = check('recipe loss, remat vs none', losses[True], losses[False], TOL['bf16_vs_plain'])
+    for name, g in grads[False].items():
+        err = max(err, check('recipe grad %s, remat vs none' % name, grads[True][name], g,
+                             TOL['bf16_vs_plain']))
+    log('recipe remat vs none on one batch: loss %.6f / %.6f, loss and %d gradients max err %.3g '
+        '(limit %s)' % (float(losses[True]), float(losses[False]), len(grads[False]), err,
+                        TOL['bf16_vs_plain']))
+    recipe_eager_vs_graphed(batches)
+    inner = recipe_inner_ops(batches[0])
+    SUMMARY['vit_recipe'] = dict(
+        {label: {k: v for k, v in r.items() if k != 'launches'} for label, r in runs.items()},
+        remat_vs_none_max_err=err, inner_ops_max_err=inner,
+        remat_memory_share=runs['remat']['run_peak_mb'] / runs['no remat']['run_peak_mb'])
+    return runs['remat']['launches']
+
+
 def main():
     # The kernels' module (petastorm_tpu_torch.ops re-exports its function
     # under the same name).  Imported first: outside a checkout this fails
@@ -3580,12 +4074,15 @@ def main():
                             ('batch_reader', lambda: phase_batch_reader(fa, tmp)),
                             ('reference_footer', lambda: phase_reference_footer(tmp)),
                             ('ngram', lambda: phase_ngram(fa, tmp)),
-                            ('resident', lambda: phase_resident(fa, url, tmp))):
+                            ('resident', lambda: phase_resident(fa, url, tmp)),
+                            ('search', lambda: phase_search(fa, paths['packed'][1])),
+                            ('vit_recipe', lambda: phase_vit_recipe(fa, url))):
             t0 = time.monotonic()
             paths[name] = phase()
             log('phase %s: %.1f s' % (name, time.monotonic() - t0))
     launches = {'vit': paths['vit'], 'lm': paths['lm'], 'packed': paths['packed'][0],
-                'generate': paths['generate'], 'resident': paths['resident']}
+                'generate': paths['generate'], 'resident': paths['resident'],
+                'search': paths['search'], 'vit_recipe': paths['vit_recipe']}
     kernels = [dict(name=name, route='cuda', design=MAIN_PATH_DESIGN[name],
                     source=SOURCES[name], replaces=REPLACES[name],
                     launches=sum(path[name] for path in launches.values()),

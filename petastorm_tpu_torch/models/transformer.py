@@ -28,12 +28,16 @@ Weights are stored in PyTorch's layouts (``Dense.weight`` is ``[out, in]``);
 
 Decoding keeps its cache as explicit state: :meth:`TransformerLM.init_cache`
 makes one :class:`KVCache` per layer, and a forward given ``cache=``
-writes the new keys and values into it in place and advances its index, a
-host integer, so choosing between a fresh prefill and attending the cache
-(``lax.cond`` in the JAX package) costs no device sync.  A one-token step
-writes and masks at the cache's device position instead, so that it can be
-captured in a CUDA graph and replayed (``models.decoding.generate``).  Ring and Ulysses
-attention wait for the multi-device slice of the port (``parallel/``).
+writes the new keys and values into it in place.  A multi-token call on a
+fresh cache (its host ``index`` 0) is the prefill; every later call, one
+token or a chunk, writes and masks at the cache's device ``position``, so
+that it can be captured in a CUDA graph and replayed
+(``models.decoding``).  Choosing between the two (``lax.cond`` in the JAX
+package) reads the host index and costs no device sync.
+:func:`rewind_cache` rolls the device position back (speculative
+decoding's rollback) and :func:`reorder_cache` re-orders the cache's rows
+(beam search), both in place.  Ring and Ulysses attention wait for the
+multi-device slice of the port (``parallel/``).
 """
 
 import functools
@@ -48,7 +52,8 @@ from petastorm_tpu_torch.ops import flash_attention
 from petastorm_tpu_torch.ops.flash_attention import NEG_INF, full_attention
 
 __all__ = ['Dense', 'RMSNorm', 'Attention', 'Block', 'Embed', 'KVCache', 'TransformerLM',
-           'lecun_normal_', 'rope', 'rope_cos_sin', 'make_attn_fn']
+           'lecun_normal_', 'rope', 'rope_cos_sin', 'make_attn_fn', 'rewind_cache',
+           'reorder_cache']
 
 
 def lecun_normal_(tensor, fan_in, generator=None):
@@ -138,12 +143,16 @@ class Embed(nn.Module):
 
 class KVCache(object):
     """One layer's decode cache: ``key`` and ``value`` buffers ``[batch,
-    max_len, kv_heads, head_dim]``, ``index``, the next position to write
-    (a host integer), and ``position``, the same on the device (an int64
-    tensor of one element), where one-token steps write.  Forward passes
-    given the cache update it in place.  A replayed capture of a one-token
-    step advances ``position`` at every replay and ``index`` only once, at
-    capture."""
+    max_len, kv_heads, head_dim]``, ``position``, the next position to
+    write (an int64 tensor of one element on the device), and ``index``,
+    the host's count of it.  Forward passes given the cache update both in
+    place.  Writes go to ``position``; ``index`` tells a fresh cache (0)
+    from a warm one and bounds each write to the buffer.  A replayed
+    capture advances ``position`` at every replay and ``index`` only once,
+    at capture, and :func:`rewind_cache` moves ``position`` alone: a caller
+    that replays or rewinds keeps ``index`` in step itself where it needs
+    the bound (the decoding functions check their whole length up front,
+    as the JAX package's do)."""
 
     def __init__(self, batch, max_len, kv_heads, head_dim, dtype, device):
         self.key = torch.zeros(batch, max_len, kv_heads, head_dim, dtype=dtype, device=device)
@@ -227,11 +236,13 @@ class Attention(nn.Module):
         """Attention against the static KV cache, written in place.
 
         A multi-token call on a fresh cache (index 0) is a prefill: causal
-        ``attn_fn`` over the prompt alone.  A chunk on a warm cache, and
-        every one-token step, attends the whole buffer with absolute
-        positions masked (:meth:`_attend_cache`).  A one-token step writes
-        at the device position (``index_copy_``) and masks with it: no host
-        integer reaches the device, so the step can be captured.
+        ``attn_fn`` over the prompt alone.  Every other call, a one-token
+        step or a chunk on a warm cache, writes at the device positions
+        ``position + arange(seq)`` (``index_copy_``) and attends the whole
+        buffer masked by them (:meth:`_attend_cache`): no host integer
+        reaches the device, so the call can be captured and replayed at a
+        position that moves (speculative decoding verifies its chunk where
+        the last round's rollback left it).
         """
         seq = q.shape[1]
         i = cache.index
@@ -239,20 +250,16 @@ class Attention(nn.Module):
             raise ValueError('cache holds %d positions; writing %d at %d'
                              % (cache.key.shape[1], seq, i))
         cache.index = i + seq
-        if seq == 1:
-            pos = cache.position
-            cache.key.index_copy_(1, pos, k.to(cache.key.dtype))
-            cache.value.index_copy_(1, pos, v.to(cache.value.dtype))
-            out = self._attend_cache(q, cache.key, cache.value, pos)
-            pos.add_(1)
-            return out
-        cache.key[:, i:i + seq] = k.to(cache.key.dtype)
-        cache.value[:, i:i + seq] = v.to(cache.value.dtype)
-        cache.position.fill_(i + seq)
-        if i == 0:
+        if i == 0 and seq > 1:
+            cache.key[:, :seq] = k.to(cache.key.dtype)
+            cache.value[:, :seq] = v.to(cache.value.dtype)
+            cache.position.fill_(seq)
             k, v = self._expand_kv(k, v)
             return attn_fn(q, k, v, causal=True)
-        q_pos = i + torch.arange(seq, device=q.device)
+        q_pos = cache.position + torch.arange(seq, device=q.device)
+        cache.key.index_copy_(1, q_pos, k.to(cache.key.dtype))
+        cache.value.index_copy_(1, q_pos, v.to(cache.value.dtype))
+        cache.position.add_(seq)
         return self._attend_cache(q, cache.key, cache.value, q_pos)
 
     @staticmethod
@@ -355,6 +362,28 @@ class TransformerLM(nn.Module):
                 x = block(x, positions, layer_cache, attn_fn)
         x = self.ln_f(x)
         return self.embed.attend(x).float()
+
+
+def rewind_cache(cache, position):
+    """Roll every layer of ``cache`` (a list of :class:`KVCache`) back to
+    ``position``, a one-element int64 tensor on the cache's device, copied
+    in place so that a captured step can roll back to a position it
+    computed: the counterpart of the JAX package's
+    ``decoding._set_cache_index``.  The entries at and past it stay, stale:
+    attention masks them by position and later writes overwrite them.
+    ``index`` is left as it is (see :class:`KVCache`)."""
+    for layer in cache:
+        layer.position.copy_(position)
+
+
+def reorder_cache(cache, rows):
+    """Re-order every layer's key and value rows (the batch axis) by
+    ``rows``, an int64 tensor on the cache's device, in place: the buffers
+    stay the same tensors, so that a captured step keeps its static
+    buffers (beam search follows each surviving beam's parent)."""
+    for layer in cache:
+        layer.key.copy_(layer.key.index_select(0, rows))
+        layer.value.copy_(layer.value.index_select(0, rows))
 
 
 def make_attn_fn(strategy='flash', segment_ids=None):

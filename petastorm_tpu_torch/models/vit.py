@@ -7,12 +7,15 @@ attention (the flash kernels by default), a final ``RMSNorm``, mean or
 class-token pooling, and an fp32 ``head``.  Everything up to ``ln_f`` runs
 in ``compute_dtype`` (bf16 by default) from fp32 parameters.
 
-The JAX package's ``remat`` option is a later slice.
+``remat=True`` (flax ``nn.remat(Block)``) recomputes each block in the
+backward pass instead of keeping its activations: less device memory for a
+second forward through each block, its attention included.
 """
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from petastorm_tpu_torch.models.transformer import Block, Dense, RMSNorm, lecun_normal_
 from petastorm_tpu_torch.ops import flash_attention
@@ -24,13 +27,14 @@ class ViT(nn.Module):
     """images ``[batch, H, W, C]`` -> logits ``[batch, num_classes]`` (fp32).
 
     ``image_hw`` fixes the patch grid (and so the position table's length).
-    ``generator`` seeds the initial weights.
+    ``remat=True`` runs each block under ``torch.utils.checkpoint`` when
+    gradients are on.  ``generator`` seeds the initial weights.
     """
 
     def __init__(self, num_classes, image_hw=(224, 224), channels=3, patch_size=16,
                  d_model=384, num_heads=6, num_layers=12, d_ff=1536,
                  compute_dtype=torch.bfloat16, attn_fn=flash_attention, pool='mean',
-                 generator=None):
+                 remat=False, generator=None):
         super().__init__()
         h, w = image_hw
         if h % patch_size or w % patch_size:
@@ -43,6 +47,7 @@ class ViT(nn.Module):
         self.d_model = d_model
         self.compute_dtype = compute_dtype
         self.pool = pool
+        self.remat = remat
         self.patch_embed = nn.Conv2d(channels, d_model, patch_size, stride=patch_size)
         lecun_normal_(self.patch_embed.weight, channels * patch_size * patch_size, generator)
         with torch.no_grad():
@@ -78,7 +83,13 @@ class ViT(nn.Module):
             x = torch.cat([self.cls_token.to(dt).expand(b, 1, self.d_model), x], dim=1)
         x = x + self.pos_embed.to(dt)
         for block in self.blocks:
-            x = block(x)
+            if self.remat and torch.is_grad_enabled():
+                # no RNG state to stash, as in TransformerLM: the blocks draw
+                # no random numbers, and a stash would read the card's
+                # generator state inside the CUDA-graph capture of the step
+                x = checkpoint(block, x, use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = block(x)
         x = self.ln_f(x)
         x = x[:, 0] if self.pool == 'cls' else x.mean(dim=1)
         return self.head(x.float())

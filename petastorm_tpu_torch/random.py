@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 __all__ = ['PRNGKey', 'split', 'fold_in', 'random_bits', 'permutation', 'threefry2x32', 'uniform',
-           'gumbel', 'gumbel_stack', 'categorical']
+           'uniform_stack', 'gumbel', 'gumbel_stack', 'categorical']
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -36,7 +36,8 @@ def _rotl(x, r):
 
 def threefry2x32(key, x0, x1):
     """Threefry-2x32 (20 rounds) of the counter pairs ``(x0, x1)`` under
-    ``key``; returns the two output words."""
+    ``key``; returns the two output words.  The key's two words may be
+    arrays that broadcast against the counters (many keys at once)."""
     k0, k1 = np.uint32(key[0]), np.uint32(key[1])
     ks = (k0, k1, k0 ^ k1 ^ np.uint32(0x1BD11BDA))
     with np.errstate(over='ignore'):   # uint32 arithmetic wraps, as in XLA
@@ -99,12 +100,30 @@ def uniform(key, shape=(), minval=0.0, maxval=1.0):
     """``jax.random.uniform(key, shape, float32, minval, maxval)``: 23
     random mantissa bits under exponent 0 give a float in [1, 2), minus 1,
     scaled to [minval, maxval) in float32."""
+    return uniform_stack([key], shape, minval, maxval)[0]
+
+
+#: Random words :func:`uniform_stack` computes in one pass: many keys a pass,
+#: in arrays that stay in the CPU's cache.
+_WORDS_PER_PASS = 1 << 16
+
+
+def uniform_stack(keys, shape=(), minval=0.0, maxval=1.0):
+    """``[uniform(key, shape, minval, maxval) for key in keys]`` stacked on
+    a new leading axis, the threefry rounds run over many keys at once."""
     shape = tuple(int(n) for n in shape)
-    bits = random_bits(key, int(np.prod(shape, dtype=np.int64))).reshape(shape)
+    n = int(np.prod(shape, dtype=np.int64))
+    keys = np.asarray(keys, np.uint32).reshape(-1, 2)
+    per_pass = max(1, _WORDS_PER_PASS // max(n, 1))
+    bits = np.empty((len(keys), n), np.uint32)
+    for i in range(0, len(keys), per_pass):
+        chunk = keys[i:i + per_pass]
+        bits0, bits1 = threefry2x32((chunk[:, :1], chunk[:, 1:]), *_counters(n))
+        bits[i:i + per_pass] = bits0 ^ bits1
     one = np.array(1.0, np.float32).view(np.uint32)
     floats = ((bits >> np.uint32(32 - 23)) | one).view(np.float32) - np.float32(1.0)
     lo, hi = np.float32(minval), np.float32(maxval)
-    return np.maximum(lo, floats * (hi - lo) + lo)
+    return np.maximum(lo, floats * (hi - lo) + lo).reshape((len(keys),) + shape)
 
 
 def gumbel(key, shape=(), device='cpu'):
@@ -117,8 +136,7 @@ def gumbel(key, shape=(), device='cpu'):
 def gumbel_stack(keys, shape=(), device='cpu'):
     """``[gumbel(key, shape) for key in keys]`` stacked on a new leading
     axis, with the uniforms moved to ``device`` in one copy."""
-    tiny = np.finfo(np.float32).tiny
-    u = np.stack([uniform(key, shape, minval=tiny, maxval=1.0) for key in keys])
+    u = uniform_stack(keys, shape, minval=np.finfo(np.float32).tiny, maxval=1.0)
     return -torch.log(-torch.log(torch.from_numpy(u).to(device)))
 
 

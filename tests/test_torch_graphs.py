@@ -386,6 +386,44 @@ def test_graphed_generate_matches_eager(fake_graphs, knobs):
     assert torch.equal(got, want)
 
 
+def _search_model(seed, num_layers=2):
+    return TransformerLM(vocab_size=13, d_model=16, num_heads=2, num_layers=num_layers, d_ff=32,
+                         max_seq_len=24, compute_dtype=torch.float32, pos_embed='rope',
+                         num_kv_heads=1, generator=torch.Generator().manual_seed(seed))
+
+
+@pytest.mark.parametrize('knobs', [dict(), dict(eos_id=3, pad_id=0, length_penalty=0.6)])
+def test_graphed_beam_search_matches_eager(fake_graphs, knobs):
+    """One beam step (select, re-order the cache in place, one position
+    forward) warmed up, captured and replayed: the eager loop's tokens and
+    scores."""
+    model = _search_model(2)
+    prompt = torch.tensor(np.random.default_rng(5).integers(0, 13, (2, 5)))
+    want = decoding.beam_search(model, prompt, 9, num_beams=3, cuda_graph=False, **knobs)
+    got = decoding.beam_search(model, prompt, 9, num_beams=3, **knobs)
+    assert fake_graphs == ['warmup', 'capture'] + ['replay'] * 7
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize('temperature', [0.0, 0.9])
+@pytest.mark.parametrize('perfect', [False, True])
+def test_graphed_speculative_rounds_match_eager(fake_graphs, perfect, temperature):
+    """One round (draft steps, verify, acceptance, rollback) warmed up,
+    captured and replayed, its draws selected by the device round counter:
+    the eager loop's tokens and round count."""
+    model = _search_model(3)
+    draft = model if perfect else _search_model(4, num_layers=1)
+    prompt = torch.tensor(np.random.default_rng(6).integers(0, 13, (2, 5)))
+    kw = dict(draft_len=3, temperature=temperature, rng=prng.PRNGKey(8))
+    eager, graphed = {}, {}
+    want = decoding.speculative_generate(model, draft, prompt, 12, cuda_graph=False,
+                                         stats=eager, **kw)
+    got = decoding.speculative_generate(model, draft, prompt, 12, stats=graphed, **kw)
+    assert eager == graphed and eager['rounds'] >= 3
+    assert fake_graphs == ['warmup', 'capture'] + ['replay'] * (eager['rounds'] - 1)
+    assert torch.equal(got, want)
+
+
 def test_a_capture_parks_every_live_transfer_thread(fake_graphs, monkeypatch):
     """A loader's transfer thread pins, copies and waits on events: a CUDA
     call of another thread can fail a capture, so the thread is parked for
