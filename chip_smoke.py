@@ -172,7 +172,27 @@ Phases, in order; any failure propagates and exits nonzero:
    images/s, step ms and peak device memory of each; on one batch remat's
    loss and gradients against none's; eager against graphed bit for bit from
    one generator seed, two replays drawing anew; each inner augment op on
-   the card against the CPU on the same draws.
+   the card against the CPU on the same draws;
+24. sequence parallel (the long-context example with ``--strategy ring`` and
+   ``ulysses``): an NCCL group over every visible card through a
+   ``FileStore`` in the run's temporary directory (one rank in this
+   process on one card; one spawned process per card where there are
+   more), then ``train_lm`` at L1's full width on ``phase_lm``'s token
+   store, 20 graphed steps each of ``ring``, ``ring`` with ``block_k``
+   256, ``ulysses`` and ``flash``, from the same seed and rows: tokens/s,
+   step ms and peak device memory of each; on one card every loss of ring
+   and chunked ring against ``flash`` within ``SP_LOSS_ATOL`` (the first
+   within the bf16 tolerance too), and Ulysses (whose all-to-alls are
+   identities there) equal to ``flash`` bit for bit; on more cards, where
+   ``flash`` reads other rows, every loss of both rings against Ulysses on
+   the same mesh and rows within ``SP_LOSS_ATOL``; ring attention itself,
+   whole and chunked, as the sharded step builds it at L1's attention
+   shapes, its output and q/k/v gradients on each rank's block against the
+   dense fp32 reference within the bf16 tolerance; 8
+   forward, 4 dQ and 4 dK/dV launches a step under Ulysses and ``flash``,
+   all on the tensor cores, none under ring; ring and Ulysses eager against
+   graphed bit for bit; a profile of the ring and the Ulysses step, fed by
+   the example's 4 decode threads.
 
 Every streaming path moves its batches through the loader's transfer
 plane (``transfer='auto'``): a dispatch thread pulls, transforms and puts
@@ -4027,6 +4047,180 @@ def phase_vit_recipe(fa, url):
     return runs['remat']['launches']
 
 
+SP_BLOCK_K = 256        # the chunked ring's block_k
+#: Every loss of a ring run against the reference strategy's over the same
+#: rows: 1e-2, some 30 times the largest gap of the 20 steps on an H100
+#: (bf16 rounding in other places, carried through AdamW).  At random init
+#: every loss starts near ln(4096) whatever the attention computes, so a
+#: wrong mask is left to sp_attention_check; this holds the training curve.
+SP_LOSS_ATOL = 1e-2
+#: label -> (strategy, block_k), in the order they run
+SP_RUNS = (('ring', 'ring', None), ('ring block_k', 'ring', SP_BLOCK_K),
+           ('ulysses', 'ulysses', None), ('flash', 'flash', None))
+
+
+def sp_attention_check(mesh, device, seed=11):
+    """Ring attention as the sharded step builds it (``make_attn_fn(mesh,
+    'ring', head_axis=None)``, causal), whole and chunked by ``SP_BLOCK_K``,
+    at L1's attention shapes in bf16: this rank's block of the output and of
+    the q, k, v gradients of ``sum(out * dO)`` against the dense fp32
+    reference on the global arrays (the same on every rank, from ``seed``),
+    within the bf16 tolerance.  Returns the max errors by variant."""
+    import petastorm_tpu_torch.train_lm as lm
+    from petastorm_tpu_torch.models.transformer import make_attn_fn
+    from petastorm_tpu_torch.ops.flash_attention import full_attention
+    from petastorm_tpu_torch.parallel import NamedSharding
+    h = lm.LONG_CONTEXT_LM['num_heads']
+    shape = (8, lm.SEQ_LEN, h, lm.LONG_CONTEXT_LM['d_model'] // h)
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=g).to(device, torch.bfloat16) for _ in range(4))
+    ref_leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    ref = full_attention(*ref_leaves, causal=True)
+    ref.backward(do.float())
+    index = NamedSharding(mesh, ('data', 'seq', None, None)).index(shape)
+    errs = {}
+    for label, block_k in (('ring', None), ('ring block_k', SP_BLOCK_K)):
+        fn = make_attn_fn(mesh, 'ring', head_axis=None, block_k=block_k)
+        leaves = [t[index].contiguous().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves, causal=True)
+        out.backward(do[index].contiguous())
+        errs[label] = max([check('sequence parallel %s attention out' % label, out, ref[index],
+                                 TOL['bf16'])]
+                          + [check('sequence parallel %s attention d%s' % (label, name),
+                                   leaf.grad, ref_leaf.grad[index], TOL['bf16'])
+                             for name, leaf, ref_leaf in zip('qkv', leaves, ref_leaves)])
+    return errs
+
+
+def sp_rank(rank, world, store, url, tmp):
+    """One rank of the sequence-parallel phase (see ``phase_sequence_parallel``):
+    joins the NCCL group, runs every strategy, checks it, and returns what
+    rank 0 reports; leaves the group."""
+    import torch.distributed as dist
+
+    import petastorm_tpu_torch.train_lm as lm
+    from petastorm_tpu_torch.parallel import init_distributed
+    fa = importlib.import_module('petastorm_tpu_torch.ops.flash_attention')
+    init_distributed('cuda', store, rank, world)
+    try:
+        if dist.get_backend() != 'nccl':
+            raise AssertionError('the group runs %s, not nccl' % dist.get_backend())
+        layers = lm.LONG_CONTEXT_LM['num_layers']
+        runs, launches = {}, {}
+
+        def run(strategy, block_k, steps=STEPS, **kwargs):
+            return lm.train_lm(url, steps, batch_size=8, strategy=strategy, block_k=block_k,
+                               **kwargs)
+
+        with same_data_order():
+            for label, strategy, block_k in SP_RUNS:
+                reset_counts(fa)
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+                r = run(strategy, block_k)
+                torch.cuda.synchronize()
+                r['peak_mb'] = torch.cuda.max_memory_allocated() / 2 ** 20
+                r['run_peak_mb'] = (torch.cuda.max_memory_allocated() - before) / 2 ** 20
+                launches[label], by_design = counts(fa)
+                per_step = 0 if strategy == 'ring' else 1
+                check_launches('sequence parallel %s' % label, launches[label], by_design,
+                               {'flash_fwd': per_step * 2 * layers * STEPS,
+                                'flash_bwd_dq': per_step * layers * STEPS,
+                                'flash_bwd_dkv': per_step * layers * STEPS})
+                if not r['cuda_graph'] or len(r['losses']) != STEPS \
+                        or not np.all(np.isfinite(r['losses'])):
+                    raise AssertionError('sequence parallel %s: graphed %s, losses %s'
+                                         % (label, r['cuda_graph'], r['losses']))
+                runs[label] = r
+                if rank == 0:
+                    log('sequence parallel %s (mesh %s, %d ranks, %d graphed steps): tokens/s '
+                        '%.0f, step_ms %.2f (steps 3..%d), peak memory %.1f MB allocated, '
+                        '%.1f MB above what was allocated before the run, launches %s; losses '
+                        '%s' % (label, r['mesh'], world, STEPS, r['tokens_per_s'], r['step_ms'],
+                                STEPS, r['peak_mb'], r['run_peak_mb'], launches[label],
+                                ' '.join('%.4f' % x for x in r['losses'])))
+        # The reference over the same rows: flash on one card; on more, flash
+        # runs a pure data mesh and reads other rows, and Ulysses shares the
+        # rings' mesh.
+        ref_label = 'flash' if world == 1 else 'ulysses'
+        ref = runs[ref_label]['losses']
+        first = {label: abs(runs[label]['losses'][0] - ref[0])
+                 for label in ('ring', 'ring block_k', 'ulysses') if label != ref_label}
+        curve = {label: float(np.abs(np.subtract(runs[label]['losses'], ref)).max())
+                 for label in ('ring', 'ring block_k')}
+        atol, rtol = TOL['bf16']
+        for label in first:
+            if first[label] > atol + rtol * abs(ref[0]):
+                raise AssertionError('sequence parallel %s: first loss %.6f, %s %.6f'
+                                     % (label, runs[label]['losses'][0], ref_label, ref[0]))
+        for label, err in curve.items():
+            if err > SP_LOSS_ATOL:
+                raise AssertionError('sequence parallel %s: losses %s off %s\'s %s by up to %.4g '
+                                     '(limit %g)' % (label, runs[label]['losses'], ref_label,
+                                                     ref, err, SP_LOSS_ATOL))
+        if world == 1:
+            loss_rel, differ, worst, n_state = _differences(runs['ulysses'], runs['flash'])
+            if loss_rel or differ:
+                raise AssertionError('sequence parallel: Ulysses on one rank is not flash bit '
+                                     'for bit (losses off by %.3g, %d of %d state tensors '
+                                     'differ, worst %.3g)' % (loss_rel, differ, n_state, worst))
+        attention = sp_attention_check(lm._mesh_for('ring', world), torch.device('cuda'))
+        if rank == 0:
+            log('sequence parallel: first losses against %s %s (limit %s); every loss of the '
+                'rings against %s within %s (limit %g)%s; ring attention against the fp32 '
+                'reference at %s, max abs err %s (limit %s)'
+                % (ref_label, first, TOL['bf16'], ref_label, curve, SP_LOSS_ATOL,
+                   '; Ulysses equal to flash bit for bit over %d steps' % STEPS
+                   if world == 1 else '', (8, lm.SEQ_LEN, lm.LONG_CONTEXT_LM['num_heads'],
+                                           lm.LONG_CONTEXT_LM['d_model']
+                                           // lm.LONG_CONTEXT_LM['num_heads']),
+                   attention, TOL['bf16']))
+        rows = {label: eager_vs_graphed(fa, 'sequence parallel %s' % label,
+                                        lambda s=strategy, b=block_k, **kw: run(s, b, EQ_STEPS,
+                                                                                 **kw))
+                for label, strategy, block_k in SP_RUNS if strategy != 'flash'}
+        # where a graphed step's time goes, fed by the example's 4 decode threads
+        profiles = {label: phase_profile(lambda n, s=strategy, b=block_k: run(s, b, n),
+                                         'sequence parallel %s rank %d' % (label, rank), tmp)
+                    for label, strategy, block_k in SP_RUNS if label in ('ring', 'ulysses')}
+        return dict(world=world, launches=launches['ulysses'], loss_reference=ref_label,
+                    first_loss_err=first, loss_curve_err=curve, attention_err=attention,
+                    eager_vs_graphed=rows, profiles=profiles,
+                    runs={label: {k: r[k] for k in ('mesh', 'tokens_per_s', 'step_ms', 'host_ms',
+                                                    'data_wait_ms', 'peak_mb', 'run_peak_mb',
+                                                    'losses')}
+                          for label, r in runs.items()})
+    finally:
+        dist.destroy_process_group()
+
+
+def _sp_spawned(rank, world, store, url, tmp, out):
+    result = sp_rank(rank, world, store, url, tmp)
+    if rank == 0:
+        with open(out, 'w') as f:
+            json.dump(result, f)
+
+
+def phase_sequence_parallel(fa, tmp):
+    """The long-context example's sequence-parallel strategies over an NCCL
+    group of every visible card (see the module docstring, phase 24);
+    returns the Ulysses run's flash launches."""
+    url = 'file://' + os.path.join(tmp, 'lc_tokens')     # phase_lm's store
+    store = os.path.join(tmp, 'sp_store')
+    world = torch.cuda.device_count()
+    if world == 1:
+        result = sp_rank(0, 1, store, url, tmp)
+    else:
+        import torch.multiprocessing as mp
+        out = os.path.join(tmp, 'sp_result.json')
+        mp.start_processes(_sp_spawned, args=(world, store, url, tmp, out), nprocs=world,
+                           start_method='spawn')
+        with open(out) as f:
+            result = json.load(f)
+    SUMMARY['sequence_parallel'] = result
+    return result['launches']
+
+
 def main():
     # The kernels' module (petastorm_tpu_torch.ops re-exports its function
     # under the same name).  Imported first: outside a checkout this fails
@@ -4076,13 +4270,15 @@ def main():
                             ('ngram', lambda: phase_ngram(fa, tmp)),
                             ('resident', lambda: phase_resident(fa, url, tmp)),
                             ('search', lambda: phase_search(fa, paths['packed'][1])),
-                            ('vit_recipe', lambda: phase_vit_recipe(fa, url))):
+                            ('vit_recipe', lambda: phase_vit_recipe(fa, url)),
+                            ('sequence_parallel', lambda: phase_sequence_parallel(fa, tmp))):
             t0 = time.monotonic()
             paths[name] = phase()
             log('phase %s: %.1f s' % (name, time.monotonic() - t0))
     launches = {'vit': paths['vit'], 'lm': paths['lm'], 'packed': paths['packed'][0],
                 'generate': paths['generate'], 'resident': paths['resident'],
-                'search': paths['search'], 'vit_recipe': paths['vit_recipe']}
+                'search': paths['search'], 'vit_recipe': paths['vit_recipe'],
+                'sequence_parallel': paths['sequence_parallel']}
     kernels = [dict(name=name, route='cuda', design=MAIN_PATH_DESIGN[name],
                     source=SOURCES[name], replaces=REPLACES[name],
                     launches=sum(path[name] for path in launches.values()),

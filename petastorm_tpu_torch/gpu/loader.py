@@ -62,8 +62,11 @@ dtypes (:mod:`~petastorm_tpu_torch.gpu.residency`): epoch 0 streams and
 admits each batch, later epochs are gathered there, in the JAX loader's
 ``fold_in`` epoch orders.
 
-Autotuning and sharding are later slices of the port (ROADMAP.md, Queue A
-items 6 and 7).
+With ``sharding=`` (a :class:`~petastorm_tpu_torch.parallel.NamedSharding`,
+one process per device) each rank moves only its block of each leaf and the
+loader yields global ``DTensor`` arrays, as the JAX loader's
+``global_batch_from_local`` does.  Autotuning is a later slice of the port
+(ROADMAP.md, Queue A item 7).
 """
 
 import contextlib
@@ -140,12 +143,22 @@ class DataLoader(object):
             the JAX package's): the loader serves what it holds first, then
             continues from its reader, which must be built with
             ``resume_state=resume_state['reader']``.
+        sharding: a :class:`~petastorm_tpu_torch.parallel.NamedSharding` of a
+            mesh of ranks.  ``batch_size`` is then this rank's rows (the
+            global batch is ``batch_size`` times the batch axes' size), every
+            other dim whole, and each batch is packed and moved as this
+            rank's block of each leaf (its columns over a split dim) and
+            yielded as global ``DTensor`` arrays
+            (:func:`~petastorm_tpu_torch.parallel.global_batch_from_local`);
+            ``to_local()`` gives the block.  A dim the spec cannot split
+            evenly raises.  Host batches, tokens and ``transform_fn`` see
+            the whole rows.
     """
 
     def __init__(self, reader, batch_size, shuffling_queue_capacity=0, min_after_retrieve=None,
                  drop_last=True, prefetch=2, device=None, seed=None, transform_fn=None,
                  trace_recorder=None, transfer='auto', wire_dtypes=None, ring_slots=None,
-                 resume_state=None, echo=1):
+                 resume_state=None, echo=1, sharding=None):
         if batch_size <= 0:
             raise ValueError('batch_size must be positive')
         if echo < 1:
@@ -186,6 +199,7 @@ class DataLoader(object):
         self._transfer = transfer
         self._wire_dtypes = wire_dtypes
         self._ring_slots = ring_slots
+        self._sharding = sharding
         self._plane = None
         self._pump = None
         # Per-stage wall time: 'host_batch' waits on the decode plane and
@@ -257,7 +271,7 @@ class DataLoader(object):
             if self._transform_fn is not None:
                 host_batch = self._transform_fn(host_batch)
             t2 = time.monotonic()
-            numeric = _filter_numeric(host_batch, self._warned_fields)
+            numeric = self._block(_filter_numeric(host_batch, self._warned_fields))
             shipped = plane.put(numeric)
             degraded = shipped is None
             if degraded:   # a structure the plane cannot pack: column by column
@@ -289,7 +303,7 @@ class DataLoader(object):
                 item = pump.get()
                 if item is DONE:
                     break
-                yield plane.ready(*item)
+                yield self._global(plane.ready(*item))
         finally:
             # an early break or an error: a thread parked in a slow pull is
             # released by reader.stop() in __exit__
@@ -313,7 +327,8 @@ class DataLoader(object):
             if self._transform_fn is not None:
                 host_batch = self._transform_fn(host_batch)
             t2 = time.monotonic()
-            pending.append(plane.put_inline(_filter_numeric(host_batch, self._warned_fields)))
+            pending.append(plane.put_inline(
+                self._block(_filter_numeric(host_batch, self._warned_fields))))
             t3 = time.monotonic()
             self._observe('host_batch', t0, t1)
             self._observe('transform', t1, t2)
@@ -326,9 +341,17 @@ class DataLoader(object):
                     self._trace.event('transform', t1, t2, batch=n)
                 self._trace.event('device_put', t2, t3, batch=n)
             if len(pending) > self._prefetch:
-                yield plane.ready(*pending.popleft())
+                yield self._global(plane.ready(*pending.popleft()))
         while pending:
-            yield plane.ready(*pending.popleft())
+            yield self._global(plane.ready(*pending.popleft()))
+
+    def _block(self, numeric):
+        """This rank's block of each leaf of a host batch (``sharding=``)."""
+        return numeric if self._sharding is None else self._sharding.blocks(numeric)
+
+    def _global(self, batch):
+        """A device batch of blocks as global ``DTensor`` arrays (``sharding=``)."""
+        return batch if self._sharding is None else self._sharding.wrap_tree(batch)
 
     def _take_restored(self):
         """The host batches a token carried from the card (post-transform),
@@ -385,6 +408,9 @@ class DataLoader(object):
         """
         if steps_per_call < 1:
             raise ValueError('steps_per_call must be >= 1')
+        if self._sharding is not None:
+            raise ValueError('scan_batches with sharding= is a later slice of the port '
+                             '(ROADMAP.md, Queue A item 6): iterate the loader instead')
         graphed = graphs.resolve(cuda_graph, self.device)
 
         def run_chunk(carry, chunk):
@@ -1111,6 +1137,10 @@ class DeviceInMemDataLoader(InMemDataLoader):
         super(DeviceInMemDataLoader, self).__init__(
             reader, batch_size, num_epochs=num_epochs, shuffle=shuffle, seed=seed,
             device=device, **kwargs)
+        if self._sharding is not None:
+            raise ValueError('DeviceInMemDataLoader caches on one device; '
+                             'use InMemDataLoader with sharding= for global '
+                             'batch assembly')
         self._dev_cache = None
         #: (epochs, steps) skipped at the head of every pass: a token's
         #: position, the same for every pass over the loader
@@ -1365,6 +1395,10 @@ class ResidentDataLoader(InMemDataLoader):
         super(ResidentDataLoader, self).__init__(
             reader, batch_size, num_epochs=num_epochs, shuffle=shuffle, seed=seed,
             device=device, wire_dtypes=wire_dtypes, **kwargs)
+        if self._sharding is not None:
+            raise ValueError('ResidentDataLoader caches on one device; use '
+                             'InMemDataLoader with sharding= for global '
+                             'batch assembly')
         self._budget = hbm_budget_bytes
         self._tier = None
         self._plan = None

@@ -43,7 +43,11 @@ and the unpack the same slicing and views.  Counters ``h2d_batches``,
 ``h2d_degraded``, ``h2d_bytes_wire`` and ``h2d_bytes_logical``, histograms
 ``h2d_stage``, ``h2d_dispatch`` and ``h2d_commit``, and ``h2d/stage``,
 ``h2d/dispatch`` and ``h2d/commit`` spans into a trace recorder, as the JAX
-plane keeps them.  The sharded put is a later slice.
+plane keeps them.  The sharded put of the JAX plane (``_plan_shards``,
+``_put_sharded``: one slab segment and one copy per device of one process)
+becomes, with one process per device, the loader's: under ``sharding=`` it
+packs this rank's block of each leaf into the slab and moves it in one copy
+to the rank's card (:class:`~petastorm_tpu_torch.gpu.loader.DataLoader`).
 """
 
 import contextlib

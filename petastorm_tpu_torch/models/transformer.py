@@ -36,8 +36,8 @@ that it can be captured in a CUDA graph and replayed
 package) reads the host index and costs no device sync.
 :func:`rewind_cache` rolls the device position back (speculative
 decoding's rollback) and :func:`reorder_cache` re-orders the cache's rows
-(beam search), both in place.  Ring and Ulysses attention wait for the
-multi-device slice of the port (``parallel/``).
+(beam search), both in place.  Ring and Ulysses attention
+(:func:`make_attn_fn` with a mesh) run over ``parallel/``.
 """
 
 import functools
@@ -386,16 +386,53 @@ def reorder_cache(cache, rows):
         layer.value.copy_(layer.value.index_select(0, rows))
 
 
-def make_attn_fn(strategy='flash', segment_ids=None):
-    """The attention for a strategy: ``'flash'`` (the hand-written
-    kernels) or ``'dense'`` (the O(seq^2) reference), bound to a packed
-    batch's ``segment_ids`` (``[batch, seq]``, 0 = padding) when given.
-    ``'ring'`` and ``'ulysses'`` shard the sequence over devices and wait
-    for the multi-device slice of the port."""
-    if strategy in ('ring', 'ulysses'):
-        raise ValueError('attention strategy %r shards the sequence over devices: it comes '
-                         'with the multi-device slice of the port (parallel/)' % (strategy,))
-    if strategy not in ('flash', 'dense'):
+def make_attn_fn(mesh=None, strategy='flash', seq_axis='seq', batch_axis='data',
+                 head_axis='model', block_k=None, segment_ids=None, causal=True):
+    """The attention for a (mesh, strategy) pair: the JAX package's
+    ``make_attn_fn``.
+
+    ``'flash'`` (the hand-written kernels) and ``'dense'`` (the O(seq^2)
+    reference) need no mesh.  ``'ring'`` rotates K/V around ``seq_axis``
+    (``block_k`` chunks each hop's score tile) and ``'ulysses'`` trades the
+    sequence for heads with all-to-alls and runs the flash kernels locally
+    (:mod:`petastorm_tpu_torch.parallel.ring_attention`); both need a
+    ``mesh`` and take this rank's blocks ``[batch, seq_local, heads,
+    head_dim]``.  ``segment_ids`` (``[batch, seq]``, or this rank's
+    ``[batch, seq_local]`` under ring and Ulysses; 0 = padding) restricts
+    attention to packed-row segments under every strategy.  ``causal`` is
+    fixed here for ring and Ulysses, and a call asking for the other
+    masking raises.
+    """
+    from petastorm_tpu_torch.parallel import make_ring_attention, make_ulysses_attention
+    packed = segment_ids is not None
+    if strategy == 'flash':
+        return (functools.partial(flash_attention, segment_ids=segment_ids)
+                if packed else flash_attention)
+    if strategy == 'dense':
+        return (functools.partial(full_attention, segment_ids=segment_ids)
+                if packed else full_attention)
+    if mesh is None:
+        raise ValueError('strategy %r needs a mesh' % (strategy,))
+    if strategy == 'ring':
+        fn, _ = make_ring_attention(mesh, seq_axis=seq_axis, batch_axis=batch_axis,
+                                    head_axis=head_axis, causal=causal, block_k=block_k,
+                                    packed=packed)
+    elif strategy == 'ulysses':
+        fn, _ = make_ulysses_attention(mesh, seq_axis=seq_axis, batch_axis=batch_axis,
+                                       head_axis=head_axis, causal=causal,
+                                       attn_fn=flash_attention, packed=packed)
+    else:
         raise ValueError('unknown attention strategy %r' % (strategy,))
-    fn = flash_attention if strategy == 'flash' else full_attention
-    return fn if segment_ids is None else functools.partial(fn, segment_ids=segment_ids)
+    return functools.partial(_check_curried_causal, fn, segment_ids, causal)
+
+
+def _check_curried_causal(fn, segment_ids, curried_causal, q, k, v, causal=True):
+    # ring and Ulysses fix causal at construction; a caller asking for other
+    # masking (an encoder calling a causal-curried wrapper) must hear of it
+    if causal != curried_causal:
+        raise ValueError(
+            'attn_fn was built with causal=%s but called with causal=%s - '
+            'pass causal=%s to make_attn_fn' % (curried_causal, causal, causal))
+    if segment_ids is not None:
+        return fn(q, k, v, segment_ids)
+    return fn(q, k, v)

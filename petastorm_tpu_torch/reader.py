@@ -25,9 +25,14 @@ dummy pools, FIFO scheduling, synchronous reads of local files (no ingest
 plane, no HDFS or object store), the null cache; no ``rowgroup_selector``,
 ``piece_indices`` or row-drop partitions.  Both readers take the reference's
 argument names: an option outside the slice raises ``ValueError`` (never a
-``TypeError``) only when it asks for more than its default.  The shard
-default is 0 of 1: nothing here probes a multi-host topology.
+``TypeError``) only when it asks for more than its default.  With neither
+``cur_shard`` nor ``shard_count`` given, a ``torch.distributed`` group of
+more than one rank shards by ``(rank, world)``, as the JAX reader shards by
+``(jax.process_index(), jax.process_count())``; otherwise the reader reads
+every row group.
 """
+
+import sys
 
 import numpy as np
 
@@ -123,6 +128,19 @@ def _shard_indices(num_pieces, cur_shard, shard_count, shard_seed=None):
     return [order[i] for i in range(num_pieces) if i % shard_count == cur_shard]
 
 
+def _default_shard(cur_shard, shard_count):
+    """``(cur_shard, shard_count)``, or ``(rank, world)`` of a process group
+    of more than one rank when neither is given.  torch is not imported for
+    it: a process that has not loaded ``torch.distributed`` has no group."""
+    if cur_shard is not None or shard_count is not None:
+        return cur_shard, shard_count
+    dist = sys.modules.get('torch.distributed')
+    if dist is not None and dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        return dist.get_rank(), dist.get_world_size()
+    return None, None
+
+
 def _topology(cur_shard, shard_count, shard_seed, num_pieces, shuffle_row_groups):
     """The JAX reader's topology keys, at the values this reader has (no
     row-drop partitions)."""
@@ -205,6 +223,7 @@ def make_reader(dataset_url,
     ngram = schema_fields if isinstance(schema_fields, NGram) else None
     if columnar_decode and ngram is not None:
         raise ValueError('columnar_decode is incompatible with NGram windows')
+    cur_shard, shard_count = _default_shard(cur_shard, shard_count)
     fs, path = get_filesystem_and_path(dataset_url)
     stored_schema = get_schema(fs, path)
     if ngram is not None:
@@ -275,6 +294,7 @@ def make_batch_reader(dataset_url_or_urls,
                                               cache_row_size_estimate=cache_row_size_estimate,
                                               cache_extra_settings=cache_extra_settings),
                           hdfs_driver=hdfs_driver, ingest_window=ingest_window)
+    cur_shard, shard_count = _default_shard(cur_shard, shard_count)
     fs, path_or_paths = get_filesystem_and_path_or_paths(dataset_url_or_urls)
     paths = path_or_paths if isinstance(path_or_paths, list) else [path_or_paths]
     stored_schema = infer_or_load_unischema(fs, paths[0])

@@ -38,10 +38,12 @@ with the examples' ``--steps``, ``--batch-size``, ``--strategy``,
 
 import argparse
 import functools
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from petastorm_tpu_torch import random as prng
@@ -52,6 +54,7 @@ from petastorm_tpu_torch.gpu import DataLoader, PackedDataLoader, graphs, packin
 from petastorm_tpu_torch.gpu.transfer import resolve_device
 from petastorm_tpu_torch.models.decoding import generate
 from petastorm_tpu_torch.models.transformer import TransformerLM, make_attn_fn
+from petastorm_tpu_torch.parallel import mesh as mesh_lib
 from petastorm_tpu_torch.reader import make_reader
 from petastorm_tpu_torch.train import _sync
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
@@ -122,8 +125,45 @@ def _check_batch(tokens, device, batch_devices):
         raise RuntimeError('batch reached the model on %s, expected %s' % (tokens.device, device))
 
 
+def _with_labels(batch):
+    """The loader's host batch -> ``tokens`` and their next-token ``labels``,
+    ``roll(tokens, -1, axis=1)`` over each whole row (jax_example.py:90),
+    before the sequence is split: a roll of a block is wrong at its edge."""
+    tokens = batch['tokens']
+    return {'tokens': tokens, 'labels': np.roll(tokens, -1, axis=1)}
+
+
+def _all_reduce_grads(params):
+    """Sum every gradient over the world: one all-reduce over a flat buffer."""
+    grads = [p.grad for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
+def _check_replicated(model, device):
+    """Every rank starts from the same parameters: their float64 sums,
+    all-gathered, must be equal."""
+    sums = torch.stack([p.detach().double().sum() for p in model.parameters()]).to(device)
+    every = [torch.empty_like(sums) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, sums)
+    for rank, other in enumerate(every):
+        if not torch.equal(other, every[0]):
+            raise RuntimeError('rank %d starts from other parameters than rank 0' % rank)
+
+
+def _mesh_for(strategy, world):
+    """jax_example.py:58-61: ``{'data': world // sp, 'seq': sp}`` with ``sp``
+    2 for ring and Ulysses on an even world, else 1."""
+    seq_shards = 2 if strategy in ('ring', 'ulysses') and world % 2 == 0 else 1
+    return mesh_lib.make_mesh({'data': world // seq_shards, 'seq': seq_shards})
+
+
 def train_lm(dataset_url, steps, batch_size=8, strategy='flash', device=None, cuda_graph=None, *,
-             reader_pool_type='thread', workers_count=4, transfer='auto'):
+             block_k=None, reader_pool_type='thread', workers_count=None, transfer='auto'):
     """Run ``steps`` steps of the long-context example; returns the losses,
     the timings and the trained ``model``.
 
@@ -132,58 +172,120 @@ def train_lm(dataset_url, steps, batch_size=8, strategy='flash', device=None, cu
     synchronized at both ends; ``host_ms`` is the host's time per step
     inside the step call; the data wait per step and ``stall_pct`` are the
     ``StallMonitor``'s (warm-up 2).  The model is :data:`LONG_CONTEXT_LM`.
-    ``cuda_graph``, ``reader_pool_type``, ``workers_count`` (4 threads,
-    the example's) and ``transfer`` (the loader's transfer plane) as in
-    :func:`petastorm_tpu_torch.train.train`; ``loader_metrics`` holds the
-    loader's counters (``h2d_degraded``: the one ``tokens`` column is a
-    structure the plane moves column by column, on its thread).
+    ``cuda_graph``, ``reader_pool_type``, ``workers_count`` (default 4
+    threads, the example's) and ``transfer`` (the loader's transfer plane)
+    as in :func:`petastorm_tpu_torch.train.train`; ``loader_metrics`` holds
+    the loader's counters.
+
+    The loader moves ``tokens`` and their labels, rolled over the whole row
+    on the host; the model gets the tokens' global positions; the loss is
+    the sum over this rank's tokens divided by the global batch's token
+    count.  With a ``torch.distributed`` group up
+    (:func:`parallel.init_distributed
+    <petastorm_tpu_torch.parallel.init_distributed>`, or torchrun) this is
+    the example's sharded loop over every rank: ``strategy`` ``'auto'`` is
+    ring on more than one rank and flash on one; the mesh is ``{'data':
+    world // sp, 'seq': sp}`` with ``sp`` 2 for ring and Ulysses on an even
+    world, else 1; ``batch_size`` is the global batch, rounded up to a
+    multiple of the data axis.  Each rank reads the row groups of its data
+    coordinate (``cur_shard``/``shard_count``), so the ranks of one seq group
+    read the same rows in the same order (one decode thread by default when
+    ``sp`` > 1: more would deliver row groups in the order they finish); the
+    loader moves this rank's columns of the batch; every gradient is summed
+    over the world in one all-reduce before AdamW, and the reported loss is
+    all-reduced.  ``block_k`` chunks the ring's score tiles.  Without a group
+    only flash and dense run, on one device.
     """
     if steps < 1:
         raise ValueError('steps must be at least 1, got %r' % (steps,))
     device = resolve_device(device)
-    model = _model(LONG_CONTEXT_LM, attn_fn=make_attn_fn(strategy), remat=True).to(device).train()
+    grouped = dist.is_available() and dist.is_initialized()
+    world = dist.get_world_size() if grouped else 1
+    if strategy == 'auto':
+        strategy = 'ring' if world > 1 else 'flash'
+    if block_k is not None and strategy != 'ring':
+        raise ValueError('block_k only applies to the ring strategy (resolved strategy: %s)'
+                         % strategy)
+    if strategy in ('ring', 'ulysses') and not grouped:
+        raise ValueError('strategy %r shards the sequence over ranks: start the process group '
+                         'first (parallel.init_distributed, or torchrun)' % (strategy,))
+    mesh = _mesh_for(strategy, world) if grouped else None
+    data_size, data_index = 1, 0
+    seq_split, seq_index = 1, 0
+    if grouped:
+        data_size, data_index = mesh_lib.axis_size(mesh, 'data'), mesh_lib.axis_index(mesh, 'data')
+        seq_split, seq_index = mesh_lib.axis_size(mesh, 'seq'), mesh_lib.axis_index(mesh, 'seq')
+    if workers_count is None:
+        workers_count = 1 if seq_split > 1 else 4
+    elif seq_split > 1 and workers_count > 1 and reader_pool_type != 'dummy':
+        raise ValueError('the %d ranks of a seq group must read the same rows in the same '
+                         'order: read with one decode worker or the dummy pool' % seq_split)
+    model = _model(LONG_CONTEXT_LM, attn_fn=make_attn_fn(mesh, strategy, head_axis=None,
+                                                          block_k=block_k), remat=True)
+    model = model.to(device).train()
     opt = _adamw(model, 3e-4, device)   # jax_example.py: optax.adamw(3e-4)
+    params = list(model.parameters())
     batch_devices = set()
+    batch_size = -(-batch_size // data_size) * data_size
+    s_local = SEQ_LEN // seq_split
+    positions = (seq_index * s_local
+                 + torch.arange(s_local, device=device)).expand(batch_size // data_size, s_local)
+    token_count = batch_size * SEQ_LEN
+    loader_kwargs = dict(batch_size=batch_size // data_size, transform_fn=_with_labels)
+    reader_kwargs = {}
+    if grouped:
+        _check_replicated(model, mesh_lib.group_device())
+        reader_kwargs = dict(cur_shard=data_index, shard_count=data_size)
+        loader_kwargs['sharding'] = mesh_lib.NamedSharding(mesh, ('data', 'seq'))
 
     def train_step(batch):
         with torch.profiler.record_function('train_step'):
-            tokens = batch['tokens'].long()
-            logits = model(tokens)
-            labels = torch.roll(tokens, -1, dims=1)
-            loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1),
-                                   reduction='none').mean()
+            logits = model(batch['tokens'].long(), positions=positions)
+            per_tok = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                      batch['labels'].long().reshape(-1), reduction='none')
+            loss = per_tok.sum() / token_count
             opt.zero_grad(set_to_none=True)
             loss.backward()
+            if grouped:
+                _all_reduce_grads(params)
             opt.step()
-            return loss.detach()
+            loss = loss.detach()
+            if grouped:
+                loss = loss.clone()      # the all-reduce writes in place
+                dist.all_reduce(loss)
+            return loss
 
     graphed = graphs.resolve(cuda_graph, device)
     step_fn = graphs.StepGraph(train_step) if graphed else train_step
     warmup = min(2, steps - 1)
-    losses, t_start, timed_tokens, host_s = [], None, 0, 0.0
+    losses, t_start, host_s = [], None, 0.0
     monitor = StallMonitor(warmup_steps=2)
     reader = make_reader(dataset_url, num_epochs=None, columnar_decode=True,
-                         reader_pool_type=reader_pool_type, workers_count=workers_count)
-    with DataLoader(reader, batch_size=batch_size, prefetch=2, drop_last=True,
-                    device=device, transfer=transfer) as loader:
+                         reader_pool_type=reader_pool_type, workers_count=workers_count,
+                         **reader_kwargs)
+    with DataLoader(reader, prefetch=2, drop_last=True, device=device, transfer=transfer,
+                    **loader_kwargs) as loader:
         batches = monitor.wrap(loader)
         for step in range(steps):
             if step == warmup:
                 _sync(device)
                 t_start = time.perf_counter()
             batch = next(batches)
+            if grouped:
+                batch = {name: value.to_local() for name, value in batch.items()}
             _check_batch(batch['tokens'], device, batch_devices)
             t0 = time.perf_counter()
             losses.append(step_fn(batch))
             if step >= warmup:
                 host_s += time.perf_counter() - t0
-                timed_tokens += batch['tokens'].numel()
     _sync(device)
     elapsed = time.perf_counter() - t_start
     timed = steps - warmup
-    return {'steps': steps,
+    return {'steps': steps, 'strategy': strategy,
+            'mesh': dict(zip(mesh.mesh_dim_names, mesh.shape)) if grouped else None,
+            'batch_size': batch_size,
             'losses': [float(v) for v in torch.stack(losses).cpu()],
-            'tokens_per_s': timed_tokens / elapsed,
+            'tokens_per_s': timed * token_count / elapsed,
             'step_ms': 1e3 * elapsed / timed,
             'host_ms': 1e3 * host_s / timed,
             'data_wait_ms': 1e3 * monitor.wait_time / monitor.steps if monitor.steps else None,
@@ -198,7 +300,7 @@ def _packed_attn(attn, segment_ids):
     if attn == 'dense':
         return functools.partial(packing.packed_attention, segment_ids=segment_ids)
     if attn == 'flash':
-        return make_attn_fn('flash', segment_ids)
+        return make_attn_fn(None, 'flash', segment_ids=segment_ids)
     raise ValueError("attn must be 'dense' or 'flash', got %r" % (attn,))
 
 
@@ -313,9 +415,13 @@ def main(argv=None):
     parser.add_argument('--packed', action='store_true',
                         help='the packed example: variable-length documents packed into '
                              '(rows, 512) batches')
-    parser.add_argument('--strategy', choices=['flash', 'dense'], default=None,
-                        help='attention; default flash (long-context) or dense '
-                             '(packed_attention, packed)')
+    parser.add_argument('--strategy', choices=['auto', 'flash', 'ring', 'ulysses', 'dense'],
+                        default=None,
+                        help='attention; long-context: default auto (ring on more than one '
+                             'rank, else flash); packed: flash or dense (the default)')
+    parser.add_argument('--block-k', type=int, default=None,
+                        help='chunk ring-attention score tiles (memory cap for very long '
+                             'local sequences)')
     parser.add_argument('--batch-size', type=int, default=None,
                         help='documents per batch (default 8), or packed rows (default 4)')
     parser.add_argument('--steps', type=int, default=None,
@@ -323,29 +429,45 @@ def main(argv=None):
     parser.add_argument('--sample', action='store_true',
                         help='after training, sample continuations with the KV-cache decoder')
     args = parser.parse_args(argv)
+    if args.packed and args.strategy not in (None, 'flash', 'dense'):
+        parser.error('--packed takes --strategy flash or dense')
+    strategy = args.strategy or ('dense' if args.packed else 'auto')
+    if args.block_k is not None and strategy not in ('auto', 'ring'):
+        parser.error('--block-k only applies to the ring strategy')
+    rank, started = 0, False
+    if not dist.is_initialized() and ('RANK' in os.environ or strategy in ('ring', 'ulysses')):
+        # torchrun's ranks, or a group of one for ring or Ulysses on one card
+        rank, _ = mesh_lib.init_distributed()
+        started = True
     if args.packed:
         if args.generate:
             write_var_token_dataset(args.dataset_url)
         result = train_packed(args.dataset_url, steps=args.steps or 20,
                               rows_per_batch=args.batch_size or 4,
-                              attn=args.strategy or 'dense')
+                              attn=strategy)
         print('steps=%d loss=%.3f packing_utilization=%.0f%% tokens/s=%.0f (%s); after '
               'warm-up: step_ms=%.2f tokens/s=%.0f'
               % (result['steps'], result['losses'][-1], 100 * result['packing_utilization'],
                  result['tokens_per_s'], result['device'], result['step_ms'],
                  result['step_tokens_per_s']))
     else:
-        if args.generate:
+        if args.generate and rank == 0:
             write_token_dataset(args.dataset_url)
+        if args.generate:
+            mesh_lib.sync_hosts('token dataset written')
         result = train_lm(args.dataset_url, args.steps or 30, args.batch_size or 8,
-                          strategy=args.strategy or 'flash')
-        print('done: %d steps of seq_len=%d with %s attention on %s: loss %.4f, tokens/s %.0f'
-              % (result['steps'], SEQ_LEN, args.strategy or 'flash', result['device'],
-                 result['losses'][-1], result['tokens_per_s']))
+                          strategy=strategy, block_k=args.block_k)
+        if rank == 0:
+            print('done: %d steps of seq_len=%d with %s attention over %s on %s: loss %.4f, '
+                  'tokens/s %.0f' % (result['steps'], SEQ_LEN, result['strategy'],
+                                     result['mesh'] or 'one device', result['device'],
+                                     result['losses'][-1], result['tokens_per_s']))
     if args.sample:
         prompt, tokens = sample(result['model'])
         for row in range(len(prompt)):
             print('prompt %s -> %s' % (prompt[row].tolist(), tokens[row].tolist()))
+    if started:
+        dist.destroy_process_group()
     return result
 
 

@@ -62,7 +62,8 @@ def _pair(variant, dtype_name='float32', strategy='flash', seed=0, remat=False):
     jax_model = jax_tf.TransformerLM(dtype=jdt, attn_fn=jax_tf.make_attn_fn(None, strategy),
                                      **kw)
     params = _params(jax_model, tokens, seed)
-    model = TransformerLM(compute_dtype=tdt, attn_fn=make_attn_fn(strategy), remat=remat, **kw)
+    model = TransformerLM(compute_dtype=tdt, attn_fn=make_attn_fn(None, strategy), remat=remat,
+                          **kw)
     model.load_state_dict(transformer_lm_params_from_flax(params))
     return jax_model, params, model, tokens
 
@@ -96,7 +97,7 @@ def _packed_lm_logits(attn, dtype_name):
         attn_fn = functools.partial(packing.packed_attention, segment_ids=torch.tensor(seg))
     else:
         jax_attn = jax_tf.make_attn_fn(None, attn, segment_ids=jnp.asarray(seg))
-        attn_fn = make_attn_fn(attn, segment_ids=torch.tensor(seg))
+        attn_fn = make_attn_fn(None, attn, segment_ids=torch.tensor(seg))
     jax_model = jax_tf.TransformerLM(dtype=jdt, attn_fn=jax_attn, **TINY)
     params = _params(jax_model, tokens, 1)
     want = np.asarray(jax_model.apply({'params': params}, jnp.asarray(tokens),
@@ -149,7 +150,7 @@ def test_remat_runs_the_attention_forward_twice_per_layer():
 
     def counting_attn(q, k, v, causal):
         calls.append(torch.is_grad_enabled())
-        return make_attn_fn('dense')(q, k, v, causal=causal)
+        return make_attn_fn(None, 'dense')(q, k, v, causal=causal)
 
     _, _, model, tokens = _pair('mha', seed=3, remat=True)
     model(torch.tensor(tokens), attn_fn=counting_attn).sum().backward()
@@ -226,15 +227,16 @@ def test_rope_matches_jax():
 
 def test_make_attn_fn_strategies():
     for strategy in ('ring', 'ulysses'):
-        with pytest.raises(ValueError, match='parallel/'):
-            make_attn_fn(strategy)
+        with pytest.raises(ValueError, match='needs a mesh'):
+            make_attn_fn(None, strategy)
     with pytest.raises(ValueError, match='unknown'):
-        make_attn_fn('sparse')
+        make_attn_fn(object(), 'sparse')
     seg = torch.tensor(_packed_batch(0)['segment_ids'])
     q, k, v = (torch.randn(len(seg), 64, 2, 8, generator=torch.Generator().manual_seed(i))
                for i in range(3))
-    torch.testing.assert_close(make_attn_fn('flash', seg)(q, k, v, causal=True),
-                               make_attn_fn('dense', seg)(q, k, v, causal=True),
+    flash = make_attn_fn(None, 'flash', segment_ids=seg)
+    dense = make_attn_fn(None, 'dense', segment_ids=seg)
+    torch.testing.assert_close(flash(q, k, v, causal=True), dense(q, k, v, causal=True),
                                atol=2e-5, rtol=2e-5)
 
 

@@ -53,7 +53,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                    'etl/rowgroup_filtering.py', 'models/dlrm.py', 'optim.py', 'train_dlrm.py',
                    'hello_world.py', 'spark/spark_dataset_converter.py',
                    'spark/converter_example.py', 'ngram.py', 'ngram_sensor.py',
-                   'gpu/residency.py', 'random.py'):
+                   'gpu/residency.py', 'random.py', 'parallel/__init__.py', 'parallel/mesh.py',
+                   'parallel/ring_attention.py'):
         assert os.path.join(PACKAGE, module) in sources, module
     offenders = []
     for path in sources:
@@ -437,6 +438,15 @@ def test_lm_training_and_sampling_on_cpu_never_load_jax(tmp_path):
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert 'LOADED []' in proc.stdout
+
+
+def test_a_two_rank_ring_step_never_loads_jax(tmp_path):
+    """Two spawned ranks of a gloo group run a ring-attention step, forward
+    and backward, and load nothing of JAX (each rank is a fresh process)."""
+    from torch_dist_ranks import run_ranks
+    for modules in run_ranks(tmp_path, 2, 'ring_step_imports', {}):
+        assert 'petastorm_tpu_torch.parallel.ring_attention' in modules
+        assert not [m for m in modules if m.split('.')[0] in FORBIDDEN]
 
 
 def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):

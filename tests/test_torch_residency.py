@@ -473,8 +473,11 @@ def test_tier_admissions_and_a_drop_from_many_threads():
         rng = np.random.default_rng(seed)
         for i in range(60):
             ids = rng.permutation(64)[:4]
+            # read before the call: an admission that returned just before
+            # the drop may be recorded after it
+            after = dropped.is_set()
             out = tier.admit(ids, plan.narrow(tree, ids))
-            outcomes.append((out, dropped.is_set()))
+            outcomes.append((out, after))
             if seed == 0 and i == 30:
                 tier.drop()
                 dropped.set()
