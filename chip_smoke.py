@@ -192,7 +192,24 @@ Phases, in order; any failure propagates and exits nonzero:
    forward, 4 dQ and 4 dK/dV launches a step under Ulysses and ``flash``,
    all on the tensor cores, none under ring; ring and Ulysses eager against
    graphed bit for bit; a profile of the ring and the Ulysses step, fed by
-   the example's 4 decode threads.
+   the example's 4 decode threads;
+25. multi-device (the image example on a mesh, tensor parallelism, FSDP,
+   the pipeline and expert-parallel MoE): an NCCL group over every visible
+   card as in 24.  (a) ``train`` on ``make_mesh()`` with ``sharding=``:
+   ResNet-50 at full width (64 x 224^2, 20 graphed steps, one decode
+   thread, no row-group shuffle), then ``--scan-steps 4``, then ViT-S/16,
+   each beside the same run without a group on the same rows: on one card
+   the losses equal bit for bit; images/s, step ms and host ms of both; 12
+   launches of each flash kernel a ViT step, on the tensor cores; ResNet-50's
+   kernels per step under the profiler against ``phase_resnet``'s, the
+   difference being the gradient all-reduce's.  (b) At L1's width (d_model
+   256, 8 heads, 4 layers, bf16): ``param_shardings``, and
+   ``fsdp_shardings`` over ``megatron_spec_fn()``, placed on ``{'data':
+   world / m, 'model': m}`` (m = 2 on an even number of cards, else 1): the
+   logits against the unplaced model's, a train step, and ``generate``
+   token-identical; a pipeline of ``{'pipe': p}`` stages (p = 2 on an even
+   number of cards) against the sequential stages, output and gradients; the
+   MoE on ``{'data': world / e, 'expert': e}`` against ``moe_apply``.
 
 Every streaming path moves its batches through the loader's transfer
 plane (``transfer='auto'``): a dispatch thread pulls, transforms and puts
@@ -930,6 +947,10 @@ def phase_profile(run, label, tmp, steps=8):
             end = t1
     n = j - i
     kernels = sum(1 for e in events if e.get('cat') == 'kernel' and lo <= e['ts'] < hi)
+    by_name = {}
+    for e in events:
+        if e.get('cat') == 'kernel' and lo <= e['ts'] < hi:
+            by_name[e['name']] = by_name.get(e['name'], 0) + 1
     launch_us = wait_us = 0.0
     graph_launches = kernel_launches = 0
     launched = {}    # device kernel name -> launches from the host (not by a graph)
@@ -984,7 +1005,8 @@ def phase_profile(run, label, tmp, steps=8):
                 launch_ms=launch_us / n / 1e3, graph_launches=graph_launches / n,
                 kernel_launches=kernel_launches / n, wait_ms=wait_us / n / 1e3,
                 host_launched={k: v / n for k, v in launched.items()}, steps=n,
-                unrecorded_launches=unrecorded)
+                unrecorded_launches=unrecorded,
+                kernels_by_name={k: v / n for k, v in by_name.items()})
 
 
 #: Per path: the graphed run, the eager run beside it, the profile of the
@@ -4221,6 +4243,277 @@ def phase_sequence_parallel(fa, tmp):
     return result['launches']
 
 
+MD_SCAN_STEPS = 4
+#: (label, model, scan_steps) of the image runs on the mesh, in order
+MD_IMAGE_RUNS = (('resnet50', 'resnet50', 0), ('resnet50 scan 4', 'resnet50', MD_SCAN_STEPS),
+                 ('vit', 'vit', 0))
+#: Name parts of the kernels the data-parallel step adds: the flat
+#: gradient buffer's concatenation, NCCL's all-reduce, the copies back.
+MD_ALL_REDUCE_KERNELS = ('nccl', 'Cat', 'foreach', 'multi_tensor', 'copy', 'Copy')
+MD_PROMPT, MD_NEW = 8, 16          # generate: two random prompts of 8, 16 new tokens
+MD_LM_BATCH = 2                    # the train step's rows of L1's 1024 tokens
+MD_MOE = dict(d=256, f=1024, experts=8, tokens=2048)
+
+
+def md_image_run(url, model_name, scan_steps, steps=STEPS):
+    from petastorm_tpu_torch.train import train
+    return train(url, steps=steps, batch_size=BATCH, model_name=model_name,
+                 scan_steps=scan_steps)
+
+
+def md_image_unsharded(url):
+    """The image runs without a group, on the rows the mesh runs read on one
+    card (one decode thread, no row-group shuffle)."""
+    out = {}
+    with same_data_order():
+        for label, model_name, scan_steps in MD_IMAGE_RUNS:
+            out[label] = md_image_run(url, model_name, scan_steps)
+    return out
+
+
+MD_KEYS = ('images_per_s', 'step_ms', 'host_ms', 'data_wait_ms', 'stall_pct')
+
+
+def _md_text(run, other):
+    fmt = lambda m, k: '%.3f' % m[k] if m.get(k) is not None else 'n/a'  # noqa: E731
+    return ', '.join('%s %s / %s' % (k, fmt(run, k), fmt(other, k)) for k in MD_KEYS)
+
+
+def md_image_mesh(fa, url, unsharded, tmp, rank, world):
+    """(a): the image runs on the mesh against the unsharded ones; returns
+    the rows and the ViT run's flash launches."""
+    rows, vit_launches = {}, None
+    with same_data_order():
+        for label, model_name, scan_steps in MD_IMAGE_RUNS:
+            reset_counts(fa)
+            r = md_image_run(url, model_name, scan_steps)
+            launches, by_design = counts(fa)
+            want = unsharded[label]
+            if not r['cuda_graph'] or r['data_ranks'] != world or r['batch_devices'] != ['cuda'] \
+                    or not np.all(np.isfinite(r['losses'])):
+                raise AssertionError('multi-device %s: graphed %s, data ranks %s, batches on %s, '
+                                     'losses %s' % (label, r['cuda_graph'], r['data_ranks'],
+                                                    r['batch_devices'], r['losses']))
+            if model_name == 'vit':
+                check_launches('multi-device vit', launches, by_design,
+                               {name: 12 * len(r['losses']) for name in launches})
+                vit_launches = launches
+            elif any(launches.values()):
+                raise AssertionError('multi-device %s launched flash kernels: %s'
+                                     % (label, launches))
+            equal = r['losses'] == want['losses']
+            if world == 1 and not equal:
+                raise AssertionError('multi-device %s on one card: losses %s, unsharded %s'
+                                     % (label, r['losses'], want['losses']))
+            rows[label] = dict(mesh={k: r[k] for k in MD_KEYS if r.get(k) is not None},
+                               unsharded={k: want[k] for k in MD_KEYS
+                                          if want.get(k) is not None},
+                               losses_equal=equal, steps=len(r['losses']), launches=launches)
+            if rank == 0:
+                log('multi-device %s (mesh {data: %d}, global batch %d, %d graphed steps, one '
+                    'decode thread): mesh / unsharded %s; losses %s the unsharded run\'s; flash '
+                    'launches %s' % (label, world, BATCH, len(r['losses']), _md_text(r, want),
+                                     'equal bit for bit to' if equal else 'differ from',
+                                     launches))
+    # ViT is decode-bound on one thread: timed again with the example's 8,
+    # against phase 5's unsharded graphed run (same model, batch, steps, store)
+    r = md_image_run(url, 'vit', 0)
+    base = SUMMARY.get('vit', {}).get('graphed', {})
+    rows['vit']['mesh_8_threads'] = {k: r[k] for k in MD_KEYS if r.get(k) is not None}
+    rows['vit']['unsharded_8_threads'] = base
+    if rank == 0:
+        log('multi-device vit with 8 decode threads, mesh / phase 5\'s unsharded graphed run: %s'
+            % _md_text(r, base))
+    # kernels per step against phase_resnet's graphed profile (same model)
+    prof = phase_profile(lambda n: md_image_run(url, 'resnet50', 0, steps=n),
+                         'multi-device resnet50 rank %d' % rank, tmp)
+    base = SUMMARY.get('resnet50', {}).get('profile')
+    if base is not None:
+        extra = {k: v - base['kernels_by_name'].get(k, 0.0)
+                 for k, v in prof['kernels_by_name'].items()
+                 if v - base['kernels_by_name'].get(k, 0.0) > 1e-9}
+        missing = {k: v for k, v in base['kernels_by_name'].items()
+                   if v - prof['kernels_by_name'].get(k, 0.0) > 1e-9}
+        delta = prof['kernels'] - base['kernels']
+        rows['resnet50']['kernels_per_step'] = dict(mesh=prof['kernels'],
+                                                    unsharded=base['kernels'],
+                                                    added=extra, missing=missing)
+        if rank == 0:
+            log('multi-device resnet50 kernels per step: %.1f on the mesh, %.1f unsharded '
+                '(phase_resnet); %+.1f, the kernels the mesh step adds: %s; kernels it lacks: %s'
+                % (prof['kernels'], base['kernels'], delta, extra, missing or 'none'))
+        lost = prof['unrecorded_launches'] or base['unrecorded_launches']
+        foreign = [k for k in extra if not any(f in k for f in MD_ALL_REDUCE_KERNELS)]
+        if not extra or foreign or (missing and not lost):
+            raise AssertionError('multi-device resnet50: the mesh step\'s kernels are not the '
+                                 'unsharded step\'s plus the all-reduce\'s: added %s (not the '
+                                 'all-reduce\'s: %s), missing %s' % (extra, foreign, missing))
+    rows['resnet50']['profile'] = {k: v for k, v in prof.items() if k != 'kernels_by_name'}
+    return rows, vit_launches
+
+
+def md_model_axes(rank, world):
+    """(b): L1's width placed by the Megatron and FSDP rules, the pipeline
+    and the MoE, each against its unplaced twin; returns the rows."""
+    import petastorm_tpu_torch.train_lm as lm
+    from petastorm_tpu_torch import parallel
+    from petastorm_tpu_torch.models.decoding import generate
+    from petastorm_tpu_torch.models.moe import make_expert_parallel_moe, moe_apply, moe_init
+    from petastorm_tpu_torch.models.transformer import (TransformerLM, megatron_spec_fn,
+                                                        param_shardings)
+    from petastorm_tpu_torch.parallel.mesh import axis_index, axis_size
+    model_axis = 2 if world % 2 == 0 else 1
+    mesh = parallel.make_mesh({'data': world // model_axis, 'model': model_axis})
+    data, data_index = axis_size(mesh, 'data'), axis_index(mesh, 'data')
+    g = torch.Generator().manual_seed(23)
+    tokens = torch.randint(0, lm.VOCAB, (MD_LM_BATCH * data, lm.SEQ_LEN), generator=g).cuda()
+    mine = tokens[MD_LM_BATCH * data_index:MD_LM_BATCH * (data_index + 1)]
+    prompt = torch.randint(0, lm.VOCAB, (2, MD_PROMPT), generator=g)
+
+    def lm_model():
+        return TransformerLM(**lm.LONG_CONTEXT_LM,
+                             generator=torch.Generator().manual_seed(0)).cuda().train()
+    dense = lm_model()
+    with torch.no_grad():
+        want = dense(mine)
+    want_tokens = generate(dense, prompt, MD_NEW)
+    rows = {}
+    rules = (('megatron', lambda m: param_shardings(m, mesh)),
+             ('fsdp x megatron', lambda m: parallel.fsdp_shardings(
+                 m, mesh, base_spec_fn=megatron_spec_fn())))
+    for label, rule in rules:
+        model = lm_model()
+        shardings = rule(model)
+        report = parallel.fsdp_size_report(model, shardings)
+        parallel.place(model, shardings)
+        with torch.no_grad():
+            got = model(mine)
+        err = check('multi-device %s logits' % label, got, want, TOL['bf16'])
+        bitwise = bool(torch.equal(got, want))
+        tokens_out = generate(model, prompt, MD_NEW)
+        same_tokens = bool(torch.equal(tokens_out.cpu(), want_tokens.cpu()))
+        opt = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4)
+        logits = model(mine)
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]).float(),
+                               torch.roll(mine, -1, 1).reshape(-1).long())
+        opt.zero_grad()
+        loss.backward()
+        parallel.reduce_gradients(model, ('data',))
+        opt.step()
+        torch.cuda.synchronize()
+        loss = loss.item()
+        grads_finite = all(bool(torch.isfinite(p.grad).all())
+                           for p in parallel.local_blocks(model).values())
+        if not (np.isfinite(loss) and grads_finite and same_tokens):
+            raise AssertionError('multi-device %s: loss %s, gradients finite %s, generate '
+                                 'token-identical %s' % (label, loss, grads_finite,
+                                                         same_tokens))
+        rows[label] = dict(logits_max_err=err, logits_bitwise=bitwise, loss=loss,
+                           size_report=report, generate_identical=same_tokens)
+        if rank == 0:
+            log('multi-device %s on %s: logits max err %.4g against the unplaced model%s '
+                '(limit %s), train step loss %.4f, gradients finite, generate token-identical '
+                'over %d new tokens; size report %s'
+                % (label, dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)), err,
+                   ' (equal bit for bit)' if bitwise else '', TOL['bf16'], loss, MD_NEW,
+                   report))
+    # the pipeline: tanh(x w + b) stages at d_model 256
+    stages = 2 if world % 2 == 0 else 1
+    pmesh = parallel.make_mesh({'data': world // stages, 'pipe': stages})
+    d = lm.LONG_CONTEXT_LM['d_model']
+    stacked = {'w': torch.randn(stages, d, d, generator=g) * d ** -0.5,
+               'b': torch.randn(stages, d, generator=g) * 0.1}
+    micro = torch.randn(6, 8, d, generator=g).cuda()
+
+    def stage_fn(p, x):
+        return torch.tanh(x @ p['w'] + p['b'])
+    fn, stage_sharding = parallel.make_pipeline(pmesh, stage_fn)
+    mine_p = {k: v.requires_grad_() for k, v in
+              parallel.device_put(stacked, stage_sharding).items()}
+    out = fn(mine_p, micro)
+    (out ** 2).sum().backward()
+    seq = {k: v.cuda().requires_grad_() for k, v in stacked.items()}
+    ref = micro
+    for i in range(stages):
+        ref = stage_fn({k: v[i] for k, v in seq.items()}, ref)
+    (ref ** 2).sum().backward()
+    stage = axis_index(pmesh, 'pipe')
+    errs = [check('multi-device pipeline out', out, ref, TOL['grad_f32'])]
+    errs += [check('multi-device pipeline d%s' % k, mine_p[k].grad, seq[k].grad[stage:stage + 1],
+                   TOL['grad_f32']) for k in ('w', 'b')]
+    rows['pipeline'] = dict(stages=stages, max_err=max(errs))
+    # the MoE
+    emesh = parallel.make_mesh({'data': world // stages, 'expert': stages})
+    params = moe_init(MD_MOE['d'], MD_MOE['f'], MD_MOE['experts'], generator=g)
+    x = torch.randn(MD_MOE['tokens'], MD_MOE['d'], generator=g).cuda()
+    # ample capacity (one slot per token and expert): no token drops, so the
+    # sharded MoE equals the oracle on the global tokens on any mesh
+    ample = float(MD_MOE['experts'])
+    fn, shardings_fn, token_sharding = make_expert_parallel_moe(
+        emesh, MD_MOE['experts'], capacity_factor=ample)
+    placed = parallel.device_put(params, shardings_fn(params))
+    index = token_sharding.index(tuple(x.shape))
+    got = fn(placed, x[index])
+    want = moe_apply({k: v.cuda() for k, v in params.items()}, x, capacity_factor=ample)[index]
+    rows['moe'] = dict(experts=MD_MOE['experts'], expert_axis=stages, max_err=check(
+        'multi-device moe against moe_apply', got, want, TOL['fwd_f32']))
+    if rank == 0:
+        log('multi-device pipeline of %d stages against the sequential stages: max err %.3g '
+            '(limit %s); MoE on an expert axis of %d against moe_apply: %s'
+            % (stages, rows['pipeline']['max_err'], TOL['grad_f32'], stages, rows['moe']))
+    return rows
+
+
+def md_rank(rank, world, store, url, tmp, unsharded):
+    """One rank of the multi-device phase: joins the NCCL group, runs (a)
+    and (b), and leaves the group."""
+    import torch.distributed as dist
+
+    from petastorm_tpu_torch.parallel import init_distributed
+    fa = importlib.import_module('petastorm_tpu_torch.ops.flash_attention')
+    init_distributed('cuda', store, rank, world)
+    try:
+        if dist.get_backend() != 'nccl':
+            raise AssertionError('the group runs %s, not nccl' % dist.get_backend())
+        image, vit_launches = md_image_mesh(fa, url, unsharded, tmp, rank, world)
+        reset_counts(fa)
+        axes = md_model_axes(rank, world)
+        launches, _ = counts(fa)
+        total = {k: vit_launches[k] + launches[k] for k in launches}
+        return dict(world=world, image=image, model_axes=axes, launches=total,
+                    model_axes_launches=launches)
+    finally:
+        dist.destroy_process_group()
+
+
+def _md_spawned(rank, world, store, url, tmp, unsharded, out):
+    result = md_rank(rank, world, store, url, tmp, unsharded)
+    if rank == 0:
+        with open(out, 'w') as f:
+            json.dump(result, f)
+
+
+def phase_multi_device(fa, url, tmp):
+    """The multi-device paths over an NCCL group of every visible card (see
+    the module docstring, phase 25); returns the phase's flash launches."""
+    world = torch.cuda.device_count()
+    unsharded = md_image_unsharded(url)
+    store = os.path.join(tmp, 'md_store')
+    if world == 1:
+        result = md_rank(0, 1, store, url, tmp, unsharded)
+    else:
+        import torch.multiprocessing as mp
+        out = os.path.join(tmp, 'md_result.json')
+        slim = {k: {m: v[m] for m in ('losses', 'images_per_s', 'step_ms', 'host_ms')}
+                for k, v in unsharded.items()}
+        mp.start_processes(_md_spawned, args=(world, store, url, tmp, slim, out), nprocs=world,
+                           start_method='spawn')
+        with open(out) as f:
+            result = json.load(f)
+    SUMMARY['multi_device'] = result
+    return result['launches']
+
+
 def main():
     # The kernels' module (petastorm_tpu_torch.ops re-exports its function
     # under the same name).  Imported first: outside a checkout this fails
@@ -4271,14 +4564,16 @@ def main():
                             ('resident', lambda: phase_resident(fa, url, tmp)),
                             ('search', lambda: phase_search(fa, paths['packed'][1])),
                             ('vit_recipe', lambda: phase_vit_recipe(fa, url)),
-                            ('sequence_parallel', lambda: phase_sequence_parallel(fa, tmp))):
+                            ('sequence_parallel', lambda: phase_sequence_parallel(fa, tmp)),
+                            ('multi_device', lambda: phase_multi_device(fa, url, tmp))):
             t0 = time.monotonic()
             paths[name] = phase()
             log('phase %s: %.1f s' % (name, time.monotonic() - t0))
     launches = {'vit': paths['vit'], 'lm': paths['lm'], 'packed': paths['packed'][0],
                 'generate': paths['generate'], 'resident': paths['resident'],
                 'search': paths['search'], 'vit_recipe': paths['vit_recipe'],
-                'sequence_parallel': paths['sequence_parallel']}
+                'sequence_parallel': paths['sequence_parallel'],
+                'multi_device': paths['multi_device']}
     kernels = [dict(name=name, route='cuda', design=MAIN_PATH_DESIGN[name],
                     source=SOURCES[name], replaces=REPLACES[name],
                     launches=sum(path[name] for path in launches.values()),

@@ -28,6 +28,13 @@ out ``DenseGeneral`` ``(h, hd, d)``      ``(d, h*hd)``
 =======================================  ====================================
 
 The maps are linear, so they carry gradient trees across as well.
+
+:func:`flax_leaves` goes the other way for a transformer or ViT of the
+port: for each parameter, the flax leaf that these functions map onto it
+(its path of flax keys, its flax shape and the layout map both ways), so
+that a sharding stated in flax axes (``models.transformer.param_shardings``,
+``parallel.fsdp_shardings``) reaches the torch tensor through the same map.
+``moe_params_from_flax`` carries ``petastorm_tpu.models.moe`` parameters.
 """
 
 import numpy as np
@@ -35,7 +42,8 @@ import torch
 
 __all__ = ['vit_params_from_flax', 'block_params_from_flax', 'attention_params_from_flax',
            'transformer_lm_params_from_flax', 'resnet_params_from_flax',
-           'bottleneck_params_from_flax', 'mlp_params_from_flax', 'dlrm_params_from_flax']
+           'bottleneck_params_from_flax', 'mlp_params_from_flax', 'dlrm_params_from_flax',
+           'moe_params_from_flax', 'FlaxLeaf', 'flax_leaves']
 
 
 def _t(x):
@@ -174,4 +182,102 @@ def dlrm_params_from_flax(params):
     for key, p in params.items():
         if key.startswith('table_'):
             out['tables.%d.weight' % int(key[len('table_'):])] = _t(p['embedding'])
+    return out
+
+
+def moe_params_from_flax(params):
+    """``petastorm_tpu.models.moe.moe_init`` params -> the port's MoE params:
+    ``router`` ``[d, E]``, ``w1`` ``[E, d, f]`` and ``w2`` ``[E, f, d]``,
+    the same layouts, as fp32 tensors."""
+    return {name: _t(params[name]) for name in ('router', 'w1', 'w2')}
+
+
+class FlaxLeaf(object):
+    """The flax leaf one port parameter is carried from: its ``path`` (a
+    tuple of flax keys), its flax ``shape``, and the layout map between the
+    two, which holds for any block of the leaf as well as the whole.
+
+    ``kind`` is ``'dense'`` (a kernel whose first ``in_axes`` flax axes are
+    the input features: torch ``[out, in]``), ``'conv'`` (HWIO against
+    OIHW), ``'flat'`` (a ``DenseGeneral`` bias, flattened in torch) or
+    ``'plain'`` (the same layout)."""
+
+    def __init__(self, path, shape, kind='plain', in_axes=1):
+        self.path, self.shape, self.kind, self.in_axes = tuple(path), tuple(shape), kind, in_axes
+
+    def to_flax(self, t, shape=None):
+        """A torch-layout tensor (the leaf, or a block of it whose flax
+        shape is ``shape``) in the flax layout."""
+        shape = tuple(shape or self.shape)
+        if self.kind == 'dense':
+            return t.t().reshape(shape)
+        if self.kind == 'conv':
+            return t.permute(2, 3, 1, 0)
+        return t.reshape(shape)
+
+    def to_torch(self, a):
+        """A flax-layout tensor (the leaf or a block of it) in torch's."""
+        if self.kind == 'dense':
+            return a.reshape(int(np.prod(a.shape[:self.in_axes])), -1).t()
+        if self.kind == 'conv':
+            return a.permute(3, 2, 0, 1)
+        if self.kind == 'flat':
+            return a.reshape(-1)
+        return a
+
+    def __repr__(self):
+        return 'FlaxLeaf(%r, %r, %r)' % (self.path, self.shape, self.kind)
+
+
+def _flax_path(module_name, leaf):
+    keys, parts = [], [k for k in module_name.split('.') if k]
+    i = 0
+    while i < len(parts):
+        if parts[i] == 'blocks' and i + 1 < len(parts):
+            keys.append('block_%s' % parts[i + 1])
+            i += 2
+            continue
+        keys.append(parts[i])
+        i += 1
+    return tuple(keys + [leaf])
+
+
+def flax_leaves(model):
+    """``{parameter name: FlaxLeaf}`` for a port ``TransformerLM``, ``ViT``,
+    ``Block`` or ``Attention`` (or any module of ``Dense``, ``Embed``,
+    ``RMSNorm``, ``Conv2d`` and plain parameters): the inverse of
+    :func:`transformer_lm_params_from_flax` and :func:`vit_params_from_flax`.
+    Run it on the model before :func:`parallel.place
+    <petastorm_tpu_torch.parallel.place>` replaces its parameters."""
+    from torch import nn
+
+    from petastorm_tpu_torch.models.transformer import Attention, Dense
+    dense = {}      # id(Dense) -> (kernel shape, bias shape, in_axes)
+    for m in model.modules():
+        if isinstance(m, Attention):
+            h, hd = m.num_heads, m.head_dim
+            d = h * hd
+            if m.num_kv_heads is None:
+                dense[id(m.qkv)] = ((d, 3, h, hd), (3, h, hd), 1)
+            else:
+                dense[id(m.q)] = ((d, h, hd), (h, hd), 1)
+                dense[id(m.kv)] = ((d, 2, m.num_kv_heads, hd), (2, m.num_kv_heads, hd), 1)
+            dense[id(m.out)] = ((h, hd, d), (d,), 2)
+    modules = dict(model.named_modules())
+    out = {}
+    for name, p in model.named_parameters():
+        module_name, _, leaf = name.rpartition('.')
+        module = modules[module_name]
+        if isinstance(module, Dense):
+            out_f, in_f = p.shape if leaf == 'weight' else (p.shape[0], None)
+            kernel, bias, in_axes = dense.get(id(module), ((in_f, out_f), (out_f,), 1))
+            out[name] = (FlaxLeaf(_flax_path(module_name, 'kernel'), kernel, 'dense', in_axes)
+                         if leaf == 'weight' else
+                         FlaxLeaf(_flax_path(module_name, 'bias'), bias,
+                                  'flat' if len(bias) > 1 else 'plain'))
+        elif isinstance(module, nn.Conv2d) and leaf == 'weight':
+            o, i, kh, kw = p.shape
+            out[name] = FlaxLeaf(_flax_path(module_name, 'kernel'), (kh, kw, i, o), 'conv')
+        else:
+            out[name] = FlaxLeaf(_flax_path(module_name, leaf), p.shape)
     return out

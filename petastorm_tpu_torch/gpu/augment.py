@@ -94,16 +94,30 @@ def crop_at(images, tops, lefts, crop_hw, padding=0):
     return images[batch, rows[:, :, None], cols[:, None, :]]
 
 
-def random_crop(images, crop_hw, padding=0, generator=None):
-    """Per-sample uniform random crop after zero-padding by ``padding``."""
+def _draws(n, block):
+    """How many samples to draw for, and the slice of them ``images`` takes:
+    ``block`` is ``(global batch, first row)`` when ``images`` is one
+    rank's rows of a global batch (every rank draws for the whole batch, as
+    the JAX package draws one value per image of its global array, and keeps
+    its own)."""
+    if block is None:
+        return n, slice(0, n)
+    total, first = block
+    return total, slice(first, first + n)
+
+
+def random_crop(images, crop_hw, padding=0, generator=None, block=None):
+    """Per-sample uniform random crop after zero-padding by ``padding``;
+    ``block`` as in :func:`_draws`."""
     ch, cw = crop_hw
     n, h, w, _ = images.shape
     h, w = h + 2 * padding, w + 2 * padding
     if ch > h or cw > w:
         raise ValueError('crop %r larger than padded image %r' % (tuple(crop_hw), (h, w)))
-    tops = torch.randint(0, h - ch + 1, (n,), generator=generator, device=images.device)
-    lefts = torch.randint(0, w - cw + 1, (n,), generator=generator, device=images.device)
-    return crop_at(images, tops, lefts, crop_hw, padding)
+    total, rows = _draws(n, block)
+    tops = torch.randint(0, h - ch + 1, (total,), generator=generator, device=images.device)
+    lefts = torch.randint(0, w - cw + 1, (total,), generator=generator, device=images.device)
+    return crop_at(images, tops[rows], lefts[rows], crop_hw, padding)
 
 
 def flip_where(images, mask):
@@ -112,10 +126,12 @@ def flip_where(images, mask):
     return torch.where(mask[:, None, None, None], images.flip(2), images)
 
 
-def random_flip_left_right(images, prob=0.5, generator=None):
-    """Per-sample horizontal flip with probability ``prob``."""
-    mask = torch.rand(images.shape[0], generator=generator, device=images.device) < prob
-    return flip_where(images, mask)
+def random_flip_left_right(images, prob=0.5, generator=None, block=None):
+    """Per-sample horizontal flip with probability ``prob``; ``block`` as in
+    :func:`_draws`."""
+    total, rows = _draws(images.shape[0], block)
+    mask = torch.rand(total, generator=generator, device=images.device) < prob
+    return flip_where(images, mask[rows])
 
 
 def _per_sample(values, images):

@@ -349,6 +349,18 @@ class DataLoader(object):
         """This rank's block of each leaf of a host batch (``sharding=``)."""
         return numeric if self._sharding is None else self._sharding.blocks(numeric)
 
+    def _stacked_block(self, stacked):
+        """This rank's block of each leaf of a stacked chunk ``(k, rows,
+        ...)`` (``sharding=``): the step and row axes whole."""
+        if self._sharding is None:
+            return stacked
+
+        def cut(x):
+            if isinstance(x, dict):
+                return {k: cut(v) for k, v in x.items()}
+            return x[(slice(None),) + self._sharding.local_index(tuple(x.shape[1:]))]
+        return cut(stacked)
+
     def _global(self, batch):
         """A device batch of blocks as global ``DTensor`` arrays (``sharding=``)."""
         return batch if self._sharding is None else self._sharding.wrap_tree(batch)
@@ -405,18 +417,21 @@ class DataLoader(object):
         warm-up.  There the carry must be a tree of tensors (dicts, lists,
         tuples; None): a Python number in it raises ``TypeError``.
         ``generators`` are the device generators ``step_fn`` draws from.
+
+        With ``sharding=`` each chunk moves this rank's block of each
+        stacked leaf (the step axis whole, as the JAX loader's ``P(None,
+        *spec)``), still in one transfer, and ``step_fn`` gets each step's
+        batch as global ``DTensor`` arrays, as ``__iter__`` yields them.
         """
         if steps_per_call < 1:
             raise ValueError('steps_per_call must be >= 1')
-        if self._sharding is not None:
-            raise ValueError('scan_batches with sharding= is a later slice of the port '
-                             '(ROADMAP.md, Queue A item 6): iterate the loader instead')
         graphed = graphs.resolve(cuda_graph, self.device)
 
         def run_chunk(carry, chunk):
             outs = []
             for i in range(_rows(chunk)):
-                carry, out = step_fn(carry, graphs.tree_map(lambda v: v[i], chunk))
+                batch = self._global(graphs.tree_map(lambda v: v[i], chunk))
+                carry, out = step_fn(carry, batch)
                 outs.append(out)
             return carry, _stack(outs)
 
@@ -432,7 +447,7 @@ class DataLoader(object):
                 chunk = [self._transform_fn(b) for b in chunk]
             t1 = time.monotonic()
             host = [_filter_numeric(b, self._warned_fields) for b in chunk]
-            stacked = _stack_rows(host)
+            stacked = self._stacked_block(_stack_rows(host))
             shipped = plane.put(stacked) if coalesce else None
             planed = shipped is not None
             if not planed:

@@ -15,7 +15,13 @@ layout.  Where flax and PyTorch differ, the port follows flax:
   *biased* variance.  It returns the compute dtype and writes
   ``0.9 ra + 0.1 stat`` into the running statistics (``nn.BatchNorm2d``
   writes the unbiased variance).  Eval mode normalizes with the running
-  statistics.
+  statistics.  Under data parallelism (:func:`sync_batch_norm`) the
+  statistics are those of the global batch, as flax's under ``jax.jit``
+  over a global array: fp32 sums of x and x^2 summed over the data axis in
+  one differentiable all-reduce of 2C floats per BatchNorm (its backward
+  sums the cotangents, since every rank's loss reads every rank's
+  activations through them), and the running statistics, updated from
+  them, stay equal on every rank.
 * Convolutions have no bias and cast their fp32 weights to the compute
   dtype with their input; the head averages over H and W (fp32
   accumulation, result in the compute dtype) and is an fp32 ``Dense``.
@@ -34,8 +40,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from petastorm_tpu_torch.models.transformer import Dense, lecun_normal_
+from petastorm_tpu_torch.parallel.collectives import all_reduce
 
-__all__ = ['same_padding', 'Conv', 'BatchNorm', 'BottleneckBlock', 'ResNet50']
+__all__ = ['same_padding', 'Conv', 'BatchNorm', 'BottleneckBlock', 'ResNet50',
+           'sync_batch_norm']
 
 #: (filters, blocks) of the four stages.
 STAGES = ((64, 3), (128, 4), (256, 6), (512, 3))
@@ -79,11 +87,16 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax ``BatchNorm(momentum=0.9, epsilon=1e-5, dtype=dtype)`` over NCHW."""
+    """flax ``BatchNorm(momentum=0.9, epsilon=1e-5, dtype=dtype)`` over NCHW.
+
+    ``stats_axis`` (:func:`sync_batch_norm`): the data axis whose ranks'
+    rows make up the batch the statistics are taken over; ``None``, this
+    rank's rows."""
 
     def __init__(self, features, dtype=torch.bfloat16, zero_scale=False):
         super().__init__()
         self.dtype = dtype
+        self.stats_axis = None
         self.scale = nn.Parameter(torch.zeros(features) if zero_scale else torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer('running_mean', torch.zeros(features))
@@ -94,8 +107,16 @@ class BatchNorm(nn.Module):
         if self.training:
             # flax's _compute_stats (use_fast_variance): fp32 E[x] and
             # max(0, E[x^2] - E[x]^2) over (N, H, W), the biased variance.
-            mean = xf.mean(dim=(0, 2, 3))
-            var = (xf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp(min=0.0)
+            axis = self.stats_axis
+            if axis is None:
+                mean = xf.mean(dim=(0, 2, 3))
+                var = (xf.square().mean(dim=(0, 2, 3)) - mean.square()).clamp(min=0.0)
+            else:
+                n = xf.shape[0] * xf.shape[2] * xf.shape[3] * axis.size
+                sums = all_reduce(torch.stack([xf.sum(dim=(0, 2, 3)),
+                                               xf.square().sum(dim=(0, 2, 3))]), axis)
+                mean = sums[0] / n
+                var = (sums[1] / n - mean.square()).clamp(min=0.0)
             with torch.no_grad():
                 self.running_mean.mul_(MOMENTUM).add_(mean, alpha=1.0 - MOMENTUM)
                 self.running_var.mul_(MOMENTUM).add_(var, alpha=1.0 - MOMENTUM)
@@ -165,3 +186,15 @@ class ResNet50(nn.Module):
         for block in self.blocks:
             x = block(x)
         return self.head(x.mean(dim=(2, 3)).float())
+
+
+def sync_batch_norm(model, axis):
+    """Take every BatchNorm's statistics of ``model`` over the global batch
+    split along ``axis`` (a data axis, :class:`~petastorm_tpu_torch.parallel.SeqAxis`);
+    an axis of one rank (or ``None``) keeps the local statistics and issues
+    no collective.  Returns ``model``."""
+    stats_axis = axis if axis is not None and axis.size > 1 else None
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.stats_axis = stats_axis
+    return model

@@ -38,6 +38,18 @@ package) reads the host index and costs no device sync.
 decoding's rollback) and :func:`reorder_cache` re-orders the cache's rows
 (beam search), both in place.  Ring and Ulysses attention
 (:func:`make_attn_fn` with a mesh) run over ``parallel/``.
+
+Tensor parallelism: :func:`param_shardings` gives the JAX package's
+Megatron specs (:func:`megatron_spec_fn`) for each parameter, stated on
+the flax leaf ``convert`` carries it from, and
+:func:`petastorm_tpu_torch.parallel.place` puts the model on a mesh with
+them.  A placed ``Dense`` is column-parallel (its input through
+``collectives.copy_to``, its outputs this rank's) or row-parallel (its
+partial product summed over the model axis by ``collectives.reduce_from``,
+the bias added once after), ``Attention`` runs on this rank's heads (the
+flash kernels on local blocks), and ``Embed`` looks up this rank's
+vocabulary rows, masks the rest and sums over the axis; its ``attend``
+gathers the logits.  Unplaced, every module runs as above.
 """
 
 import functools
@@ -50,10 +62,11 @@ from torch.utils.checkpoint import checkpoint
 
 from petastorm_tpu_torch.ops import flash_attention
 from petastorm_tpu_torch.ops.flash_attention import NEG_INF, full_attention
+from petastorm_tpu_torch.parallel.collectives import copy_to, gather_from, reduce_from
 
 __all__ = ['Dense', 'RMSNorm', 'Attention', 'Block', 'Embed', 'KVCache', 'TransformerLM',
            'lecun_normal_', 'rope', 'rope_cos_sin', 'make_attn_fn', 'rewind_cache',
-           'reorder_cache']
+           'reorder_cache', 'param_shardings', 'megatron_spec_fn']
 
 
 def lecun_normal_(tensor, fan_in, generator=None):
@@ -90,7 +103,12 @@ def rope(x, positions=None, base=10000.0, cos_sin=None):
 
 
 class Dense(nn.Module):
-    """``y = x W^T + b`` computed in ``compute_dtype`` from fp32 parameters."""
+    """``y = x W^T + b`` computed in ``compute_dtype`` from fp32 parameters.
+
+    ``tp`` (set by ``parallel.place``) is ``None``, ``('column', axis)``
+    (this rank's output features) or ``('row', axis)`` (this rank's input
+    features; the partial products, of ``compute_dtype`` values in fp32, are
+    summed over ``axis`` and rounded to ``compute_dtype`` once)."""
 
     def __init__(self, in_features, out_features, compute_dtype=torch.float32,
                  generator=None):
@@ -98,13 +116,23 @@ class Dense(nn.Module):
         self.compute_dtype = compute_dtype
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.zeros(out_features))
+        self.tp = None
         lecun_normal_(self.weight, in_features, generator)
 
     def forward(self, x):
         dt = self.compute_dtype
-        # the product rounds to dt before the bias is added, as in flax (a
-        # fused bias would add it before the one rounding)
-        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+        kind, axis = self.tp or (None, None)
+        if kind == 'column':
+            x = copy_to(x, axis)
+        if kind == 'row':
+            # the partial products of dt values summed in fp32 over the axis,
+            # then rounded once, as the whole product is
+            y = reduce_from(F.linear(x.to(dt).float(), self.weight.to(dt).float()), axis).to(dt)
+        else:
+            # the product rounds to dt before the bias is added, as in flax (a
+            # fused bias would add it before the one rounding)
+            y = F.linear(x.to(dt), self.weight.to(dt))
+        return y + self.bias.to(dt)
 
 
 class RMSNorm(nn.Module):
@@ -122,23 +150,38 @@ class RMSNorm(nn.Module):
 
 class Embed(nn.Module):
     """flax ``nn.Embed(num_embeddings, features, dtype=compute_dtype)``: an
-    fp32 table initialised ``N(0, 1 / features)``."""
+    fp32 table initialised ``N(0, 1 / features)``.
+
+    ``tp`` (set by ``parallel.place``) is ``None`` or ``(axis, first row)``:
+    the table holds this rank's rows of the vocabulary."""
 
     def __init__(self, num_embeddings, features, compute_dtype=torch.bfloat16,
                  generator=None):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.embedding = nn.Parameter(torch.empty(num_embeddings, features))
+        self.tp = None
         with torch.no_grad():
             self.embedding.normal_(0.0, features ** -0.5, generator=generator)
 
     def forward(self, ids):
-        return F.embedding(ids, self.embedding.to(self.compute_dtype))
+        table = self.embedding.to(self.compute_dtype)
+        if self.tp is None:
+            return F.embedding(ids, table)
+        axis, first = self.tp
+        rows = table.shape[0]
+        local = ids - first
+        outside = (local < 0) | (local >= rows)
+        found = F.embedding(local.clamp(0, rows - 1), table).masked_fill(outside[..., None], 0)
+        return reduce_from(found, axis)
 
     def attend(self, x):
         """``x @ table^T`` in ``compute_dtype``."""
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.embedding.to(dt))
+        if self.tp is None:
+            return F.linear(x.to(dt), self.embedding.to(dt))
+        axis = self.tp[0]
+        return gather_from(F.linear(copy_to(x, axis).to(dt), self.embedding.to(dt)), axis, -1)
 
 
 class KVCache(object):
@@ -170,6 +213,12 @@ class Attention(nn.Module):
     separate ``q`` and ``kv`` projections (k and v are repeated to the
     query heads before ``attn_fn``; the cache keeps ``num_kv_heads``).
     ``pos_mode='rope'`` rotates q and k by ``positions`` before attention.
+
+    Placed by ``parallel.place`` over a model axis, it runs
+    ``local_heads`` query heads and ``local_kv_heads`` kv heads; where the
+    axis cannot split the kv heads (MQA) every rank computes all of them,
+    keeps those its query heads read (``kv_select``: the axis, the first
+    and the count) and sums their gradient over the axis.
     """
 
     def __init__(self, d_model, num_heads, compute_dtype=torch.bfloat16,
@@ -184,6 +233,9 @@ class Attention(nn.Module):
         self.num_heads = num_heads
         self.head_dim = d_model // num_heads
         self.num_kv_heads = num_kv_heads
+        self.local_heads = num_heads
+        self.local_kv_heads = num_kv_heads or num_heads
+        self.kv_select = None
         self.attn_fn = attn_fn
         self.causal = causal
         self.pos_mode = pos_mode
@@ -201,13 +253,19 @@ class Attention(nn.Module):
     def forward(self, x, positions=None, cache=None, attn_fn=None):
         """``cache`` (a :class:`KVCache`) switches to decoding;
         ``attn_fn`` overrides the module's for this call."""
-        b, s, d_model = x.shape
+        b, s, _ = x.shape
         hd = self.head_dim
         if self.num_kv_heads is None:
-            q, k, v = self.qkv(x).view(b, s, 3, self.num_heads, hd).unbind(dim=2)
+            q, k, v = self.qkv(x).view(b, s, 3, self.local_heads, hd).unbind(dim=2)
         else:
-            q = self.q(x).view(b, s, self.num_heads, hd)
-            k, v = self.kv(x).view(b, s, 2, self.num_kv_heads, hd).unbind(dim=2)
+            q = self.q(x).view(b, s, self.local_heads, hd)
+            kv = self.kv(x)
+            if self.kv_select is None:
+                k, v = kv.view(b, s, 2, self.local_kv_heads, hd).unbind(dim=2)
+            else:
+                axis, first, count = self.kv_select
+                k, v = copy_to(kv, axis).view(b, s, 2, self.num_kv_heads, hd).narrow(
+                    3, first, count).unbind(dim=2)
         if self.pos_mode == 'rope':
             if positions is None:
                 if cache is not None:
@@ -223,13 +281,13 @@ class Attention(nn.Module):
         else:
             k, v = self._expand_kv(k, v)
             out = attn_fn(q, k, v, causal=self.causal)
-        return self.out(out.reshape(b, s, d_model))
+        return self.out(out.reshape(b, s, -1))
 
     def _expand_kv(self, k, v):
         """Repeat KV heads to the query head count (a no-op for MHA)."""
-        if self.num_kv_heads is None or self.num_kv_heads == self.num_heads:
+        if k.shape[2] == self.local_heads:
             return k, v
-        g = self.num_heads // self.num_kv_heads
+        g = self.local_heads // k.shape[2]
         return k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
 
     def _decode_step(self, q, k, v, cache, attn_fn):
@@ -332,12 +390,12 @@ class TransformerLM(nn.Module):
 
     def init_cache(self, batch, device=None):
         """A fresh decode cache, one :class:`KVCache` per layer, of
-        ``max_seq_len`` positions in ``compute_dtype``."""
+        ``max_seq_len`` positions in ``compute_dtype``, holding this rank's
+        kv heads."""
         device = device if device is not None else self.embed.embedding.device
         attn = self.blocks[0].attn
-        kv_heads = attn.num_kv_heads or attn.num_heads
-        return [KVCache(batch, self.max_seq_len, kv_heads, attn.head_dim, self.compute_dtype,
-                        device) for _ in self.blocks]
+        return [KVCache(batch, self.max_seq_len, attn.local_kv_heads, attn.head_dim,
+                        self.compute_dtype, device) for _ in self.blocks]
 
     def forward(self, tokens, positions=None, cache=None, attn_fn=None):
         """``positions`` ``[batch, seq]`` overrides the row-absolute
@@ -384,6 +442,69 @@ def reorder_cache(cache, rows):
     for layer in cache:
         layer.key.copy_(layer.key.index_select(0, rows))
         layer.value.copy_(layer.value.index_select(0, rows))
+
+
+# ---------------------------------------------------------------------------
+# sharding rules
+# ---------------------------------------------------------------------------
+
+def _spec_for(path, model_axis):
+    """The Megatron spec of the flax leaf at ``path`` (a tuple of flax
+    keys), in flax axes: the JAX package's rule, leaf by leaf."""
+    names = list(path)
+    leaf = names[-1] if names else ''
+    parent = names[-2] if len(names) > 1 else ''
+    if parent in ('embed', 'pos_embed'):
+        return (model_axis, None)               # vocab/position sharded
+    if parent == 'qkv':
+        # kernel [d_model, 3, heads, head_dim]: shard heads
+        return (None, None, model_axis, None) if leaf == 'kernel' \
+            else (None, model_axis, None)       # bias [3, heads, head_dim]
+    if parent == 'q':
+        # GQA query proj: kernel [d_model, heads, head_dim]
+        return (None, model_axis, None) if leaf == 'kernel' else (model_axis, None)
+    if parent == 'kv':
+        # GQA kv proj: kernel [d_model, 2, kv_heads, head_dim]; param_shardings
+        # falls back to replication where the axis does not divide kv_heads
+        return (None, None, model_axis, None) if leaf == 'kernel' \
+            else (None, model_axis, None)
+    if parent == 'out':
+        # kernel [heads, head_dim, d_model]: shard input heads
+        return (model_axis, None, None) if leaf == 'kernel' else (None,)
+    if parent == 'ffw_in':
+        return (None, model_axis) if leaf == 'kernel' else (model_axis,)
+    if parent == 'ffw_out':
+        return (model_axis, None) if leaf == 'kernel' else (None,)
+    return ()                                   # norms & everything else: replicated
+
+
+def megatron_spec_fn(model_axis='model'):
+    """The Megatron rules as a ``path -> spec`` callable (``path``: a tuple
+    of flax keys): the ``base_spec_fn`` of
+    :func:`petastorm_tpu_torch.parallel.fsdp_shardings` (FSDP x TP)."""
+    return functools.partial(_spec_for, model_axis=model_axis)
+
+
+def param_shardings(model, mesh, model_axis='model'):
+    """``{parameter name: NamedSharding}`` for a port ``TransformerLM`` (or
+    ``ViT``, whose blocks are the same) over ``mesh``: each parameter gets
+    the JAX package's spec for the flax leaf ``convert`` carries it from,
+    and a leaf whose dim the axis cannot divide (MQA's ``kv_heads=1``, an
+    odd vocabulary) is replicated.  Place them with
+    :func:`petastorm_tpu_torch.parallel.place`."""
+    from petastorm_tpu_torch.convert import flax_leaves
+    from petastorm_tpu_torch.parallel.mesh import NamedSharding, axis_size
+    leaves = flax_leaves(model)
+    if model_axis not in mesh.mesh_dim_names:
+        return {name: NamedSharding(mesh, ()) for name in leaves}
+    size = axis_size(mesh, model_axis)
+    out = {}
+    for name, leaf in leaves.items():
+        spec = _spec_for(leaf.path, model_axis)
+        if any(axis == model_axis and dim % size for dim, axis in zip(leaf.shape, spec)):
+            spec = ()
+        out[name] = NamedSharding(mesh, spec)
+    return out
 
 
 def make_attn_fn(mesh=None, strategy='flash', seq_axis='seq', batch_axis='data',

@@ -10,6 +10,10 @@ in ``compute_dtype`` (bf16 by default) from fp32 parameters.
 ``remat=True`` (flax ``nn.remat(Block)``) recomputes each block in the
 backward pass instead of keeping its activations: less device memory for a
 second forward through each block, its attention included.
+
+The blocks are ``models.transformer``'s, so its tensor-parallel rules
+apply unchanged: ``param_shardings`` and ``megatron_spec_fn`` are
+re-exported here, as the JAX package's ``models/vit.py`` does.
 """
 
 import torch
@@ -17,10 +21,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from petastorm_tpu_torch.models.transformer import Block, Dense, RMSNorm, lecun_normal_
+from petastorm_tpu_torch.models.transformer import (Block, Dense, RMSNorm, lecun_normal_,
+                                                    megatron_spec_fn, param_shardings)
 from petastorm_tpu_torch.ops import flash_attention
 
-__all__ = ['ViT']
+__all__ = ['ViT', 'param_shardings', 'megatron_spec_fn']
 
 
 class ViT(nn.Module):

@@ -36,24 +36,43 @@ its transfer plane and the stall monitor record into a
 Chrome trace.  After every streaming run the example's bottleneck report
 (:func:`~petastorm_tpu_torch.benchmark.diagnose`) is printed and returned.
 
+With a ``torch.distributed`` group up (:func:`parallel.init_distributed
+<petastorm_tpu_torch.parallel.init_distributed>`, or torchrun) this is the
+example's data-parallel loop on ``make_mesh()``, ``{'data': world}``:
+``batch_size`` is the global batch, each rank reads its own shard of the
+row groups and moves its ``batch_size // world`` rows
+(``DataLoader(sharding=data_parallel_sharding(mesh))``), augmentation
+draws for the whole global batch and keeps the rank's rows, ResNet-50's
+BatchNorms take their statistics over the global batch
+(:func:`~petastorm_tpu_torch.models.resnet.sync_batch_norm`), and every
+gradient, with the loss, is averaged over the data axis in one flat
+all-reduce inside the (captured) step.  A world-``n`` step on a global
+batch is the one-device step on the same rows.
+
 Run ``python -m petastorm_tpu_torch.train --dataset-url URL`` with the
 example's ``--steps``, ``--batch-size``, ``--model``, ``--hbm-cache``,
-``--scan-steps``, ``--decoded-cache-dir`` and ``--trace``.
+``--scan-steps``, ``--decoded-cache-dir`` and ``--trace``; under
+``torchrun --nproc_per_node=N -m petastorm_tpu_torch.train ...`` the ranks
+start the group and train data-parallel.
 """
 
 import argparse
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from petastorm_tpu_torch.benchmark import StallMonitor, TraceRecorder, diagnose, format_report
 from petastorm_tpu_torch.gpu import (DataLoader, DeviceInMemDataLoader, DiskCachedDataLoader,
                                      augment, graphs)
 from petastorm_tpu_torch.gpu.transfer import resolve_device
-from petastorm_tpu_torch.models.resnet import ResNet50
+from petastorm_tpu_torch.models.resnet import ResNet50, sync_batch_norm
 from petastorm_tpu_torch.models.vit import ViT
+from petastorm_tpu_torch.parallel import mesh as mesh_lib
+from petastorm_tpu_torch.parallel.ring_attention import SeqAxis
 from petastorm_tpu_torch.reader import make_reader
 from petastorm_tpu_torch.train_transform import FixRow
 from petastorm_tpu_torch.transform import TransformSpec
@@ -83,6 +102,46 @@ def _make_model(model_name, image_hw, model_kwargs):
     if model_name == 'vit':
         return ViT(image_hw=image_hw, generator=generator, **dict(VIT_S16, **model_kwargs))
     raise ValueError("model_name must be 'resnet50' or 'vit', got %r" % (model_name,))
+
+
+def _check_batch(batch, device, batch_devices):
+    """The batch a step is about to take (this rank's rows) is on the
+    training device."""
+    images = batch['image']
+    batch_devices.add(str(images.device.type))
+    if images.device.type != device.type:
+        raise RuntimeError('batch reached the model on %s, expected %s'
+                           % (images.device, device))
+
+
+def _local(batch):
+    """This rank's block of each leaf of a sharded loader's batch."""
+    return {k: v.to_local() if hasattr(v, 'to_local') else v for k, v in batch.items()}
+
+
+def _check_replicated(model, device):
+    """Every rank starts from the same parameters: their float64 sums,
+    all-gathered, must be equal."""
+    sums = torch.stack([p.detach().double().sum() for p in model.parameters()]).to(device)
+    every = [torch.empty_like(sums) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, sums)
+    for rank, other in enumerate(every):
+        if not torch.equal(other, every[0]):
+            raise RuntimeError('rank %d starts from other parameters than rank 0' % rank)
+
+
+def _average_over_data(params, loss, axis):
+    """Every gradient and the loss averaged over the data axis in one
+    all-reduce over a flat buffer (on an axis of one rank the sum alone, the
+    identity); returns the averaged loss."""
+    grads = [p.grad for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads] + [loss.detach().reshape(1)])
+    dist.all_reduce(flat, group=axis.group)
+    if axis.size > 1:
+        flat.div_(axis.size)
+    parts = torch.split(flat[:-1], [g.numel() for g in grads])
+    torch._foreach_copy_(grads, [part.view(g.shape) for part, g in zip(parts, grads)])
+    return flat[-1]
 
 
 def train(dataset_url, steps, batch_size=64, image_hw=(224, 224), lr=0.1, device=None, *,
@@ -135,44 +194,69 @@ def train(dataset_url, steps, batch_size=64, image_hw=(224, 224), lr=0.1, device
     the bottleneck ``report`` (printed) and its ``diagnosis``, the loader's
     ``loader_stats`` and ``loader_metrics`` (``h2d_degraded`` among them)
     and, traced, ``stall_top_component``.
+
+    With a process group up, ``batch_size`` is the global batch (it must
+    divide over the ranks), images/s count global images and the losses are
+    the global batch's; ``hbm_cache`` then raises beyond one rank (the
+    example's cache is single-device).
     """
     if steps < 1:
         raise ValueError('steps must be at least 1, got %r' % (steps,))
     device = resolve_device(device)
     graphed = graphs.resolve(cuda_graph, device)
     image_hw = tuple(image_hw)
+    grouped = dist.is_available() and dist.is_initialized()
+    sharding, axis, block = None, None, None
+    if grouped:
+        mesh = mesh_lib.make_mesh()                 # {'data': world}, jax_example.py:57
+        sharding = mesh_lib.data_parallel_sharding(mesh)
+        axis = SeqAxis(mesh, 'data')
+    data = axis.size if grouped else 1
+    if batch_size % data:
+        raise ValueError('batch_size %d is the global batch: it must divide over the %d ranks '
+                         'of the data axis' % (batch_size, data))
+    local_batch = batch_size // data
+    if data > 1:
+        block = (batch_size, axis.index * local_batch)
+        if hbm_cache:
+            raise ValueError('--hbm-cache is single-device (the example passes no sharding to '
+                             'DeviceInMemDataLoader; shard per host on pods): run it on one '
+                             'rank, not %d' % data)
     # fp32 matmuls and convolutions in full fp32, as the flax models compute
     # them: no TF32 for the fp32 head, nor for cuDNN's fp32 convolutions
     # (whose default is TF32).  The bf16 products are unaffected.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     model = _make_model(model_name, image_hw, model_kwargs or {}).to(device).train()
+    if grouped:
+        _check_replicated(model, mesh_lib.group_device())
+        sync_batch_norm(model, axis)
+    params = list(model.parameters())
     # optax.sgd(lr, momentum=0.9): trace = g + 0.9 trace; p -= lr * trace.
-    opt = torch.optim.SGD(model.parameters(), lr=lr, momentum=0.9, dampening=0,
-                          nesterov=False)
+    opt = torch.optim.SGD(params, lr=lr, momentum=0.9, dampening=0, nesterov=False)
     aug_gen = torch.Generator(device=device).manual_seed(17)
     batch_devices = set()
 
     def check_batch(batch):
-        images = batch['image']
-        batch_devices.add(str(images.device.type))
-        if images.device.type != device.type:
-            raise RuntimeError('batch reached the model on %s, expected %s'
-                               % (images.device, device))
+        _check_batch(batch, device, batch_devices)
 
     def train_step(batch):
         with torch.profiler.record_function('train_step'):
-            x = augment.random_crop(batch['image'], image_hw, padding=4, generator=aug_gen)
-            x = augment.random_flip_left_right(x, generator=aug_gen)
+            x = augment.random_crop(batch['image'], image_hw, padding=4, generator=aug_gen,
+                                    block=block)
+            x = augment.random_flip_left_right(x, generator=aug_gen, block=block)
             x = augment.normalize(x, dtype=torch.float32)
             loss = F.cross_entropy(model(x), batch['label'].long())
             opt.zero_grad(set_to_none=True)
             loss.backward()
+            if grouped:
+                loss = _average_over_data(params, loss, axis)
             opt.step()
             return loss.detach()
 
     def scan_step(carry, batch):
         # Python here runs at the eager steps and at capture, not per replay
+        batch = _local(batch)
         check_batch(batch)
         return carry, train_step(batch)
 
@@ -189,10 +273,10 @@ def train(dataset_url, steps, batch_size=64, image_hw=(224, 224), lr=0.1, device
         result.update(trace_events=None)
     else:
         tracer = TraceRecorder() if trace_path else None
-        stream = _Stream(dataset_url, batch_size, device, reader_kwargs, decoded_cache_dir,
-                         tracer, transfer)
+        stream = _Stream(dataset_url, local_batch, device, reader_kwargs, decoded_cache_dir,
+                         tracer, transfer, sharding)
         if scan_steps:
-            result = _train_scan(stream, steps, device, scan_step,
+            result = _train_scan(stream, steps, batch_size, device, scan_step,
                                  dict(scan_kwargs, steps_per_call=scan_steps))
         else:
             step = graphs.StepGraph(train_step, generators=[aug_gen]) if graphed else train_step
@@ -205,7 +289,7 @@ def train(dataset_url, steps, batch_size=64, image_hw=(224, 224), lr=0.1, device
             print('trace: %d spans -> %s (open in chrome://tracing)'
                   % (result['trace_events'], trace_path))
     result.update(batch_devices=sorted(batch_devices), device=str(device), model=model,
-                  cuda_graph=graphed)
+                  cuda_graph=graphed, batch_size=batch_size, data_ranks=data)
     return result
 
 
@@ -216,13 +300,13 @@ class _Stream(object):
     complete)."""
 
     def __init__(self, dataset_url, batch_size, device, reader_kwargs, decoded_cache_dir,
-                 tracer, transfer):
+                 tracer, transfer, sharding=None):
         self.tracer = tracer
         cached = decoded_cache_dir and DiskCachedDataLoader.cache_complete(decoded_cache_dir)
         self.reader = None if cached else make_reader(
             dataset_url, num_epochs=1 if decoded_cache_dir else None, **reader_kwargs)
         kwargs = dict(batch_size=batch_size, device=device, trace_recorder=tracer,
-                      transfer=transfer)
+                      transfer=transfer, sharding=sharding)
         if decoded_cache_dir:
             self.loader = DiskCachedDataLoader(self.reader, decoded_cache_dir=decoded_cache_dir,
                                                num_epochs=None, **kwargs)
@@ -250,7 +334,7 @@ def _train_streaming(stream, steps, batch_size, device, step, check_batch, warmu
             if i == warmup:
                 _sync(device)
                 t_start = time.perf_counter()
-            batch = next(batches)
+            batch = _local(next(batches))
             check_batch(batch)
             t0 = time.perf_counter()
             losses.append(step(batch))
@@ -271,12 +355,11 @@ def _train_streaming(stream, steps, batch_size, device, step, check_batch, warmu
                 stall_top_component=report.get('stall_top_component'))
 
 
-def _train_scan(stream, steps, device, scan_step, scan_kwargs):
+def _train_scan(stream, steps, batch_size, device, scan_step, scan_kwargs):
     losses = []
     done = timed = 0
     t_start = None
     host_s = 0.0
-    batch_size = stream.loader.batch_size
     with stream.loader as loader:
         chunks = loader.scan_batches(scan_step, None, **scan_kwargs)
         while done < steps:
@@ -366,14 +449,18 @@ def main(argv=None):
                         help='write a Chrome trace of the loader, its transfer plane and the '
                              'stall monitor to PATH (not with --hbm-cache)')
     args = parser.parse_args(argv)
+    rank = 0
+    if not dist.is_initialized() and 'RANK' in os.environ:
+        rank, _ = mesh_lib.init_distributed()      # torchrun's ranks: data parallel
     result = train(args.dataset_url, args.steps, args.batch_size, model_name=args.model,
                    hbm_cache=args.hbm_cache, scan_steps=args.scan_steps,
                    decoded_cache_dir=args.decoded_cache_dir, trace_path=args.trace)
     rate, stall = result['images_per_s'], result['stall_pct']
-    print('%s on %s: steps=%d loss=%.3f images/s=%s stall=%s'
-          % (args.model, result['device'], result['steps'], result['losses'][-1],
-             'n/a' if rate is None else '%.1f' % rate,
-             'n/a' if stall is None else '%.2f%%' % stall))
+    if rank == 0:
+        print('%s on %s (%d data ranks): steps=%d loss=%.3f images/s=%s stall=%s'
+              % (args.model, result['device'], result['data_ranks'], result['steps'],
+                 result['losses'][-1], 'n/a' if rate is None else '%.1f' % rate,
+                 'n/a' if stall is None else '%.2f%%' % stall))
     return result
 
 

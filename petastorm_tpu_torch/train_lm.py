@@ -56,7 +56,7 @@ from petastorm_tpu_torch.models.decoding import generate
 from petastorm_tpu_torch.models.transformer import TransformerLM, make_attn_fn
 from petastorm_tpu_torch.parallel import mesh as mesh_lib
 from petastorm_tpu_torch.reader import make_reader
-from petastorm_tpu_torch.train import _sync
+from petastorm_tpu_torch.train import _check_replicated, _sync
 from petastorm_tpu_torch.unischema import Unischema, UnischemaField
 
 __all__ = ['LONG_CONTEXT_LM', 'PACKED_LM', 'write_token_dataset', 'write_var_token_dataset',
@@ -142,17 +142,6 @@ def _all_reduce_grads(params):
     for g in grads:
         g.copy_(flat[offset:offset + g.numel()].view_as(g))
         offset += g.numel()
-
-
-def _check_replicated(model, device):
-    """Every rank starts from the same parameters: their float64 sums,
-    all-gathered, must be equal."""
-    sums = torch.stack([p.detach().double().sum() for p in model.parameters()]).to(device)
-    every = [torch.empty_like(sums) for _ in range(dist.get_world_size())]
-    dist.all_gather(every, sums)
-    for rank, other in enumerate(every):
-        if not torch.equal(other, every[0]):
-            raise RuntimeError('rank %d starts from other parameters than rank 0' % rank)
 
 
 def _mesh_for(strategy, world):
