@@ -118,6 +118,16 @@ Phases, in order; any failure propagates and exits nonzero:
    resumed from tokens taken with batches in flight on the ring, bit for
    bit; the HBM cache's ``scan_epochs`` resumed from an epoch boundary and
    from mid-epoch; each ``state_dict()``'s ms and token bytes;
+17b. elastic (resharded loader checkpoints): on L1's token store, two
+   "hosts" (shards 0 and 1 of 2) train L1 at its widths on the card for 5
+   and 7 steps and save their loader tokens through ``TrainStateManager``
+   (``host_0``, ``host_1``) with batches in flight; the tokens read back
+   with ``restore_latest_from`` reshard 2 -> 3 and 2 -> 1 on the dummy pool
+   and 2 -> 3 on 4 threads, and the resumed loaders finish both epochs
+   training on the card: every document exactly twice on the dummy pool, at
+   least twice on threads; the reshard's host ms, the tokens' pickled
+   bytes, the resumed tokens/s and step ms, 8 / 4 / 4 flash launches a
+   step;
 18. batch reader (``make_batch_reader`` over plain Parquet): a Criteo-shaped
    store of 2^20 rows read back equal to ``pq.read_table`` on the dummy
    pool, the same multiset of row groups on 4 threads and 8 processes (the
@@ -209,7 +219,19 @@ Phases, in order; any failure propagates and exits nonzero:
    logits against the unplaced model's, a train step, and ``generate``
    token-identical; a pipeline of ``{'pipe': p}`` stages (p = 2 on an even
    number of cards) against the sequential stages, output and gradients; the
-   MoE on ``{'data': world / e, 'expert': e}`` against ``moe_apply``.
+   MoE on ``{'data': world / e, 'expert': e}`` against ``moe_apply``;
+26. data service (``petastorm_tpu_torch.service``): 1,536 JPEG rows with
+   ids served by a ``Dispatcher`` thread and two ``Worker`` processes (no
+   card, no torch; 2 decode threads and the image transform each, shm
+   delivery on) to ``ServiceDataLoader(consumer=0, batch_size=64)``: one
+   graphed epoch of ViT-S/16 at full width (24 steps, timed after 4), every
+   row once, 12 launches of each flash kernel a step, images/s, step ms,
+   data wait, ``stall_pct``, the dispatcher's stats (splits, lease churn,
+   each worker's rows/s, shm against byte chunks), the workers drained by
+   SIGTERM with no ``/dev/shm`` slab left; the same epoch from the local
+   loader (4 decode threads); and ``ordered=True`` with one worker and one
+   thread equal to a local reader's host batches in dataset order, bit for
+   bit.
 
 Every streaming path moves its batches through the loader's transfer
 plane (``transfer='auto'``): a dispatch thread pulls, transforms and puts
@@ -234,6 +256,7 @@ is one JSON object ``{"kernels": [...]}``; the last line is ``{"ok": true,
 "device": {...}}``.  Imports nothing of JAX.
 """
 
+import collections
 import contextlib
 import hashlib
 import importlib
@@ -766,9 +789,10 @@ def phase_model(fa):
         % (tuple(logits.shape), err))
 
 
-def write_dataset(url, rows=IMAGE_ROWS, seed=0):
+def write_dataset(url, rows=IMAGE_ROWS, seed=0, ids=False):
     """Synthetic ImageNet-like JPEG Parquet: RGB images at mixed sizes (most
-    not 224x224, so the transform's resize runs) and a string noun_id."""
+    not 224x224, so the transform's resize runs) and a string noun_id; with
+    ``ids`` an int64 ``id``, the row's index, too."""
     import cv2
     import pyarrow as pa
     from petastorm_tpu_torch.codecs import CompressedImageCodec, ScalarCodec
@@ -776,7 +800,8 @@ def write_dataset(url, rows=IMAGE_ROWS, seed=0):
     from petastorm_tpu_torch.unischema import Unischema, UnischemaField
     schema = Unischema('ImagenetSchema', [
         UnischemaField('noun_id', np.str_, (), ScalarCodec(pa.string()), False),
-        UnischemaField('image', np.uint8, (None, None, 3), CompressedImageCodec('jpeg'), False)])
+        UnischemaField('image', np.uint8, (None, None, 3), CompressedImageCodec('jpeg'), False)]
+        + ([UnischemaField('id', np.int64, (), None, False)] if ids else []))
     rng = np.random.default_rng(seed)
     sizes = [(224, 224), (256, 256), (300, 200), (180, 240)]
     with DatasetWriter(url, schema, rows_per_rowgroup=64) as writer:
@@ -786,7 +811,8 @@ def write_dataset(url, rows=IMAGE_ROWS, seed=0):
             img = cv2.resize(rng.integers(0, 256, (16, 16, 3), dtype=np.uint8), (w, h),
                              interpolation=cv2.INTER_CUBIC)
             img = np.clip(img + rng.normal(0, 8, img.shape), 0, 255).astype(np.uint8)
-            writer.write({'noun_id': 'n%08d' % rng.integers(0, 1000), 'image': img})
+            row = {'noun_id': 'n%08d' % rng.integers(0, 1000), 'image': img}
+            writer.write(dict(row, id=np.int64(i)) if ids else row)
 
 
 def phase_main_path(fa, url, tmp):
@@ -4514,6 +4540,398 @@ def phase_multi_device(fa, url, tmp):
     return result['launches']
 
 
+EL_SEED = 23            # the elastic readers' seed (every host's the same)
+EL_EPOCHS = 2
+EL_BATCH = 8            # L1's batch
+EL_HOST_STEPS = (5, 7)  # steps each of the two old hosts trains before its checkpoint
+EL_RESHARDS = ((3, 'dummy'), (1, 'dummy'), (3, 'thread'))
+
+
+class LmStepper(object):
+    """L1's model (``train_lm``'s: seed 0, remat, flash, AdamW 3e-4) and
+    ``train_lm``'s one-device step on the card: a full batch replays one
+    captured graph, a shorter one (a shard's last) runs eagerly, its loss
+    over its own tokens.  Both launch 2 * layers forward and layers dQ and
+    dK/dV kernels."""
+
+    def __init__(self):
+        import petastorm_tpu_torch.train_lm as lm
+        from petastorm_tpu_torch.gpu import graphs
+        from petastorm_tpu_torch.models.transformer import make_attn_fn
+        self.layers = lm.LONG_CONTEXT_LM['num_layers']
+        self.model = lm._model(lm.LONG_CONTEXT_LM, attn_fn=make_attn_fn(None, 'flash'),
+                               remat=True).cuda().train()
+        opt = lm._adamw(self.model, 3e-4, torch.device('cuda'))
+        positions = torch.arange(lm.SEQ_LEN, device='cuda')
+
+        def step_for(rows):
+            return lm._train_step(self.model, opt, positions.expand(rows, lm.SEQ_LEN),
+                                  rows * lm.SEQ_LEN)
+        self._step_for = step_for
+        self.graphed = graphs.StepGraph(step_for(EL_BATCH))
+        self.eager = {}
+        self.steps = 0
+
+    def __call__(self, batch):
+        self.steps += 1
+        step = {'tokens': batch['tokens'], 'labels': batch['labels']}
+        rows = batch['tokens'].shape[0]
+        if rows == EL_BATCH:
+            return self.graphed(step)
+        if rows not in self.eager:
+            self.eager[rows] = self._step_for(rows)
+        return self.eager[rows](step)
+
+
+def el_transform(batch):
+    """``train_lm``'s host transform (next-token labels over the whole row),
+    keeping ``doc_id`` for the row accounting."""
+    import petastorm_tpu_torch.train_lm as lm
+    return dict(lm._with_labels(batch), doc_id=batch['doc_id'])
+
+
+def el_loader(lm_url, shard, count, pool, token=None):
+    from petastorm_tpu_torch.gpu import DataLoader
+    from petastorm_tpu_torch.reader import make_reader
+    kwargs = dict(workers_count=4) if pool == 'thread' else {}
+    reader = make_reader(lm_url, columnar_decode=True, shuffle_row_groups=True, seed=EL_SEED,
+                         num_epochs=EL_EPOCHS, cur_shard=shard, shard_count=count,
+                         reader_pool_type=pool,
+                         resume_state=None if token is None else token['reader'], **kwargs)
+    return DataLoader(reader, batch_size=EL_BATCH, prefetch=2, drop_last=token is None,
+                      device='cuda', transform_fn=el_transform, resume_state=token)
+
+
+def el_train(stepper, batches, steps=None):
+    """Train L1 on the iterator ``batches`` (``steps`` batches, or to its
+    end); returns the doc ids, the losses, and the tokens/s and step ms of
+    the steps after the first two."""
+    ids, losses = [], []
+    t0 = None
+    for i, batch in enumerate(batches):
+        if batch['tokens'].device.type != 'cuda':
+            raise AssertionError('elastic: a batch reached the step on %s'
+                                 % batch['tokens'].device)
+        if i == 2:
+            torch.cuda.synchronize()
+            t0, timed_tokens = time.perf_counter(), 0
+        ids.append(batch['doc_id'].clone())
+        losses.append(stepper(batch))
+        if t0 is not None:
+            timed_tokens += batch['tokens'].numel()
+        if steps is not None and i + 1 == steps:
+            break
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0 if t0 is not None else None
+    timed = len(losses) - 2
+    losses = [float(v) for v in torch.stack(losses).cpu()] if losses else []
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError('elastic: non-finite loss %s' % losses)
+    return {'ids': [int(i) for i in torch.cat(ids).cpu()] if ids else [], 'losses': losses,
+            'tokens_per_s': timed_tokens / elapsed if elapsed else None,
+            'step_ms': 1e3 * elapsed / timed if elapsed else None}
+
+
+def phase_elastic(fa, lm_url, tmp):
+    """Elastic resharding of loader checkpoints (``petastorm_tpu_torch.elastic``)
+    on L1's token store (256 documents of 1024 tokens, 8 row groups; the
+    columnar reader, row groups shuffled from seed ``EL_SEED``, 2 epochs,
+    batch 8).  For each case of ``EL_RESHARDS``: two "hosts" (``cur_shard`` 0
+    and 1 of 2) train L1 (d_model 256, 8 heads, 4 layers, remat, flash) on
+    the card for 5 and 7 steps, each saves its loader token and weights
+    through ``TrainStateManager`` under ``host_0``/``host_1``; the tokens are
+    read back with ``restore_latest_from``, resharded onto M loaders
+    (``reshard_loader_states``, 2 -> 3 and 2 -> 1), and the M resumed
+    loaders finish both epochs training on the card.  The rows the hosts
+    took plus the resumed rows must be every document exactly twice on the
+    dummy pool, at least twice on 4 threads.  Prints the reshard's host ms,
+    each token's pickled bytes, the resumed tokens/s and step ms and the
+    flash launches (8 forward, 4 dQ, 4 dK/dV a step)."""
+    from petastorm_tpu_torch.checkpoint import TrainStateManager
+    from petastorm_tpu_torch.elastic import reshard_loader_states
+    stepper = LmStepper()
+    reset_counts(fa)
+    runs = []
+    for m, pool in EL_RESHARDS:
+        consumed, root = [], os.path.join(tmp, 'elastic_%d_%s' % (m, pool))
+        for host, steps in enumerate(EL_HOST_STEPS):
+            with el_loader(lm_url, host, 2, pool) as loader:
+                batches = iter(loader)
+                consumed += el_train(stepper, batches, steps)['ids']
+                token = loader.state_dict()   # with batches in flight on the card
+                batches.close()
+            with TrainStateManager(os.path.join(root, 'host_%d' % host),
+                                   async_save=False) as mgr:
+                mgr.save(steps, {'model': stepper.model.state_dict()}, data_state=token,
+                         force=True)
+        tokens = [TrainStateManager.restore_latest_from(os.path.join(root, 'host_%d' % h))[2]
+                  for h in range(2)]
+        t0 = time.perf_counter()
+        new = reshard_loader_states(tokens, m)
+        reshard_ms = 1e3 * (time.perf_counter() - t0)
+        resumed = []
+        for shard, token in enumerate(new):
+            with el_loader(lm_url, shard, m, pool, token) as loader:
+                resumed.append(el_train(stepper, iter(loader)))
+        total = collections.Counter(consumed + [i for r in resumed for i in r['ids']])
+        exact = total == collections.Counter({i: EL_EPOCHS for i in range(256)})
+        covered = all(total.get(i, 0) >= EL_EPOCHS for i in range(256))
+        run = {'reshard': '2->%d' % m, 'pool': pool, 'reshard_ms': reshard_ms,
+               'old_token_bytes': [len(pickle.dumps(t)) for t in tokens],
+               'new_token_bytes': [len(pickle.dumps(t)) for t in new],
+               'pending': [len(t['pending']) for t in tokens], 'old_rows': len(consumed),
+               'resumed_rows': [len(r['ids']) for r in resumed],
+               'resumed_tokens_per_s': [r['tokens_per_s'] for r in resumed],
+               'resumed_step_ms': [r['step_ms'] for r in resumed],
+               'exact': exact, 'covered': covered}
+        log('elastic %s on %s: reshard %.3f ms, old tokens %s B, new %s B; %d rows before, '
+            'resumed %s rows at %s tokens/s, step ms %s; every document exactly %d times: %s, '
+            'at least: %s' % (run['reshard'], pool, reshard_ms, run['old_token_bytes'],
+                              run['new_token_bytes'], len(consumed), run['resumed_rows'],
+                              ['%.0f' % v if v else None for v in run['resumed_tokens_per_s']],
+                              ['%.2f' % v if v else None for v in run['resumed_step_ms']],
+                              EL_EPOCHS, exact, covered))
+        if not covered or (pool == 'dummy' and not exact):
+            raise AssertionError('elastic %s on %s: rows %s' % (run['reshard'], pool,
+                                                               sorted(total.items())))
+        runs.append(run)
+    launches, by_design = counts(fa)
+    check_launches('elastic', launches, by_design,
+                   {'flash_fwd': 2 * stepper.layers * stepper.steps,
+                    'flash_bwd_dq': stepper.layers * stepper.steps,
+                    'flash_bwd_dkv': stepper.layers * stepper.steps})
+    log('elastic: %d L1 steps, launches %s' % (stepper.steps, launches))
+    SUMMARY['elastic'] = {'runs': runs, 'steps': stepper.steps, 'launches': launches}
+    return launches
+
+
+
+SVC_ROWS = 1536         # 24 row groups of 64: one epoch is 24 ViT steps of 64
+SVC_WARMUP = 4          # steps before the timed window (the eager step, the capture, ...)
+SVC_WORKERS = 2
+SVC_THREADS = 2         # each worker's decode threads
+SVC_LOCAL_THREADS = 4
+SVC_WORKER_SCRIPT = r"""
+import sys
+from petastorm_tpu_torch.service.worker import Worker
+worker = Worker(sys.argv[1])
+worker.install_signal_handlers()
+worker.run()
+assert 'torch' not in sys.modules and 'jax' not in sys.modules, 'a worker loaded torch or jax'
+"""
+
+
+def svc_spawn_worker(addr):
+    """A decode worker in a process of its own: no card, no torch (labels
+    hash with ``PYTHONHASHSEED=0``)."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES='', PYTHONHASHSEED='0',
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    return subprocess.Popen([sys.executable, '-c', SVC_WORKER_SCRIPT, addr], env=env,
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+
+
+def svc_stop_workers(procs):
+    """SIGTERM (each worker drains and exits), then each must have exited 0."""
+    import signal
+    for proc in procs:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+    failed = []
+    for proc in procs:
+        try:
+            code = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            code = proc.wait()
+        if code != 0:
+            failed.append((proc.pid, code, proc.stderr.read().decode()[-2000:]))
+    if failed:
+        raise AssertionError('service workers exited badly: %s' % failed)
+
+
+def svc_epoch(fa, loader, label):
+    """One epoch of graphed ViT-S/16 steps from ``loader`` (the counts set
+    to 0 just before): the row ids, losses, images/s, step ms and host ms
+    in the step call after ``SVC_WARMUP`` steps, the data wait per step and
+    ``stall_pct``."""
+    from petastorm_tpu_torch.benchmark.stall_profiler import StallMonitor
+    step = vit_resident_step()
+    monitor = StallMonitor(warmup_steps=SVC_WARMUP)
+    ids, losses = [], []
+    host_s = 0.0
+    torch.cuda.synchronize()
+    reset_counts(fa)
+    with loader:
+        for i, batch in enumerate(monitor.wrap(loader)):
+            if i == SVC_WARMUP:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            if batch['image'].device.type != 'cuda':
+                raise AssertionError('%s: a batch reached the step on %s'
+                                     % (label, batch['image'].device))
+            ids.append(batch['id'].clone())
+            t1 = time.perf_counter()
+            losses.append(step(batch))
+            if i >= SVC_WARMUP:
+                host_s += time.perf_counter() - t1
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    launches, by_design = counts(fa)
+    steps = len(losses)
+    ids = [int(i) for i in torch.cat(ids).cpu()]
+    losses = [float(v) for v in torch.stack(losses).cpu()]
+    if sorted(ids) != list(range(SVC_ROWS)):
+        raise AssertionError('%s: rows lost or repeated (%d delivered, %d distinct)'
+                             % (label, len(ids), len(set(ids))))
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError('%s: non-finite loss %s' % (label, losses))
+    check_launches(label, launches, by_design, {name: 12 * steps for name in launches})
+    timed = steps - SVC_WARMUP
+    report = monitor.report()
+    return {'steps': steps, 'losses': losses, 'launches': launches,
+            'images_per_s': timed * BATCH / elapsed, 'step_ms': 1e3 * elapsed / timed,
+            'host_ms': 1e3 * host_s / timed,
+            'data_wait_ms': 1e3 * monitor.wait_time / monitor.steps if monitor.steps else None,
+            'stall_pct': report['stall_pct']}
+
+
+def svc_counted(stats):
+    """The workers' counters, as their last heartbeats gave them to the
+    dispatcher's ``stats``, against the epoch the client received: rows and
+    splits decoded, shm and byte chunks sent, and the count of each stage's
+    latency histogram.  Equal with no lease moved; at least as many when one
+    did (a moved split is decoded again).  Returns (ok, got, want)."""
+    workers = stats['workers'].values()
+    stages = stats['stages']
+    got = {key: sum(int(w.get(key, 0)) for w in workers)
+           for key in ('rows_decoded', 'splits_decoded', 'shm_chunks', 'byte_chunks')}
+    got.update({'%s_count' % name: stages.get(name, {}).get('count', 0)
+                for name in ('decode_split', 'shm_publish', 'serialize')})
+    want = {'rows_decoded': SVC_ROWS, 'splits_decoded': stats['num_splits'],
+            'shm_chunks': stats['client']['shm_chunks'],
+            'byte_chunks': stats['client']['byte_chunks'],
+            'decode_split_count': got['splits_decoded'],
+            'shm_publish_count': got['shm_chunks'], 'serialize_count': got['byte_chunks']}
+    if stats['lease_churn']:
+        return all(got[k] >= want[k] for k in want), got, want
+    return got == want, got, want
+
+
+def phase_service(fa, tmp):
+    """The data service's single-tenant core feeding ViT-S/16 on the card.
+
+    A store of 1,536 synthetic JPEG rows with ids; a ``Dispatcher`` thread
+    here and two ``Worker`` processes (no card, no torch), each reading its
+    leased splits (2 row groups) with 2 decode threads and the image path's
+    transform (``make_transform``: resize to 224² and the label), shm
+    delivery on.  ``ServiceDataLoader(consumer=0, batch_size=64)`` feeds one
+    graphed epoch of ViT-S/16 at full width (24 steps, timed after 4):
+    every row id once, the losses finite, 12 launches of each flash kernel a
+    step; images/s, step ms, data wait, ``stall_pct``; the dispatcher's
+    stats (splits, lease churn, each worker's rows/s, shm against byte
+    chunks), whose worker counters must add up to what the client received
+    (``svc_counted``); the workers drain on SIGTERM and leave no ``/dev/shm`` slab.
+    Beside it the same epoch fed by the local ``DataLoader`` (4 decode
+    threads).  Then ``ordered=True`` with one worker reading with one
+    thread and ``ResizeImages``: its host batches equal a local reader's in
+    dataset order, bit for bit."""
+    from petastorm_tpu_torch.gpu import DataLoader
+    from petastorm_tpu_torch.reader import make_reader
+    from petastorm_tpu_torch.service import Dispatcher, ServiceConfig, ServiceDataLoader
+    from petastorm_tpu_torch.train import make_transform
+    from petastorm_tpu_torch.transform import ResizeImages
+    from petastorm_tpu_torch.workers_pool import shm_plane
+    url = 'file://' + os.path.join(tmp, 'service_jpeg')
+    t0 = time.monotonic()
+    write_dataset(url, rows=SVC_ROWS, ids=True)
+    log('service dataset: %d JPEG rows written in %.1f s' % (SVC_ROWS, time.monotonic() - t0))
+    fields = ['id', 'image', 'noun_id']
+    config = ServiceConfig(url, rowgroups_per_split=2, lease_ttl_s=2.0, reader_kwargs=dict(
+        schema_fields=fields, transform_spec=make_transform((224, 224)),
+        workers_count=SVC_THREADS))
+    result = {}
+    with Dispatcher(config) as dispatcher:
+        procs = [svc_spawn_worker(dispatcher.addr) for _ in range(SVC_WORKERS)]
+        try:
+            loader = ServiceDataLoader(dispatcher.addr, batch_size=BATCH, consumer=0,
+                                       device='cuda')
+            deadline = time.monotonic() + 120
+            while len(loader.service_diagnostics()['workers']) < SVC_WORKERS:
+                if time.monotonic() > deadline:
+                    raise AssertionError('service: the workers did not register')
+                time.sleep(0.05)
+            result['service'] = svc_epoch(fa, loader, 'service')
+            # the workers' counters reach the dispatcher on their heartbeats
+            deadline = time.monotonic() + 10
+            while True:
+                stats = loader.service_diagnostics()
+                counted, got, want = svc_counted(stats)
+                if counted or time.monotonic() > deadline:
+                    break
+                time.sleep(0.1)
+            if not counted:
+                raise AssertionError('service: the workers\' counters %s do not add up to '
+                                     'what the client received %s (lease churn %d)'
+                                     % (got, want, stats['lease_churn']))
+        finally:
+            svc_stop_workers(procs)
+        probe = loader.reader._conn._shm_probe
+        residue = shm_plane.residue([p.pid for p in procs])
+        if probe and os.path.exists(os.path.join(shm_plane.SHM_DIR, probe)):
+            residue.add(probe)
+    workers = {wid: {k: w.get(k) for k in ('rows_decoded', 'splits_decoded', 'rows_per_s',
+                                            'shm_chunks', 'byte_chunks', 'shm_degraded')}
+               for wid, w in stats['workers'].items()}
+    result['stats'] = {k: stats[k] for k in ('num_splits', 'done', 'failed', 'lease_churn')}
+    result['stats'].update(workers=workers, client=stats['client'],
+                           stages=stats['stages'], residue=sorted(residue))
+    log('service: %s' % json.dumps({k: v for k, v in result['service'].items()
+                                    if k != 'losses'}))
+    log('service stats: %s' % json.dumps(result['stats']))
+    if residue or stats['done'] != stats['num_splits'] or stats['failed']:
+        raise AssertionError('service: residue %s, %d of %d splits done, %d failed'
+                             % (residue, stats['done'], stats['num_splits'], stats['failed']))
+    if not stats['client']['shm_chunks']:
+        raise AssertionError('service: no chunk went through /dev/shm: %s' % stats['client'])
+    local_reader = make_reader(url, num_epochs=1, schema_fields=fields,
+                               transform_spec=make_transform((224, 224)), columnar_decode=True,
+                               workers_count=SVC_LOCAL_THREADS)
+    result['local'] = svc_epoch(fa, DataLoader(local_reader, batch_size=BATCH, device='cuda'),
+                                'service local')
+    log('service local: %s' % json.dumps({k: v for k, v in result['local'].items()
+                                          if k != 'losses'}))
+    # ordered: one worker, one decode thread, and no hash in the transform
+    resize = ResizeImages({'image': (224, 224)})
+    config = ServiceConfig(url, rowgroups_per_split=2, lease_ttl_s=2.0, reader_kwargs=dict(
+        schema_fields=fields, transform_spec=resize, workers_count=1))
+    with Dispatcher(config) as dispatcher:
+        procs = [svc_spawn_worker(dispatcher.addr)]
+        try:
+            with ServiceDataLoader(dispatcher.addr, batch_size=BATCH, consumer=0, ordered=True,
+                                   device='cuda') as loader:
+                got = [{k: np.array(v) for k, v in b.items()}
+                       for b in loader.iter_host_batches()]
+        finally:
+            svc_stop_workers(procs)
+    local_reader = make_reader(url, num_epochs=1, schema_fields=fields, transform_spec=resize,
+                               columnar_decode=True, shuffle_row_groups=False,
+                               reader_pool_type='dummy')
+    with DataLoader(local_reader, batch_size=BATCH, device='cuda') as loader:
+        want = [{k: np.array(v) for k, v in b.items()} for b in loader.iter_host_batches()]
+    equal = len(got) == len(want) == SVC_ROWS // BATCH and all(
+        sorted(g) == sorted(w) and all(g[k].dtype == w[k].dtype and np.array_equal(g[k], w[k])
+                                       for k in w) for g, w in zip(got, want))
+    in_order = [i for b in got for i in b['id'].tolist()] == list(range(SVC_ROWS))
+    log('service ordered: %d host batches equal to the local reader\'s bit for bit: %s, ids in '
+        'dataset order: %s' % (len(got), equal, in_order))
+    if not equal or not in_order:
+        raise AssertionError('service ordered: equal %s, in order %s' % (equal, in_order))
+    result['ordered'] = {'batches': len(got), 'equal': equal}
+    SUMMARY['service'] = {k: ({m: n for m, n in v.items() if m != 'losses'}
+                              if k in ('service', 'local') else v) for k, v in result.items()}
+    return result['service']['launches']
+
+
 def main():
     # The kernels' module (petastorm_tpu_torch.ops re-exports its function
     # under the same name).  Imported first: outside a checkout this fails
@@ -4558,6 +4976,8 @@ def main():
                             ('trace', lambda: phase_trace(url, tmp)),
                             ('resume', lambda: phase_resume(
                                 fa, url, 'file://' + os.path.join(tmp, 'lc_tokens'), tmp)),
+                            ('elastic', lambda: phase_elastic(
+                                fa, 'file://' + os.path.join(tmp, 'lc_tokens'), tmp)),
                             ('batch_reader', lambda: phase_batch_reader(fa, tmp)),
                             ('reference_footer', lambda: phase_reference_footer(tmp)),
                             ('ngram', lambda: phase_ngram(fa, tmp)),
@@ -4565,7 +4985,8 @@ def main():
                             ('search', lambda: phase_search(fa, paths['packed'][1])),
                             ('vit_recipe', lambda: phase_vit_recipe(fa, url)),
                             ('sequence_parallel', lambda: phase_sequence_parallel(fa, tmp)),
-                            ('multi_device', lambda: phase_multi_device(fa, url, tmp))):
+                            ('multi_device', lambda: phase_multi_device(fa, url, tmp)),
+                            ('service', lambda: phase_service(fa, tmp))):
             t0 = time.monotonic()
             paths[name] = phase()
             log('phase %s: %.1f s' % (name, time.monotonic() - t0))
@@ -4573,7 +4994,8 @@ def main():
                 'generate': paths['generate'], 'resident': paths['resident'],
                 'search': paths['search'], 'vit_recipe': paths['vit_recipe'],
                 'sequence_parallel': paths['sequence_parallel'],
-                'multi_device': paths['multi_device']}
+                'multi_device': paths['multi_device'], 'elastic': paths['elastic'],
+                'service': paths['service']}
     kernels = [dict(name=name, route='cuda', design=MAIN_PATH_DESIGN[name],
                     source=SOURCES[name], replaces=REPLACES[name],
                     launches=sum(path[name] for path in launches.values()),

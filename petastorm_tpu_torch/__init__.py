@@ -10,7 +10,10 @@ loader that moves batches to an NVIDIA GPU (streaming, or from an epoch
 cache in host or device memory, or from a resident tier of the dataset in
 HBM in its wire dtypes, or packed into fixed-shape LM batches),
 on-device augmentation, exact data checkpoints (every loader's
-``state_dict``/``resume_state``, ``checkpoint.TrainStateManager``), the
+``state_dict``/``resume_state``, ``checkpoint.TrainStateManager``, and
+their elastic reshard onto another shard count), the data service's
+single-tenant core (``service``: dispatcher, decode workers,
+``ServiceDataLoader``), the
 ResNet-50, ViT, MNIST MLP, DLRM and decoder-only LM models (with KV-cache
 generation), the pandas DataFrame converter, and the flash-attention kernels as hand-written CUDA for
 Hopper (``csrc/``).  Entry points run on the card unless the caller passes
@@ -41,6 +44,8 @@ _LAZY = {
     'TraceRecorder': 'petastorm_tpu_torch.benchmark.trace',
     'train': 'petastorm_tpu_torch.train',
     'TrainStateManager': 'petastorm_tpu_torch.checkpoint',
+    'reshard_reader_states': 'petastorm_tpu_torch.elastic',
+    'reshard_loader_states': 'petastorm_tpu_torch.elastic',
 }
 
 __all__ = list(_LAZY)

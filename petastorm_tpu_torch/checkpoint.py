@@ -26,6 +26,22 @@ weights-only loader reads); tensors come back on the CPU.
 :class:`TrainStateManager` keeps one such directory per step, named by the
 step, under a root: the save cadence, retention, asynchronous saves and
 resume-latest of the reference's manager.
+
+Multi-host: tokens are per host.  Each host saves its own ``data_state``
+under a directory of its own, ``f'{path}/host_{rank}'`` with ``rank`` the
+``torch.distributed`` rank (the readers shard by it), or gathers every
+host's token first and saves the list from rank 0.  After a restart on
+another number of hosts, read each old host's token back with
+:meth:`TrainStateManager.restore_latest_from` and pass the list to
+:func:`petastorm_tpu_torch.elastic.reshard_loader_states`, which gives each
+new host its loader token::
+
+    tokens = [TrainStateManager.restore_latest_from('%s/host_%d' % (path, h))[2]
+              for h in range(old_hosts)]
+    token = reshard_loader_states(tokens, world)[rank]
+    reader = make_reader(url, cur_shard=rank, shard_count=world,
+                         resume_state=token['reader'])
+    loader = DataLoader(reader, batch_size, resume_state=token)
 """
 
 import io

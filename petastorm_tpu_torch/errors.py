@@ -37,3 +37,15 @@ class PoisonedRowGroupError(PetastormTpuError):
         super(PoisonedRowGroupError, self).__init__(
             'Row group %d of %r still failing after %d attempt(s): %s'
             % (row_group, path, attempts, self.cause))
+
+
+class ServiceError(PetastormTpuError):
+    """A data-service RPC was rejected by its peer (the dispatcher refused a
+    request, or a resume token's partition geometry does not match the
+    running job)."""
+
+
+class ServiceRpcTimeoutError(ServiceError):
+    """A control-plane RPC got no reply within its timeout: the peer is down
+    or unreachable.  The REQ socket has been rebuilt, so retrying the call
+    is safe."""

@@ -345,6 +345,23 @@ class DataLoader(object):
         while pending:
             yield self._global(plane.ready(*pending.popleft()))
 
+    def iter_host_batches(self):
+        """The host batches ``__iter__`` would move (shuffled, batched,
+        ``transform_fn`` applied, a token's residue first), as numpy, with
+        no move to the device, as the JAX loader's ``iter_host_batches``.
+        Batches a token carried from the device come first and hold only
+        their numeric fields."""
+        for host_batch in self._take_restored():
+            self._m_batches.inc()
+            yield host_batch
+        for host_batch in self._timed_pulls(self._echoed_host_batches()):
+            if self._transform_fn is not None:
+                t1 = time.monotonic()
+                host_batch = self._transform_fn(host_batch)
+                self._observe('transform', t1, time.monotonic())
+            self._m_batches.inc()
+            yield host_batch
+
     def _block(self, numeric):
         """This rank's block of each leaf of a host batch (``sharding=``)."""
         return numeric if self._sharding is None else self._sharding.blocks(numeric)

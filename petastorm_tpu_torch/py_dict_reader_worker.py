@@ -78,7 +78,9 @@ class PyDictReaderWorker(ParquetWorkerBase):
         self._fields = dict(args.schema_view.fields)
         self._fields.update(self._stored.fields)
 
-    def process(self, piece_index):
+    def process(self, piece_index, _row_drop_partition=0):
+        """Decode one row group and publish it (the second argument, an
+        elastic prologue's row-drop partition, is always 0 here)."""
         piece = self._a.pieces[piece_index]
         cache_key = piece_cache_key(piece, self._a.schema_view, self._a.transform_spec)
         columnar = self._a.columnar_output and self._a.ngram is None

@@ -6,8 +6,12 @@ footer metadata (or, for a plain Parquet store, from the file footers),
 row groups before the modulo split), row-group shuffling, epochs, the
 worker pool, the iterator protocol (``next``, ``reset`` after the last
 row), ``num_local_rows``, and exact checkpoints: ``state_dict`` (the
-ventilator's resume token with the shard topology), ``resume_state=``,
-``drain_in_flight`` and ``resume_dispatch``.
+ventilator's resume token with the shard topology), ``resume_state=``
+(with an elastic reshard's prologue, :mod:`petastorm_tpu_torch.elastic`),
+``drain_in_flight`` and ``resume_dispatch``.  ``piece_indices`` reads
+exactly the given global row groups (the data service worker's split).
+Work items carry global piece indices and the workers keep the global piece
+list, so a prologue can name any row group.
 
 :func:`make_reader` reads a petastorm dataset through the row worker
 (codec-decoded rows, or with ``columnar_decode=True`` one namedtuple of
@@ -22,8 +26,8 @@ the store has no petastorm metadata).  Both take a ``predicate``
 Cut to what the port holds.  Each option outside it raises ``ValueError``
 naming the ``ROADMAP.md`` item that brings it: the thread, process and
 dummy pools, FIFO scheduling, synchronous reads of local files (no ingest
-plane, no HDFS or object store), the null cache; no ``rowgroup_selector``,
-``piece_indices`` or row-drop partitions.  Both readers take the reference's
+plane, no HDFS or object store), the null cache; no ``rowgroup_selector``
+or row-drop partitions.  Both readers take the reference's
 argument names: an option outside the slice raises ``ValueError`` (never a
 ``TypeError``) only when it asks for more than its default.  With neither
 ``cur_shard`` nor ``shard_count`` given, a ``torch.distributed`` group of
@@ -68,7 +72,7 @@ def _make_pool(reader_pool_type, workers_count, results_queue_size, zmq_copy_buf
 
 
 def _refuse_outside_slice(scheduling, ingest, cache_type, storage_options=None,
-                          filesystem=None, rowgroup_selector=None, piece_indices=None,
+                          filesystem=None, rowgroup_selector=None,
                           shuffle_row_drop_partitions=1, cache_settings=None,
                           hdfs_driver='libhdfs', ingest_window=None):
     """Raise for each option whose plane the port does not hold yet.
@@ -101,8 +105,6 @@ def _refuse_outside_slice(scheduling, ingest, cache_type, storage_options=None,
                        'and object stores are %s' % _LATER)
     if rowgroup_selector is not None:
         refused.append('rowgroup_selector needs the row-group indexes, %s' % _LATER)
-    if piece_indices is not None:
-        refused.append('piece_indices (the data service client\'s split) is %s' % _LATER)
     if shuffle_row_drop_partitions not in (None, 1):
         refused.append('shuffle_row_drop_partitions=%r: row-drop partitions are %s'
                        % (shuffle_row_drop_partitions, _LATER))
@@ -151,17 +153,43 @@ def _topology(cur_shard, shard_count, shard_seed, num_pieces, shuffle_row_groups
             'shuffle': bool(shuffle_row_groups)}
 
 
+def _explicit_piece_indices(piece_indices, num_pieces, cur_shard, shard_count, pruned=False):
+    """Validate ``piece_indices=``: positions in the global row-group order,
+    which the data service's dispatcher partitions.  Sharding does not
+    compose with it and ``filters`` would renumber that order, so both
+    raise, as an index out of range does."""
+    if cur_shard is not None or shard_count is not None:
+        raise ValueError('piece_indices is an explicit row-group assignment; '
+                         'cur_shard/shard_count do not compose with it')
+    if pruned:
+        raise ValueError('piece_indices indexes the full load_row_groups '
+                         'order; filters would renumber it')
+    indices = [int(i) for i in piece_indices]
+    bad = [i for i in indices if not 0 <= i < num_pieces]
+    if bad:
+        raise ValueError('piece_indices %s out of range [0, %d)' % (bad[:5], num_pieces))
+    return indices
+
+
 def _local_pieces(fs, pieces, filters, stored_schema, cur_shard, shard_count, shard_seed,
-                  dataset_url):
-    """The pieces after ``filters``, and this shard's indices into them."""
+                  dataset_url, piece_indices=None, resume_state=None):
+    """The pieces after ``filters``, this reader's indices into them and its
+    ``(cur_shard, shard_count)``: the given ``piece_indices``, else the
+    shard's.  No local row group is legal only for a token with a
+    prologue (an elastic reshard onto more shards than row groups)."""
     if filters is not None:
         from petastorm_tpu_torch.etl.rowgroup_filtering import apply_arrow_filters
         pieces = apply_arrow_filters(fs, pieces, filters, stored_schema)
-    local_indices = _shard_indices(len(pieces), cur_shard, shard_count, shard_seed)
-    if not local_indices:
+    if piece_indices is not None:
+        local_indices = _explicit_piece_indices(piece_indices, len(pieces), cur_shard,
+                                                shard_count, pruned=filters is not None)
+    else:
+        cur_shard, shard_count = _default_shard(cur_shard, shard_count)
+        local_indices = _shard_indices(len(pieces), cur_shard, shard_count, shard_seed)
+    if not local_indices and 'prologue' not in (resume_state or {}):
         raise NoDataAvailableError(
             'No row groups to read from %r after sharding/selection' % (dataset_url,))
-    return pieces, local_indices
+    return pieces, local_indices, cur_shard, shard_count
 
 
 def make_reader(dataset_url,
@@ -208,12 +236,16 @@ def make_reader(dataset_url,
 
     ``resume_state`` is a token of :meth:`Reader.state_dict` (or the
     ``'reader'`` entry of a loader's token, the JAX package's included):
-    the reader starts at its position.  A token taken under another shard
-    topology raises.
+    the reader starts at its position, after the token's prologue when it
+    has one (:func:`petastorm_tpu_torch.elastic.reshard_reader_states`).  A
+    token taken under another shard topology raises.
+
+    ``piece_indices`` reads exactly these global row groups (positions in
+    the store's row-group order) instead of a shard; ``cur_shard``,
+    ``shard_count`` and ``filters`` do not compose with it.
     """
     _refuse_outside_slice(scheduling, ingest, cache_type, storage_options=storage_options,
                           filesystem=filesystem, rowgroup_selector=rowgroup_selector,
-                          piece_indices=piece_indices,
                           shuffle_row_drop_partitions=shuffle_row_drop_partitions,
                           cache_settings=dict(cache_location=cache_location,
                                               cache_size_limit=cache_size_limit,
@@ -223,7 +255,6 @@ def make_reader(dataset_url,
     ngram = schema_fields if isinstance(schema_fields, NGram) else None
     if columnar_decode and ngram is not None:
         raise ValueError('columnar_decode is incompatible with NGram windows')
-    cur_shard, shard_count = _default_shard(cur_shard, shard_count)
     fs, path = get_filesystem_and_path(dataset_url)
     stored_schema = get_schema(fs, path)
     if ngram is not None:
@@ -233,9 +264,9 @@ def make_reader(dataset_url,
         schema_view = stored_schema.create_schema_view(schema_fields)
     else:
         schema_view = stored_schema
-    pieces, local_indices = _local_pieces(fs, load_row_groups(fs, path), filters,
-                                          stored_schema, cur_shard, shard_count, shard_seed,
-                                          dataset_url)
+    pieces, local_indices, cur_shard, shard_count = _local_pieces(
+        fs, load_row_groups(fs, path), filters, stored_schema, cur_shard, shard_count,
+        shard_seed, dataset_url, piece_indices, resume_state)
     worker_args = RowWorkerArgs(
         pieces=pieces, schema_view=schema_view, schema=stored_schema, predicate=predicate,
         transform_spec=transform_spec, cache=NullCache(), ngram=ngram,
@@ -279,22 +310,20 @@ def make_batch_reader(dataset_url_or_urls,
     file's arrow schema; ``schema_fields`` are regex strings;
     ``transform_spec.func`` takes and returns a ``pandas.DataFrame`` (and
     may drop rows: :attr:`Reader.transform_may_change_row_count`).
-    ``predicate``, ``filters``, ``shard_seed``, the pools and
-    ``resume_state`` work as in :func:`make_reader`.  The cache, HDFS and
-    object-store options, ``piece_indices``, adaptive scheduling and the
-    ingest plane raise (``'auto'`` reads local files synchronously, in FIFO
+    ``predicate``, ``filters``, ``shard_seed``, ``piece_indices``, the pools
+    and ``resume_state`` work as in :func:`make_reader`.  The cache, HDFS
+    and object-store options, adaptive scheduling and the ingest plane raise (``'auto'`` reads local files synchronously, in FIFO
     order).
     """
     from petastorm_tpu_torch.arrow_reader_worker import (ArrowReaderWorker, ArrowResultConverter,
                                                          BatchWorkerArgs)
     _refuse_outside_slice(scheduling, ingest, cache_type, storage_options=storage_options,
-                          filesystem=filesystem, piece_indices=piece_indices,
+                          filesystem=filesystem,
                           cache_settings=dict(cache_location=cache_location,
                                               cache_size_limit=cache_size_limit,
                                               cache_row_size_estimate=cache_row_size_estimate,
                                               cache_extra_settings=cache_extra_settings),
                           hdfs_driver=hdfs_driver, ingest_window=ingest_window)
-    cur_shard, shard_count = _default_shard(cur_shard, shard_count)
     fs, path_or_paths = get_filesystem_and_path_or_paths(dataset_url_or_urls)
     paths = path_or_paths if isinstance(path_or_paths, list) else [path_or_paths]
     stored_schema = infer_or_load_unischema(fs, paths[0])
@@ -308,8 +337,9 @@ def make_batch_reader(dataset_url_or_urls,
     pieces = []
     for p in paths:
         pieces.extend(load_row_groups(fs, p))
-    pieces, local_indices = _local_pieces(fs, pieces, filters, stored_schema, cur_shard,
-                                          shard_count, shard_seed, dataset_url_or_urls)
+    pieces, local_indices, cur_shard, shard_count = _local_pieces(
+        fs, pieces, filters, stored_schema, cur_shard, shard_count, shard_seed,
+        dataset_url_or_urls, piece_indices, resume_state)
     worker_args = BatchWorkerArgs(pieces=pieces, schema_view=schema_view,
                                   transform_spec=transform_spec, predicate=predicate,
                                   cache=NullCache(), read_retries=read_retries,
@@ -369,20 +399,23 @@ class Reader(object):
         #: True once iteration reached the end of the stream.
         self.last_row_consumed = False
         start_epoch = start_cursor = 0
+        prologue = ()
         if resume_state is not None:
-            if resume_state.get('prologue'):
-                raise ValueError('resume_state carries an elastic-reshard prologue: resharding '
-                                 'is %s (ROADMAP.md, Queue A item 6)' % _LATER)
             self._check_resume_topology(resume_state)
             # a checkpoint round trip may turn ints into 0-d arrays
             start_epoch = int(resume_state.get('epoch') or 0)
             start_cursor = int(resume_state.get('cursor') or 0)
             if resume_state.get('seed') is not None:
                 self._seed = int(resume_state['seed'])
-        self._start(start_epoch, start_cursor)
+            prologue = [(int(i), int(p)) for i, p in (resume_state.get('prologue') or ())]
+            if any(p for _, p in prologue):
+                raise ValueError('resume_state\'s prologue names row-drop partitions, which '
+                                 'are %s (%s)' % (_LATER, _HOST_PLANES))
+        self._start(start_epoch, start_cursor, prologue)
 
-    def _start(self, start_epoch=0, start_cursor=0):
-        """A ventilator from the given position, and the pool started on it."""
+    def _start(self, start_epoch=0, start_cursor=0, prologue=()):
+        """A ventilator from the given position (its prologue first), and
+        the pool started on it."""
         # Small in-flight window: bounds memory and keeps tokens tight, never
         # starves the workers.
         window = max(2 * self._pool.workers_count, 4)
@@ -392,8 +425,8 @@ class Reader(object):
             iterations=self._num_epochs,
             randomize_item_order=self._shuffle_items,
             random_seed=self._seed,
-            max_ventilation_queue_size=max(1, min(len(self._items), window)),
-            start_epoch=start_epoch, start_cursor=start_cursor)
+            max_ventilation_queue_size=max(1, min(len(self._items) + len(prologue), window)),
+            start_epoch=start_epoch, start_cursor=start_cursor, prologue_items=prologue)
         self._pool.start(self._worker_class, self._worker_args, ventilator=self._ventilator)
 
     def _check_resume_topology(self, resume_state):
@@ -416,14 +449,19 @@ class Reader(object):
             mismatched.append('shuffle')
         if mismatched:
             raise ValueError('resume_state was taken under a different topology (mismatched: '
-                             '%s); resuming it here would skip or re-read data'
+                             '%s); resuming it here would skip or re-read data.  To move a '
+                             'checkpoint across shard counts, map every shard\'s token through '
+                             'petastorm_tpu_torch.elastic.reshard_reader_states'
                              % ', '.join(mismatched))
 
     def state_dict(self):
         """The resume position, at row-group granularity, with the shard
         topology (``cur_shard``, ``shard_count``, ``num_global_pieces``,
         ``drop_partitions``, ``shard_seed``, ``shard_scheme``, ``shuffle``)
-        and ``num_epochs``: the JAX reader's token.
+        and ``num_epochs``: the JAX reader's token.  While prologue work is
+        unprocessed it carries ``'prologue'``, a list of ``(global piece
+        index, 0)`` pairs.  The tokens of every shard reshard onto another
+        shard count through :mod:`petastorm_tpu_torch.elastic`.
 
         For an exact snapshot call :meth:`drain_in_flight` first (a loader's
         ``state_dict`` does): results published and not yet consumed are

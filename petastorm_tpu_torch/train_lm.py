@@ -144,6 +144,31 @@ def _all_reduce_grads(params):
         offset += g.numel()
 
 
+def _train_step(model, opt, positions, token_count, params=None):
+    """The example's step: the model on ``batch['tokens']`` at
+    ``positions``, the next-token cross-entropy summed and divided by
+    ``token_count`` (the global batch's tokens), AdamW.  With ``params``
+    (every rank's parameters, a group up) each gradient is summed over the
+    world before the update and the returned loss is all-reduced."""
+    def train_step(batch):
+        with torch.profiler.record_function('train_step'):
+            logits = model(batch['tokens'].long(), positions=positions)
+            per_tok = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                      batch['labels'].long().reshape(-1), reduction='none')
+            loss = per_tok.sum() / token_count
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            if params is not None:
+                _all_reduce_grads(params)
+            opt.step()
+            loss = loss.detach()
+            if params is not None:
+                loss = loss.clone()      # the all-reduce writes in place
+                dist.all_reduce(loss)
+            return loss
+    return train_step
+
+
 def _mesh_for(strategy, world):
     """jax_example.py:58-61: ``{'data': world // sp, 'seq': sp}`` with ``sp``
     2 for ring and Ulysses on an even world, else 1."""
@@ -227,23 +252,7 @@ def train_lm(dataset_url, steps, batch_size=8, strategy='flash', device=None, cu
         reader_kwargs = dict(cur_shard=data_index, shard_count=data_size)
         loader_kwargs['sharding'] = mesh_lib.NamedSharding(mesh, ('data', 'seq'))
 
-    def train_step(batch):
-        with torch.profiler.record_function('train_step'):
-            logits = model(batch['tokens'].long(), positions=positions)
-            per_tok = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                                      batch['labels'].long().reshape(-1), reduction='none')
-            loss = per_tok.sum() / token_count
-            opt.zero_grad(set_to_none=True)
-            loss.backward()
-            if grouped:
-                _all_reduce_grads(params)
-            opt.step()
-            loss = loss.detach()
-            if grouped:
-                loss = loss.clone()      # the all-reduce writes in place
-                dist.all_reduce(loss)
-            return loss
-
+    train_step = _train_step(model, opt, positions, token_count, params if grouped else None)
     graphed = graphs.resolve(cuda_graph, device)
     step_fn = graphs.StepGraph(train_step) if graphed else train_step
     warmup = min(2, steps - 1)

@@ -1,7 +1,7 @@
 """Zero-copy shared-memory result plane for the process pool.
 
-Counterpart of ``petastorm_tpu/workers_pool/shm_plane.py`` (its data-service
-probes and metrics registry are not ported).  A result that crosses the
+Counterpart of ``petastorm_tpu/workers_pool/shm_plane.py`` (its metrics
+registry is not ported).  A result that crosses the
 process boundary on the byte path is serialized, copied into a ZeroMQ send
 buffer, copied again on receipt and deserialized.  Here the writer puts the
 payload in a ``/dev/shm`` segment and ships only a descriptor (segment name,
@@ -26,7 +26,9 @@ A full arena makes :meth:`ShmArena.allocate` return ``None``: the caller
 degrades that message to the byte path and never blocks.
 :meth:`ShmArena.stop` unlinks every slab, so a clean shutdown leaves no
 ``/dev/shm`` entry; :func:`sweep_orphans` reclaims the slabs of a writer
-that died without unlinking them.  Slabs carry this package's own prefix
+that died without unlinking them.  The data service's clients prove that
+they share a worker's ``/dev/shm`` with a probe file (:func:`make_probe`,
+:func:`probe_exists`, :func:`remove_probe`).  Slabs carry this package's own prefix
 (:data:`PREFIX`), so neither package's sweep touches the other's.
 """
 
@@ -491,3 +493,49 @@ def residue(pids=None):
         return {f for f in entries if f.startswith(PREFIX)}
     prefixes = tuple('%s%d-' % (PREFIX, pid) for pid in pids)
     return {f for f in entries if f.startswith(prefixes)}
+
+
+# -- same-host probes (the data service) ---------------------------------------
+
+#: name -> held fd of this process's live probes (the shared flock on the fd
+#: is the liveness signal a sweep from another pid namespace respects)
+_PROBE_FDS = {}
+
+
+def make_probe():
+    """Create a data-service client's same-host probe file; returns its name.
+
+    A worker that can see the name shares this process's ``/dev/shm``, the
+    one signal that both the zero-copy mapping and the header release work
+    between the two processes.  The fd stays open with a shared flock until
+    :func:`remove_probe`."""
+    name = '%s%d-probe-%s' % (PREFIX, os.getpid(), uuid.uuid4().hex[:6])
+    fd = os.open(os.path.join(SHM_DIR, name), os.O_CREAT | os.O_EXCL | os.O_WRONLY, 0o600)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_SH | fcntl.LOCK_NB)
+    except OSError:
+        pass
+    _PROBE_FDS[name] = fd
+    return name
+
+
+def probe_exists(name):
+    """A worker's check of a client's probe (held to this package's prefix,
+    so that a subscribe cannot make the worker stat arbitrary paths)."""
+    return (isinstance(name, str) and name.startswith(PREFIX) and '/' not in name
+            and os.path.exists(os.path.join(SHM_DIR, name)))
+
+
+def remove_probe(name):
+    if not name:
+        return
+    fd = _PROBE_FDS.pop(name, None)
+    if fd is not None:
+        try:
+            os.close(fd)
+        except OSError:
+            pass
+    try:
+        os.unlink(os.path.join(SHM_DIR, name))
+    except OSError:
+        pass

@@ -11,9 +11,15 @@ resume token ``{epoch, cursor, seed}``; the per-epoch order is a pure
 function of ``(seed, epoch)``, so a ventilator started from a token
 dispatches exactly the work the interrupted one had left.  ``pause`` and
 :meth:`~ConcurrentVentilator.has_deliverable_outstanding` let a reader
-drain its in-flight work for an exact snapshot.  The adaptive scheduler
-and elastic-reshard prologues are not ported (the reader refuses a token
-that carries a ``prologue``).
+drain its in-flight work for an exact snapshot.
+
+An elastic reshard (:mod:`petastorm_tpu_torch.elastic`) hands a reader
+**prologue** work: items inherited from another shard topology, dispatched
+once, in list order and unshuffled, before any epoch.  Prologue positions
+are negative (``index - len(prologue)``), so the oldest-position math
+orders them before every epoch position, and a token taken while prologue
+work is outstanding carries the items not yet processed under
+``'prologue'``.  The adaptive scheduler is not ported.
 """
 
 import threading
@@ -40,13 +46,16 @@ class ConcurrentVentilator(object):
 
     ``iterations=None`` repeats forever.  ``randomize_item_order`` reshuffles
     deterministically every epoch from ``(random_seed, epoch)``.
-    ``start_epoch``/``start_cursor`` start from a resume token's position.
+    ``start_epoch``/``start_cursor`` start from a resume token's position;
+    ``prologue_items`` go out first, before that position's epoch.  With no
+    ``items`` the ventilator serves its prologue and completes.
     Backpressure, pause and stop all wait on one condition variable.
     """
 
     def __init__(self, ventilate_fn, items, iterations=1,
                  randomize_item_order=False, random_seed=0,
-                 max_ventilation_queue_size=None, start_epoch=0, start_cursor=0):
+                 max_ventilation_queue_size=None, start_epoch=0, start_cursor=0,
+                 prologue_items=None):
         if iterations is not None and iterations <= 0:
             raise ValueError('iterations must be positive or None, got %r' % (iterations,))
         self._ventilate_fn = ventilate_fn
@@ -55,6 +64,10 @@ class ConcurrentVentilator(object):
         self._randomize = randomize_item_order
         self._seed = random_seed if random_seed is not None else 0
         self._max_inflight = max_ventilation_queue_size or max(2 * len(self._items), 1)
+        self._prologue = [tuple(item) for item in (prologue_items or ())]
+        self._prologue_cursor = 0   # the next prologue item to dispatch
+        self._start_epoch = int(start_epoch)   # the token's position while prologue runs
+        self._start_cursor = int(start_cursor)
         self._epoch = int(start_epoch)
         self._cursor = int(start_cursor)   # the next index of the epoch to dispatch
         self._inflight_count = 0
@@ -70,29 +83,60 @@ class ConcurrentVentilator(object):
         self._thread = threading.Thread(target=self._run, name='ventilator', daemon=True)
         self._thread.start()
 
+    def _dispatch(self, pick):
+        """Wait until dispatch is allowed, then take the next item with
+        ``pick()`` (which returns ``(position, item)``, or None once its
+        part of the work is done) and hand it over; False when stopped.
+        Waiting and picking under one lock is what makes pause() exact:
+        once it returns, an item is outstanding or undispatched."""
+        with self._cond:
+            while not self._stop_requested and \
+                    (self._paused or self._inflight_count >= self._max_inflight):
+                self._cond.wait()
+            if self._stop_requested:
+                return False
+            picked = pick()
+            if picked is None:
+                return None
+            position, item = picked
+            self._outstanding[position] = item
+            self._inflight_count += 1
+        self._ventilate_fn(VentilatedItem(position, item))
+        return True
+
+    def _pick_prologue(self):
+        j, P = self._prologue_cursor, len(self._prologue)
+        if j >= P:
+            return None
+        self._prologue_cursor = j + 1
+        return j - P, self._prologue[j]
+
     def _run(self):
+        while True:
+            out = self._dispatch(self._pick_prologue)
+            if out is False:
+                return
+            if out is None:
+                break
         n = len(self._items)
         while n and (self._iterations is None or self._epoch < self._iterations):
             order = epoch_order(self._items, self._randomize, self._seed, self._epoch)
+
+            def pick():
+                if self._cursor >= n:
+                    return None
+                position = self._epoch * n + self._cursor
+                self._cursor += 1
+                return position, order[self._cursor - 1]
             while True:
-                with self._cond:
-                    if self._cursor >= n:
-                        self._epoch += 1
-                        self._cursor = 0
-                        break
-                    # waiting and picking under one lock is what makes pause()
-                    # exact: once it returns, an item is outstanding or undispatched
-                    while not self._stop_requested and \
-                            (self._paused or self._inflight_count >= self._max_inflight):
-                        self._cond.wait()
-                    if self._stop_requested:
-                        return
-                    position = self._epoch * n + self._cursor
-                    item = order[self._cursor]
-                    self._cursor += 1
-                    self._outstanding[position] = item
-                    self._inflight_count += 1
-                self._ventilate_fn(VentilatedItem(position, item))
+                out = self._dispatch(pick)
+                if out is False:
+                    return
+                if out is None:
+                    break
+            with self._cond:
+                self._epoch += 1
+                self._cursor = 0
         self._completed.set()
 
     def processed_item(self, position=None):
@@ -104,20 +148,32 @@ class ConcurrentVentilator(object):
             self._cond.notify_all()
 
     def _oldest_undispatched_position(self):
-        """Caller holds the lock: the global position dispatched next, the
-        one copy of the position math the token and the drain share."""
+        """Caller holds the lock: the global position dispatched next
+        (negative inside the prologue), the one copy of the position math
+        the token and the drain share."""
+        P = len(self._prologue)
+        if self._prologue_cursor < P:
+            return self._prologue_cursor - P
         return self._epoch * max(len(self._items), 1) + self._cursor
 
     def state_dict(self):
         """The resume token: the oldest position not fully processed.
 
         Items after it that completed are read again on resume unless the
-        caller drained them first (``Reader.drain_in_flight``)."""
+        caller drained them first (``Reader.drain_in_flight``).  While
+        prologue work is not fully processed the token also carries
+        ``'prologue'``, the prologue items from the oldest unprocessed one
+        on, and its epoch and cursor are the position the regular epochs
+        start from."""
         n = max(len(self._items), 1)
+        P = len(self._prologue)
         with self._cond:
             oldest = self._oldest_undispatched_position()
             if self._outstanding:
                 oldest = min(oldest, min(self._outstanding))
+            if oldest < 0:
+                return {'epoch': self._start_epoch, 'cursor': self._start_cursor,
+                        'seed': self._seed, 'prologue': list(self._prologue[oldest + P:])}
         return {'epoch': oldest // n, 'cursor': oldest % n, 'seed': self._seed}
 
     def pause(self):

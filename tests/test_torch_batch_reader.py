@@ -278,7 +278,7 @@ def test_predicate_fields_absent_raise(plain):
 
 
 def test_options_outside_the_slice_raise(plain):
-    for kwargs in (dict(cache_type='local-disk'), dict(piece_indices=[0]),
+    for kwargs in (dict(cache_type='local-disk'),
                    dict(scheduling='adaptive'), dict(ingest='plane'),
                    dict(storage_options={'a': 1})):
         with pytest.raises(ValueError, match='ROADMAP.md, Queue A item'):

@@ -54,7 +54,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                    'hello_world.py', 'spark/spark_dataset_converter.py',
                    'spark/converter_example.py', 'ngram.py', 'ngram_sensor.py',
                    'gpu/residency.py', 'random.py', 'parallel/__init__.py', 'parallel/mesh.py',
-                   'parallel/ring_attention.py'):
+                   'parallel/ring_attention.py', 'elastic.py', 'service/__init__.py',
+                   'service/backoff.py', 'service/config.py', 'service/dispatcher.py',
+                   'service/worker.py', 'service/client.py'):
         assert os.path.join(PACKAGE, module) in sources, module
     offenders = []
     for path in sources:
@@ -211,6 +213,41 @@ def test_decode_workers_load_neither_torch_nor_jax(tmp_path):
     ''').replace('FORBIDDEN', repr(FORBIDDEN))
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, '-c', script, str(payload)], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert 'LOADED []' in proc.stdout
+
+
+def test_a_service_worker_reads_a_split_loading_neither_torch_nor_jax(tmp_path):
+    """A data-service worker process (the worker module, the service package,
+    its config and dispatcher) reads a split through ``piece_indices``, on
+    the thread pool, and serializes its chunks, with neither torch nor JAX
+    in ``sys.modules``."""
+    sys.path.insert(0, os.path.join(REPO, 'tests'))
+    from torch_plane_common import write_dataset
+    url = write_dataset('file://%s' % (tmp_path / 'ds'), rows=32)
+    script = textwrap.dedent('''
+        import queue, sys
+        import petastorm_tpu_torch.service
+        from petastorm_tpu_torch.service.config import ServiceConfig
+        from petastorm_tpu_torch.service.dispatcher import Dispatcher
+        from petastorm_tpu_torch.service.worker import Worker, deserialize_chunk
+        job = ServiceConfig(sys.argv[1], reader_kwargs={'workers_count': 2}).job_info(2)
+        assert Dispatcher(ServiceConfig(sys.argv[1]))._num_pieces == 4
+        decode_in, decode_out = queue.Queue(), queue.Queue()
+        decode_in.put({'split_id': 1, 'indices': [2, 3], 'consumer': 0, 'attempt': 0})
+        decode_in.put(None)
+        Worker('tcp://127.0.0.1:1')._decode_loop(job, decode_in, decode_out)
+        items = [decode_out.get_nowait() for _ in range(decode_out.qsize())]
+        assert [i[0] for i in items] == ['chunk', 'chunk', 'end'] and items[-1][3] == 16, items
+        ids = [int(v) for i in items[:2] for v in deserialize_chunk(*i[3:5])['id']]
+        assert sorted(ids) == list(range(16, 32)), ids
+        loaded = sorted(m for m in sys.modules if m.split('.')[0] in FORBIDDEN + ('torch',))
+        print('LOADED', loaded)
+        sys.exit(1 if loaded else 0)
+    ''').replace('FORBIDDEN', repr(FORBIDDEN))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, '-c', script, url], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert 'LOADED []' in proc.stdout

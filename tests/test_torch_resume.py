@@ -537,8 +537,12 @@ def test_a_foreign_topology_token_raises(url):
     for key, value in (('num_global_pieces', 3), ('shuffle', False), ('shard_count', 2)):
         with pytest.raises(ValueError, match='topology'):
             _reader(url, resume_state=dict(state, **{key: value}))
-    with pytest.raises(ValueError, match='prologue'):
-        _reader(url, resume_state=dict(state, prologue=[(0, 0)]))
+    # a prologue (an elastic reshard's) is read first, then the epochs
+    with _reader(url, resume_state=dict(state, prologue=[(3, 0), (0, 0)])) as reader:
+        rows = [int(r.id) for r in reader]
+    with _reader(url) as reader:
+        full = [int(r.id) for r in reader]
+    assert rows == list(range(24, 32)) + list(range(8)) + full
 
 
 # -- what the snapshot takes from the card ------------------------------------
