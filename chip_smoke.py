@@ -4749,20 +4749,24 @@ def svc_stop_workers(procs):
         raise AssertionError('service workers exited badly: %s' % failed)
 
 
-def svc_epoch(fa, loader, label):
+def svc_epoch(fa, loader, label, step=None, on_step=None):
     """One epoch of graphed ViT-S/16 steps from ``loader`` (the counts set
-    to 0 just before): the row ids, losses, images/s, step ms and host ms
-    in the step call after ``SVC_WARMUP`` steps, the data wait per step and
-    ``stall_pct``."""
+    to 0 just before; ``step`` a ``vit_resident_step()`` to reuse, else a
+    new one; ``on_step(i)`` called after step ``i``): the row ids, losses,
+    images/s, step ms and host ms in the step call after ``SVC_WARMUP``
+    steps, the data wait per step and ``stall_pct``, and each step's wall
+    and data wait."""
     from petastorm_tpu_torch.benchmark.stall_profiler import StallMonitor
-    step = vit_resident_step()
+    step = step or vit_resident_step()
     monitor = StallMonitor(warmup_steps=SVC_WARMUP)
-    ids, losses = [], []
+    ids, losses, walls, waits = [], [], [], []
     host_s = 0.0
     torch.cuda.synchronize()
     reset_counts(fa)
     with loader:
+        t_end = time.perf_counter()
         for i, batch in enumerate(monitor.wrap(loader)):
+            waits.append(time.perf_counter() - t_end)
             if i == SVC_WARMUP:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -4774,6 +4778,10 @@ def svc_epoch(fa, loader, label):
             losses.append(step(batch))
             if i >= SVC_WARMUP:
                 host_s += time.perf_counter() - t1
+            if on_step is not None:
+                on_step(i)
+            walls.append(time.perf_counter() - t_end)
+            t_end = time.perf_counter()
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
     launches, by_design = counts(fa)
@@ -4792,7 +4800,13 @@ def svc_epoch(fa, loader, label):
             'images_per_s': timed * BATCH / elapsed, 'step_ms': 1e3 * elapsed / timed,
             'host_ms': 1e3 * host_s / timed,
             'data_wait_ms': 1e3 * monitor.wait_time / monitor.steps if monitor.steps else None,
-            'stall_pct': report['stall_pct']}
+            'stall_pct': report['stall_pct'], 'walls_ms': [1e3 * w for w in walls],
+            'waits_ms': [1e3 * w for w in waits]}
+
+
+def svc_brief(run):
+    """An epoch's numbers without its per-step lists."""
+    return {k: v for k, v in run.items() if k not in ('losses', 'walls_ms', 'waits_ms')}
 
 
 def svc_counted(stats):
@@ -4885,8 +4899,7 @@ def phase_service(fa, tmp):
     result['stats'] = {k: stats[k] for k in ('num_splits', 'done', 'failed', 'lease_churn')}
     result['stats'].update(workers=workers, client=stats['client'],
                            stages=stats['stages'], residue=sorted(residue))
-    log('service: %s' % json.dumps({k: v for k, v in result['service'].items()
-                                    if k != 'losses'}))
+    log('service: %s' % json.dumps(svc_brief(result['service'])))
     log('service stats: %s' % json.dumps(result['stats']))
     if residue or stats['done'] != stats['num_splits'] or stats['failed']:
         raise AssertionError('service: residue %s, %d of %d splits done, %d failed'
@@ -4898,8 +4911,7 @@ def phase_service(fa, tmp):
                                workers_count=SVC_LOCAL_THREADS)
     result['local'] = svc_epoch(fa, DataLoader(local_reader, batch_size=BATCH, device='cuda'),
                                 'service local')
-    log('service local: %s' % json.dumps({k: v for k, v in result['local'].items()
-                                          if k != 'losses'}))
+    log('service local: %s' % json.dumps(svc_brief(result['local'])))
     # ordered: one worker, one decode thread, and no hash in the transform
     resize = ResizeImages({'image': (224, 224)})
     config = ServiceConfig(url, rowgroups_per_split=2, lease_ttl_s=2.0, reader_kwargs=dict(
@@ -4927,9 +4939,438 @@ def phase_service(fa, tmp):
     if not equal or not in_order:
         raise AssertionError('service ordered: equal %s, in order %s' % (equal, in_order))
     result['ordered'] = {'batches': len(got), 'equal': equal}
-    SUMMARY['service'] = {k: ({m: n for m, n in v.items() if m != 'losses'}
-                              if k in ('service', 'local') else v) for k, v in result.items()}
+    SUMMARY['service'] = {k: (svc_brief(v) if k in ('service', 'local') else v)
+                          for k, v in result.items()}
     return result['service']['launches']
+
+
+# -- the shared fleet: tenancy, the ledger, the cache plane and the cluster cache --
+
+FLEET_SHM_QUOTA = 1 << 20   # vit-b's shm quota: below one chunk (64 x 224 x 224 x 3 B)
+FLEET_KILL_AFTER = 8        # the dispatcher is SIGKILLed after this many steps
+FLEET_WORKER_SCRIPT = r"""
+import sys
+from petastorm_tpu_torch.service.worker import Worker
+worker = Worker(sys.argv[1], cache_plane_dir=sys.argv[2] or None)
+worker.install_signal_handlers()
+worker.run()
+assert 'torch' not in sys.modules and 'jax' not in sys.modules, 'a worker loaded torch or jax'
+"""
+FLEET_DISPATCHER_SCRIPT = r"""
+import json, pickle, sys
+from petastorm_tpu_torch.service.config import ServiceConfig
+from petastorm_tpu_torch.service.dispatcher import Dispatcher
+
+
+class Grants(object):
+    # each lease grant of this dispatcher, one JSON line in argv[3]
+    def __init__(self, path):
+        self._f = open(path, 'a')
+
+    def instant(self, name, **args):
+        if name == 'service/lease_grant':
+            self._f.write(json.dumps(args) + '\n')
+            self._f.flush()
+
+
+with open(sys.argv[2], 'rb') as f:
+    config = ServiceConfig(**pickle.load(f))
+dispatcher = Dispatcher(config, bind=sys.argv[1], trace_recorder=Grants(sys.argv[3])).start()
+print('READY', flush=True)
+dispatcher.join()
+assert 'torch' not in sys.modules and 'jax' not in sys.modules, 'the dispatcher loaded torch'
+"""
+
+
+def fleet_spawn_worker(addr, plane_dir=None):
+    """A decode worker process (no card, no torch) over its own plane."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES='', PYTHONHASHSEED='0',
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    return subprocess.Popen([sys.executable, '-c', FLEET_WORKER_SCRIPT, addr, plane_dir or ''],
+                            env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+
+
+def fleet_spawn_dispatcher(addr, config_path, grants_path):
+    """A dispatcher in a process of its own (no card, no torch) on ``addr``;
+    returns once it serves."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES='',
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.Popen([sys.executable, '-c', FLEET_DISPATCHER_SCRIPT, addr, config_path,
+                             grants_path], env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE)
+    if proc.stdout.readline().strip() != b'READY':
+        proc.kill()
+        raise AssertionError('fleet: the dispatcher did not start: %s'
+                             % proc.stderr.read().decode()[-2000:])
+    return proc
+
+
+def fleet_rpc(addr, request):
+    """One dispatcher RPC from this process."""
+    import zmq
+    from petastorm_tpu_torch.service.worker import _Rpc
+    context = zmq.Context()
+    try:
+        rpc = _Rpc(context, addr, timeout_s=10.0)
+        try:
+            return rpc.call(request)
+        finally:
+            rpc.close()
+    finally:
+        context.term()
+
+
+def fleet_wait(what, predicate, timeout_s=120):
+    deadline = time.monotonic() + timeout_s
+    while not predicate():
+        if time.monotonic() > deadline:
+            raise AssertionError('fleet: timed out waiting for %s' % what)
+        time.sleep(0.05)
+
+
+def fleet_labels(batch):
+    """The label from ``noun_id`` on the host (a stable hash), for the runs
+    whose reader transform is the declared resize alone."""
+    import zlib
+    batch = dict(batch)
+    names = batch.pop('noun_id')
+    batch['label'] = np.array([zlib.crc32(str(n).encode()) % 1000 for n in names], np.int32)
+    return batch
+
+
+def fleet_grant_ratio(grants, tenants):
+    """Grants of the first tenant over the second's while both still had
+    pending splits: the grant sequence (``grants``, a tenant a grant) up to
+    the first split count (``tenants``: {tenant: splits}) reached."""
+    counts, ratio = collections.Counter(), None
+    for tenant in grants:
+        counts[tenant] += 1
+        if counts[tenant] >= tenants[tenant]:
+            break
+    names = list(tenants)
+    if counts[names[1]]:
+        ratio = counts[names[0]] / counts[names[1]]
+    return ratio, dict(counts)
+
+
+class FleetGrantLog(object):
+    """A dispatcher's trace recorder keeping each grant's tenant."""
+
+    def __init__(self, split_base):
+        self._split_base = split_base
+        self.tenants = []
+
+    def instant(self, name, **args):
+        if name == 'service/lease_grant':
+            self.tenants.append('vit-a' if args['split'] < self._split_base else 'vit-b')
+
+
+def fleet_two_tenants(fa, url, fields, transform):
+    """(a) Two tenants on one fleet: 'vit-a' (weight 2) is the dispatcher's
+    own job, 'vit-b' (weight 1, an shm quota below one chunk) joins through
+    ``register_tenant_job``; two worker processes of 2 threads serve both,
+    and two ViT-S/16 models take their steps in turns here."""
+    from petastorm_tpu_torch.benchmark.stall_profiler import StallMonitor
+    from petastorm_tpu_torch.service import (Dispatcher, ServiceConfig, ServiceDataLoader,
+                                             register_tenant_job)
+    reader_kwargs = dict(schema_fields=fields, transform_spec=transform,
+                         workers_count=SVC_THREADS)
+    config = ServiceConfig(url, rowgroups_per_split=2, lease_ttl_s=2.0, tenant='vit-a',
+                           tenant_weight=2.0, reader_kwargs=reader_kwargs)
+    splits = SVC_ROWS // 64 // 2
+    grant_log = FleetGrantLog(splits)
+    with Dispatcher(config, trace_recorder=grant_log) as dispatcher:
+        job = register_tenant_job(dispatcher.addr, 'vit-b', dict(
+            dataset_url=url, rowgroups_per_split=2, lease_ttl_s=2.0,
+            reader_kwargs=reader_kwargs, tenant_shm_quota_bytes=FLEET_SHM_QUOTA), weight=1.0)
+        if job['split_base'] != splits:
+            raise AssertionError('fleet: vit-b registered at %s' % job['split_base'])
+        procs = [fleet_spawn_worker(dispatcher.addr) for _ in range(SVC_WORKERS)]
+        try:
+            fleet_wait('the workers to register',
+                       lambda: len(dispatcher._op_stats({})['workers']) == SVC_WORKERS)
+            tenants = ('vit-a', 'vit-b')
+            steps = {t: vit_resident_step() for t in tenants}
+            monitors = {t: StallMonitor(warmup_steps=SVC_WARMUP) for t in tenants}
+            ids = {t: [] for t in tenants}
+            losses = {t: [] for t in tenants}
+            with contextlib.ExitStack() as stack:
+                loaders = {t: stack.enter_context(ServiceDataLoader(
+                    dispatcher.addr, batch_size=BATCH, consumer=0, tenant=t, device='cuda'))
+                    for t in tenants}
+                its = {t: iter(monitors[t].wrap(loaders[t])) for t in tenants}
+                torch.cuda.synchronize()
+                reset_counts(fa)
+                for i in range(SVC_ROWS // BATCH):
+                    if i == SVC_WARMUP:
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                    for t in tenants:   # the steps alternate between the tenants
+                        batch = next(its[t])
+                        ids[t].append(batch['id'].clone())
+                        losses[t].append(steps[t](batch))
+                for t in tenants:
+                    if next(its[t], None) is not None:
+                        raise AssertionError('fleet: %s delivered more than an epoch' % t)
+                torch.cuda.synchronize()
+                elapsed = time.perf_counter() - t0
+                launches, by_design = counts(fa)
+            clients = {t: loaders[t].reader.diagnostics for t in tenants}
+            # the workers' counters reach the dispatcher on their heartbeats
+            chunks = SVC_ROWS // 64
+            try:
+                fleet_wait('the workers\' quota counters', lambda: dispatcher._op_stats({})[
+                    'shm']['shm_quota_degraded'] >= clients['vit-b']['byte_chunks'], 10)
+            except AssertionError:
+                pass   # printed as it stands
+            stats = dispatcher._op_stats({})
+        finally:
+            svc_stop_workers(procs)
+    total_steps = 2 * (SVC_ROWS // BATCH)
+    check_launches('fleet two tenants', launches, by_design,
+                   {name: 12 * total_steps for name in launches})
+    timed = SVC_ROWS // BATCH - SVC_WARMUP
+    out = {'launches': launches, 'elapsed_s': elapsed}
+    for t in tenants:
+        got = [int(i) for i in torch.cat(ids[t]).cpu()]
+        if sorted(got) != list(range(SVC_ROWS)):
+            raise AssertionError('fleet %s: rows lost or repeated (%d, %d distinct)'
+                                 % (t, len(got), len(set(got))))
+        values = [float(v) for v in torch.stack(losses[t]).cpu()]
+        if not np.all(np.isfinite(values)):
+            raise AssertionError('fleet %s: non-finite loss %s' % (t, values))
+        report = monitors[t].report()
+        out[t] = {'images_per_s': timed * BATCH / elapsed,
+                  'data_wait_ms': 1e3 * monitors[t].wait_time / monitors[t].steps,
+                  'stall_pct': report['stall_pct'], 'grants': stats['tenants'][t]['grants'],
+                  'shm_chunks': clients[t]['shm_chunks'],
+                  'byte_chunks': clients[t]['byte_chunks']}
+    out['images_per_s'] = 2 * timed * BATCH / elapsed
+    out['step_ms'] = 1e3 * elapsed / (2 * timed)
+    out['grant_ratio_while_both_pending'], out['grants_then'] = fleet_grant_ratio(
+        grant_log.tenants, {'vit-a': splits, 'vit-b': splits})
+    out['shm_quota_degraded'] = stats['shm']['shm_quota_degraded']
+    if (out['vit-a']['shm_chunks'], out['vit-a']['byte_chunks']) != (chunks, 0) \
+            or (out['vit-b']['shm_chunks'], out['vit-b']['byte_chunks']) != (0, chunks):
+        raise AssertionError('fleet: vit-a shm/byte %d/%d and vit-b %d/%d chunks; expected '
+                             'vit-a all shm, vit-b all bytes'
+                             % (out['vit-a']['shm_chunks'], out['vit-a']['byte_chunks'],
+                                out['vit-b']['shm_chunks'], out['vit-b']['byte_chunks']))
+    return out
+
+
+def fleet_restart(fa, url, fields, transform, tmp):
+    """(b) The dispatcher, a process of its own on a fixed address with a
+    ledger, SIGKILLed after ``FLEET_KILL_AFTER`` of 24 steps and started again
+    on the same address and ledger; two worker processes of 2 threads."""
+    import socket
+    from petastorm_tpu_torch.service import ServiceDataLoader
+    from petastorm_tpu_torch.service.ledger import DispatcherLedger
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        addr = 'tcp://127.0.0.1:%d' % sock.getsockname()[1]
+    ledger_path = os.path.join(tmp, 'fleet_ledger.json')
+    config_path = os.path.join(tmp, 'fleet_config.pkl')
+    grants = [os.path.join(tmp, 'fleet_grants_%d.jsonl' % i) for i in range(2)]
+    with open(config_path, 'wb') as f:
+        # drain_timeout_s: a split whose complete was lost in the outage is
+        # decoded again for no consumer, and its worker's drain waits it out
+        pickle.dump(dict(dataset_url=url, rowgroups_per_split=2, lease_ttl_s=2.0,
+                         ledger_path=ledger_path, drain_timeout_s=5.0,
+                         reader_kwargs=dict(schema_fields=fields, transform_spec=transform,
+                                            workers_count=SVC_THREADS)), f)
+    procs, dispatchers, killed = [], [], {}
+    try:
+        dispatchers.append(fleet_spawn_dispatcher(addr, config_path, grants[0]))
+        procs = [fleet_spawn_worker(addr) for _ in range(SVC_WORKERS)]
+        fleet_wait('the workers to register',
+                   lambda: len(fleet_rpc(addr, {'op': 'stats'})['workers']) == SVC_WORKERS)
+        loader = ServiceDataLoader(addr, batch_size=BATCH, consumer=0, rpc_timeout_s=2.0,
+                                   device='cuda')
+
+        def on_step(i):
+            if i + 1 != FLEET_KILL_AFTER:
+                return
+            ledger = DispatcherLedger(ledger_path)
+            killed['journal_lines'] = ledger.journal_lines()
+            dispatchers[0].kill()
+            dispatchers[0].wait(timeout=30)
+            killed['t'] = time.perf_counter()
+            killed['done'] = sorted(i for i, (code, _) in enumerate(ledger.load()['splits'])
+                                    if code == 'd')
+            dispatchers.append(fleet_spawn_dispatcher(addr, config_path, grants[1]))
+            killed['restart_s'] = time.perf_counter() - killed['t']
+        run = svc_epoch(fa, loader, 'fleet restart', on_step=on_step)
+        # the client's epoch ends at its last ack, a hop before the worker's
+        # complete; a complete sent while no dispatcher served is lost (its
+        # split is not done, and may be decoded again for no one)
+        try:
+            fleet_wait('every split done', lambda: fleet_rpc(addr, {'op': 'stats'})['done']
+                       == SVC_ROWS // 64 // 2, 5)
+        except AssertionError:
+            pass   # reported as it stands
+        stats = fleet_rpc(addr, {'op': 'stats'})
+    finally:
+        for proc in dispatchers:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        if procs:
+            svc_stop_workers(procs)
+    with open(grants[1]) as f:
+        after = [json.loads(line) for line in f]
+    released = sorted({g['split'] for g in after})
+    again = sorted(set(released) & set(killed['done']))
+    if again:
+        raise AssertionError('fleet restart: splits %s, done before the kill, leased again'
+                             % again)
+    if stats['control_plane']['ledger_restores'] != 1 or stats['failed']:
+        raise AssertionError('fleet restart: restores %d, %d splits failed'
+                             % (stats['control_plane']['ledger_restores'], stats['failed']))
+    # the longest step from the one the kill and the restart ran in
+    gap = FLEET_KILL_AFTER - 1 + int(np.argmax(run['walls_ms'][FLEET_KILL_AFTER - 1:]))
+    run.update(done_at_kill=killed['done'], journal_lines_at_kill=killed['journal_lines'],
+               restart_s=killed['restart_s'], released_after=released,
+               adopted=stats['control_plane']['ledger_adoptions'],
+               requeued=stats['control_plane']['ledger_requeues'],
+               lease_churn=stats['lease_churn'], done_after=stats['done'], gap_step=gap,
+               gap_wall_ms=run['walls_ms'][gap], gap_wait_ms=run['waits_ms'][gap])
+    return run
+
+
+def fleet_plane_bytes(root):
+    total = 0
+    for where, _, files in os.walk(root):
+        total += sum(os.path.getsize(os.path.join(where, f)) for f in files
+                     if f.endswith(('.cpe', '.pkl')))
+    return total
+
+
+def fleet_cache(fa, url, fields, tmp):
+    """(c) The cache plane and the cluster cache, workers of one decode
+    thread: epoch 1 one worker over plane A (every piece a miss); epoch 2 that
+    worker and a cold joiner over plane B (no miss: the warm worker's pieces
+    from its plane, the joiner's fetched from it).  Beside them the local
+    loader over ``make_reader(cache_type='plane')`` twice (the second all
+    hits) and once over ``'local-disk'``."""
+    import shutil
+
+    from petastorm_tpu_torch.cache_plane.plane import default_ram_dir
+    from petastorm_tpu_torch.gpu import DataLoader
+    from petastorm_tpu_torch.reader import make_reader
+    from petastorm_tpu_torch.service import Dispatcher, ServiceConfig, ServiceDataLoader
+    from petastorm_tpu_torch.transform import ResizeImages
+    resize = ResizeImages({'image': (224, 224)})
+    planes = {name: os.path.join(tmp, 'fleet_plane_' + name) for name in ('A', 'B', 'local')}
+    disk_dir = os.path.join(tmp, 'fleet_local_disk')
+    config = ServiceConfig(url, rowgroups_per_split=2, lease_ttl_s=2.0, cache_plane=True,
+                           cache_plane_dir=planes['A'],
+                           reader_kwargs=dict(schema_fields=fields, transform_spec=resize,
+                                              workers_count=1))
+    step = vit_resident_step()
+    runs, counters = {}, {}
+    pieces = SVC_ROWS // 64
+    try:
+        for epoch, worker_planes in (('cluster 1', ['A']), ('cluster 2', ['A', 'B'])):
+            with Dispatcher(config) as dispatcher:
+                procs = [fleet_spawn_worker(dispatcher.addr, planes[p]) for p in worker_planes]
+                try:
+                    def ready():
+                        stats = dispatcher._op_stats({})
+                        cluster = stats['cluster_cache']
+                        return len(stats['workers']) == len(worker_planes) \
+                            and cluster['directory_workers'] == len(worker_planes) \
+                            and (epoch == 'cluster 1' or (
+                                cluster['piece_map'] and cluster['directory_digests'] >= pieces))
+                    fleet_wait('the %s fleet\'s cluster identities' % epoch, ready)
+                    loader = ServiceDataLoader(dispatcher.addr, batch_size=BATCH, consumer=0,
+                                               device='cuda', transform_fn=fleet_labels)
+                    runs[epoch] = svc_epoch(fa, loader, 'fleet ' + epoch, step=step)
+                    keys = ('cache_hits', 'cache_misses', 'cache_degraded', 'cache_remote_hits',
+                            'cache_peer_fills', 'cache_peer_degraded', 'splits_decoded')
+
+                    def settled():
+                        workers = dispatcher._op_stats({})['workers']
+                        total = sum(int(w.get('splits_decoded', 0)) for w in workers.values())
+                        return total >= pieces // 2
+                    fleet_wait('the %s workers\' counters' % epoch, settled, 30)
+                    stats = dispatcher._op_stats({})
+                    counters[epoch] = {wid: {k: w.get(k) for k in keys}
+                                       for wid, w in stats['workers'].items()}
+                    counters[epoch]['directory'] = stats['cluster_cache']
+                finally:
+                    svc_stop_workers(procs)
+        for epoch in ('local plane 1', 'local plane 2', 'local disk'):
+            cache = dict(cache_type='plane', cache_location=planes['local']) \
+                if 'plane' in epoch else dict(cache_type='local-disk', cache_location=disk_dir)
+            reader = make_reader(url, num_epochs=1, schema_fields=fields, transform_spec=resize,
+                                 columnar_decode=True, workers_count=1, **cache)
+            runs[epoch] = svc_epoch(fa, DataLoader(reader, batch_size=BATCH, device='cuda',
+                                                   transform_fn=fleet_labels),
+                                    'fleet ' + epoch, step=step)
+            counters[epoch] = {k: v for k, v in reader.diagnostics.items()
+                               if k.startswith('cache_')}
+        sizes = {name: fleet_plane_bytes(path) for name, path in planes.items()}
+        sizes['local disk'] = fleet_plane_bytes(disk_dir)
+    finally:
+        for path in planes.values():   # the hot tiers live in /dev/shm
+            shutil.rmtree(default_ram_dir(path), ignore_errors=True)
+    one = [w for k, w in counters['cluster 1'].items() if k != 'directory']
+    two = [w for k, w in counters['cluster 2'].items() if k != 'directory']
+    total = {k: sum(int(w[k] or 0) for w in two)
+             for k in ('cache_misses', 'cache_remote_hits', 'cache_peer_fills')}
+    if sum(int(w['cache_misses'] or 0) for w in one) != pieces:
+        raise AssertionError('fleet cluster 1: misses %s, expected %d' % (one, pieces))
+    if total['cache_misses'] or total['cache_remote_hits'] != pieces:
+        raise AssertionError('fleet cluster 2: %s; expected no miss and %d pieces served from '
+                             'the planes' % (two, pieces))
+    if counters['local plane 2'].get('cache_hits') != pieces \
+            or counters['local plane 2'].get('cache_misses'):
+        raise AssertionError('fleet local plane 2: %s; expected %d hits'
+                             % (counters['local plane 2'], pieces))
+    return runs, counters, sizes
+
+
+def phase_service_fleet(fa, tmp):
+    """The data service's shared fleet feeding ViT-S/16 on the card, on
+    ``phase_service``'s 1,536-row JPEG store: (a) two tenants on one fleet,
+    (b) the dispatcher SIGKILLed and restarted from its ledger, (c) the cache
+    plane and the cluster cache (:func:`fleet_two_tenants`,
+    :func:`fleet_restart`, :func:`fleet_cache`).  Every run is one epoch of
+    24 graphed steps at full width, batch 64, timed after 4: every row id
+    once, finite losses, 12 launches of each flash kernel a step."""
+    from petastorm_tpu_torch.train import make_transform
+    url = 'file://' + os.path.join(tmp, 'service_jpeg')
+    fields = ['id', 'image', 'noun_id']
+    transform = make_transform((224, 224))
+    launches = collections.Counter()
+    t0 = time.monotonic()
+    tenants = fleet_two_tenants(fa, url, fields, transform)
+    launches.update(tenants['launches'])
+    log('fleet two tenants (%.1f s): %s' % (time.monotonic() - t0, json.dumps(
+        {k: v for k, v in tenants.items() if k != 'launches'})))
+    t0 = time.monotonic()
+    restart = fleet_restart(fa, url, fields, transform, tmp)
+    launches.update(restart['launches'])
+    log('fleet restart (%.1f s): %s' % (time.monotonic() - t0, json.dumps(svc_brief(restart))))
+    log('fleet restart steps: walls ms %s, waits ms %s'
+        % ([round(w, 2) for w in restart['walls_ms']], [round(w, 2) for w in restart['waits_ms']]))
+    t0 = time.monotonic()
+    runs, counters, sizes = fleet_cache(fa, url, fields, tmp)
+    for run in runs.values():
+        launches.update(run['launches'])
+    cold = runs['cluster 1']['images_per_s']
+    log('fleet cache (%.1f s): %s' % (time.monotonic() - t0, json.dumps(
+        {epoch: dict(svc_brief(run), vs_cold=run['images_per_s'] / cold)
+         for epoch, run in runs.items()})))
+    log('fleet cache counters: %s' % json.dumps(counters))
+    log('fleet cache bytes on disk: %s' % json.dumps(sizes))
+    SUMMARY['service_fleet'] = {
+        'two_tenants': {k: v for k, v in tenants.items() if k != 'launches'},
+        'restart': svc_brief(restart),
+        'cache': {epoch: svc_brief(run) for epoch, run in runs.items()},
+        'cache_counters': counters, 'plane_bytes': sizes}
+    return dict(launches)
 
 
 def main():
@@ -4986,7 +5427,8 @@ def main():
                             ('vit_recipe', lambda: phase_vit_recipe(fa, url)),
                             ('sequence_parallel', lambda: phase_sequence_parallel(fa, tmp)),
                             ('multi_device', lambda: phase_multi_device(fa, url, tmp)),
-                            ('service', lambda: phase_service(fa, tmp))):
+                            ('service', lambda: phase_service(fa, tmp)),
+                            ('service_fleet', lambda: phase_service_fleet(fa, tmp))):
             t0 = time.monotonic()
             paths[name] = phase()
             log('phase %s: %.1f s' % (name, time.monotonic() - t0))
@@ -4995,7 +5437,7 @@ def main():
                 'search': paths['search'], 'vit_recipe': paths['vit_recipe'],
                 'sequence_parallel': paths['sequence_parallel'],
                 'multi_device': paths['multi_device'], 'elastic': paths['elastic'],
-                'service': paths['service']}
+                'service': paths['service'], 'service_fleet': paths['service_fleet']}
     kernels = [dict(name=name, route='cuda', design=MAIN_PATH_DESIGN[name],
                     source=SOURCES[name], replaces=REPLACES[name],
                     launches=sum(path[name] for path in launches.values()),

@@ -1,8 +1,9 @@
 """Row-group result cache interface.
 
-Counterpart of ``petastorm_tpu/cache.py``.  This slice carries only the
-null cache (``cache_type='null'``); the local-disk cache and the cache
-plane are later slices.
+Counterpart of ``petastorm_tpu/cache.py``: the interface and the null
+cache (``cache_type='null'``).  The local-disk cache is
+:mod:`petastorm_tpu_torch.local_disk_cache`, the cache plane
+:mod:`petastorm_tpu_torch.cache_plane`.
 """
 
 

@@ -43,6 +43,13 @@ class LocalFilesystem(object):
             os.remove(path)
 
     @staticmethod
+    def info(path):
+        """fsspec's local ``info`` keys the cache plane's fingerprint reads."""
+        st = os.stat(path)
+        return {'name': path, 'size': st.st_size, 'mtime': st.st_mtime,
+                'type': 'directory' if os.path.isdir(path) else 'file'}
+
+    @staticmethod
     def find(path):
         """Every file below ``path``, recursively, sorted."""
         found = []

@@ -26,8 +26,11 @@ the store has no petastorm metadata).  Both take a ``predicate``
 Cut to what the port holds.  Each option outside it raises ``ValueError``
 naming the ``ROADMAP.md`` item that brings it: the thread, process and
 dummy pools, FIFO scheduling, synchronous reads of local files (no ingest
-plane, no HDFS or object store), the null cache; no ``rowgroup_selector``
-or row-drop partitions.  Both readers take the reference's
+plane, no HDFS or object store); no ``rowgroup_selector`` or row-drop
+partitions.  ``cache_type`` takes the null cache, ``'local-disk'``
+(:mod:`~petastorm_tpu_torch.local_disk_cache`) and ``'plane'`` (the cache
+plane, :mod:`~petastorm_tpu_torch.cache_plane`, keyed by the data files' and
+the decode's fingerprint), as the JAX readers do.  Both readers take the reference's
 argument names: an option outside the slice raises ``ValueError`` (never a
 ``TypeError``) only when it asks for more than its default.  With neither
 ``cur_shard`` nor ``shard_count`` given, a ``torch.distributed`` group of
@@ -71,21 +74,14 @@ def _make_pool(reader_pool_type, workers_count, results_queue_size, zmq_copy_buf
                      % (reader_pool_type,))
 
 
-def _refuse_outside_slice(scheduling, ingest, cache_type, storage_options=None,
-                          filesystem=None, rowgroup_selector=None,
-                          shuffle_row_drop_partitions=1, cache_settings=None,
+def _refuse_outside_slice(scheduling, ingest, storage_options=None, filesystem=None,
+                          rowgroup_selector=None, shuffle_row_drop_partitions=1,
                           hdfs_driver='libhdfs', ingest_window=None):
     """Raise for each option whose plane the port does not hold yet.
     ``'auto'`` scheduling and ingest read local files in FIFO order
-    synchronously, as the JAX package's do there; the cache settings
-    (``cache_settings``: ``{name: value}``), ``hdfs_driver`` and
+    synchronously, as the JAX package's do there; ``hdfs_driver`` and
     ``ingest_window`` raise only when they differ from their defaults."""
     refused = []
-    cache_set = sorted(name for name, value in (cache_settings or {}).items()
-                       if value is not None)
-    if cache_set:
-        refused.append('%s: only the null cache is in this slice; the local-disk cache and '
-                       'the cache plane are %s' % ('/'.join(cache_set), _LATER))
     if hdfs_driver != 'libhdfs':
         refused.append('hdfs_driver=%r: HDFS is %s' % (hdfs_driver, _LATER))
     if ingest_window is not None:
@@ -97,9 +93,6 @@ def _refuse_outside_slice(scheduling, ingest, cache_type, storage_options=None,
     if ingest not in ('off', 'auto'):
         refused.append('ingest=%r: only synchronous reads are in this slice; the async ingest '
                        'plane is %s' % (ingest, _LATER))
-    if cache_type not in (None, 'null', 'none'):
-        refused.append("cache_type=%r: only 'null' is in this slice; the local-disk cache and "
-                       'the cache plane are %s' % (cache_type, _LATER))
     if storage_options is not None or filesystem is not None:
         refused.append('storage_options/filesystem: only local files are in this slice; HDFS '
                        'and object stores are %s' % _LATER)
@@ -110,6 +103,37 @@ def _refuse_outside_slice(scheduling, ingest, cache_type, storage_options=None,
                        % (shuffle_row_drop_partitions, _LATER))
     if refused:
         raise ValueError('; '.join(refused) + ' (%s)' % _HOST_PLANES)
+
+
+def _resolve_cache(cache_type, cache_location, cache_size_limit, cache_row_size_estimate,
+                   cache_extra_settings, plane_context=''):
+    """The workers' result cache: the null cache, the local-disk cache, the
+    cache plane (keyed under ``plane_context``) or a ``CacheBase`` given."""
+    if cache_type in (None, 'null', 'none'):
+        return NullCache()
+    if cache_type == 'local-disk':
+        from petastorm_tpu_torch.local_disk_cache import LocalDiskCache
+        return LocalDiskCache(cache_location, cache_size_limit, cache_row_size_estimate,
+                              **(cache_extra_settings or {}))
+    if cache_type == 'plane':
+        from petastorm_tpu_torch.cache_plane import PlaneCache
+        return PlaneCache(cache_location, cache_size_limit, context=plane_context,
+                          **(cache_extra_settings or {}))
+    if hasattr(cache_type, 'get'):
+        return cache_type
+    raise ValueError("cache_type must be 'null', 'local-disk' or 'plane', got %r"
+                     % (cache_type,))
+
+
+def _plane_context(cache_type, fs, pieces, schema_view, predicate, transform_spec):
+    """The cache plane's key prefix: the data files' identity (path, size,
+    mtime) and the decode's (columns, predicate, transform).  Computed only
+    for ``cache_type='plane'``: it stats every distinct data file."""
+    if cache_type != 'plane':
+        return ''
+    from petastorm_tpu_torch.cache_plane import dataset_fingerprint, spec_token
+    return '%s:%s' % (dataset_fingerprint(fs, {p.path for p in pieces}),
+                      spec_token(schema_view, predicate, transform_spec))
 
 
 def _shard_indices(num_pieces, cur_shard, shard_count, shard_seed=None):
@@ -244,13 +268,9 @@ def make_reader(dataset_url,
     the store's row-group order) instead of a shard; ``cur_shard``,
     ``shard_count`` and ``filters`` do not compose with it.
     """
-    _refuse_outside_slice(scheduling, ingest, cache_type, storage_options=storage_options,
+    _refuse_outside_slice(scheduling, ingest, storage_options=storage_options,
                           filesystem=filesystem, rowgroup_selector=rowgroup_selector,
                           shuffle_row_drop_partitions=shuffle_row_drop_partitions,
-                          cache_settings=dict(cache_location=cache_location,
-                                              cache_size_limit=cache_size_limit,
-                                              cache_row_size_estimate=cache_row_size_estimate,
-                                              cache_extra_settings=cache_extra_settings),
                           hdfs_driver=hdfs_driver, ingest_window=ingest_window)
     ngram = schema_fields if isinstance(schema_fields, NGram) else None
     if columnar_decode and ngram is not None:
@@ -267,9 +287,13 @@ def make_reader(dataset_url,
     pieces, local_indices, cur_shard, shard_count = _local_pieces(
         fs, load_row_groups(fs, path), filters, stored_schema, cur_shard, shard_count,
         shard_seed, dataset_url, piece_indices, resume_state)
+    cache = _resolve_cache(cache_type, cache_location, cache_size_limit, cache_row_size_estimate,
+                           cache_extra_settings,
+                           plane_context=_plane_context(cache_type, fs, pieces, schema_view,
+                                                        predicate, transform_spec))
     worker_args = RowWorkerArgs(
         pieces=pieces, schema_view=schema_view, schema=stored_schema, predicate=predicate,
-        transform_spec=transform_spec, cache=NullCache(), ngram=ngram,
+        transform_spec=transform_spec, cache=cache, ngram=ngram,
         columnar_output=columnar_decode, read_retries=read_retries,
         retry_backoff_s=retry_backoff_s)
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size, zmq_copy_buffers)
@@ -310,20 +334,16 @@ def make_batch_reader(dataset_url_or_urls,
     file's arrow schema; ``schema_fields`` are regex strings;
     ``transform_spec.func`` takes and returns a ``pandas.DataFrame`` (and
     may drop rows: :attr:`Reader.transform_may_change_row_count`).
-    ``predicate``, ``filters``, ``shard_seed``, ``piece_indices``, the pools
-    and ``resume_state`` work as in :func:`make_reader`.  The cache, HDFS
-    and object-store options, adaptive scheduling and the ingest plane raise (``'auto'`` reads local files synchronously, in FIFO
-    order).
+    ``predicate``, ``filters``, ``shard_seed``, ``piece_indices``, the pools,
+    the caches and ``resume_state`` work as in :func:`make_reader`.  HDFS
+    and object-store options, adaptive scheduling and the ingest plane raise
+    (``'auto'`` reads local files synchronously, in FIFO order).
     """
     from petastorm_tpu_torch.arrow_reader_worker import (ArrowReaderWorker, ArrowResultConverter,
                                                          BatchWorkerArgs)
-    _refuse_outside_slice(scheduling, ingest, cache_type, storage_options=storage_options,
-                          filesystem=filesystem,
-                          cache_settings=dict(cache_location=cache_location,
-                                              cache_size_limit=cache_size_limit,
-                                              cache_row_size_estimate=cache_row_size_estimate,
-                                              cache_extra_settings=cache_extra_settings),
-                          hdfs_driver=hdfs_driver, ingest_window=ingest_window)
+    _refuse_outside_slice(scheduling, ingest, storage_options=storage_options,
+                          filesystem=filesystem, hdfs_driver=hdfs_driver,
+                          ingest_window=ingest_window)
     fs, path_or_paths = get_filesystem_and_path_or_paths(dataset_url_or_urls)
     paths = path_or_paths if isinstance(path_or_paths, list) else [path_or_paths]
     stored_schema = infer_or_load_unischema(fs, paths[0])
@@ -340,9 +360,13 @@ def make_batch_reader(dataset_url_or_urls,
     pieces, local_indices, cur_shard, shard_count = _local_pieces(
         fs, pieces, filters, stored_schema, cur_shard, shard_count, shard_seed,
         dataset_url_or_urls, piece_indices, resume_state)
+    cache = _resolve_cache(cache_type, cache_location, cache_size_limit, cache_row_size_estimate,
+                           cache_extra_settings,
+                           plane_context=_plane_context(cache_type, fs, pieces, schema_view,
+                                                        predicate, transform_spec))
     worker_args = BatchWorkerArgs(pieces=pieces, schema_view=schema_view,
                                   transform_spec=transform_spec, predicate=predicate,
-                                  cache=NullCache(), read_retries=read_retries,
+                                  cache=cache, read_retries=read_retries,
                                   retry_backoff_s=retry_backoff_s)
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size, zmq_copy_buffers)
     result_schema = transform_schema(schema_view, transform_spec) \
@@ -390,6 +414,8 @@ class Reader(object):
         self._worker_class = worker_class
         self._pool = pool
         self._worker_args = worker_args
+        #: the workers' result cache (``worker_args.cache``)
+        self._cache = getattr(worker_args, 'cache', None) or NullCache()
         self._items = items
         self._shuffle_items = shuffle_items
         self._num_epochs = num_epochs
@@ -600,16 +626,21 @@ class Reader(object):
 
     @property
     def diagnostics(self):
-        """The pool's counters: the process pool's ``items_processed``,
+        """The pool's counters (the process pool's ``items_processed``,
         ``busy_time``, ``warm_items``, ``warm_busy_time``, ``shm_results``
-        and its ``worker_pids``; empty for the other pools."""
-        return dict(getattr(self._pool, 'diagnostics', {}))
+        and its ``worker_pids``; none for the other pools) and the result
+        cache's (``cache_hits``, ``cache_misses``, ...: this process's view;
+        process-pool children count in their own processes)."""
+        d = dict(getattr(self._pool, 'diagnostics', {}))
+        d.update(getattr(self._cache, 'stats', None) or {})
+        return d
 
     def stop(self):
         self._pool.stop()
 
     def join(self):
         self._pool.join()
+        self._cache.cleanup()
 
     def __enter__(self):
         return self

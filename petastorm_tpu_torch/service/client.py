@@ -1,7 +1,6 @@
 """The data service's client: :class:`ServiceDataLoader`.
 
-Counterpart of ``petastorm_tpu/service/client.py``, cut to its
-single-tenant core.  A peer of :class:`petastorm_tpu_torch.gpu.DataLoader`
+Counterpart of ``petastorm_tpu/service/client.py``.  A peer of :class:`petastorm_tpu_torch.gpu.DataLoader`
 whose reader is the service instead of a local decode pool: the connection
 subscribes to every registered decode worker (rotated by consumer index so
 that hosts spread their first pulls), pulls serialized chunks under
@@ -20,10 +19,18 @@ credit-based backpressure, and commits whole splits:
 
 Resume follows the loaders' contract, ``state_dict()`` -> ``resume_state=``:
 the service part of the token is the set of split ids this consumer
-committed and the partition geometry's fingerprint.  Resuming against a
-fresh service run retires those splits at the dispatcher, and the loader
-restores the residue below a split (partial batches, buffered chunks) as
-the local loaders do.
+committed, its tenant and the partition geometry's fingerprint.  Resuming
+against a fresh service run retires those splits at the dispatcher, and the
+loader restores the residue below a split (partial batches, buffered
+chunks) as the local loaders do.
+
+On a shared fleet, :func:`register_tenant_job` adds a tenant's job to a
+running dispatcher (waiting out an admission refusal with backoff) and
+``ServiceDataLoader(tenant=...)`` consumes it.  The client rides through a
+dispatcher outage: its discovery polls back off and retry, and a dispatcher
+restarted from its ledger serves the rest of the epoch; a split such a
+dispatcher retired before the restart, which this connection holds no token
+for, raises rather than waits.
 """
 
 import logging
@@ -35,24 +42,25 @@ import time
 
 from petastorm_tpu_torch.errors import ServiceError
 from petastorm_tpu_torch.gpu.loader import DataLoader
-from petastorm_tpu_torch.service import backoff
+from petastorm_tpu_torch.service import backoff, tenancy
 from petastorm_tpu_torch.service.worker import _Rpc, deserialize_chunk
 
 logger = logging.getLogger(__name__)
-
-#: Where the service planes this slice refuses are queued.
-_LATER_ITEM = 'ROADMAP.md, Queue A item 7'
 
 
 class _ServiceConnection(object):
     """One consumer's connection: dispatcher RPCs and a DEALER per worker."""
 
     def __init__(self, dispatcher_addr, consumer=None, resume=None, ordered=False,
-                 queue_splits=4, credits=None, rpc_timeout_s=20.0, trace_recorder=None):
+                 queue_splits=4, credits=None, rpc_timeout_s=20.0, trace_recorder=None,
+                 tenant=None):
         import zmq
 
         self._zmq = zmq
         self._dispatcher_addr = dispatcher_addr
+        #: the tenant whose job this connection consumes; None asks for the
+        #: dispatcher's own job
+        self.tenant = None if tenant is None else str(tenant)
         self._context = zmq.Context()
         self._rpc_timeout_s = rpc_timeout_s
         #: a TraceRecorder: each wait for a split is a span in it
@@ -71,10 +79,14 @@ class _ServiceConnection(object):
 
         rpc = _Rpc(self._context, self._dispatcher_addr, timeout_s=self._rpc_timeout_s)
         try:
-            self.job = rpc.call({'op': 'job'})['job']
+            request = {'op': 'job'}
+            if self.tenant is not None:
+                request['tenant'] = self.tenant
+            self.job = rpc.call(request)['job']
         finally:
             rpc.close()
-        self.tenant = str(self.job.get('tenant') or 'default')
+        # the job's own tenant: subscribes and tokens carry it
+        self.tenant = str(self.job.get('tenant') or tenancy.DEFAULT_TENANT)
         if consumer is None:
             consumer = _default_consumer(self.job['num_consumers'])
         if not 0 <= consumer < self.job['num_consumers']:
@@ -86,7 +98,10 @@ class _ServiceConnection(object):
         _check_resume_geometry(resume, self)
         self._credits = int(credits if credits is not None else self.job['credits'])
         self._ordered = bool(ordered)
-        self._my_splits = [i for i in range(self.job['num_splits'])
+        # a tenant's splits start at its split_base; the consumer shard is
+        # over the job's own index
+        base = int(self.job.get('split_base', 0))
+        self._my_splits = [base + i for i in range(self.job['num_splits'])
                            if i % self.job['num_consumers'] == self.consumer]
         # same-host delivery: a probe file in /dev/shm whose sight proves to
         # a worker that its descriptors map here
@@ -202,6 +217,15 @@ class _ServiceConnection(object):
                         raise ServiceError('split(s) %s of consumer %d failed every decode '
                                            'attempt at the dispatcher'
                                            % (sorted(failed)[:5], self.consumer))
+                    stale = set(reply.get('retired_splits') or ()) & remaining
+                    if stale:
+                        # a dispatcher restored from its ledger retired these
+                        # before the restart; they will not stream again
+                        raise ServiceError('split(s) %s of consumer %d were delivered and '
+                                           'retired before this dispatcher restarted (restored '
+                                           'ledger): resume with the matching token, or point '
+                                           'the dispatcher at a fresh ledger_path for a fresh '
+                                           'epoch' % (sorted(stale)[:5], self.consumer))
                     # consumer c starts its pulls at worker c % W
                     if workers:
                         c = self.consumer % len(workers)
@@ -215,6 +239,7 @@ class _ServiceConnection(object):
                         sock.set_hwm(0)
                         sock.connect(addr)
                         sock.send(pickle.dumps({'type': 'subscribe', 'consumer': self.consumer,
+                                                'tenant': self.tenant,
                                                 'credits': self._credits,
                                                 'shm_probe': self._shm_probe}, protocol=4))
                         sockets[addr] = sock
@@ -314,10 +339,47 @@ class _ServiceConnection(object):
                 continue
 
 
-def register_tenant_job(*args, **kwargs):
-    """Tenancy is not in this slice: raises ``ValueError``."""
-    raise ValueError('register_tenant_job: tenancy is a later slice of the port (%s)'
-                     % _LATER_ITEM)
+def register_tenant_job(dispatcher_addr, tenant, config_kwargs, weight=1.0, rpc_timeout_s=20.0,
+                        max_wait_s=120.0):
+    """Register ``tenant``'s job on a running dispatcher: its splits join the
+    fleet's, served by every registered worker under the fair-share
+    schedule.  ``config_kwargs`` are :class:`~petastorm_tpu_torch.service.
+    config.ServiceConfig`'s keywords (``dataset_url`` at least).
+
+    A refusal at the admission cap (``max_tenant_jobs``) carries
+    ``retry_after_s``: this waits it out with jittered backoff for up to
+    ``max_wait_s``, then raises :class:`ServiceError`; any other refusal
+    (the tenant registered already, a bad config) raises at once.  Returns
+    the job's ``job_info`` (``split_base``, ``num_splits``, ...), which a
+    :class:`ServiceDataLoader` with ``tenant=`` consumes."""
+    import zmq
+
+    context = zmq.Context()
+    try:
+        rpc = _Rpc(context, dispatcher_addr, timeout_s=rpc_timeout_s)
+        try:
+            deadline = time.monotonic() + max_wait_s
+            while True:
+                reply = rpc.call({'op': 'register_job', 'tenant': str(tenant),
+                                  'weight': float(weight), 'config': dict(config_kwargs)},
+                                 raw=True)
+                if isinstance(reply, dict) and reply.get('job') is not None:
+                    return reply['job']
+                error = (reply or {}).get('error', 'malformed reply')
+                retry_after = (reply or {}).get('retry_after_s')
+                if retry_after is None:
+                    raise ServiceError('dispatcher %s refused tenant %r job: %s'
+                                       % (dispatcher_addr, tenant, error))
+                delay = backoff.jittered(float(retry_after), 0.25)
+                if time.monotonic() + delay > deadline:
+                    raise ServiceError('dispatcher %s still refusing tenant %r job after %.0fs '
+                                       '(%s): raise max_tenant_jobs or retire a finished job'
+                                       % (dispatcher_addr, tenant, max_wait_s, error))
+                time.sleep(delay)
+        finally:
+            rpc.close()
+    finally:
+        context.term()
 
 
 def _default_consumer(num_consumers):
@@ -423,7 +485,9 @@ class ServiceDataLoader(DataLoader):
             complete.
         queue_splits / credits / rpc_timeout_s: the client's flow control;
             ``credits`` defaults to the job's window.
-        tenant: tenancy is a later slice; anything but None raises.
+        tenant: the tenant whose job to consume on a shared fleet (register
+            it first with :func:`register_tenant_job`); None consumes the
+            dispatcher's own job, or the resume token's tenant's.
 
     Resume tokens round-trip through ``state_dict()``, the committed split
     ids in place of the ventilator's position.
@@ -433,14 +497,15 @@ class ServiceDataLoader(DataLoader):
                  queue_splits=4, credits=None, rpc_timeout_s=20.0, resume_state=None,
                  tenant=None, **kwargs):
         svc = ((resume_state or {}).get('reader') or {}).get('service') or {}
-        if tenant is not None or svc.get('tenant', 'default') != 'default':
-            raise ValueError('tenant=: tenancy is a later slice of the port (%s)' % _LATER_ITEM)
         if svc and consumer is None:
             consumer = svc.get('consumer')
+        if svc and tenant is None:
+            tenant = svc.get('tenant')
         connection = _ServiceConnection(dispatcher_addr, consumer=consumer, resume=svc,
                                         ordered=ordered, queue_splits=queue_splits,
                                         credits=credits, rpc_timeout_s=rpc_timeout_s,
-                                        trace_recorder=kwargs.get('trace_recorder'))
+                                        trace_recorder=kwargs.get('trace_recorder'),
+                                        tenant=tenant)
         try:
             super(ServiceDataLoader, self).__init__(ServiceReader(connection), batch_size,
                                                     resume_state=resume_state, **kwargs)

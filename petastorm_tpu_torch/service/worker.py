@@ -1,11 +1,10 @@
 """Decode worker of the data service: leases splits, decodes them, streams
 chunks to the clients.
 
-Counterpart of ``petastorm_tpu/service/worker.py``, cut to its
-single-tenant core.  Each leased split becomes a short-lived reader over
-exactly that split's row groups (``piece_indices=``): ``make_reader(...,
-columnar_decode=True)`` for a petastorm store, ``make_batch_reader`` for
-plain Parquet.  The port's decode plane (pools, codecs, retries,
+Counterpart of ``petastorm_tpu/service/worker.py``.  Each leased split
+becomes a short-lived reader over exactly that split's row groups
+(``piece_indices=``): ``make_reader(..., columnar_decode=True)`` for a
+petastorm store, ``make_batch_reader`` for plain Parquet.  The port's decode plane (pools, codecs, retries,
 predicates, transforms) runs unchanged, in a process of its own.
 
 Threads:
@@ -33,10 +32,28 @@ the client's whole-split dedupe makes exactly-once.  SIGTERM (through
 the worker hand back the splits it has not started, finish the rest and
 deregister.
 
+One worker serves every tenant of the fleet: a split carries its tenant,
+whose job the worker fetches at its first lease (``job`` RPC) and whose
+reader arguments it reads with; subscriptions and send queues are per
+``(tenant, consumer)``.  A tenant's ``tenant_shm_quota_bytes`` bounds its
+outstanding shm bytes (refunded at the split's ack): past it a chunk takes
+the byte path; its ``tenant_cache_quota_bytes`` bounds what it fills into
+the cache plane: past it its splits decode without the plane.  Neither
+stalls.
+
+With the job's ``cache_plane`` each split reader runs with
+``cache_type='plane'``; with ``cluster_cache`` the worker advertises its
+plane's digests on its heartbeats, streams a split its plane holds whole
+without a reader (``cache_remote_hits``), fetches the entries a peer holds
+from that peer before decoding (``cache_peer_fills``; a failed fetch,
+``cache_peer_degraded``, decodes), and answers its peers' ``fetch``
+messages on its data socket.  ``cache_plane_dir=`` points this worker at a
+plane of its own (co-hosted workers standing for separate hosts).
+
 This module and what it imports load neither torch nor JAX: a worker
 process needs no card.  Not ported here (``ROADMAP.md``, Queue A item 7):
-the chaos hooks, the cache plane and the cluster cache, tenancy and its
-quotas, provenance records.
+the chaos hooks, the workers' span export, provenance records and decision
+records.
 """
 
 import logging
@@ -49,9 +66,13 @@ import traceback
 from collections import deque
 
 import numpy as np
+# Imported with this module, on the importing thread: pyarrow.parquet
+# imported first on a thread that then exits (the cluster cache's identity
+# build) leaves later concurrent row-group reads of the process to crash.
+import pyarrow.parquet  # noqa: F401
 
 from petastorm_tpu_torch.errors import ServiceError, ServiceRpcTimeoutError
-from petastorm_tpu_torch.service import backoff
+from petastorm_tpu_torch.service import backoff, tenancy
 from petastorm_tpu_torch.telemetry.registry import MetricsRegistry
 
 logger = logging.getLogger(__name__)
@@ -75,7 +96,7 @@ class _Rpc(object):
         self._zmq = zmq
         self._context = context
         self._addr = addr
-        self._timeout_s = timeout_s
+        self.timeout_s = timeout_s
         self._socket = None
         self._connect()
 
@@ -87,7 +108,7 @@ class _Rpc(object):
     def call(self, request, timeout_s=None, raw=False):
         """The reply; an error reply raises :class:`ServiceError` unless
         ``raw`` is set."""
-        timeout_s = self._timeout_s if timeout_s is None else timeout_s
+        timeout_s = self.timeout_s if timeout_s is None else timeout_s
         self._socket.send(pickle.dumps(request, protocol=4))
         if not self._socket.poll(int(timeout_s * 1000)):
             self._socket.close(0)
@@ -151,9 +172,13 @@ class Worker(object):
         advertise_host: the host published in place of the bind host; a
             wildcard bind host is unroutable from other machines, and
             without this the worker publishes ``socket.gethostname()``.
+        cache_plane_dir: this worker's cache plane directory in place of the
+            job's (the plane is a host's asset; co-hosted workers standing
+            for separate hosts each take their own).
     """
 
-    def __init__(self, dispatcher_addr, data_bind='tcp://127.0.0.1:*', advertise_host=None):
+    def __init__(self, dispatcher_addr, data_bind='tcp://127.0.0.1:*', advertise_host=None,
+                 cache_plane_dir=None):
         self._dispatcher_addr = dispatcher_addr
         self._data_bind = data_bind
         self._advertise_host = advertise_host
@@ -184,9 +209,41 @@ class Worker(object):
         #: the shm result plane (None when the job or host disables it);
         #: written by the decode thread only
         self._arena = None
-        #: consumer -> True when its subscribe proved it shares /dev/shm
+        #: (tenant, consumer) -> True when its subscribe proved it shares
+        #: /dev/shm
         self._shm_consumers = {}
-        self._reader_factory = None
+        #: the split readers' cache counters, summed
+        self._m_cache = {key: self.metrics.counter(key)
+                         for key in ('cache_hits', 'cache_misses', 'cache_evictions',
+                                     'cache_ram_hits', 'cache_degraded')}
+        #: pieces served from the plane without a reader, entries fetched
+        #: from a peer, and fetches that failed (the split then decodes)
+        self._m_cluster = {key: self.metrics.counter(key)
+                           for key in ('cache_remote_hits', 'cache_peer_fills',
+                                       'cache_peer_degraded')}
+        self._m_serve_hist = self.metrics.histogram('serve_cached_split')
+        #: the cluster cache's state when the job has it (owned by run())
+        self._cluster = None
+        self._cache_plane_dir = cache_plane_dir
+        self._zmq_context = None
+        self._fetcher = None
+        self._default_job = None
+        #: tenant -> its job_info, the default tenant's from the
+        #: registration, the others' fetched at their first lease
+        self._tenant_jobs = {}
+        #: tenant -> its reader factory (datasets differ per job)
+        self._reader_factories = {}
+        #: per-tenant budgets: outstanding shm bytes, refunded at the ack;
+        #: bytes filled into the cache plane
+        self._shm_quota = tenancy.QuotaLedger(label='shm')
+        self._cache_quota = tenancy.QuotaLedger(label='cache')
+        #: (split_id, attempt) -> shm bytes charged, refunded at its ack,
+        #: replay or decode error
+        self._shm_split_bytes = {}
+        #: tenants whose cache budget is spent (for the worker's life)
+        self._cache_over_budget = set()
+        self._m_quota = {key: self.metrics.counter(key)
+                         for key in ('shm_quota_degraded', 'cache_quota_degraded')}
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -259,6 +316,19 @@ class Worker(object):
             reply = rpc.call({'op': 'register_worker', 'data_addr': self.data_addr})
             self.worker_id = reply['worker_id']
             job = reply['job']
+            if self._cache_plane_dir is not None:
+                job = dict(job, cache_plane_dir=self._cache_plane_dir)
+            # a reply later than a lease TTL finds the leases gone anyway:
+            # past it, rebuild the socket and retry (a request in flight
+            # when the dispatcher died gets no reply at all)
+            rpc.timeout_s = min(_DEFAULT_RPC_TIMEOUT_S, max(1.0, float(job['lease_ttl_s'])))
+            # the registration's job is the default tenant's
+            self._adopt_tenant_job(job)
+            self._default_job = job
+            from petastorm_tpu_torch.service import cluster
+            if cluster.enabled(job):
+                self._cluster = cluster.ClusterWorkerState(job)
+            self._zmq_context = context
             if job.get('shm', True) and shm_plane.available():
                 self._arena = shm_plane.ShmArena(
                     capacity_bytes=job.get('shm_capacity_bytes', shm_plane.DEFAULT_CAPACITY_BYTES))
@@ -285,6 +355,48 @@ class Worker(object):
             rpc.close()
             data.close(0)
             context.term()
+
+    # -- the tenants' jobs --------------------------------------------------
+
+    def _adopt_tenant_job(self, job):
+        """Enter one tenant's job_info and arm its quota budgets."""
+        tenant = str(job.get('tenant') or tenancy.DEFAULT_TENANT)
+        self._tenant_jobs[tenant] = job
+        self._shm_quota.set_budget(tenant, job.get('tenant_shm_quota_bytes'))
+        self._cache_quota.set_budget(tenant, job.get('tenant_cache_quota_bytes'))
+        return tenant
+
+    def _job_for(self, split):
+        """The split's tenant's job_info (the default job for a split
+        without a tenant)."""
+        return self._tenant_jobs.get(self._split_tenant(split)) or self._default_job
+
+    def _fetch_tenant_job(self, rpc, tenant):
+        """Fetch and adopt an unknown tenant's job; False when the RPC fails
+        (the caller hands the split back rather than decode it wrong)."""
+        if tenant in self._tenant_jobs:
+            return True
+        try:
+            job = rpc.call({'op': 'job', 'tenant': tenant})['job']
+        except ServiceError as e:
+            logger.warning('job fetch for tenant %r failed: %s', tenant, e)
+            return False
+        if self._cache_plane_dir is not None:
+            job = dict(job, cache_plane_dir=self._cache_plane_dir)
+        self._adopt_tenant_job(job)
+        logger.info('adopted tenant %r job (%s)', tenant, job.get('dataset_url'))
+        return True
+
+    @staticmethod
+    def _split_tenant(split):
+        return str(split.get('tenant') or tenancy.DEFAULT_TENANT)
+
+    def _refund_shm_quota(self, split):
+        """Return a split's outstanding shm bytes to its tenant's budget (its
+        ack came, or its stream was abandoned)."""
+        nbytes = self._shm_split_bytes.pop((int(split['split_id']), int(split['attempt'])), 0)
+        if nbytes:
+            self._shm_quota.refund(self._split_tenant(split), nbytes)
 
     def _count_retry(self, episode):
         """Count one heartbeat retry; an exhausted episode counts one
@@ -319,9 +431,9 @@ class Worker(object):
         hb_retry = None
         draining = False
         drain_deadline = None
-        subscribers = {}      # consumer -> identity
+        subscribers = {}      # (tenant, consumer) -> identity
         credits = {}          # identity -> chunks it may still be sent
-        sendq = {}            # consumer -> deque of (header, payload or None)
+        sendq = {}            # (tenant, consumer) -> deque of (header, payload or None)
         inflight = {}         # split_id -> split, leased and not yet acked
         awaiting_ack = {}     # (split_id, attempt) -> split, streamed
         ack_deadline = {}     # (split_id, attempt) -> monotonic deadline
@@ -334,6 +446,9 @@ class Worker(object):
             split = awaiting_ack.pop(key, None)
             ack_deadline.pop(key, None)
             if split is not None and split['split_id'] not in decoding:
+                # the abandoned stream's shm bytes go back before the
+                # decode charges them again
+                self._refund_shm_quota(split)
                 decoding.add(split['split_id'])
                 decode_in.put(split)
 
@@ -351,30 +466,42 @@ class Worker(object):
                     msg = pickle.loads(raw)
                     kind = msg.get('type')
                     if kind == 'subscribe':
-                        consumer = int(msg['consumer'])
-                        previous = subscribers.get(consumer)
+                        # a subscribe without a tenant is the default tenant's
+                        ckey = (str(msg.get('tenant') or tenancy.DEFAULT_TENANT),
+                                int(msg['consumer']))
+                        previous = subscribers.get(ckey)
                         if previous is not None and previous != identity:
                             # the consumer reconnected under a new identity:
                             # what went to the old one is gone, replay it
                             credits.pop(previous, None)
                             for key in [k for k, s in awaiting_ack.items()
-                                        if s['consumer'] == consumer]:
+                                        if (self._split_tenant(s), s['consumer']) == ckey]:
                                 replay(key)
-                        subscribers[consumer] = identity
+                        subscribers[ckey] = identity
                         credits[identity] = int(msg.get('credits', 8))
                         # the client names a probe file in its /dev/shm:
                         # seeing it proves the two share the plane
-                        self._shm_consumers[consumer] = self._arena is not None \
+                        self._shm_consumers[ckey] = self._arena is not None \
                             and shm_plane.probe_exists(msg.get('shm_probe'))
                     elif kind == 'credit':
                         if identity in credits:
                             credits[identity] += int(msg.get('n', 1))
+                    elif kind == 'fetch':
+                        # a peer asks for one plane entry by digest: answered
+                        # here, outside the credits (a bounded mmap copy)
+                        from petastorm_tpu_torch.service import cluster
+                        state = self._cluster
+                        plane = state.identity.plane if state is not None and state.ready() \
+                            else None
+                        data.send_multipart(cluster.fetch_reply(identity, msg, plane,
+                                                                arena=self._arena))
                     elif kind == 'ack':
                         key = (int(msg['split']), int(msg['attempt']))
                         split = awaiting_ack.pop(key, None)
                         ack_deadline.pop(key, None)
                         if split is not None:
                             inflight.pop(split['split_id'], None)
+                            self._refund_shm_quota(split)
                             try:
                                 rpc.call({'op': 'complete', 'worker_id': self.worker_id,
                                           'split_id': split['split_id'],
@@ -414,27 +541,29 @@ class Worker(object):
                 except queue.Empty:
                     break
                 kind, split = item[0], item[1]
+                ckey = (self._split_tenant(split), split['consumer'])
                 if kind == 'chunk':
                     _, _, seq, tag, payload = item
                     header = {'type': 'chunk', 'split': split['split_id'],
                               'attempt': split['attempt'], 'seq': seq, 'tag': tag}
-                    sendq.setdefault(split['consumer'], deque()).append((header, payload))
+                    sendq.setdefault(ckey, deque()).append((header, payload))
                 elif kind == 'end':
                     _, _, nchunks, nrows = item
                     decoding.discard(split['split_id'])
                     header = {'type': 'end', 'split': split['split_id'],
                               'attempt': split['attempt'], 'chunks': nchunks, 'rows': nrows}
-                    sendq.setdefault(split['consumer'], deque()).append((header, None))
+                    sendq.setdefault(ckey, deque()).append((header, None))
                     key = (split['split_id'], split['attempt'])
                     awaiting_ack[key] = split
                     ack_deadline[key] = time.monotonic() + ack_timeout
                 else:   # a decode error: the lease expires and moves on
                     decoding.discard(split['split_id'])
                     inflight.pop(split['split_id'], None)
+                    self._refund_shm_quota(split)
                     logger.error('decode of split %d failed:\n%s', split['split_id'], item[2])
             # 3. flush the send queues under credit control
-            for consumer, q in sendq.items():
-                identity = subscribers.get(consumer)
+            for ckey, q in sendq.items():
+                identity = subscribers.get(ckey)
                 if identity is None:
                     continue
                 while q:
@@ -451,7 +580,8 @@ class Worker(object):
             # 3b. acks that never came: replay to the current subscriber
             for key in [k for k, d in ack_deadline.items() if now > d]:
                 split = awaiting_ack.get(key)
-                if split is None or subscribers.get(split['consumer']) is None:
+                if split is None or subscribers.get((self._split_tenant(split),
+                                                     split['consumer'])) is None:
                     ack_deadline[key] = now + ack_timeout
                     continue
                 logger.warning('split %d attempt %d un-acked for %.0fs; replaying',
@@ -464,7 +594,19 @@ class Worker(object):
                                'stats': self.heartbeat_stats(), 'held': list(inflight)}
                     if draining:
                         request['draining'] = True
+                    # the cluster cache's advertisement: the digest set when
+                    # it changed, the piece map until the dispatcher has it
+                    sent_pieces = False
+                    if self._cluster is not None:
+                        fields = self._cluster.heartbeat_fields()
+                        sent_pieces = 'piece_digests' in fields
+                        request.update(fields)
                     reply = rpc.call(request)
+                    if self._cluster is not None:
+                        if sent_pieces and reply.get('ok'):
+                            self._cluster.advertised_pieces = True
+                        if reply.get('need_piece_digests'):
+                            self._cluster.advertised_pieces = False
                     if reply.get('drain'):
                         self._drain.set()
                     hb_retry = None
@@ -479,8 +621,16 @@ class Worker(object):
                     # the dispatcher lost this registration: register again
                     try:
                         reply = rpc.call({'op': 'register_worker', 'data_addr': self.data_addr})
+                        logger.warning('re-registered with %s as %s (was %s)',
+                                       self._dispatcher_addr, reply['worker_id'],
+                                       self.worker_id)
                         self.worker_id = reply['worker_id']
+                        if self._cluster is not None:
+                            self._cluster.reset_advertisement()
                         hb_retry = None
+                        # beat at once under the new id: its held claims let
+                        # a dispatcher restored from its ledger adopt the
+                        # leases before they expire
                         next_heartbeat = now
                     except ServiceError:
                         hb_retry = self._count_retry(hb_retry)
@@ -498,30 +648,39 @@ class Worker(object):
                         pass   # the heartbeats stop; the leases expire instead
                     self.drained = True
                     break
-            # 5. lease more work, only for consumers subscribed here; a
-            # draining worker takes nothing new
+            # 5. lease more work, only for the (tenant, consumer) pairs
+            # subscribed here; a draining worker takes nothing new
             if not draining and subscribers and len(inflight) < MAX_INFLIGHT_SPLITS \
                     and now >= next_lease_probe:
                 try:
                     reply = rpc.call({'op': 'lease', 'worker_id': self.worker_id,
-                                      'consumers': sorted(subscribers)})
+                                      'consumers': [list(k) for k in sorted(subscribers)]})
                 except ServiceError:
                     reply = {'wait': True}
                 if reply.get('drain'):
                     self._drain.set()
-                if reply.get('split'):
-                    split = reply['split']
+                split = reply.get('split')
+                if split and reply.get('holders'):
+                    split['holders'] = reply['holders']   # the peer-fill hints
+                if split and self._fetch_tenant_job(rpc, self._split_tenant(split)):
                     inflight[split['split_id']] = split
                     decoding.add(split['split_id'])
                     decode_in.put(split)
                 else:
+                    if split:   # its tenant's job did not come: hand it back
+                        try:
+                            rpc.call({'op': 'release', 'worker_id': self.worker_id,
+                                      'split_id': split['split_id'],
+                                      'attempt': split['attempt']})
+                        except ServiceError:
+                            pass   # the lease expires instead
                     next_lease_probe = now + lease_probe_every
 
     # -- decode --------------------------------------------------------------
 
     def _resolve_factory(self, job):
         """A petastorm store gets the codec reader (columnar output), plain
-        Parquet the batch reader.  Resolved once."""
+        Parquet the batch reader.  Resolved once per tenant."""
         from petastorm_tpu_torch.errors import MetadataError
         from petastorm_tpu_torch.reader import make_batch_reader, make_reader
 
@@ -537,51 +696,185 @@ class Worker(object):
         reader.join()
         return codec_reader
 
+    def _reader_kwargs(self, job):
+        """A split reader's arguments: with the job's ``cache_plane`` it looks
+        each row group up in the plane first (explicit cache settings in
+        ``reader_kwargs`` win); a tenant over its cache budget reads without
+        the plane."""
+        kwargs = dict(job['reader_kwargs'])
+        tenant = str(job.get('tenant') or tenancy.DEFAULT_TENANT)
+        if tenant in self._cache_over_budget and 'cache_type' not in kwargs:
+            self._m_quota['cache_quota_degraded'].inc()
+            return kwargs
+        if job.get('cache_plane') and 'cache_type' not in kwargs:
+            kwargs['cache_type'] = 'plane'
+            kwargs.setdefault('cache_location', job['cache_plane_dir'])
+            kwargs.setdefault('cache_size_limit', job.get('cache_plane_disk_bytes'))
+            extra = dict(kwargs.get('cache_extra_settings') or {})
+            extra.setdefault('ram_bytes', job.get('cache_plane_ram_bytes'))
+            kwargs['cache_extra_settings'] = extra
+        return kwargs
+
     def _serialize_split_chunk(self, split, chunk):
         """``(tag, payload)`` of one chunk: shm descriptors (``b'S'``) for a
-        consumer on this host, else (or when the arena refuses, or the
-        chunk is under the plane's floor) the byte framing."""
+        consumer on this host, else (or when the arena refuses, the chunk is
+        under the plane's floor, or its tenant's shm budget would pass) the
+        byte framing."""
         t0 = time.monotonic()
-        if self._arena is not None and self._shm_consumers.get(split['consumer']):
-            from petastorm_tpu_torch.workers_pool import shm_plane
-            desc = shm_plane.write_columns(self._arena, chunk)
-            if desc is not None:
-                self._m_shm_chunks.inc()
-                self._m_shm_pub_hist.observe(time.monotonic() - t0)
-                return b'S', pickle.dumps(desc, protocol=4)
+        tenant = self._split_tenant(split)
+        if self._arena is not None and self._shm_consumers.get((tenant, split['consumer'])):
+            nbytes = sum(int(getattr(v, 'nbytes', 0)) for v in chunk.values())
+            if not self._shm_quota.charge(tenant, nbytes):
+                self._m_quota['shm_quota_degraded'].inc()
+            else:
+                from petastorm_tpu_torch.workers_pool import shm_plane
+                desc = shm_plane.write_columns(self._arena, chunk)
+                if desc is not None:
+                    key = (int(split['split_id']), int(split['attempt']))
+                    self._shm_split_bytes[key] = self._shm_split_bytes.get(key, 0) + nbytes
+                    self._m_shm_chunks.inc()
+                    self._m_shm_pub_hist.observe(time.monotonic() - t0)
+                    return b'S', pickle.dumps(desc, protocol=4)
+                self._shm_quota.refund(tenant, nbytes)
         tag, payload = serialize_chunk(chunk)
         self._m_byte_chunks.inc()
         self._m_serialize_hist.observe(time.monotonic() - t0)
         return tag, payload
 
+    def _accumulate_cache_stats(self, reader):
+        """Fold one split reader's plane counters (a plane per split: its
+        totals are the split's) into the worker's."""
+        cache = getattr(reader, '_cache', None)
+        stats = getattr(cache, 'stats', None)
+        if not stats:
+            return
+        for key, counter in self._m_cache.items():
+            counter.inc(int(stats.get(key, 0)))
+        plane_metrics = getattr(cache, 'metrics', None)
+        if plane_metrics is not None:
+            self.metrics.merge({'histograms': plane_metrics.snapshot()['histograms']})
+
+    def _cluster_chunks(self, split):
+        """The cluster cache's try at a leased split: fetch from the holders
+        the lease named each entry the local plane misses, then look the
+        whole split up locally.  The chunks, or None when the split cannot be
+        served from the plane (nothing has been emitted then, and the reader
+        path runs, helped by whatever was fetched).  Never raises."""
+        from petastorm_tpu_torch.service import cluster
+        state = self._cluster
+        if state is None or not state.ready():
+            return None
+        identity = state.identity
+        try:
+            indices = split['indices']
+            holders = split.get('holders') or {}
+            filled = []
+            for digest in identity.missing_digests(indices):
+                addrs = holders.get(cluster.cdigest(digest)) or ()
+                if not addrs:
+                    continue   # nobody holds it: a cold decode, no counter
+                if self._fetcher is None:
+                    self._fetcher = cluster.PeerFetcher(self._zmq_context)
+                blob = None
+                for i, addr in enumerate(addrs):
+                    if i:
+                        self._m_retry['retry_attempts'].inc()
+                    blob = self._fetcher.fetch(addr, digest)
+                    if blob is not None:
+                        break
+                if blob is None:
+                    self._m_retry['retry_giveups'].inc()
+                if blob is not None and identity.plane.publish_blob(digest, blob):
+                    self._m_cluster['cache_peer_fills'].inc()
+                    filled.append(digest)
+                else:
+                    self._m_cluster['cache_peer_degraded'].inc()
+            if filled:
+                state.note_published(filled)
+            chunks = identity.serve_chunks(indices)
+            if chunks is not None:
+                self._m_cluster['cache_remote_hits'].inc(len(identity.split_digests(indices)))
+            return chunks
+        except Exception:  # noqa: BLE001 — the cluster cache degrades, never blocks
+            logger.warning('cluster cache: split %s degraded to a direct decode',
+                           split.get('split_id'), exc_info=True)
+            return None
+
+    def _stream(self, split, chunks, decode_out):
+        """Serialize and queue a split's chunks, then its end; its rows."""
+        seq = rows = 0
+        for chunk in chunks:
+            tag, payload = self._serialize_split_chunk(split, chunk)
+            rows += len(next(iter(chunk.values())))
+            decode_out.put(('chunk', split, seq, tag, payload))
+            seq += 1
+        return seq, rows
+
     def _decode_loop(self, job, decode_in, decode_out):
-        while True:
-            split = decode_in.get()
-            if split is None:
-                return
-            t0 = time.monotonic()
-            try:
-                if self._reader_factory is None:
-                    self._reader_factory = self._resolve_factory(job)
-                reader = self._reader_factory(job['dataset_url'], piece_indices=split['indices'],
-                                              num_epochs=1, shuffle_row_groups=False,
-                                              **job['reader_kwargs'])
-                seq = rows = 0
+        try:
+            while True:
+                split = decode_in.get()
+                if split is None:
+                    return
+                self._decode_split(job, split, decode_out)
+        finally:
+            # the fetch sockets die with this thread, before run()'s
+            # context.term(), which would wait on them
+            fetcher, self._fetcher = self._fetcher, None
+            if fetcher is not None:
+                fetcher.close()
+
+    def _decode_split(self, job, split, decode_out):
+        t0 = time.monotonic()
+        try:
+            tenant = self._split_tenant(split)
+            tjob = self._job_for(split) if self._tenant_jobs else job
+            # a split of the registration job's dataset may be served from
+            # the plane without a reader (the cluster identity is of it)
+            chunks = None
+            if tjob.get('dataset_url') == job.get('dataset_url'):
+                chunks = self._cluster_chunks(split)
+            if chunks is not None:
+                seq, rows = self._stream(split, chunks, decode_out)
+                self._m_serve_hist.observe(time.monotonic() - t0)
+            else:
+                factory = self._reader_factories.get(tenant)
+                if factory is None:
+                    factory = self._reader_factories[tenant] = self._resolve_factory(tjob)
+                reader = factory(tjob['dataset_url'], piece_indices=split['indices'],
+                                 num_epochs=1, shuffle_row_groups=False,
+                                 **self._reader_kwargs(tjob))
+                seq = rows = out_bytes = 0
                 with reader:
                     for item in reader:
                         chunk = item._asdict() if hasattr(item, '_asdict') else dict(item)
                         tag, payload = self._serialize_split_chunk(split, chunk)
                         rows += len(next(iter(chunk.values())))
+                        out_bytes += len(payload)
                         decode_out.put(('chunk', split, seq, tag, payload))
                         seq += 1
                 self._m_decode_hist.observe(time.monotonic() - t0)
-                # counted before the split's end is queued: a heartbeat sent
-                # after its client got the split carries it
-                self._m_rows.inc(rows)
-                self._m_splits.inc()
-                decode_out.put(('end', split, seq, rows))
-            except Exception:  # noqa: BLE001 — shipped to the event loop
-                decode_out.put(('error', split, traceback.format_exc()))
+                # the split's chunk bytes stand for what it filled into the
+                # plane; the charge that passes the budget turns the tenant's
+                # later readers plane-less
+                if tjob.get('cache_plane') and tenant not in self._cache_over_budget \
+                        and self._cache_quota.budget(tenant) is not None \
+                        and not self._cache_quota.charge(tenant, out_bytes):
+                    self._cache_over_budget.add(tenant)
+                    logger.warning('tenant %r cache-plane budget exhausted; its readers '
+                                   'decode without the plane', tenant)
+                self._accumulate_cache_stats(reader)
+                if self._cluster is not None and self._cluster.ready() \
+                        and tjob.get('dataset_url') == job.get('dataset_url'):
+                    self._cluster.note_published(
+                        self._cluster.identity.split_digests(split['indices']))
+            # counted before the split's end is queued: a heartbeat sent
+            # after its client got the split carries it
+            self._m_rows.inc(rows)
+            self._m_splits.inc()
+            decode_out.put(('end', split, seq, rows))
+        except Exception:  # noqa: BLE001 — shipped to the event loop
+            decode_out.put(('error', split, traceback.format_exc()))
 
     # -- metrics -------------------------------------------------------------
 
@@ -590,7 +883,7 @@ class Worker(object):
         """This worker's counters, also shipped on every heartbeat."""
         elapsed = (time.monotonic() - self._t_start) if self._t_start else 0.0
         rows = int(self._m_rows.value)
-        return {
+        out = {
             'rows_decoded': rows,
             'splits_decoded': int(self._m_splits.value),
             'rows_per_s': round(rows / elapsed, 1) if elapsed > 0 else 0.0,
@@ -600,8 +893,13 @@ class Worker(object):
             'shm_degraded': int(self._arena.degraded) if self._arena is not None else 0,
             'retry_attempts': int(self._m_retry['retry_attempts'].value),
             'retry_giveups': int(self._m_retry['retry_giveups'].value),
+            'shm_quota_degraded': int(self._m_quota['shm_quota_degraded'].value),
+            'cache_quota_degraded': int(self._m_quota['cache_quota_degraded'].value),
             'draining': bool(self._drain.is_set()),
         }
+        out.update({key: int(c.value) for key, c in self._m_cache.items()})
+        out.update({key: int(c.value) for key, c in self._m_cluster.items()})
+        return out
 
     def heartbeat_stats(self):
         """The heartbeat's payload: :attr:`diagnostics`, the registry's

@@ -2,7 +2,8 @@
 
 Counterpart of ``petastorm_tpu/telemetry/registry.py``, cut to what the
 transfer plane, the loaders, the resident tier and the thread pool use
-(merging across processes, exemplars and Prometheus text are not ported).
+(exemplars and Prometheus text are not ported; :meth:`MetricsRegistry.merge`
+adds another registry's snapshot in).
 Histograms use fixed log2 buckets over microseconds: bucket ``i`` counts
 observations in ``[2**i, 2**(i+1))`` us, and a quantile is the upper bound
 of the bucket it falls in.  The hot path is one lock and one add.
@@ -114,6 +115,20 @@ class MetricsRegistry(object):
                 'histograms': {k: {'counts': list(h.counts), 'sum': h.sum, 'count': h.count}
                                for k, h in self._histograms.items()},
             }
+
+    def merge(self, snapshot):
+        """Add a :meth:`snapshot` of another registry into this one: counters
+        and histograms (bucket by bucket) add, gauges take its values."""
+        for name, value in (snapshot.get('counters') or {}).items():
+            self.counter(name).inc(value)
+        for name, value in (snapshot.get('gauges') or {}).items():
+            self.gauge(name).set(value)
+        for name, hist in (snapshot.get('histograms') or {}).items():
+            mine = self.histogram(name)
+            with self._lock:
+                mine.counts = [a + b for a, b in zip(mine.counts, hist['counts'])]
+                mine.sum += hist['sum']
+                mine.count += hist['count']
 
     def as_dict(self):
         """Flat view: counters and gauges by name, and ``<hist>_count``,

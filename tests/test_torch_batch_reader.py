@@ -278,13 +278,27 @@ def test_predicate_fields_absent_raise(plain):
 
 
 def test_options_outside_the_slice_raise(plain):
-    for kwargs in (dict(cache_type='local-disk'),
-                   dict(scheduling='adaptive'), dict(ingest='plane'),
+    for kwargs in (dict(scheduling='adaptive'), dict(ingest='plane'),
                    dict(storage_options={'a': 1})):
         with pytest.raises(ValueError, match='ROADMAP.md, Queue A item'):
             make_batch_reader(plain, **kwargs)
     with pytest.raises(ValueError, match='regex strings'):
         make_batch_reader(plain, schema_fields=[object()])
+
+
+def test_the_local_disk_cache_serves_the_second_epoch_as_jax(plain, tmp_path):
+    """``cache_type='local-disk'``: the second epoch comes from the cache and
+    equals the first and the JAX reader's under its own cache."""
+    epochs = []
+    for _ in range(2):
+        reader = make_batch_reader(plain, reader_pool_type='dummy', shuffle_row_groups=False,
+                                   cache_type='local-disk', cache_location=str(tmp_path / 'port'))
+        epochs.append(_collect(reader))
+    _, want = _both(plain, {}, dict(cache_type='local-disk',
+                                    cache_location=str(tmp_path / 'jax')))
+    assert reader.diagnostics['cache_hits'] == len(epochs[1]) > 0
+    for got in epochs:
+        _assert_cells_equal(got, want)
 
 
 def test_transform_may_change_row_count(plain, tmp_path):

@@ -10,8 +10,11 @@ alone: lease expiry and the attempt cap at the dispatcher, a failing split
 raising at the client, resume tokens through pickle, a changed geometry
 raising, the shm and byte paths delivering the same, a worker subprocess
 SIGKILLed while it holds a lease (every row once, no ``/dev/shm`` residue
-of its pid), a SIGTERM drain, ``piece_indices`` on both readers, and each
-option outside the slice raising with its ``ROADMAP.md`` item.
+of its pid), a SIGTERM drain, ``piece_indices`` on both readers, the shared
+fleet's options and entry points working (their own files,
+``test_torch_tenancy.py``, ``test_torch_service_ledger.py`` and
+``test_torch_cluster_cache.py``, hold them against JAX), and each option
+outside the slice raising with its ``ROADMAP.md`` item.
 
 Every test that runs the wire runs under a watchdog of its own (a service
 fault fails that test and does not hang the suite); lease TTLs stay at 2 s
@@ -555,24 +558,47 @@ def test_piece_indices_raise_where_jax_does(url, kwargs, match):
 # -- outside the slice ---------------------------------------------------------
 
 @pytest.mark.parametrize('field,value', [
-    ('cache_plane', True), ('cache_plane_dir', '/tmp/plane'), ('cache_plane_ram_bytes', 1),
-    ('cache_plane_disk_bytes', 1), ('cluster_cache', True), ('ledger_path', '/tmp/ledger'),
-    ('tenant', 'other'), ('tenant_weight', 2.0), ('max_tenant_jobs', 2),
-    ('tenant_shm_quota_bytes', 1), ('tenant_cache_quota_bytes', 1), ('autoscale', True),
-    ('autoscale_max_workers', 4), ('scheduling', 'adaptive'), ('ingest', 'plane'),
-    ('heartbeat_interval_s', 1.0), ('max_buffered_chunks', 8), ('max_inflight_splits', 1),
-    ('telemetry_spans', False), ('reader_factory', 'batch_reader')])
+    ('autoscale', True), ('autoscale_max_workers', 4), ('scheduling', 'adaptive'),
+    ('ingest', 'plane'), ('heartbeat_interval_s', 1.0), ('max_buffered_chunks', 8),
+    ('max_inflight_splits', 1), ('telemetry_spans', False), ('reader_factory', 'batch_reader')])
 def test_config_options_outside_the_slice_raise(url, field, value):
     with pytest.raises(ValueError, match='ROADMAP.md, Queue A item 7') as info:
         ServiceConfig(url, **{field: value})
     assert field in str(info.value)
 
 
-def test_tenancy_entry_points_raise(url):
-    with pytest.raises(ValueError, match='ROADMAP.md, Queue A item 7'):
-        register_tenant_job('tcp://127.0.0.1:1', 'other', {'dataset_url': url})
-    with pytest.raises(ValueError, match='ROADMAP.md, Queue A item 7'):
-        ServiceDataLoader('tcp://127.0.0.1:1', BATCH, tenant='other', device='cpu')
+#: the shared fleet's options, each with what it needs beside it
+_FLEET_OPTIONS = {'cache_plane': dict(cache_plane_dir='/tmp/plane'),
+                  'cluster_cache': dict(cache_plane=True, cache_plane_dir='/tmp/plane')}
+
+
+@pytest.mark.parametrize('field,value', [
+    ('cache_plane', True), ('cache_plane_dir', '/tmp/plane'), ('cache_plane_ram_bytes', 1),
+    ('cache_plane_disk_bytes', 1), ('cluster_cache', True), ('ledger_path', '/tmp/ledger'),
+    ('tenant', 'other'), ('tenant_weight', 2.0), ('max_tenant_jobs', 2),
+    ('tenant_shm_quota_bytes', 1), ('tenant_cache_quota_bytes', 1)])
+def test_config_options_of_the_shared_fleet_work_as_jax(url, field, value):
+    kwargs = dict(_FLEET_OPTIONS.get(field, {}), **{field: value})
+    port, ref = ServiceConfig(url, **kwargs), JaxServiceConfig(url, **kwargs)
+    assert getattr(port, field) == getattr(ref, field) == value
+    assert port.job_info(3) == ref.job_info(3)
+    assert port.fingerprint(3) == ref.fingerprint(3)
+
+
+@watched(60)
+def test_tenancy_entry_points_work(url):
+    """``register_tenant_job`` adds a tenant's job to a running dispatcher,
+    and ``ServiceDataLoader(tenant=)`` consumes it; an unknown tenant raises."""
+    config = _config(ServiceConfig, url)
+    with Dispatcher(config) as dispatcher:
+        job = register_tenant_job(dispatcher.addr, 'other',
+                                  {'dataset_url': url, 'rowgroups_per_split': 3})
+        assert (job['tenant'], job['split_base'], job['num_splits']) == ('other', 6, 4)
+        with Worker(dispatcher.addr):
+            loader = ServiceDataLoader(dispatcher.addr, BATCH, tenant='other', device='cpu')
+            assert sorted(_host_ids(loader)) == list(range(ROWS))
+        with pytest.raises(ServiceError, match='unknown tenant'):
+            ServiceDataLoader(dispatcher.addr, BATCH, tenant='nobody', device='cpu')
 
 
 def test_the_default_consumer_is_zero_without_a_group():

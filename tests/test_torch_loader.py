@@ -152,7 +152,34 @@ def test_thread_pool_delivers_the_same_rows(datasets):
 
 def test_unsupported_options_name_the_later_slice(datasets):
     url = datasets['port']
-    for kwargs in (dict(scheduling='adaptive'), dict(ingest='plane'),
-                   dict(cache_type='local-disk')):
+    for kwargs in (dict(scheduling='adaptive'), dict(ingest='plane')):
         with pytest.raises(ValueError, match='later slice'):
             make_reader(url, **kwargs)
+
+
+def test_a_loader_over_the_local_disk_cache_repeats_its_batches(datasets, tmp_path):
+    """``cache_type='local-disk'``: the second epoch's batches come from the
+    cache and equal the first's and the JAX loader's under its own cache."""
+    case = CASES['scalars']
+    epochs = []
+    for _ in range(2):
+        reader = make_reader(datasets['port'], schema_fields=case['fields'],
+                             reader_pool_type='dummy', columnar_decode=True,
+                             shuffle_row_groups=False, cache_type='local-disk',
+                             cache_location=str(tmp_path / 'port'))
+        with DataLoader(reader, 10, drop_last=False, device='cpu') as loader:
+            epochs.append([{k: v.numpy() for k, v in b.items()} for b in loader])
+    assert reader.diagnostics['cache_hits'] == 6
+    reader = jax_make_reader(datasets['port'], schema_fields=case['fields'],
+                             reader_pool_type='dummy', columnar_decode=True,
+                             shuffle_row_groups=False, scheduling='fifo', ingest='off',
+                             cache_type='local-disk', cache_location=str(tmp_path / 'jax'))
+    with JaxDataLoader(reader, 10, drop_last=False) as loader:
+        want = [{k: np.asarray(v) for k, v in b.items()} for b in loader]
+    for got in epochs:
+        assert len(got) == len(want) == 5
+        for g, w in zip(got, want):
+            assert sorted(g) == sorted(w)
+            for key in w:
+                assert g[key].dtype == w[key].dtype, key
+                np.testing.assert_array_equal(g[key], w[key], err_msg=key)

@@ -56,7 +56,10 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                    'gpu/residency.py', 'random.py', 'parallel/__init__.py', 'parallel/mesh.py',
                    'parallel/ring_attention.py', 'elastic.py', 'service/__init__.py',
                    'service/backoff.py', 'service/config.py', 'service/dispatcher.py',
-                   'service/worker.py', 'service/client.py'):
+                   'service/worker.py', 'service/client.py', 'service/tenancy.py',
+                   'service/ledger.py', 'service/cluster.py', 'cache_plane/__init__.py',
+                   'cache_plane/fingerprint.py', 'cache_plane/plane.py',
+                   'local_disk_cache.py'):
         assert os.path.join(PACKAGE, module) in sources, module
     offenders = []
     for path in sources:
@@ -249,6 +252,56 @@ def test_a_service_worker_reads_a_split_loading_neither_torch_nor_jax(tmp_path):
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, '-c', script, url], env=env,
                           capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert 'LOADED []' in proc.stdout
+
+
+def test_the_shared_fleets_worker_side_loads_neither_torch_nor_jax(tmp_path):
+    """What a worker process of a shared fleet imports and runs (the worker
+    with a cache plane of its own and the cluster cache's state, the
+    ledger, tenancy, a dispatcher restored from a ledger) leaves neither
+    torch nor JAX in ``sys.modules``."""
+    sys.path.insert(0, os.path.join(REPO, 'tests'))
+    from torch_plane_common import write_dataset
+    url = write_dataset('file://%s' % (tmp_path / 'ds'), rows=32)
+    script = textwrap.dedent('''
+        import queue, sys
+        import petastorm_tpu_torch.service
+        from petastorm_tpu_torch.service import cluster, tenancy
+        from petastorm_tpu_torch.service.config import ServiceConfig
+        from petastorm_tpu_torch.service.dispatcher import Dispatcher
+        from petastorm_tpu_torch.service.ledger import DispatcherLedger
+        from petastorm_tpu_torch.service.worker import Worker
+        url, tmp = sys.argv[1], sys.argv[2]
+        config = ServiceConfig(url, cache_plane=True, cache_plane_dir=tmp + '/plane',
+                               ledger_path=tmp + '/ledger.json', tenant_shm_quota_bytes=1)
+        job = config.job_info(2)
+        state = cluster.ClusterWorkerState(job)
+        assert state.wait_ready(60) and state.identity.num_pieces == 4
+        worker = Worker('tcp://127.0.0.1:1', cache_plane_dir=tmp + '/plane')
+        decode_in, decode_out = queue.Queue(), queue.Queue()
+        for _ in range(2):   # a miss, then a hit
+            decode_in.put({'split_id': 1, 'indices': [2, 3], 'consumer': 0, 'attempt': 0,
+                           'tenant': 'default'})
+        decode_in.put(None)
+        worker._decode_loop(job, decode_in, decode_out)
+        items = [decode_out.get_nowait() for _ in range(decode_out.qsize())]
+        assert [i[0] for i in items].count('end') == 2, items
+        assert worker.diagnostics['cache_hits'] == 2 and worker.diagnostics['cache_misses'] == 2
+        assert state.identity.missing_digests([2, 3]) == []
+        dispatcher = Dispatcher(config)
+        dispatcher._ledger.release()
+        assert Dispatcher(config).ledger_restores == 1
+        assert tenancy.QuotaLedger().charge('t', 1)
+        loaded = sorted(m for m in sys.modules if m.split('.')[0] in FORBIDDEN + ('torch',))
+        print('LOADED', loaded)
+        sys.exit(1 if loaded else 0)
+    ''').replace('FORBIDDEN', repr(FORBIDDEN))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, '-c', script, url, str(tmp_path)], env=env,
+                          capture_output=True, text=True, timeout=120)
+    from torch_service_common import drop_hot_tiers
+    drop_hot_tiers(tmp_path)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert 'LOADED []' in proc.stdout
 

@@ -11,6 +11,7 @@ order is the JAX loader's at the same seed.
 """
 
 import inspect
+import os
 
 import numpy as np
 import pyarrow as pa
@@ -30,6 +31,7 @@ from petastorm_tpu_torch.transform import TransformSpec
 
 from torch_plane_common import (ROWS, assert_batches_equal, jax_reader, port_reader, to_numpy,
                                 write_dataset)
+from torch_service_common import drop_hot_tiers
 
 
 @pytest.fixture(scope='module')
@@ -139,10 +141,6 @@ def test_make_reader_takes_every_argument_name_of_the_jax_reader():
 
 
 OUTSIDE_THE_SLICE = {
-    'cache_location': dict(cache_location='/tmp/cache'),
-    'cache_size_limit': dict(cache_size_limit=1 << 30),
-    'cache_row_size_estimate': dict(cache_row_size_estimate=1024),
-    'cache_extra_settings': dict(cache_extra_settings={'cleanup': True}),
     'storage_options': dict(storage_options={'anon': True}),
     'filesystem': dict(filesystem=object()),
     'hdfs_driver': dict(hdfs_driver='libhdfs3'),
@@ -157,6 +155,43 @@ def test_an_option_outside_the_slice_names_queue_a_item_7(url, factory, name):
     with pytest.raises(ValueError, match='Queue A item 7') as raised:
         make(url, **OUTSIDE_THE_SLICE[name])
     assert name in str(raised.value)
+
+
+#: the cache options, each with a cache that reads it
+CACHE_OPTIONS = {
+    'cache_location': dict(cache_type='local-disk'),
+    'cache_size_limit': dict(cache_type='plane', cache_size_limit=1 << 30),
+    'cache_row_size_estimate': dict(cache_type='local-disk', cache_row_size_estimate=1024),
+    'cache_extra_settings': dict(cache_type='plane', cache_extra_settings={'cleanup': True}),
+}
+
+
+def _cached_ids(make, url, kwargs):
+    with make(url, reader_pool_type='dummy', shuffle_row_groups=False, **kwargs) as reader:
+        ids = [int(i) for item in reader
+               for i in (item.id.tolist() if reader.batched_output else [item.id])]
+    return ids, reader.diagnostics.get('cache_hits')
+
+
+@pytest.mark.parametrize('factory', ['make_reader', 'make_batch_reader'])
+@pytest.mark.parametrize('name', sorted(CACHE_OPTIONS))
+def test_a_cache_option_works_as_in_jax(url, tmp_path, factory, name):
+    """Two epochs through the cache the option configures: the same rows as
+    JAX's reader under the same option; the second epoch from the cache,
+    unless ``cleanup`` emptied it when the first reader closed."""
+    make, jax_make = ((make_reader, petastorm_tpu.make_reader) if factory == 'make_reader'
+                      else (make_batch_reader, jax_make_batch_reader))
+    kwargs = dict(CACHE_OPTIONS[name], cache_location=str(tmp_path / 'port'))
+    (first, cold), (second, warm) = (_cached_ids(make, url, kwargs) for _ in range(2))
+    ref = dict(kwargs, cache_location=str(tmp_path / 'jax'), scheduling='fifo', ingest='off')
+    want, _ = _cached_ids(jax_make, url, ref)
+    assert first == second == want and sorted(want) == list(range(ROWS))
+    assert cold == 0
+    cleanup = name == 'cache_extra_settings'
+    assert warm == (0 if cleanup else ROWS // 8)
+    left = [f for f in os.listdir(str(tmp_path / 'port')) if f.endswith(('.cpe', '.pkl'))]
+    drop_hot_tiers(tmp_path)
+    assert (not left) if cleanup else left
 
 
 def test_the_defaults_of_those_options_read(url):
