@@ -268,6 +268,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -5373,6 +5374,280 @@ def phase_service_fleet(fa, tmp):
     return dict(launches)
 
 
+# -- the control plane: the autoscaler, the command line, the journal, spans, chaos --
+
+CTL_MAX_EPOCHS = 6      # epochs until three warm workers lived through a whole one, at most
+CTL_MAX_WORKERS = 3
+CTL_CONFIG = dict(autoscale=True, autoscale_min_workers=1, autoscale_max_workers=CTL_MAX_WORKERS,
+                  autoscale_step=1, autoscale_cooldown_s=1.0, autoscale_starve_s=0.3,
+                  autoscale_idle_s=3.0)
+CTL_WORKER_SPANS = ('service/decode_split', 'service/serialize', 'service/shm_publish',
+                    'service/serve_cached_split')
+
+
+def ctl_env():
+    """A child of the control plane's: no card, labels hashed alike, the
+    checkout on its path."""
+    return dict(os.environ, CUDA_VISIBLE_DEVICES='', PYTHONHASHSEED='0',
+                PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+
+
+def ctl_cli(*argv, timeout=60):
+    """One run of ``python -m petastorm_tpu_torch.service.cli``; fails on a
+    non-zero exit."""
+    proc = subprocess.run([sys.executable, '-m', 'petastorm_tpu_torch.service.cli'] + list(argv),
+                          env=ctl_env(), capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError('control: cli %s exited %d: %s'
+                             % (argv[0], proc.returncode, proc.stderr[-2000:]))
+    return proc.stdout
+
+
+class CtlGrants(object):
+    """The dispatcher's trace recorder: each lease grant's worker and time,
+    and each lease expiry's time."""
+
+    def __init__(self):
+        self.grants = []
+        self.expiries = []
+
+    def instant(self, name, **args):
+        if name == 'service/lease_grant':
+            self.grants.append((args['worker'], time.monotonic()))
+        elif name == 'service/lease_expired':
+            self.expiries.append(time.monotonic())
+
+    def between(self, t0, t1):
+        """Grants by worker, and expiries, inside [t0, t1]."""
+        by_worker = collections.Counter(w for w, t in self.grants if t0 <= t <= t1)
+        return dict(sorted(by_worker.items())), sum(1 for t in self.expiries if t0 <= t <= t1)
+
+
+def ctl_fleet(dispatcher, pids):
+    """The live, not draining workers; records each one's pid in ``pids``."""
+    stats = dispatcher._op_stats({})
+    for wid, row in stats['workers'].items():
+        if row.get('pid'):
+            pids[wid] = row['pid']
+    return sorted(wid for wid, row in stats['workers'].items() if not row.get('draining')), stats
+
+
+def ctl_spans(recorder, t_start, t_end, base, splits):
+    """The workers' spans of one epoch's splits (split ids ``base`` ..
+    ``base + splits``) by name, and how many lie outside the client's window
+    [t_start, t_end]."""
+    lo, hi = 1e6 * (t_start - recorder._t0), 1e6 * (t_end - recorder._t0)
+    names, outside = collections.Counter(), 0
+    for ev in recorder.events:
+        if ev['name'] not in CTL_WORKER_SPANS:
+            continue
+        split = int(str(ev.get('args', {}).get('cid', '-1')).split('/')[0])
+        if not base <= split < base + splits:
+            continue
+        names[ev['name']] += 1
+        outside += not (lo <= ev['ts'] and ev['ts'] + ev['dur'] <= hi)
+    return dict(names), outside
+
+
+def ctl_autoscaled_fleet(fa, url, fields, transform, tmp):
+    """(a) A dispatcher with the autoscaler, its first worker started by the
+    command line and the others by the autoscaler's launcher (the same
+    command), feeding epochs of graphed ViT-S/16 (each epoch a tenant job of
+    its own over the store: a job is one epoch) until three workers that each
+    served a lease before it were alive for a whole epoch, or six epochs; then the idle fleet drains to one
+    worker, and ``status``, ``clock`` and ``stop`` run against the
+    dispatcher.  Fails unless the fleet scaled out and back in within
+    [1, 3] workers, every journal record replays clean, ``/metrics`` holds
+    the autoscaler's gauges, the workers' spans reached each epoch's trace,
+    and no slab or child process is left."""
+    from petastorm_tpu_torch.benchmark import TraceRecorder
+    from petastorm_tpu_torch.service import (Dispatcher, ServiceConfig, ServiceDataLoader,
+                                             register_tenant_job)
+    from petastorm_tpu_torch.service.autoscaler import SubprocessWorkerLauncher
+    from petastorm_tpu_torch.telemetry import decisions, scrape
+    from petastorm_tpu_torch.workers_pool import shm_plane
+    job = dict(dataset_url=url, rowgroups_per_split=2, lease_ttl_s=2.0,
+               reader_kwargs=dict(schema_fields=fields, transform_spec=transform,
+                                  workers_count=1))
+    config = ServiceConfig(**dict(job, **CTL_CONFIG))
+    launcher = SubprocessWorkerLauncher(env={'PYTHONHASHSEED': '0', 'CUDA_VISIBLE_DEVICES': ''})
+    grants, pids, epochs, spawned = CtlGrants(), {}, [], []
+    step = vit_resident_step()
+    first = server = None
+    with Dispatcher(config, launcher=launcher, trace_recorder=grants) as dispatcher:
+        try:
+            server = scrape.start_metrics_server(0, host='127.0.0.1',
+                                                 refresh=lambda: dispatcher._op_stats({}))
+            first = subprocess.Popen([sys.executable, '-m', 'petastorm_tpu_torch.service.cli',
+                                      'worker', '--dispatcher', dispatcher.addr],
+                                     env=ctl_env(), stdout=subprocess.DEVNULL,
+                                     stderr=subprocess.DEVNULL)
+            fleet_wait('the first worker', lambda: ctl_fleet(dispatcher, pids)[0])
+            base, splits = 0, dispatcher._job['num_splits']
+            for epoch in range(CTL_MAX_EPOCHS):
+                if epoch:
+                    base = register_tenant_job(dispatcher.addr, 'epoch%d' % epoch,
+                                               job)['split_base']
+                alive_before, _ = ctl_fleet(dispatcher, pids)
+                recorder = TraceRecorder()
+                t_start = time.monotonic()
+                loader = ServiceDataLoader(dispatcher.addr, batch_size=BATCH, consumer=0,
+                                           tenant='epoch%d' % epoch if epoch else None,
+                                           device='cuda', trace_recorder=recorder)
+                run = svc_epoch(fa, loader, 'control epoch %d' % epoch, step=step)
+                t_end = time.monotonic()
+                alive_after, _ = ctl_fleet(dispatcher, pids)
+                names, outside = ctl_spans(recorder, t_start, t_end, base, splits)
+                client = loader.reader.diagnostics
+                by_worker, expiries = grants.between(t_start, t_end)
+                longest = max(range(len(run['waits_ms'])), key=run['waits_ms'].__getitem__)
+                run.update(alive_before=len(alive_before), alive_after=len(alive_after),
+                           spans=names, spans_outside=outside,
+                           spans_merged=client['spans_merged'],
+                           clock_offset_s=client['clock_offset_s'], grants=by_worker,
+                           expiries=expiries, longest_wait=(longest,
+                                                            round(run['waits_ms'][longest], 2)))
+                epochs.append(run)
+                # a worker's first splits carry its start-up (the reader's and
+                # cv2's first calls): the last epoch is one every worker of
+                # three served before it began, and lived through
+                warm = {w for w, t in grants.grants if t < t_start} & set(alive_before)
+                run['warm_before'] = len(warm)
+                log('control epoch %d: %.1f images/s, step %.2f ms, data wait %.2f ms, stall '
+                    '%.1f%%, workers alive %d (%d warm) -> %d, grants %s, expiries %d, longest '
+                    'wait %.1f ms (step %d), worker spans %s (%d outside the window)'
+                    % (epoch, run['images_per_s'], run['step_ms'], run['data_wait_ms'],
+                       run['stall_pct'], len(alive_before), len(warm), len(alive_after),
+                       by_worker, expiries, run['waits_ms'][longest], longest, names, outside))
+                if len(warm) >= CTL_MAX_WORKERS and len(alive_after) >= CTL_MAX_WORKERS:
+                    break
+            reached = max(max(r['alive_before'], r['alive_after']) for r in epochs)
+            if reached > CTL_MAX_WORKERS:
+                raise AssertionError('control: %d workers alive, over autoscale_max_workers %d'
+                                     % (reached, CTL_MAX_WORKERS))
+            t_idle = time.monotonic()
+            fleet_wait('the idle fleet to drain to one worker',
+                       lambda: len(ctl_fleet(dispatcher, pids)[1]['workers']) == 1, 60)
+            drained_s = time.monotonic() - t_idle
+            _, stats = ctl_fleet(dispatcher, pids)
+            body = urllib.request.urlopen('http://127.0.0.1:%d/metrics'
+                                          % server.server_address[1], timeout=10).read().decode()
+            journal = dispatcher._op_decisions({})['journal']
+            status = json.loads(ctl_cli('status', '--dispatcher', dispatcher.addr))
+            clock = json.loads(ctl_cli('clock', '--dispatcher', dispatcher.addr))
+            spawned = launcher.procs   # its list empties when the dispatcher closes it
+            ctl_cli('stop', '--dispatcher', dispatcher.addr)
+            dispatcher.join()
+        finally:
+            if server is not None:
+                server.shutdown()
+                server.server_close()
+            if first is not None:
+                svc_stop_workers([first])
+    t0 = grants.grants[0][1]
+    first_lease = {}
+    for wid, t in grants.grants:
+        first_lease.setdefault(wid, t)
+    wid_of = {pid: wid for wid, pid in pids.items()}
+    records = journal['records']
+    actions, spawns = [], []
+    for rec in records:
+        if rec['actor'] != 'autoscaler':
+            continue
+        actions.append({'action': rec['action'], 'rule': rec['rule'],
+                        'suppressed': rec['suppressed'], 'worker_id': rec.get('worker_id'),
+                        'at_s': round(rec['t_mono'] - t0, 3)})
+        if rec['action'] == 'scale_out' and not rec['suppressed']:
+            spawns.append(rec)
+    # the launcher spawns one worker a scale-out (autoscale_step 1), in order
+    spawn_to_lease = {}
+    for rec, proc in zip(spawns, spawned):
+        wid = wid_of.get(proc.pid)
+        if wid in first_lease:
+            spawn_to_lease[wid] = round(first_lease[wid] - rec['t_mono'], 3)
+    verdicts = [(r['actor'], r['action'], r['rule'], decisions.replay_decision(r)['verdict'])
+                for r in records]
+    auto = status['autoscale']
+    offsets = {wid: {'clock_offset_s': row.get('clock_offset'),
+                     'clock_rtt_ms': row.get('clock_rtt_ms'),
+                     'clock_drift_ms': row.get('clock_drift_ms')}
+               for wid, row in stats['workers'].items()}
+    gauges = [line for line in body.splitlines() if line.startswith('petastorm_tpu_decisions_')]
+    residue = shm_plane.residue(list(pids.values()) + [os.getpid()])
+    left = [p.pid for p in [first] + spawned if p.poll() is None]
+    result = {'epochs': [svc_brief(r) for r in epochs], 'autoscale': auto,
+              'actions': actions, 'spawn_to_first_lease_s': spawn_to_lease,
+              'drained_to_one_s': round(drained_s, 3), 'journal': verdicts,
+              'worker_clocks': offsets, 'cli_clock': clock, 'metrics_gauges': gauges,
+              'metrics_lines': len(body.splitlines()), 'residue': sorted(residue),
+              'children_left': left, 'spawned': [p.pid for p in spawned],
+              'workers_reached': reached}
+    log('control actions (s from the first lease): %s' % json.dumps(actions))
+    log('control spawn to first lease (s): %s; %d workers at most; drained to one worker in '
+        '%.1f s; autoscale %s' % (json.dumps(spawn_to_lease), reached, drained_s,
+                                  json.dumps(auto)))
+    log('control journal (actor, action, rule, replay): %s' % json.dumps(verdicts))
+    log('control clocks: workers %s, cli clock %s' % (json.dumps(offsets), json.dumps(clock)))
+    log('control /metrics: %d lines, decision gauges %s' % (len(body.splitlines()),
+                                                            json.dumps(gauges)))
+    if any(v[3] == 'divergent' for v in verdicts):
+        raise AssertionError('control: a journal record replays divergent: %s' % verdicts)
+    if not auto['scale_outs'] or not auto['scale_ins'] or auto['actions'] > 2 * CTL_MAX_WORKERS:
+        raise AssertionError('control: autoscale %s' % auto)
+    if not any('actor="autoscaler"' in g for g in gauges):
+        raise AssertionError('control: /metrics holds no autoscaler gauge: %s' % gauges)
+    if not all(r['spans'].get('service/decode_split') for r in epochs):
+        raise AssertionError('control: the workers\' spans did not reach the client\'s trace: '
+                             '%s' % [r['spans'] for r in epochs])
+    if residue or left:
+        raise AssertionError('control: /dev/shm residue %s, children left %s' % (residue, left))
+    return result, epochs
+
+
+def ctl_chaos_smoke():
+    """(b) The chaos smoke set through the port's runner, on this host at
+    the runner's own store: each scenario's invariants, seams and
+    autoscale actions."""
+    from petastorm_tpu_torch.test_util import chaos
+    reports, ok = chaos.run_matrix(list(chaos.SMOKE_SCENARIOS))
+    out = {}
+    for report in reports:
+        out[report['scenario']] = {'ok': report['ok'], 'checks': report['checks'],
+                                   'injections': report['injections'],
+                                   'autoscale': report.get('autoscale'),
+                                   'elapsed_s': report.get('elapsed_s')}
+        log('control chaos %s: %s' % (report['scenario'], json.dumps(out[report['scenario']])))
+    if not ok:
+        raise AssertionError('control: a chaos scenario broke an invariant:\n%s'
+                             % chaos.render_report(reports))
+    return out
+
+
+def phase_service_control(fa, tmp):
+    """The data service's control plane feeding ViT-S/16 on the card, on
+    ``phase_service``'s 1,536-row JPEG store: (a) an autoscaled fleet run
+    through the command line (:func:`ctl_autoscaled_fleet`: one decode
+    thread a worker keeps a one-worker fleet host-bound, so the scale-out
+    shows in images/s), every epoch 24 graphed steps at full width, batch
+    64, timed after 4, every row id once, finite losses, 12 launches of each
+    flash kernel a step; (b) the chaos smoke set (:func:`ctl_chaos_smoke`)."""
+    from petastorm_tpu_torch.train import make_transform
+    url = 'file://' + os.path.join(tmp, 'service_jpeg')
+    t0 = time.monotonic()
+    fleet, epochs = ctl_autoscaled_fleet(fa, url, ['id', 'image', 'noun_id'],
+                                         make_transform((224, 224)), tmp)
+    log('control fleet (%.1f s): %s' % (time.monotonic() - t0, json.dumps(
+        {k: v for k, v in fleet.items() if k != 'epochs'})))
+    t0 = time.monotonic()
+    smoke = ctl_chaos_smoke()
+    log('control chaos smoke: %.1f s' % (time.monotonic() - t0))
+    SUMMARY['service_control'] = dict(fleet, chaos=smoke)
+    launches = collections.Counter()
+    for run in epochs:
+        launches.update(run['launches'])
+    return dict(launches)
+
+
 def main():
     # The kernels' module (petastorm_tpu_torch.ops re-exports its function
     # under the same name).  Imported first: outside a checkout this fails
@@ -5428,7 +5703,8 @@ def main():
                             ('sequence_parallel', lambda: phase_sequence_parallel(fa, tmp)),
                             ('multi_device', lambda: phase_multi_device(fa, url, tmp)),
                             ('service', lambda: phase_service(fa, tmp)),
-                            ('service_fleet', lambda: phase_service_fleet(fa, tmp))):
+                            ('service_fleet', lambda: phase_service_fleet(fa, tmp)),
+                            ('service_control', lambda: phase_service_control(fa, tmp))):
             t0 = time.monotonic()
             paths[name] = phase()
             log('phase %s: %.1f s' % (name, time.monotonic() - t0))
@@ -5437,7 +5713,8 @@ def main():
                 'search': paths['search'], 'vit_recipe': paths['vit_recipe'],
                 'sequence_parallel': paths['sequence_parallel'],
                 'multi_device': paths['multi_device'], 'elastic': paths['elastic'],
-                'service': paths['service'], 'service_fleet': paths['service_fleet']}
+                'service': paths['service'], 'service_fleet': paths['service_fleet'],
+                'service_control': paths['service_control']}
     kernels = [dict(name=name, route='cuda', design=MAIN_PATH_DESIGN[name],
                     source=SOURCES[name], replaces=REPLACES[name],
                     launches=sum(path[name] for path in launches.values()),

@@ -11,9 +11,9 @@ cache in host or device memory, or from a resident tier of the dataset in
 HBM in its wire dtypes, or packed into fixed-shape LM batches),
 on-device augmentation, exact data checkpoints (every loader's
 ``state_dict``/``resume_state``, ``checkpoint.TrainStateManager``, and
-their elastic reshard onto another shard count), the data service's
-single-tenant core (``service``: dispatcher, decode workers,
-``ServiceDataLoader``), the
+their elastic reshard onto another shard count), the data service
+(``service``: dispatcher, decode workers, ``ServiceDataLoader``, tenancy,
+the ledger, the cache planes, the autoscaler and the command line), the
 ResNet-50, ViT, MNIST MLP, DLRM and decoder-only LM models (with KV-cache
 generation), the pandas DataFrame converter, and the flash-attention kernels as hand-written CUDA for
 Hopper (``csrc/``).  Entry points run on the card unless the caller passes

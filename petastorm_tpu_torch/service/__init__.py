@@ -21,11 +21,18 @@ Counterpart of ``petastorm_tpu/service/``:
 * :class:`~petastorm_tpu_torch.service.config.ServiceConfig`, the job;
   :mod:`~petastorm_tpu_torch.service.tenancy`,
   :mod:`~petastorm_tpu_torch.service.ledger` and
-  :mod:`~petastorm_tpu_torch.service.cluster`, the shared fleet's parts.
+  :mod:`~petastorm_tpu_torch.service.cluster`, the shared fleet's parts;
+* :mod:`~petastorm_tpu_torch.service.autoscaler`, the closed-loop
+  autoscaler the dispatcher ticks; :mod:`~petastorm_tpu_torch.service.cli`,
+  the command line (``python -m petastorm_tpu_torch.service.cli
+  dispatcher|worker|status|drain|stop|clock``).
 
-The autoscaler, the command line, the chaos hooks and the span export are
-not ported yet (``ROADMAP.md``, Queue A item 7).  Imports are lazy, so that
-a worker process that imports this package loads no torch.
+Every control law records its decisions in the journal
+(:mod:`petastorm_tpu_torch.telemetry.decisions`), the workers ship their
+spans to the clients' traces, and the chaos plane's seams
+(:mod:`petastorm_tpu_torch.test_util.chaos`) sit in the RPCs, the chunk
+sends and the decodes.  Imports are lazy, so that a worker process that
+imports this package loads no torch.
 """
 
 _LAZY = {

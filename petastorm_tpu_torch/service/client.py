@@ -31,9 +31,16 @@ dispatcher outage: its discovery polls back off and retry, and a dispatcher
 restarted from its ledger serves the rest of the epoch; a split such a
 dispatcher retired before the restart, which this connection holds no token
 for, raises rather than waits.
+
+With a ``trace_recorder`` each wait for a split is a ``service/split_wait``
+span, and the spans the workers ship on a split's ``end`` header merge into
+the same trace on this process's clock: the discovery poll is a clock
+handshake with the dispatcher (an EWMA of the offset), and each worker's
+offset to the dispatcher comes with the poll's reply.
 """
 
 import logging
+import os
 import pickle
 import queue
 import sys
@@ -44,6 +51,7 @@ from petastorm_tpu_torch.errors import ServiceError
 from petastorm_tpu_torch.gpu.loader import DataLoader
 from petastorm_tpu_torch.service import backoff, tenancy
 from petastorm_tpu_torch.service.worker import _Rpc, deserialize_chunk
+from petastorm_tpu_torch.telemetry.spans import merge_into_recorder
 
 logger = logging.getLogger(__name__)
 
@@ -63,8 +71,16 @@ class _ServiceConnection(object):
         self.tenant = None if tenant is None else str(tenant)
         self._context = zmq.Context()
         self._rpc_timeout_s = rpc_timeout_s
-        #: a TraceRecorder: each wait for a split is a span in it
+        #: a TraceRecorder: each wait for a split is a span in it, and the
+        #: workers' spans merge into it
         self._trace = trace_recorder
+        #: (this clock - the dispatcher's), an EWMA over the discovery polls
+        self.clock_offset = None
+        #: worker data address -> (its clock - the dispatcher's)
+        self.worker_offsets = {}
+        self._labeled_pids = set()
+        #: the workers' spans merged into the trace
+        self.spans_merged = 0
         self._shm_probe = None
         try:
             self._init(consumer, resume or {}, ordered, queue_splits, credits)
@@ -190,6 +206,7 @@ class _ServiceConnection(object):
         zmq = self._zmq
         rpc = _Rpc(self._context, self._dispatcher_addr, timeout_s=self._rpc_timeout_s)
         sockets = {}            # worker data addr -> DEALER
+        addr_of = {}            # DEALER -> worker data addr (whose spans)
         poller = zmq.Poller()
         buffers = {}            # (split_id, attempt) -> {seq: (tag, payload)}
         received = set(self.consumed)
@@ -203,7 +220,9 @@ class _ServiceConnection(object):
                 now = time.monotonic()
                 if now >= next_refresh:
                     try:
+                        t_rpc0 = time.monotonic()
                         reply = rpc.call({'op': 'workers'})
+                        self._update_clocks(reply, t_rpc0, time.monotonic())
                         workers = reply['workers']
                         discovery_retry = None
                         next_refresh = now + backoff.jittered(1.0, 0.2)
@@ -243,6 +262,7 @@ class _ServiceConnection(object):
                                                 'credits': self._credits,
                                                 'shm_probe': self._shm_probe}, protocol=4))
                         sockets[addr] = sock
+                        addr_of[sock] = addr
                         poller.register(sock, zmq.POLLIN)
                 for sock in dict(poller.poll(100)):
                     while True:
@@ -296,6 +316,7 @@ class _ServiceConnection(object):
                                 continue
                             sock.send(pickle.dumps({'type': 'ack', 'split': sid,
                                                     'attempt': attempt}, protocol=4))
+                            self._merge_worker_spans(header, addr_of.get(sock))
                             chunks = []
                             for i in sorted(parts):
                                 tag, payload = parts[i]
@@ -329,6 +350,40 @@ class _ServiceConnection(object):
             if self._shm_probe is not None:
                 # the slabs of a writer killed with descriptors in flight
                 shm_plane.sweep_orphans()
+
+    #: the weight of each new poll in the clock offset's EWMA
+    _CLOCK_EWMA_ALPHA = 0.2
+
+    def _update_clocks(self, reply, t0, t1):
+        """Fold the discovery poll's handshake into :attr:`clock_offset`, and
+        take each worker's offset from its reply."""
+        if reply.get('t_mono') is not None:
+            estimate = (t0 + t1) / 2.0 - float(reply['t_mono'])
+            alpha = self._CLOCK_EWMA_ALPHA
+            self.clock_offset = estimate if self.clock_offset is None \
+                else (1.0 - alpha) * self.clock_offset + alpha * estimate
+        for worker in reply.get('workers') or ():
+            if worker.get('clock_offset') is not None:
+                self.worker_offsets[worker['addr']] = float(worker['clock_offset'])
+
+    def _merge_worker_spans(self, header, addr):
+        """Put a split's worker spans on this process's timeline, shifted by
+        the chained offsets ((client - dispatcher) - (worker - dispatcher));
+        0 until both are known (right between processes of one host, whose
+        monotonic clocks agree)."""
+        spans = header.get('spans')
+        if not spans or self._trace is None:
+            return
+        shift = 0.0
+        worker_offset = self.worker_offsets.get(addr)
+        if self.clock_offset is not None and worker_offset is not None:
+            shift = self.clock_offset - worker_offset
+        pid = spans[0].get('pid')
+        if pid is not None and pid not in self._labeled_pids:
+            self._labeled_pids.add(pid)
+            if pid != os.getpid():   # a worker thread of this process shares its track
+                self._trace.set_process_label(pid, 'service worker %s' % (addr or '?'))
+        self.spans_merged += merge_into_recorder(self._trace, spans, clock_offset_s=shift)
 
     def _put(self, item):
         while not self._stop.is_set():
@@ -459,7 +514,10 @@ class ServiceReader(object):
     @property
     def diagnostics(self):
         return {'shm_chunks': self._conn.shm_chunks, 'byte_chunks': self._conn.byte_chunks,
-                'retry_attempts': self._conn.retry_attempts}
+                'retry_attempts': self._conn.retry_attempts,
+                'spans_merged': self._conn.spans_merged,
+                'clock_offset_s': self._conn.clock_offset,
+                'worker_clock_offsets_s': dict(self._conn.worker_offsets)}
 
     def stop(self):
         self._conn.stop()

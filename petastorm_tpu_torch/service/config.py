@@ -9,31 +9,21 @@ cluster cache.  The dispatcher owns the config; workers and clients fetch
 what they need over the ``job`` RPC, so every process agrees on one
 partition geometry.
 
-The fields of the planes the port does not hold yet (the autoscaler,
-adaptive scheduling, the ingest plane, the command line's worker knobs, the
-workers' span export, and a reader chosen by hand) keep the reference's
-names and defaults, and raise ``ValueError`` naming their ``ROADMAP.md``
-item when set away from their defaults.  A worker heartbeats every third of
-``lease_ttl_s`` (the reference's default cadence, which
-``heartbeat_interval_s`` may state) and holds the worker module's fixed
-lease and buffer bounds.  ``PETASTORM_TPU_NO_CLUSTER_CACHE=1`` turns the
-cluster cache off wherever it is read.
+The fields of the planes the port does not hold yet (adaptive scheduling and
+the ingest plane) keep the reference's names and defaults, and raise
+``ValueError`` naming their ``ROADMAP.md`` item when set away from their
+defaults.  ``PETASTORM_TPU_NO_CLUSTER_CACHE=1`` turns the cluster cache off
+wherever it is read, and ``PETASTORM_TPU_NO_AUTOSCALE=1`` the autoscaler.
 """
 
 import dataclasses
 import hashlib
 
-#: Where the service planes this slice refuses are queued.
+#: Where the planes the port does not hold yet are queued.
 _LATER_ITEM = 'ROADMAP.md, Queue A item 7'
 
 #: field -> its default: the options of the planes not ported yet
-_OUTSIDE_SLICE = {
-    'autoscale': False, 'autoscale_min_workers': 1, 'autoscale_max_workers': 8,
-    'autoscale_step': 1, 'autoscale_cooldown_s': 10.0, 'autoscale_starve_s': 3.0,
-    'autoscale_idle_s': 30.0, 'scheduling': 'auto', 'ingest': 'auto',
-    'max_buffered_chunks': 32, 'max_inflight_splits': 3, 'telemetry_spans': True,
-    'reader_factory': 'auto',
-}
+_OUTSIDE_SLICE = {'scheduling': 'auto', 'ingest': 'auto'}
 
 
 @dataclasses.dataclass
@@ -94,10 +84,36 @@ class ServiceConfig:
             worker's cache plane (None: unlimited); past it its splits
             decode without the plane.
 
-    The remaining fields (``autoscale*``, ``scheduling``, ``ingest``,
-    ``max_buffered_chunks``, ``max_inflight_splits``, ``telemetry_spans``,
-    ``reader_factory``, and ``heartbeat_interval_s`` away from the third of
-    ``lease_ttl_s``) are the reference's; set away from their defaults they raise.
+        heartbeat_interval_s: a worker's heartbeat cadence; None is a third
+            of ``lease_ttl_s``.  The workers beat at that third, as the
+            reference's do.
+        max_buffered_chunks / max_inflight_splits: a worker's bounds, its
+            serialized chunks waiting for credits and the leases it holds;
+            set on each worker (``Worker(max_inflight_splits=...)``, the
+            command line's flags).  The dispatcher counts the free lease
+            slots of the autoscaler with ``max_inflight_splits``.
+        reader_factory: ``'auto'`` (each worker probes the dataset once per
+            tenant: a petastorm store gets ``make_reader``, plain Parquet
+            ``make_batch_reader``), ``'reader'`` or ``'batch_reader'``.
+        telemetry_spans: workers ship each split's stage spans on its
+            ``end`` header, which a client with a ``trace_recorder`` merges
+            into its trace on its own clock.
+        autoscale: the dispatcher runs the closed-loop autoscaler
+            (:mod:`~petastorm_tpu_torch.service.autoscaler`): it spawns
+            workers (``Dispatcher(launcher=)``, by default as processes of
+            the command line) when leases starve and drains the worker with
+            the least cache coverage when the fleet idles.
+        autoscale_min_workers / autoscale_max_workers: the clamp of the live
+            fleet.
+        autoscale_step: workers spawned per scale-out.
+        autoscale_cooldown_s: no action for this long after any action.
+        autoscale_starve_s: how long pending splits starve (no free lease
+            slot on a live worker) before a scale-out.
+        autoscale_idle_s: how long the fleet idles (nothing pending or
+            leased) before a scale-in.
+
+    ``scheduling`` and ``ingest`` are the reference's; set away from
+    ``'auto'`` they raise.
     """
 
     dataset_url: str
@@ -139,14 +155,9 @@ class ServiceConfig:
     def __post_init__(self):
         refused = sorted(name for name, default in _OUTSIDE_SLICE.items()
                          if getattr(self, name) != default)
-        if self.heartbeat_interval_s is not None \
-                and abs(self.heartbeat_interval_s - self.lease_ttl_s / 3.0) > 1e-9:
-            refused.append('heartbeat_interval_s')
         if refused:
-            raise ValueError('%s: the autoscaler, adaptive scheduling, the ingest plane, the '
-                             'command line\'s worker knobs, the workers\' span export and a '
-                             'reader chosen by hand are a later slice of the port (%s)'
-                             % (', '.join(refused), _LATER_ITEM))
+            raise ValueError('%s: adaptive scheduling and the ingest plane are a later slice '
+                             'of the port (%s)' % (', '.join(refused), _LATER_ITEM))
         if self.num_consumers < 1:
             raise ValueError('num_consumers must be >= 1')
         if self.rowgroups_per_split < 1:
@@ -157,6 +168,9 @@ class ServiceConfig:
             raise ValueError('max_split_attempts must be >= 1')
         if self.credits < 1:
             raise ValueError('credits must be >= 1')
+        if self.reader_factory not in ('auto', 'reader', 'batch_reader'):
+            raise ValueError("reader_factory must be 'auto', 'reader' or 'batch_reader', got %r"
+                             % (self.reader_factory,))
         if self.shm_capacity_bytes < 1:
             raise ValueError('shm_capacity_bytes must be positive')
         if self.cache_plane and not self.cache_plane_dir:
@@ -174,6 +188,18 @@ class ServiceConfig:
             raise ValueError('tenant_weight must be positive')
         if self.max_tenant_jobs < 1:
             raise ValueError('max_tenant_jobs must be >= 1')
+        if self.autoscale:
+            if self.autoscale_min_workers < 0:
+                raise ValueError('autoscale_min_workers must be >= 0')
+            if self.autoscale_max_workers < max(1, self.autoscale_min_workers):
+                raise ValueError('autoscale_max_workers must be >= max(1, autoscale_min_workers)')
+            if self.autoscale_step < 1:
+                raise ValueError('autoscale_step must be >= 1')
+            if self.autoscale_cooldown_s < 0 or self.autoscale_starve_s < 0 \
+                    or self.autoscale_idle_s < 0:
+                raise ValueError('autoscale timings must be >= 0')
+        if self.heartbeat_interval_s is None:
+            self.heartbeat_interval_s = self.lease_ttl_s / 3.0
 
     def fingerprint(self, num_splits):
         """The identity of the partition geometry a resume token indexes:

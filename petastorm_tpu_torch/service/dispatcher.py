@@ -48,10 +48,21 @@ back from a cold worker for at most ``_AFFINITY_DEFER_S`` (never a split
 requeued by an expiry), and names the holders in the lease reply for peer
 fill.  The directory is advisory: a stale entry costs one deferral.
 
-Not ported here (``ROADMAP.md``, Queue A item 7): the autoscaler, the
-materializer hand-off, the decision journal (the reference's records of
-scheduler picks, quota refusals and affinity routing) and the flight
-recorder.
+The autoscaler (``autoscale``, :mod:`~petastorm_tpu_torch.service.autoscaler`)
+ticks in the serve loop: it observes the split states and the live workers
+under the lock and acts outside it, spawning workers through its launcher or
+draining the worker with the least cache coverage.  Every decision of the
+dispatcher's control laws (the autoscaler, the tenant scheduler, affinity
+routing) is a record of its journal
+(:class:`~petastorm_tpu_torch.telemetry.decisions.DecisionJournal`), which
+the ledger persists; ``stats`` rolls it up with the workers' journals, and
+the ``decisions`` RPC returns it whole.  Registration, heartbeats, ``clock``
+and ``workers`` replies carry the dispatcher's ``time.monotonic()``: the
+clock handshakes that put the workers' spans on a client's timeline.
+
+Not ported here: the materializer hand-off (the materialization plane) and
+the flight recorder (the telemetry bullet), both ``ROADMAP.md``, Queue A
+item 7.
 """
 
 import collections
@@ -62,6 +73,7 @@ import threading
 import time
 
 from petastorm_tpu_torch.service import tenancy as _tenancy
+from petastorm_tpu_torch.telemetry import decisions as _decisions
 
 logger = logging.getLogger(__name__)
 
@@ -132,10 +144,14 @@ class Dispatcher(object):
     for every lease grant, expiry and completion.  With
     ``config.ledger_path`` the constructor takes the ledger's owner lock
     (:class:`~petastorm_tpu_torch.service.ledger.LedgerHeldError` when a
-    live dispatcher holds it) and restores from it.
+    live dispatcher holds it) and restores from it.  With ``config.autoscale``
+    the autoscaler acts through ``launcher`` (a
+    :class:`~petastorm_tpu_torch.service.autoscaler.WorkerLauncher`; None:
+    worker processes of the command line).
     """
 
-    def __init__(self, config, bind='tcp://127.0.0.1:*', num_pieces=None, trace_recorder=None):
+    def __init__(self, config, bind='tcp://127.0.0.1:*', num_pieces=None, trace_recorder=None,
+                 launcher=None):
         from petastorm_tpu_torch.service import cluster as _cluster
         self._config = config
         self._bind = bind
@@ -193,6 +209,20 @@ class Dispatcher(object):
         self._thread = None
         self._started = threading.Event()
         self.addr = None
+        # the journal of the dispatcher's control laws: a record marks the
+        # ledger dirty, so the next serve-loop turn persists it
+        self._decisions = _decisions.DecisionJournal(label='dispatcher')
+        self._decisions.on_record = lambda rec: self._ledger_mark()
+        self._scheduler.decisions = self._decisions
+        self.autoscaler = None
+        if config.autoscale:
+            from petastorm_tpu_torch.service import autoscaler as _autoscaler
+            if launcher is None:
+                launcher = _autoscaler.SubprocessWorkerLauncher()
+            self.autoscaler = _autoscaler.Autoscaler(config, launcher)
+            self.autoscaler.decisions = self._decisions
+        # the materializer's hand-off of scale-in victims is the
+        # materialization plane's (ROADMAP.md, Queue A item 7): none here
         if config.ledger_path:
             from petastorm_tpu_torch.service.ledger import DispatcherLedger
             self._ledger = DispatcherLedger(config.ledger_path).acquire()
@@ -283,6 +313,9 @@ class Dispatcher(object):
         pieces = state.get('piece_digests')
         if self._cluster_on and pieces and len(pieces) == self._num_pieces:
             self._piece_digests = [str(d) for d in pieces]
+        # the dead incarnation's decisions come back as they were
+        if state.get('decisions'):
+            self._decisions.restore(state['decisions'])
         self.ledger_restores = int(state.get('restores', 0)) + 1
         logger.info('ledger %s restored (restart #%d): %d done / %d leased (orphaned) / %d '
                     'pending / %d failed splits, %d worker digest sets', self._ledger.path,
@@ -290,9 +323,10 @@ class Dispatcher(object):
                     restored[_PENDING], restored[_FAILED], len(self._ledger_digests_by_addr))
 
     def _ledger_state(self):
-        """The snapshot the ledger saves: the reference's keys, with
-        ``decisions`` empty (the port keeps no decision journal)."""
+        """The snapshot the ledger saves: the reference's keys (the caller
+        does not hold the lock)."""
         from petastorm_tpu_torch.service import ledger as _ledger_mod
+        decisions = self._decisions.dump()   # under the journal's own lock
         with self._lock:
             digests = {self._workers[wid]['addr']: sorted(held)
                        for wid, held in self._worker_digests.items() if wid in self._workers}
@@ -312,7 +346,7 @@ class Dispatcher(object):
                 'worker_digests': digests,
                 'piece_digests': self._piece_digests,
                 'tenants': tenants,
-                'decisions': {},
+                'decisions': decisions,
                 'restores': self.ledger_restores,
                 'saved_unix': time.time(),
             }
@@ -385,10 +419,15 @@ class Dispatcher(object):
         poller = zmq.Poller()
         poller.register(socket, zmq.POLLIN)
         try:
+            from petastorm_tpu_torch.test_util import chaos
             while not self._stop.is_set():
                 self._expire_leases()
                 # lease grants and expiries reach the ledger within a turn
                 self._ledger_save()
+                # observe under the lock, act outside it; the flight
+                # recorder's tick (the telemetry bullet of ROADMAP.md, Queue
+                # A item 7) is not ported
+                self._autoscale_tick()
                 if not dict(poller.poll(100)):
                     continue
                 raw = socket.recv()
@@ -400,6 +439,10 @@ class Dispatcher(object):
                     socket.send(pickle.dumps({'error': 'malformed request: %s: %s'
                                               % (type(e).__name__, e)}, protocol=4))
                     continue
+                # the chaos seam: a REP socket may not drop a reply (it would
+                # wedge), so the fault here is a delay; lost requests are
+                # injected on the callers' side ('rpc.request')
+                chaos.inject('dispatcher.rpc', op=request.get('op'))
                 try:
                     reply = self._dispatch(request)
                 except Exception as e:  # noqa: BLE001 — reply, never let the serve thread die
@@ -409,12 +452,47 @@ class Dispatcher(object):
                 if request.get('op') == 'stop':
                     break
         finally:
+            if self.autoscaler is not None:
+                # the workers it spawned do not outlive the control plane
+                self.autoscaler.close()
             if self._ledger is not None:
                 # the last snapshot; the file stays for the next incarnation
                 self._ledger_save(force=True)
                 self._ledger.release()
             socket.close(0)
             context.term()
+
+    # -- the autoscaler ------------------------------------------------------
+
+    def _drain_worker(self, victim):
+        with self._lock:
+            worker = self._workers.get(victim)
+            if worker is not None:
+                worker['draining'] = True
+
+    def _autoscale_tick(self):
+        """One evaluation of the control law: the observation taken under the
+        lock, the spawn or the drain done outside it."""
+        if self.autoscaler is None or not self.autoscaler.enabled:
+            return
+        stale = 3.0 * self._config.lease_ttl_s
+        now = time.monotonic()
+        with self._lock:
+            states = collections.Counter(s.state for s in self._splits)
+            alive = [wid for wid, w in sorted(self._workers.items())
+                     if not w.get('draining') and (now - w['last_heartbeat']) < stale]
+            held = collections.Counter(s.worker_id for s in self._splits
+                                       if s.state == _LEASED and s.worker_id is not None)
+            free_slots = sum(max(0, self._config.max_inflight_splits - held[wid])
+                             for wid in alive)
+            coverage = {wid: len(self._worker_digests.get(wid, ())) for wid in alive}
+        action = self.autoscaler.maybe_tick({
+            'pending': states[_PENDING], 'leased': states[_LEASED], 'alive': alive,
+            'free_slots': free_slots, 'coverage': coverage, 'dispatcher_addr': self.addr},
+            now=now)
+        if action and action[0] == 'scale_in':
+            self._drain_worker(action[1])
+            logger.info('autoscaler draining worker %s (least cache coverage)', action[1])
 
     # -- lease bookkeeping ---------------------------------------------------
 
@@ -480,7 +558,8 @@ class Dispatcher(object):
             if held:
                 self._worker_digests[worker_id] = set(held)
         logger.info('registered worker %s at %s', worker_id, request['data_addr'])
-        return {'worker_id': worker_id, 'job': self._job}
+        # the registration is the worker's first clock handshake
+        return {'worker_id': worker_id, 'job': self._job, 't_mono': time.monotonic()}
 
     def _op_clock(self, request):
         return {'t_mono': time.monotonic()}
@@ -535,7 +614,10 @@ class Dispatcher(object):
                     logger.info('worker %s re-claimed restored lease on split %d (attempt %d)',
                                 worker_id, split.split_id, split.attempt)
             draining = bool(worker['draining'])
-        return {'ok': True, 'need_piece_digests': need_pieces, 'drain': draining}
+        # each heartbeat is a clock handshake again (the worker's offset
+        # follows drift)
+        return {'ok': True, 't_mono': time.monotonic(), 'need_piece_digests': need_pieces,
+                'drain': draining}
 
     # -- cache affinity (callers hold the lock) ------------------------------
 
@@ -614,6 +696,12 @@ class Dispatcher(object):
                 coverage = self._coverage(split, worker_id)
                 if coverage is not None and coverage >= _AFFINITY_MIN_COVERAGE:
                     chosen, routed = split, True
+                    _decisions.record_decision(
+                        'affinity', 'routed', 'affinity_min_coverage',
+                        {'coverage': coverage, 'min_coverage': _AFFINITY_MIN_COVERAGE,
+                         'scanned': len(window)},
+                        worker_id=worker_id, split_id=split.split_id, tenant=job.tenant,
+                        journal=self._decisions)
                     break
         if chosen is None:
             now = time.monotonic()
@@ -624,10 +712,26 @@ class Dispatcher(object):
                         split.affinity_defer_until = now + defer_s
                     if now < split.affinity_defer_until:
                         continue   # inside its holder's window
+                    _decisions.record_decision(
+                        'affinity', 'deferral_exhausted', 'affinity_defer_s',
+                        {'waited_s': defer_s + now - split.affinity_defer_until,
+                         'defer_s': defer_s},
+                        worker_id=worker_id, split_id=split.split_id, tenant=job.tenant,
+                        journal=self._decisions)
                 chosen = split
                 break
             if chosen is None and window:
                 self.affinity_deferrals += 1
+                # nothing granted because every scanned split is in a holder's
+                # window: a suppressed non-action
+                _decisions.record_decision(
+                    'affinity', 'deferred', 'affinity_defer_s',
+                    {'waited_s': max(0.0, defer_s + now - min(
+                        s.affinity_defer_until for s in window
+                        if s.affinity_defer_until is not None)),
+                     'defer_s': defer_s, 'scanned': len(window)},
+                    suppressed=True, worker_id=worker_id, tenant=job.tenant,
+                    journal=self._decisions)
         # the rest of the window back to the front, in order; consumer
         # mismatches to the back
         for split in reversed([s for s in window if s is not chosen]):
@@ -836,8 +940,12 @@ class Dispatcher(object):
         stale = 3.0 * self._config.lease_ttl_s
         now = time.monotonic()
         with self._lock:
+            # clock_offset: (the worker's clock - ours), from its heartbeats;
+            # a client chains it with its own offset to place the worker's
+            # spans on its timeline
             workers = [{'worker_id': wid, 'addr': w['addr'],
                         'alive': (now - w['last_heartbeat']) < stale,
+                        'clock_offset': w['stats'].get('clock_offset'),
                         'pid': w['stats'].get('pid')}
                        for wid, w in sorted(self._workers.items())]
             # failed splits ride on the discovery poll: a waiting client raises
@@ -846,7 +954,8 @@ class Dispatcher(object):
             # without the token that retired them raises instead of waiting
             done = (sorted(s.split_id for s in self._splits if s.state == _DONE)
                     if self.ledger_restores else None)
-        reply = {'workers': workers, 'failed_splits': failed}
+        # the discovery poll is the client's clock handshake
+        reply = {'workers': workers, 'failed_splits': failed, 't_mono': time.monotonic()}
         if done is not None:
             reply['retired_splits'] = done
         return reply
@@ -888,6 +997,26 @@ class Dispatcher(object):
                    'drains': self.drains, 'drain_timeouts': self.drain_timeouts,
                    'workers_draining': draining, 'workers_alive': alive}
         control.update(total(('retry_attempts', 'retry_giveups')))
+        if self.autoscaler is not None:
+            autoscale = self.autoscaler.snapshot()
+        else:
+            from petastorm_tpu_torch.service import autoscaler as _autoscaler
+            autoscale = {'enabled': False, 'killed': _autoscaler.killed(), 'scale_outs': 0,
+                         'scale_ins': 0, 'actions': 0, 'suppressed': 0, 'last_action': None}
+        # the dispatcher's journal by actor, with the workers' heartbeat
+        # payloads added in (a worker's last action aged by its heartbeat's age)
+        decisions = self._decisions.summary()
+        for row in workers.values():
+            for actor, wrow in ((row.get('decisions') or {}).get('summary') or {}).items():
+                agg = decisions.setdefault(actor, {'actions': 0, 'suppressed': 0, 'last': None})
+                agg['actions'] += int(wrow.get('actions', 0))
+                agg['suppressed'] += int(wrow.get('suppressed', 0))
+                last = wrow.get('last')
+                if last is not None:
+                    last = dict(last, age_s=round(last.get('age_s', 0.0) + row.get('age_s', 0.0),
+                                                  1))
+                    if agg['last'] is None or last['age_s'] < agg['last'].get('age_s', 0.0):
+                        agg['last'] = last
         return {
             'num_splits': len(self._splits),
             'pending': states[_PENDING],
@@ -901,10 +1030,21 @@ class Dispatcher(object):
             'cluster_cache': cluster,
             'control_plane': control,
             'tenants': tenants,
+            'autoscale': autoscale,
+            'decisions': decisions,
             'stages': _merged_stages([w.get('registry') for w in workers.values()]),
             'workers': {wid: {k: v for k, v in row.items() if k != 'registry'}
                         for wid, row in workers.items()},
         }
+
+    def _op_decisions(self, request):
+        """The dispatcher's journal whole, and each worker's heartbeat payload
+        (its summary and newest records)."""
+        with self._lock:
+            worker_payloads = {wid: w['stats'].get('decisions')
+                               for wid, w in self._workers.items()
+                               if w['stats'].get('decisions')}
+        return {'journal': self._decisions.dump(), 'workers': worker_payloads}
 
     def _op_stop(self, request):
         self._stop.set()

@@ -23,9 +23,10 @@ The restore lives in the dispatcher: done and failed splits stay retired;
 a leased split comes back as an **orphan lease** that a re-registering
 worker's ``held`` heartbeat claim adopts (attempt intact), or that requeues
 unclaimed after one lease TTL, its attempt intact (the restart was not the
-worker's failure).  The reference's ledger also keeps its decision journal
-(``decisions``), which the port does not hold: it writes the key empty and
-ignores it on restore.  Standard library only.
+worker's failure).  The snapshot's ``decisions`` holds the dispatcher's
+decision journal (a :meth:`~petastorm_tpu_torch.telemetry.decisions.DecisionJournal.dump`),
+which the restart takes back: a dispatcher of either package restores the
+other's with its journal.  Standard library only.
 """
 
 import fcntl

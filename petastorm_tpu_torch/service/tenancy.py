@@ -20,15 +20,19 @@ Counterpart of ``petastorm_tpu/service/tenancy.py``:
   plane).  A charge past the budget is refused and the caller degrades (the
   byte path, a decode without the plane): never a stall, never an error.
 
-The reference records every scheduler pick, refund and quota refusal in its
-decision journal; the port does not hold that journal yet (``ROADMAP.md``,
-Queue A item 7, the telemetry bullet) and records none.  Nothing here owns
-a thread or a socket, and nothing loads torch: the decode workers import it.
+Each scheduler pick among several tenants and each refund is a record of
+the decision journal (:mod:`~petastorm_tpu_torch.telemetry.decisions`): the
+dispatcher's, which its ledger persists.  A quota refusal is one of the
+worker process's journal, which its heartbeats carry to the dispatcher.
+Nothing here owns a thread or a socket, and nothing loads torch: the decode
+workers import it.
 """
 
 import json
 import threading
 import warnings
+
+from petastorm_tpu_torch.telemetry import decisions as _decisions
 
 __all__ = ['DEFAULT_TENANT', 'ADMISSION_RETRY_S', 'TenantJob', 'TenantRegistry',
            'TenantScheduler', 'QuotaLedger', 'config_to_jsonable', 'config_from_jsonable']
@@ -149,15 +153,21 @@ class TenantScheduler(object):
 
     def __init__(self):
         self._deficit = {}
+        #: the journal it records in (the dispatcher's); None: the process's
+        self.decisions = None
 
     def pick(self, eligible):
         """One tenant id of ``eligible`` (jobs in registration order), ties to
-        the earliest; None when empty."""
+        the earliest; None when empty.  A lone tenant is no decision and
+        records nothing."""
         eligible = list(eligible)
         if not eligible:
             return None
         if len(eligible) == 1:
             return eligible[0].tenant
+        # the inputs before the accrual: what the replay runs again
+        table = [{'tenant': j.tenant, 'weight': j.weight,
+                  'deficit': self._deficit.get(j.tenant, 0.0)} for j in eligible]
         total = sum(j.weight for j in eligible) or float(len(eligible))
         best, best_deficit = None, None
         for job in eligible:
@@ -168,6 +178,9 @@ class TenantScheduler(object):
             if best is None or deficit > best_deficit:
                 best, best_deficit = job, deficit
         self._deficit[best.tenant] = best_deficit - 1.0
+        _decisions.record_decision('tenant_sched', 'pick', 'wdrr_deficit',
+                                   {'eligible': table, 'deficit_clamp': _DEFICIT_CLAMP},
+                                   tenant=best.tenant, journal=self.decisions)
         return best.tenant
 
     def refund(self, tenant):
@@ -175,6 +188,9 @@ class TenantScheduler(object):
         split of it was kept back), and keeps its credit."""
         if tenant in self._deficit:
             self._deficit[tenant] = min(_DEFICIT_CLAMP, self._deficit[tenant] + 1.0)
+            _decisions.record_decision('tenant_sched', 'refund', 'wdrr_refund',
+                                       {'deficit': self._deficit[tenant]}, tenant=tenant,
+                                       journal=self.decisions)
 
     def forget(self, tenant):
         self._deficit.pop(tenant, None)
@@ -216,11 +232,18 @@ class QuotaLedger(object):
         with self._lock:
             budget = self._budgets.get(tenant, self._default)
             used = self._used.get(tenant, 0)
-            if budget is not None and used + nbytes > budget:
+            refused = budget is not None and used + nbytes > budget
+            if refused:
                 self.refusals += 1
-                return False
-            self._used[tenant] = used + nbytes
-            return True
+            else:
+                self._used[tenant] = used + nbytes
+        if refused:
+            # the tenant degraded, and this record says why (outside the lock)
+            _decisions.record_decision('tenant_sched', 'quota_refused', 'quota_budget',
+                                       {'nbytes': nbytes, 'used': used, 'budget': budget,
+                                        'plane': self.label},
+                                       suppressed=True, tenant=tenant)
+        return not refused
 
     def refund(self, tenant, nbytes):
         with self._lock:

@@ -50,10 +50,24 @@ from that peer before decoding (``cache_peer_fills``; a failed fetch,
 messages on its data socket.  ``cache_plane_dir=`` points this worker at a
 plane of its own (co-hosted workers standing for separate hosts).
 
+``max_inflight_splits`` bounds the leases a worker holds, and
+``max_buffered_chunks`` the serialized chunks that wait for credits before
+decode pauses; the job's ``reader_factory`` forces the split reader or lets
+the worker probe the dataset once per tenant.  With the job's
+``telemetry_spans`` each split's stage spans (``service/decode_split``,
+``service/serialize``, ``service/shm_publish``,
+``service/serve_cached_split``) ride its ``end`` header; a client places them
+on its own timeline with the clock offsets of the handshakes: the worker's
+offset to the dispatcher, from its registration and each heartbeat, travels
+on its heartbeats.  The heartbeats also carry the process's decision
+journal (its quota refusals).  The chaos seams (``rpc.request`` in
+:meth:`_Rpc.call`, ``worker.chunk`` on byte-path frames, ``worker.decode``
+per split, :mod:`~petastorm_tpu_torch.test_util.chaos`) are inert unless a
+fault spec is armed.
+
 This module and what it imports load neither torch nor JAX: a worker
 process needs no card.  Not ported here (``ROADMAP.md``, Queue A item 7):
-the chaos hooks, the workers' span export, provenance records and decision
-records.
+provenance records and the ingest plane's statistics.
 """
 
 import logging
@@ -74,6 +88,7 @@ import pyarrow.parquet  # noqa: F401
 from petastorm_tpu_torch.errors import ServiceError, ServiceRpcTimeoutError
 from petastorm_tpu_torch.service import backoff, tenancy
 from petastorm_tpu_torch.telemetry.registry import MetricsRegistry
+from petastorm_tpu_torch.test_util import chaos
 
 logger = logging.getLogger(__name__)
 
@@ -82,6 +97,8 @@ MAX_INFLIGHT_SPLITS = 3
 #: A worker's decode pauses once this many serialized chunks wait for
 #: credits (the reference's default).
 MAX_BUFFERED_CHUNKS = 32
+#: The spans of one split its ``end`` header carries at most.
+_MAX_SPANS_PER_SPLIT = 2048
 
 _DEFAULT_RPC_TIMEOUT_S = 20.0
 
@@ -109,6 +126,13 @@ class _Rpc(object):
         """The reply; an error reply raises :class:`ServiceError` unless
         ``raw`` is set."""
         timeout_s = self.timeout_s if timeout_s is None else timeout_s
+        # the chaos seam: a dropped request looks as a lost one does, a
+        # timeout on a rebuilt socket, without the wait
+        if chaos.inject('rpc.request', op=request.get('op')) == 'drop':
+            self._socket.close(0)
+            self._connect()
+            raise ServiceRpcTimeoutError('chaos: dropped %r to %s'
+                                         % (request.get('op'), self._addr))
         self._socket.send(pickle.dumps(request, protocol=4))
         if not self._socket.poll(int(timeout_s * 1000)):
             self._socket.close(0)
@@ -172,16 +196,31 @@ class Worker(object):
         advertise_host: the host published in place of the bind host; a
             wildcard bind host is unroutable from other machines, and
             without this the worker publishes ``socket.gethostname()``.
+        max_inflight_splits: leases held at once.
+        max_buffered_chunks: serialized chunks waiting for credits before
+            decode pauses.
         cache_plane_dir: this worker's cache plane directory in place of the
             job's (the plane is a host's asset; co-hosted workers standing
             for separate hosts each take their own).
     """
 
     def __init__(self, dispatcher_addr, data_bind='tcp://127.0.0.1:*', advertise_host=None,
+                 max_inflight_splits=MAX_INFLIGHT_SPLITS, max_buffered_chunks=MAX_BUFFERED_CHUNKS,
                  cache_plane_dir=None):
         self._dispatcher_addr = dispatcher_addr
         self._data_bind = data_bind
         self._advertise_host = advertise_host
+        if int(max_inflight_splits) < 1 or int(max_buffered_chunks) < 1:
+            raise ValueError('max_inflight_splits and max_buffered_chunks must be >= 1')
+        self._max_inflight = int(max_inflight_splits)
+        self._max_buffered = int(max_buffered_chunks)
+        #: (this clock - the dispatcher's), an EWMA over the handshakes of the
+        #: registration and each heartbeat, its drift since the first, and the
+        #: last handshake's round trip
+        self.clock_offset = None
+        self.clock_drift_ms = 0.0
+        self.clock_rtt_ms = None
+        self._clock_offset_initial = None
         self._stop = threading.Event()
         #: set by :meth:`drain`, SIGTERM or a dispatcher ``drain``: stop
         #: leasing, hand back unstarted splits, finish the rest, deregister
@@ -309,11 +348,13 @@ class Worker(object):
         self.data_addr = self._advertised(self.data_addr)
         rpc = _Rpc(context, self._dispatcher_addr)
         decode_in = queue.Queue()
-        decode_out = queue.Queue(maxsize=MAX_BUFFERED_CHUNKS)
+        decode_out = queue.Queue(maxsize=self._max_buffered)
         self._decode_out = decode_out
         decode_thread = None
         try:
+            t_reg0 = time.monotonic()
             reply = rpc.call({'op': 'register_worker', 'data_addr': self.data_addr})
+            self._update_clock(reply.get('t_mono'), t_reg0, time.monotonic())
             self.worker_id = reply['worker_id']
             job = reply['job']
             if self._cache_plane_dir is not None:
@@ -355,6 +396,25 @@ class Worker(object):
             rpc.close()
             data.close(0)
             context.term()
+
+    #: the weight of each new handshake in the clock offset's EWMA
+    _CLOCK_EWMA_ALPHA = 0.2
+
+    def _update_clock(self, t_mono, t0, t1):
+        """Fold one handshake (the reply's ``t_mono`` against the local send
+        and receive times) into the offset and its drift."""
+        if t_mono is None:
+            return
+        self.clock_rtt_ms = round(1e3 * (t1 - t0), 3)
+        estimate = (t0 + t1) / 2.0 - float(t_mono)
+        if self.clock_offset is None:
+            self._clock_offset_initial = estimate
+            self.clock_offset = round(estimate, 6)
+            return
+        alpha = self._CLOCK_EWMA_ALPHA
+        ewma = (1.0 - alpha) * self.clock_offset + alpha * estimate
+        self.clock_offset = round(ewma, 6)
+        self.clock_drift_ms = round(1e3 * (ewma - self._clock_offset_initial), 3)
 
     # -- the tenants' jobs --------------------------------------------------
 
@@ -533,9 +593,9 @@ class Worker(object):
                     except ServiceError:
                         pass   # the lease expires instead
             # 2. decoded chunks into the consumers' send queues, while fewer
-            # than MAX_BUFFERED_CHUNKS wait for credits: the rest stay in
+            # than max_buffered_chunks wait for credits: the rest stay in
             # the bounded decode_out, which pauses the decode thread
-            while sum(len(q) for q in sendq.values()) < MAX_BUFFERED_CHUNKS:
+            while sum(len(q) for q in sendq.values()) < self._max_buffered:
                 try:
                     item = decode_out.get_nowait()
                 except queue.Empty:
@@ -548,10 +608,12 @@ class Worker(object):
                               'attempt': split['attempt'], 'seq': seq, 'tag': tag}
                     sendq.setdefault(ckey, deque()).append((header, payload))
                 elif kind == 'end':
-                    _, _, nchunks, nrows = item
+                    _, _, nchunks, nrows, spans = item
                     decoding.discard(split['split_id'])
+                    # the split's spans, on this worker's clock
                     header = {'type': 'end', 'split': split['split_id'],
-                              'attempt': split['attempt'], 'chunks': nchunks, 'rows': nrows}
+                              'attempt': split['attempt'], 'chunks': nchunks, 'rows': nrows,
+                              'spans': spans}
                     sendq.setdefault(ckey, deque()).append((header, None))
                     key = (split['split_id'], split['attempt'])
                     awaiting_ack[key] = split
@@ -571,9 +633,19 @@ class Worker(object):
                     if header['type'] == 'chunk':
                         if credits.get(identity, 0) < 1:
                             break
-                        credits[identity] -= 1
-                        data.send_multipart([identity, pickle.dumps(header, protocol=4),
-                                             payload])
+                        # the chaos seam, on byte-path frames only (a second
+                        # shm descriptor would release its slab twice).  A
+                        # dropped chunk keeps its credit: the client's count
+                        # at 'end' asks for the split again
+                        action = chaos.inject('worker.chunk', split=header['split'],
+                                              seq=header['seq']) \
+                            if header['tag'] != b'S' else None
+                        if action != 'drop':
+                            credits[identity] -= 1
+                            frames = [identity, pickle.dumps(header, protocol=4), payload]
+                            data.send_multipart(frames)
+                            if action == 'dup':
+                                data.send_multipart(frames)
                     else:
                         data.send_multipart([identity, pickle.dumps(header, protocol=4)])
                     q.popleft()
@@ -590,6 +662,7 @@ class Worker(object):
             # 4. heartbeat: renews the leases this worker still claims
             if now >= next_heartbeat:
                 try:
+                    t_hb0 = time.monotonic()
                     request = {'op': 'heartbeat', 'worker_id': self.worker_id,
                                'stats': self.heartbeat_stats(), 'held': list(inflight)}
                     if draining:
@@ -609,6 +682,7 @@ class Worker(object):
                             self._cluster.advertised_pieces = False
                     if reply.get('drain'):
                         self._drain.set()
+                    self._update_clock(reply.get('t_mono'), t_hb0, time.monotonic())
                     hb_retry = None
                     next_heartbeat = now + backoff.jittered(heartbeat_every, 0.1)
                 except ServiceRpcTimeoutError:
@@ -650,7 +724,7 @@ class Worker(object):
                     break
             # 5. lease more work, only for the (tenant, consumer) pairs
             # subscribed here; a draining worker takes nothing new
-            if not draining and subscribers and len(inflight) < MAX_INFLIGHT_SPLITS \
+            if not draining and subscribers and len(inflight) < self._max_inflight \
                     and now >= next_lease_probe:
                 try:
                     reply = rpc.call({'op': 'lease', 'worker_id': self.worker_id,
@@ -679,7 +753,9 @@ class Worker(object):
     # -- decode --------------------------------------------------------------
 
     def _resolve_factory(self, job):
-        """A petastorm store gets the codec reader (columnar output), plain
+        """The job's ``reader_factory``: ``'reader'`` (the codec reader,
+        columnar output) or ``'batch_reader'``; ``'auto'`` probes the
+        dataset, a petastorm store getting the codec reader and plain
         Parquet the batch reader.  Resolved once per tenant."""
         from petastorm_tpu_torch.errors import MetadataError
         from petastorm_tpu_torch.reader import make_batch_reader, make_reader
@@ -687,6 +763,11 @@ class Worker(object):
         def codec_reader(url, **kwargs):
             return make_reader(url, columnar_decode=True, **kwargs)
 
+        choice = job.get('reader_factory', 'auto')
+        if choice == 'reader':
+            return codec_reader
+        if choice == 'batch_reader':
+            return make_batch_reader
         try:
             reader = codec_reader(job['dataset_url'], num_epochs=1, piece_indices=[0],
                                   shuffle_row_groups=False, **job['reader_kwargs'])
@@ -715,11 +796,12 @@ class Worker(object):
             kwargs['cache_extra_settings'] = extra
         return kwargs
 
-    def _serialize_split_chunk(self, split, chunk):
+    def _serialize_split_chunk(self, split, chunk, cid, spans):
         """``(tag, payload)`` of one chunk: shm descriptors (``b'S'``) for a
         consumer on this host, else (or when the arena refuses, the chunk is
         under the plane's floor, or its tenant's shm budget would pass) the
-        byte framing."""
+        byte framing.  Its ``service/shm_publish`` or ``service/serialize``
+        span, correlated by ``cid``, goes on ``spans``."""
         t0 = time.monotonic()
         tenant = self._split_tenant(split)
         if self._arena is not None and self._shm_consumers.get((tenant, split['consumer'])):
@@ -732,13 +814,17 @@ class Worker(object):
                 if desc is not None:
                     key = (int(split['split_id']), int(split['attempt']))
                     self._shm_split_bytes[key] = self._shm_split_bytes.get(key, 0) + nbytes
+                    t1 = time.monotonic()
                     self._m_shm_chunks.inc()
-                    self._m_shm_pub_hist.observe(time.monotonic() - t0)
+                    self._m_shm_pub_hist.observe(t1 - t0)
+                    spans.append(_span('service/shm_publish', t0, t1, cid))
                     return b'S', pickle.dumps(desc, protocol=4)
                 self._shm_quota.refund(tenant, nbytes)
         tag, payload = serialize_chunk(chunk)
+        t1 = time.monotonic()
         self._m_byte_chunks.inc()
-        self._m_serialize_hist.observe(time.monotonic() - t0)
+        self._m_serialize_hist.observe(t1 - t0)
+        spans.append(_span('service/serialize', t0, t1, cid))
         return tag, payload
 
     def _accumulate_cache_stats(self, reader):
@@ -800,15 +886,18 @@ class Worker(object):
                            split.get('split_id'), exc_info=True)
             return None
 
-    def _stream(self, split, chunks, decode_out):
-        """Serialize and queue a split's chunks, then its end; its rows."""
-        seq = rows = 0
+    def _stream(self, split, chunks, decode_out, spans):
+        """Serialize and queue a split's chunks; their count, rows and
+        bytes."""
+        seq = rows = out_bytes = 0
         for chunk in chunks:
-            tag, payload = self._serialize_split_chunk(split, chunk)
+            tag, payload = self._serialize_split_chunk(
+                split, chunk, '%d/%d' % (split['split_id'], seq), spans)
             rows += len(next(iter(chunk.values())))
+            out_bytes += len(payload)
             decode_out.put(('chunk', split, seq, tag, payload))
             seq += 1
-        return seq, rows
+        return seq, rows, out_bytes
 
     def _decode_loop(self, job, decode_in, decode_out):
         try:
@@ -825,8 +914,15 @@ class Worker(object):
                 fetcher.close()
 
     def _decode_split(self, job, split, decode_out):
+        """Decode (or serve from the cache) one leased split into
+        ``decode_out``: its chunks, then its end with its spans when the
+        registration ``job`` ships them."""
         t0 = time.monotonic()
+        spans = []
         try:
+            # the chaos seam: a decode's delay, or its failure (the lease
+            # then expires and moves)
+            chaos.inject('worker.decode', split=split['split_id'])
             tenant = self._split_tenant(split)
             tjob = self._job_for(split) if self._tenant_jobs else job
             # a split of the registration job's dataset may be served from
@@ -835,8 +931,10 @@ class Worker(object):
             if tjob.get('dataset_url') == job.get('dataset_url'):
                 chunks = self._cluster_chunks(split)
             if chunks is not None:
-                seq, rows = self._stream(split, chunks, decode_out)
-                self._m_serve_hist.observe(time.monotonic() - t0)
+                seq, rows, _ = self._stream(split, chunks, decode_out, spans)
+                name = 'service/serve_cached_split'
+                t1 = time.monotonic()
+                self._m_serve_hist.observe(t1 - t0)
             else:
                 factory = self._reader_factories.get(tenant)
                 if factory is None:
@@ -844,16 +942,13 @@ class Worker(object):
                 reader = factory(tjob['dataset_url'], piece_indices=split['indices'],
                                  num_epochs=1, shuffle_row_groups=False,
                                  **self._reader_kwargs(tjob))
-                seq = rows = out_bytes = 0
                 with reader:
-                    for item in reader:
-                        chunk = item._asdict() if hasattr(item, '_asdict') else dict(item)
-                        tag, payload = self._serialize_split_chunk(split, chunk)
-                        rows += len(next(iter(chunk.values())))
-                        out_bytes += len(payload)
-                        decode_out.put(('chunk', split, seq, tag, payload))
-                        seq += 1
-                self._m_decode_hist.observe(time.monotonic() - t0)
+                    seq, rows, out_bytes = self._stream(
+                        split, (item._asdict() if hasattr(item, '_asdict') else dict(item)
+                                for item in reader), decode_out, spans)
+                name = 'service/decode_split'
+                t1 = time.monotonic()
+                self._m_decode_hist.observe(t1 - t0)
                 # the split's chunk bytes stand for what it filled into the
                 # plane; the charge that passes the budget turns the tenant's
                 # later readers plane-less
@@ -868,11 +963,14 @@ class Worker(object):
                         and tjob.get('dataset_url') == job.get('dataset_url'):
                     self._cluster.note_published(
                         self._cluster.identity.split_digests(split['indices']))
+            spans.append(_span(name, t0, t1, str(split['split_id']), rows=rows))
             # counted before the split's end is queued: a heartbeat sent
             # after its client got the split carries it
             self._m_rows.inc(rows)
             self._m_splits.inc()
-            decode_out.put(('end', split, seq, rows))
+            decode_out.put(('end', split, seq, rows,
+                            spans[-_MAX_SPANS_PER_SPLIT:] if job.get('telemetry_spans', True)
+                            else []))
         except Exception:  # noqa: BLE001 — shipped to the event loop
             decode_out.put(('error', split, traceback.format_exc()))
 
@@ -903,6 +1001,20 @@ class Worker(object):
 
     def heartbeat_stats(self):
         """The heartbeat's payload: :attr:`diagnostics`, the registry's
-        snapshot (its histograms add up fleet-wide at the dispatcher) and
-        the pid."""
-        return dict(self.diagnostics, registry=self.metrics.snapshot(), pid=os.getpid())
+        snapshot (its histograms add up fleet-wide at the dispatcher), the
+        clock offset with its drift and round trip, the process's
+        decision-journal payload and the pid."""
+        from petastorm_tpu_torch.telemetry import decisions
+        return dict(self.diagnostics, registry=self.metrics.snapshot(),
+                    clock_offset=self.clock_offset, clock_drift_ms=self.clock_drift_ms,
+                    clock_rtt_ms=self.clock_rtt_ms,
+                    decisions=decisions.heartbeat_payload(), pid=os.getpid())
+
+
+def _span(name, t0, t1, cid, **args):
+    """One span of this thread, a flat dict that crosses the wire."""
+    span = {'name': name, 't0': t0, 't1': t1, 'pid': os.getpid(),
+            'tid': threading.get_ident(), 'cid': cid}
+    if args:
+        span['args'] = args
+    return span

@@ -1,9 +1,11 @@
 """Named counters, gauges and latency histograms under one lock.
 
 Counterpart of ``petastorm_tpu/telemetry/registry.py``, cut to what the
-transfer plane, the loaders, the resident tier and the thread pool use
-(exemplars and Prometheus text are not ported; :meth:`MetricsRegistry.merge`
-adds another registry's snapshot in).
+transfer plane, the loaders, the resident tier, the thread pool and the
+data service use, with the Prometheus text of every live registry
+(:meth:`MetricsRegistry.render_prometheus`, :func:`snapshot_all`; the
+reference's tail exemplars are not ported).  :meth:`MetricsRegistry.merge`
+adds another registry's snapshot in.
 Histograms use fixed log2 buckets over microseconds: bucket ``i`` counts
 observations in ``[2**i, 2**(i+1))`` us, and a quantile is the upper bound
 of the bucket it falls in.  The hot path is one lock and one add.
@@ -12,12 +14,17 @@ of the bucket it falls in.  The hot path is one lock and one add.
 import bisect
 import math
 import threading
+import weakref
 
-__all__ = ['MetricsRegistry', 'Counter', 'Gauge', 'Histogram', 'hist_quantile', 'ms']
+__all__ = ['MetricsRegistry', 'Counter', 'Gauge', 'Histogram', 'hist_quantile', 'ms',
+           'snapshot_all']
 
 #: log2 buckets over microseconds: 1 us .. ~2.4 hours; index 0 takes the
 #: sub-microsecond observations, the last one the tail.
 BUCKETS = 44
+
+#: Every live registry: what a scrape of the process renders.
+_LIVE = weakref.WeakSet()
 
 
 def ms(seconds):
@@ -88,6 +95,7 @@ class MetricsRegistry(object):
         self._counters = {}
         self._gauges = {}
         self._histograms = {}
+        _LIVE.add(self)
 
     def _get(self, table, name, factory):
         with self._lock:
@@ -141,6 +149,49 @@ class MetricsRegistry(object):
             for label, q in (('p50', 0.5), ('p99', 0.99)):
                 out['%s_%s_ms' % (name, label)] = ms(hist_quantile(hist, q))
         return out
+
+    def render_prometheus(self):
+        """The Prometheus text exposition of every instrument, the
+        reference's: the namespace becomes the metric prefix after
+        ``petastorm_tpu_``, and a histogram's buckets are cumulative with
+        their upper bounds in seconds."""
+        snap = self.snapshot()
+        prefix = 'petastorm_tpu_'
+        if snap['namespace']:
+            prefix += _sanitize(snap['namespace']) + '_'
+        lines = []
+        for kind in ('counter', 'gauge'):
+            for name, value in sorted(snap[kind + 's'].items()):
+                metric = prefix + _sanitize(name)
+                lines += ['# TYPE %s %s' % (metric, kind), '%s %s' % (metric, _fmt(value))]
+        for name, hist in sorted(snap['histograms'].items()):
+            metric = prefix + _sanitize(name) + '_seconds'
+            lines.append('# TYPE %s histogram' % metric)
+            cumulative = 0
+            for i, n in enumerate(hist['counts']):
+                cumulative += n
+                if n:
+                    lines.append('%s_bucket{le="%g"} %d' % (metric, (2.0 ** (i + 1)) / 1e6,
+                                                            cumulative))
+            lines.append('%s_bucket{le="+Inf"} %d' % (metric, hist['count']))
+            lines.append('%s_sum %s' % (metric, _fmt(hist['sum'])))
+            lines.append('%s_count %d' % (metric, hist['count']))
+        return '\n'.join(lines) + '\n'
+
+
+def _sanitize(name):
+    return ''.join(c if (c.isalnum() or c == '_') else '_' for c in name)
+
+
+def _fmt(value):
+    if isinstance(value, float):
+        return repr(round(value, 6))
+    return str(value)
+
+
+def snapshot_all():
+    """A :meth:`MetricsRegistry.snapshot` of every live registry."""
+    return [r.snapshot() for r in list(_LIVE)]
 
 
 def hist_quantile(hist, q):

@@ -13,8 +13,10 @@ SIGKILLed while it holds a lease (every row once, no ``/dev/shm`` residue
 of its pid), a SIGTERM drain, ``piece_indices`` on both readers, the shared
 fleet's options and entry points working (their own files,
 ``test_torch_tenancy.py``, ``test_torch_service_ledger.py`` and
-``test_torch_cluster_cache.py``, hold them against JAX), and each option
-outside the slice raising with its ``ROADMAP.md`` item.
+``test_torch_cluster_cache.py``, hold them against JAX), the control
+plane's options (the autoscaler's, the worker knobs, the span export)
+equal to JAX's, and each option outside the slice raising with its
+``ROADMAP.md`` item.
 
 Every test that runs the wire runs under a watchdog of its own (a service
 fault fails that test and does not hang the suite); lease TTLs stay at 2 s
@@ -496,7 +498,8 @@ def test_a_worker_killed_while_it_holds_a_lease_loses_no_row(raw):
 def test_the_client_records_each_split_wait(url):
     """With a trace recorder the client's wait for each split is a
     ``service/split_wait`` span (one per split, and one for the end of the
-    stream); the workers ship no spans."""
+    stream), and the worker's spans of each split (its decode, its chunks'
+    serialization) merge into the same trace."""
     from petastorm_tpu_torch.benchmark import TraceRecorder
     recorder = TraceRecorder()
     dispatcher, worker = _service(url)
@@ -507,8 +510,10 @@ def test_the_client_records_each_split_wait(url):
         _shutdown(dispatcher, worker)
     assert sorted(ids) == list(range(ROWS))
     service = [e for e in recorder.events if e['name'].startswith('service/')]
-    assert {e['name'] for e in service} == {'service/split_wait'}
-    assert len(service) == ROWS // 16 + 1
+    assert {e['name'] for e in service} == {'service/split_wait', 'service/decode_split',
+                                           'service/serialize'}
+    assert len([e for e in service if e['name'] == 'service/split_wait']) == ROWS // 16 + 1
+    assert len([e for e in service if e['name'] == 'service/decode_split']) == ROWS // 16
     assert all(e['pid'] == os.getpid() for e in service)
 
 
@@ -555,16 +560,25 @@ def test_piece_indices_raise_where_jax_does(url, kwargs, match):
         jax_make_reader(url, reader_pool_type='dummy', **kwargs)
 
 
-# -- outside the slice ---------------------------------------------------------
+# -- the options: outside the slice, and the control plane's -------------------
 
-@pytest.mark.parametrize('field,value', [
-    ('autoscale', True), ('autoscale_max_workers', 4), ('scheduling', 'adaptive'),
-    ('ingest', 'plane'), ('heartbeat_interval_s', 1.0), ('max_buffered_chunks', 8),
-    ('max_inflight_splits', 1), ('telemetry_spans', False), ('reader_factory', 'batch_reader')])
+@pytest.mark.parametrize('field,value', [('scheduling', 'adaptive'), ('ingest', 'plane')])
 def test_config_options_outside_the_slice_raise(url, field, value):
     with pytest.raises(ValueError, match='ROADMAP.md, Queue A item 7') as info:
         ServiceConfig(url, **{field: value})
     assert field in str(info.value)
+
+
+@pytest.mark.parametrize('field,value', [
+    ('autoscale', True), ('autoscale_max_workers', 4), ('heartbeat_interval_s', 1.0),
+    ('max_buffered_chunks', 8), ('max_inflight_splits', 1), ('telemetry_spans', False),
+    ('reader_factory', 'batch_reader')])
+def test_config_options_of_the_control_plane_work_as_jax(url, field, value):
+    port, ref = ServiceConfig(url, **{field: value}), JaxServiceConfig(url, **{field: value})
+    assert getattr(port, field) == getattr(ref, field) == value
+    assert port.job_info(3) == ref.job_info(3)
+    assert port.fingerprint(3) == ref.fingerprint(3)
+    assert port.heartbeat_interval_s == ref.heartbeat_interval_s
 
 
 #: the shared fleet's options, each with what it needs beside it

@@ -59,7 +59,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                    'service/worker.py', 'service/client.py', 'service/tenancy.py',
                    'service/ledger.py', 'service/cluster.py', 'cache_plane/__init__.py',
                    'cache_plane/fingerprint.py', 'cache_plane/plane.py',
-                   'local_disk_cache.py'):
+                   'local_disk_cache.py', 'telemetry/decisions.py', 'telemetry/scrape.py',
+                   'service/autoscaler.py', 'service/cli.py', 'test_util/__init__.py',
+                   'test_util/chaos.py'):
         assert os.path.join(PACKAGE, module) in sources, module
     offenders = []
     for path in sources:
@@ -304,6 +306,67 @@ def test_the_shared_fleets_worker_side_loads_neither_torch_nor_jax(tmp_path):
     drop_hot_tiers(tmp_path)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert 'LOADED []' in proc.stdout
+
+
+def test_the_control_planes_worker_side_loads_neither_torch_nor_jax(tmp_path):
+    """The command line's ``worker`` (run in this process against a port
+    dispatcher, drained through it), the autoscaler's subprocess launcher's
+    child (``python -m petastorm_tpu_torch.service.cli worker``, its imports
+    listed by ``PYTHONPROFILEIMPORTTIME``), the chaos seams armed and fired,
+    the decision journal and the span buffer: neither torch nor JAX is
+    loaded."""
+    sys.path.insert(0, os.path.join(REPO, 'tests'))
+    from torch_plane_common import write_dataset
+    url = write_dataset('file://%s' % (tmp_path / 'ds'), rows=32)
+    script = textwrap.dedent('''
+        import sys, threading, time
+        from petastorm_tpu_torch.service import autoscaler, cli
+        from petastorm_tpu_torch.service.config import ServiceConfig
+        from petastorm_tpu_torch.service.dispatcher import Dispatcher
+        from petastorm_tpu_torch.telemetry import decisions, spans
+        from petastorm_tpu_torch.test_util import chaos
+
+        def wait(pred):
+            deadline = time.monotonic() + 60
+            while not pred():
+                assert time.monotonic() < deadline
+                time.sleep(0.05)
+        state = chaos.activate({'seed': 1, 'faults': [
+            {'seam': 'worker.decode', 'action': 'delay', 'delay_s': 0.0}]})
+        launcher = autoscaler.SubprocessWorkerLauncher(env={'PYTHONPROFILEIMPORTTIME': '1'})
+        with Dispatcher(ServiceConfig(sys.argv[1], lease_ttl_s=2.0)) as d:
+            def fleet():   # the command line's worker holds the main thread
+                wait(lambda: d._op_workers({})['workers'])
+                launcher.spawn(d.addr)
+                wait(lambda: len(d._op_workers({})['workers']) == 2)
+                for w in d._op_workers({})['workers']:
+                    d._op_drain({'worker_id': w['worker_id']})
+            helper = threading.Thread(target=fleet)
+            helper.start()
+            assert cli.main(['worker', '--dispatcher', d.addr, '--max-inflight-splits', '1']) == 0
+            helper.join(60)
+            wait(lambda: not d._op_workers({})['workers'])
+            launcher.close()
+        chaos.inject('worker.decode', split=0)
+        assert state.fired() == 1
+        chaos.deactivate()
+        decisions.record_decision('autoscaler', 'hold', 'autoscale_cooldown_s', {})
+        spans.current_buffer().span('service/serialize', 0.0, 1.0)
+        loaded = sorted(m for m in sys.modules if m.split('.')[0] in FORBIDDEN + ('torch',))
+        print('LOADED', loaded)
+        sys.exit(1 if loaded else 0)
+    ''').replace('FORBIDDEN', repr(FORBIDDEN))
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES='')
+    env.pop('PYTHONPROFILEIMPORTTIME', None)
+    proc = subprocess.run([sys.executable, '-c', script, url], env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr[-4000:]
+    assert 'LOADED []' in proc.stdout
+    # the launcher's child: its import lines, '... | <module>'
+    child = [line.rsplit('|', 1)[1].strip() for line in proc.stderr.splitlines()
+             if line.startswith('import time:') and '|' in line]
+    assert 'petastorm_tpu_torch.service.worker' in child, proc.stderr[-2000:]
+    assert not [m for m in child if m.split('.')[0] in FORBIDDEN + ('torch',)]
 
 
 def test_batch_path_on_cpu_never_loads_jax(tmp_path):

@@ -5,10 +5,11 @@ Against JAX: the split codec; the file through the version gate, each
 package loading the other's file; the owner lock, exclusive across both
 packages; and a ledger written by either package's dispatcher (two tenants,
 done, leased, retried and pending splits, the cluster cache's directory)
-restoring in the other's to the same split states, attempts, tenant table
-and directory.  The JAX dispatcher writes its decision journal under
-``decisions``; the port keeps none, writes the key empty and ignores it on
-restore.  The port alone: a restart keeps done splits and attempt counts,
+restoring in the other's to the same split states, attempts, tenant table,
+directory and decision journal (``decisions``); one scripted sequence of
+lease calls to a port and a JAX dispatcher (two tenants, the cluster cache's
+affinity) records the same scheduler and affinity decisions, and the same
+quota charges the same refusals.  The port alone: a restart keeps done splits and attempt counts,
 an orphan lease is adopted by a held claim or requeues unclaimed with its
 attempt intact, another geometry cold-starts, the write-ahead journal
 replays and a torn tail line is skipped, and a SIGKILLed subprocess
@@ -29,10 +30,14 @@ from petastorm_tpu.service.ledger import DispatcherLedger as JaxLedger
 from petastorm_tpu.service.ledger import LedgerHeldError as JaxLedgerHeldError
 from petastorm_tpu.service.ledger import decode_splits as jax_decode_splits
 from petastorm_tpu.service.ledger import encode_splits as jax_encode_splits
+from petastorm_tpu.service import tenancy as jax_tenancy
+from petastorm_tpu.telemetry import decisions as jax_decisions
 
 from petastorm_tpu_torch.service import Dispatcher, ServiceConfig, ServiceDataLoader, Worker
+from petastorm_tpu_torch.service import tenancy
 from petastorm_tpu_torch.service.ledger import (DispatcherLedger, LedgerHeldError,
                                                 decode_splits, encode_splits)
+from petastorm_tpu_torch.telemetry import decisions
 
 from torch_plane_common import write_dataset
 from torch_service_common import (free_tcp_addr, reap, spawn_dispatcher, wait_for, watched)
@@ -247,22 +252,28 @@ def _restored(d):
                        for s in d._splits],
             'tenants': [(j.tenant, j.weight, j.split_base, j.num_splits, j.num_pieces,
                          [s.split_id for s in j.pending]) for j in d._tenants.jobs()],
-            'digests': dict(d._ledger_digests_by_addr), 'restores': d.ledger_restores}
+            'digests': dict(d._ledger_digests_by_addr), 'restores': d.ledger_restores,
+            'decisions': [{k: r.get(k) for k in ('actor', 'action', 'rule', 'inputs',
+                                                 'suppressed', 'seq', 'tenant', 't_mono',
+                                                 'unix_time')}
+                          for r in d._decisions.records()],
+            'journal_restores': d._decisions.dump()['restores']}
 
 
 @pytest.mark.parametrize('direction', ['jax_to_port', 'port_to_jax'])
 def test_a_ledger_restores_across_the_packages(url, tmp_path, direction):
     """One side's dispatcher writes the ledger; the other's restores it to
     the same split states, attempts, tenant table (the burst tenant at base
-    6, weight 3) and directory as the writer's own restore."""
+    6, weight 3), directory and decision journal (the scheduler's picks
+    between the two tenants, records as they were written) as the writer's
+    own restore."""
     plane = str(tmp_path / 'plane')
     extra = dict(cache_plane=True, cache_plane_dir=plane)
     writer, reader = (_jax, _port) if direction == 'jax_to_port' else (_port, _jax)
     _history(writer(url, tmp_path, **extra), plane)
     state = JaxLedger(str(tmp_path / 'ledger.json')).load()
-    assert 'decisions' in state
-    if direction == 'port_to_jax':
-        assert state['decisions'] == {}
+    assert state['decisions']['kind'] == 'decision_journal'
+    assert state['decisions']['counts'] == {'tenant_sched': {'actions': 4, 'suppressed': 0}}
     restored = {}
     for name, factory in (('reader', reader), ('writer', writer)):
         d = factory(url, tmp_path, **extra)
@@ -277,6 +288,82 @@ def test_a_ledger_restores_across_the_packages(url, tmp_path, direction):
     assert [s[3] for s in got['splits']].count(1) == 1
     assert [t[0] for t in got['tenants']] == ['default', 'burst']
     assert got['restores'] == 1 and want['restores'] == 2
+    assert got['decisions'] == want['decisions']
+    assert [(r['actor'], r['action']) for r in got['decisions']] == [('tenant_sched', 'pick')] * 4
+    assert got['journal_restores'] == 1 and want['journal_restores'] == 2
+
+
+def _record(rec):
+    """A record without what the clock decides."""
+    out = {k: rec.get(k) for k in ('actor', 'action', 'rule', 'suppressed', 'seq', 'worker_id',
+                                   'split_id', 'tenant')}
+    out['inputs'] = {k: v for k, v in rec['inputs'].items() if k != 'waited_s'}
+    return out
+
+
+def test_the_dispatchers_record_the_same_decisions_as_jax(url, tmp_path):
+    """Two tenants on one dataset (weights 1 and 3), the cluster cache's
+    piece map and one warm worker's digests (10 of the 12 pieces), then a
+    scripted sequence of lease calls from the warm and a cold worker, the
+    deferral windows run out by hand once: the same grants and the same
+    tenant-scheduler and affinity records (each replaying clean).  Then the same quota charges on each
+    package's ``QuotaLedger``: the same refusal records in the process
+    journal."""
+    plane = str(tmp_path / 'plane')
+    runs = []
+    for name, factory in (('port', _port), ('jax', _jax)):
+        d = factory(url, tmp_path, cache_plane=True, cache_plane_dir=plane, lease_ttl_s=30.0,
+                    ledger_path=str(tmp_path / ('%s.json' % name)))
+        assert 'job' in d._op_register_job({'tenant': 'b', 'weight': 3.0, 'config': dict(
+            dataset_url=url, rowgroups_per_split=2, lease_ttl_s=30.0,
+            reader_kwargs={'workers_count': 1})})
+        warm = d._op_register_worker({'data_addr': 'tcp://w:1'})['worker_id']
+        cold = d._op_register_worker({'data_addr': 'tcp://w:2'})['worker_id']
+        d._op_heartbeat({'worker_id': warm, 'piece_digests': ['p%d' % i for i in range(12)],
+                         'cache_digests': ['p%d' % i for i in range(10)]})
+        d._op_heartbeat({'worker_id': cold})
+        grants = []
+        for i, worker in enumerate([cold, warm, cold, cold, warm, cold, warm, warm, cold, cold,
+                                    warm, cold, cold, warm]):
+            if i == 8:   # the cold worker's deferral window runs out
+                with d._lock:
+                    for split in d._splits:
+                        if split.affinity_defer_until is not None:
+                            split.affinity_defer_until = 0.0
+            reply = d._op_lease({'worker_id': worker})
+            split = reply.get('split')
+            grants.append(None if split is None else (split['split_id'], split['tenant']))
+        runs.append({'grants': grants,
+                     'records': [_record(r) for r in d._op_decisions({})['journal']['records']],
+                     'affinity': d._op_stats({})['cluster_cache']['cache_affinity_routed']})
+        d._ledger.release()
+    ours, ref = runs
+    assert ours == ref
+    kinds = {(r['actor'], r['action']) for r in ours['records']}
+    assert kinds >= {('tenant_sched', 'pick'), ('tenant_sched', 'refund'), ('affinity', 'routed'),
+                     ('affinity', 'deferred'), ('affinity', 'deferral_exhausted')}, kinds
+    assert ours['affinity'] >= 1
+    assert all(decisions.replay_decision(r)['verdict'] == 'match'
+               for r in ours['records'] if r['rule'] != 'affinity_defer_s')
+
+    quota_records = []
+    for module, dmod in ((tenancy, decisions), (jax_tenancy, jax_decisions)):
+        journal = dmod.DecisionJournal()
+        ledger = module.QuotaLedger(default_budget=1000, label='shm')
+        ledger.set_budget('b', 300)
+        original = dmod.default_journal
+        dmod.default_journal = lambda label=None, journal=journal: journal
+        try:
+            verdicts = [ledger.charge(tenant, n) for tenant, n in
+                        (('a', 600), ('b', 200), ('b', 200), ('a', 600), ('b', 100))]
+            ledger.refund('a', 600)
+            verdicts.append(ledger.charge('a', 600))
+        finally:
+            dmod.default_journal = original
+        quota_records.append((verdicts, ledger.snapshot(),
+                              [_record(r) for r in journal.records()]))
+    assert quota_records[0] == quota_records[1]
+    assert quota_records[0][0] == [True, True, False, False, True, True]
 
 
 # -- a dispatcher killed mid-epoch ----------------------------------------------
