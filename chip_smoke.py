@@ -231,7 +231,15 @@ Phases, in order; any failure propagates and exits nonzero:
    SIGTERM with no ``/dev/shm`` slab left; the same epoch from the local
    loader (4 decode threads); and ``ordered=True`` with one worker and one
    thread equal to a local reader's host batches in dataset order, bit for
-   bit.
+   bit; then the shared fleet (``phase_service_fleet``) and the control
+   plane (``phase_service_control``) on the same store;
+27. ingest (``phase_ingest``): adaptive scheduling, the loader's autotuner
+   and the async ingest plane over the cold-store emulation of the 1,536-row
+   store, three legs of ViT-S/16 at full width (FIFO, adaptive, adaptive
+   with the plane and the tuner fed by a ``StallMonitor``), 28 graphed
+   steps each, timed after 4, then the rest of two epochs: every row twice,
+   the adaptive legs' ids equal in order, the plane fetching and never
+   degrading.
 
 Every streaming path moves its batches through the loader's transfer
 plane (``transfer='auto'``): a dispatch thread pulls, transforms and puts
@@ -841,6 +849,18 @@ def check_main_path(result, launches, by_design):
            result['host_ms'], STEPS, result['cuda_graph'], result['data_wait_ms'], STEPS - 1,
            launches))
     log('launches by design: %s' % by_design)
+    metrics = result['loader_metrics']
+    log('main path reader: scheduling=%s ingest=%s; autotuner gauges %s'
+        % (result['reader_diagnostics'].get('scheduling'),
+           result['reader_diagnostics'].get('ingest'),
+           {k: metrics.get(k) for k in ('sched_window', 'sched_max_inflight', 'sched_prefetch',
+                                        'sched_adjust_total')}))
+    if result['reader_diagnostics'].get('scheduling') != 'adaptive' \
+            or metrics.get('sched_window') is None:
+        raise AssertionError("the main path's reader dispatched %r with autotuner gauges %s; "
+                             "the JAX example's arguments resolve to 'adaptive' with a live tuner"
+                             % (result['reader_diagnostics'].get('scheduling'),
+                                metrics.get('sched_window')))
     log('losses: %s' % ' '.join('%.4f' % x for x in losses))
     if not np.all(np.isfinite(losses)):
         raise AssertionError('non-finite training loss: %s' % losses)
@@ -5648,6 +5668,176 @@ def phase_service_control(fa, tmp):
     return dict(launches)
 
 
+ING_STEPS = 28          # graphed ViT-S/16 steps a leg, timed after ING_WARMUP
+ING_WARMUP = 4
+ING_EPOCHS = 2          # each leg's reader: two epochs, read to the end after the steps
+ING_PIECE_FETCH_S = 1.0  # one row group's read through one handle of the emulated store
+ING_COLD_LATENCY_S = 0.05   # a cold GET: paid once by each handle (a plane fetch opens one)
+ING_COLD_THRESHOLD = 1 << 20   # the store's one data file is far above it
+ING_LEGS = (('fifo', dict(scheduling='fifo', ingest='off'), 'auto'),
+            ('adaptive', dict(scheduling='adaptive', ingest='off'), 'auto'),
+            ('adaptive+plane', dict(scheduling='adaptive', ingest='plane'), True))
+ING_GAUGES = ('sched_window', 'sched_max_inflight', 'sched_prefetch', 'sched_ingest_window')
+ING_COUNTERS = ('ingest_fetches', 'ingest_fetch_bytes', 'ingest_gets', 'ingest_degraded',
+                'ingest_hedges', 'ingest_hedge_wins', 'ingest_window')
+
+
+def ing_bps(url):
+    """The emulated store's bandwidth a handle: the mean row group's
+    compressed bytes over ``ING_PIECE_FETCH_S``."""
+    from petastorm_tpu_torch.etl.dataset_metadata import (load_row_groups,
+                                                          read_row_group_byte_sizes)
+    from petastorm_tpu_torch.fs_utils import LocalFilesystem, get_filesystem_and_path
+    fs, path = get_filesystem_and_path(url)
+    pieces = load_row_groups(fs, path)
+    sizes = read_row_group_byte_sizes(LocalFilesystem(), {p.path for p in pieces})
+    mean = sum(sizes.values()) / len(sizes)
+    return mean / ING_PIECE_FETCH_S, mean, len(sizes)
+
+
+def ing_leg(fa, url, fields, transform, step, label, bps, reader_kwargs, autotune):
+    """One leg: ViT-S/16 fed by ``make_reader`` over the emulated cold store
+    (8 decode threads, columnar) and ``DataLoader``: ``ING_STEPS`` graphed
+    steps (the counts set to 0 just before), then the rest of the reader's
+    two epochs read without steps.  Returns the leg's numbers and every
+    delivered row id in order."""
+    from petastorm_tpu_torch.benchmark.stall_profiler import StallMonitor
+    from petastorm_tpu_torch.fs_utils import LocalFilesystem
+    from petastorm_tpu_torch.gpu import DataLoader
+    from petastorm_tpu_torch.reader import make_reader
+    from petastorm_tpu_torch.telemetry import decisions
+    from petastorm_tpu_torch.test_util.emulation import BandwidthLimitedFilesystem
+    fs = BandwidthLimitedFilesystem(LocalFilesystem(), bps=bps, cold_latency=ING_COLD_LATENCY_S,
+                                    cold_threshold=ING_COLD_THRESHOLD)
+    journal = decisions.default_journal()
+    before = journal.counts()
+    monitor = StallMonitor(warmup_steps=ING_WARMUP)
+    ids, losses = [], []
+    host_s = 0.0
+    torch.cuda.synchronize()
+    t_open = time.perf_counter()
+    with make_reader(url, schema_fields=fields, transform_spec=transform, filesystem=fs,
+                     workers_count=8, columnar_decode=True, num_epochs=ING_EPOCHS,
+                     **reader_kwargs) as reader:
+        loader = DataLoader(reader, BATCH, autotune=autotune)
+        if autotune is True:
+            loader.attach_stall_monitor(monitor)
+        gauges = {}
+        with loader:
+            batches = monitor.wrap(loader)
+            reset_counts(fa)
+            for i in range(ING_STEPS):
+                batch = next(batches)
+                if i == 0:
+                    first_batch_s = time.perf_counter() - t_open
+                    gauges['start'] = {k: loader.metrics.as_dict().get(k) for k in ING_GAUGES}
+                if i == ING_WARMUP:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                if batch['image'].device.type != 'cuda':
+                    raise AssertionError('%s: a batch reached the step on %s'
+                                         % (label, batch['image'].device))
+                ids.append(batch['id'].clone())
+                t1 = time.perf_counter()
+                losses.append(step(batch))
+                if i >= ING_WARMUP:
+                    host_s += time.perf_counter() - t1
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            launches, by_design = counts(fa)
+            report = monitor.report()
+            waited = (monitor.wait_time, monitor.steps)
+            gauges['end'] = {k: loader.metrics.as_dict().get(k) for k in ING_GAUGES}
+            for batch in batches:    # the rest of the two epochs, no steps
+                ids.append(batch['id'].clone())
+        diag = reader.diagnostics
+        hists = reader.metrics.as_dict() if reader.metrics is not None else {}
+    after = journal.counts()
+    ids = [int(i) for i in torch.cat(ids).cpu()]
+    losses = [float(v) for v in torch.stack(losses).cpu()]
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError('%s: non-finite loss %s' % (label, losses))
+    check_launches(label, launches, by_design, {name: 12 * ING_STEPS for name in launches})
+    counted = collections.Counter(ids)
+    if len(ids) != ING_EPOCHS * SVC_ROWS or set(counted) != set(range(SVC_ROWS)) \
+            or set(counted.values()) != {ING_EPOCHS}:
+        raise AssertionError('%s: rows lost or repeated in an epoch (%d delivered, %d distinct, '
+                             'counts %s)' % (label, len(ids), len(counted),
+                                             sorted(set(counted.values()))))
+    timed = ING_STEPS - ING_WARMUP
+    decisions_by_actor = {actor: {k: c[k] - before.get(actor, {}).get(k, 0) for k in c}
+                          for actor, c in after.items()
+                          if c != before.get(actor)}
+    run = {'steps': ING_STEPS, 'launches': launches,
+           'images_per_s': timed * BATCH / elapsed, 'step_ms': 1e3 * elapsed / timed,
+           'host_ms': 1e3 * host_s / timed,
+           'data_wait_ms': 1e3 * waited[0] / waited[1] if waited[1] else None,
+           'stall_pct': report['stall_pct'], 'first_batch_s': first_batch_s,
+           'scheduling': diag['scheduling'], 'ingest': diag['ingest'],
+           'counters': {k: diag.get(k) for k in ING_COUNTERS},
+           'ingest_wait_ms': {q: hists.get('ingest_wait_%s_ms' % q) for q in ('p50', 'p99')},
+           'ingest_wait_count': hists.get('ingest_wait_count'),
+           'ingest_fetch_ms': {q: hists.get('ingest_fetch_%s_ms' % q) for q in ('p50', 'p99')},
+           'decode_ms': {q: hists.get('decode_%s_ms' % q) for q in ('p50', 'p99')},
+           'gauges': gauges, 'decisions': decisions_by_actor,
+           'fetch_bound': bool(waited[1] and waited[0] / waited[1] > 0.5 * elapsed / timed)}
+    return run, ids
+
+
+def phase_ingest(fa, tmp):
+    """Adaptive scheduling, the autotuner and the async ingest plane feeding
+    ViT-S/16 on the card, over the cold-store emulation
+    (``BandwidthLimitedFilesystem``) of ``phase_service``'s 1,536-row JPEG
+    store (24 row groups of 64, one file): each handle reads at the mean row
+    group's bytes per ``ING_PIECE_FETCH_S`` and pays ``ING_COLD_LATENCY_S``
+    once.  Three legs of ``make_reader(..., filesystem=, workers_count=8,
+    columnar_decode=True)`` and ``DataLoader``, each ``ING_STEPS`` graphed
+    steps at full width, batch 64, timed after ``ING_WARMUP``: (a) FIFO, (b)
+    adaptive, (c) adaptive with the ingest plane, the autotuner on and a
+    ``StallMonitor`` attached.  Each prints images/s, step ms, data wait,
+    ``stall_pct``, the ingest counters, ``ingest_wait``/``ingest_fetch``
+    p50/p99, the ``sched_*`` gauges at the first batch and at the last step,
+    and the decision records by actor.  Fails when a loss is not finite, a
+    kernel was not launched 12 times a step, a row is lost or repeated in
+    one of the two epochs, (b) and (c) differ in delivered ids or order, or
+    (c) has no plane, no fetch or a degraded piece."""
+    from petastorm_tpu_torch.train import make_transform
+    url = 'file://' + os.path.join(tmp, 'service_jpeg')
+    bps, mean_bytes, pieces = ing_bps(url)
+    log('ingest store: %d row groups, mean %.0f bytes; emulated bps %.0f a handle, cold latency '
+        '%.3f s a handle (files >= %d bytes)' % (pieces, mean_bytes, bps, ING_COLD_LATENCY_S,
+                                                 ING_COLD_THRESHOLD))
+    fields, transform = ['id', 'image', 'noun_id'], make_transform((224, 224))
+    step = vit_resident_step()
+    runs, delivered = {}, {}
+    for label, reader_kwargs, autotune in ING_LEGS:
+        t0 = time.monotonic()
+        runs[label], delivered[label] = ing_leg(fa, url, fields, transform, step, label, bps,
+                                                reader_kwargs, autotune)
+        log('ingest %s (%.1f s): %s' % (label, time.monotonic() - t0,
+                                         json.dumps({k: v for k, v in runs[label].items()
+                                                     if k != 'launches'})))
+    plane = runs['adaptive+plane']
+    if delivered['adaptive'] != delivered['adaptive+plane']:
+        raise AssertionError('ingest: the adaptive legs with and without the plane delivered '
+                             'different ids or orders')
+    if plane['ingest'] != 'plane' or not plane['counters']['ingest_fetches'] \
+            or plane['counters']['ingest_degraded']:
+        raise AssertionError('ingest: the plane leg ran ingest=%r with %s'
+                             % (plane['ingest'], plane['counters']))
+    log('ingest: images/s fifo %.1f, adaptive %.1f, adaptive+plane %.1f; data wait ms %s; '
+        'fetch-bound fifo: %s' % (runs['fifo']['images_per_s'], runs['adaptive']['images_per_s'],
+                                 plane['images_per_s'],
+                                 [runs[k]['data_wait_ms'] for k, _, _ in ING_LEGS],
+                                 runs['fifo']['fetch_bound']))
+    SUMMARY['ingest'] = dict(runs, bps=bps, mean_row_group_bytes=mean_bytes,
+                             cold_latency_s=ING_COLD_LATENCY_S)
+    launches = collections.Counter()
+    for run in runs.values():
+        launches.update(run['launches'])
+    return dict(launches)
+
+
 def main():
     # The kernels' module (petastorm_tpu_torch.ops re-exports its function
     # under the same name).  Imported first: outside a checkout this fails
@@ -5704,7 +5894,8 @@ def main():
                             ('multi_device', lambda: phase_multi_device(fa, url, tmp)),
                             ('service', lambda: phase_service(fa, tmp)),
                             ('service_fleet', lambda: phase_service_fleet(fa, tmp)),
-                            ('service_control', lambda: phase_service_control(fa, tmp))):
+                            ('service_control', lambda: phase_service_control(fa, tmp)),
+                            ('ingest', lambda: phase_ingest(fa, tmp))):
             t0 = time.monotonic()
             paths[name] = phase()
             log('phase %s: %.1f s' % (name, time.monotonic() - t0))
@@ -5714,7 +5905,7 @@ def main():
                 'sequence_parallel': paths['sequence_parallel'],
                 'multi_device': paths['multi_device'], 'elastic': paths['elastic'],
                 'service': paths['service'], 'service_fleet': paths['service_fleet'],
-                'service_control': paths['service_control']}
+                'service_control': paths['service_control'], 'ingest': paths['ingest']}
     kernels = [dict(name=name, route='cuda', design=MAIN_PATH_DESIGN[name],
                     source=SOURCES[name], replaces=REPLACES[name],
                     launches=sum(path[name] for path in launches.values()),

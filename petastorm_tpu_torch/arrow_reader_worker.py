@@ -32,6 +32,11 @@ class BatchWorkerArgs:
     #: Transient-I/O retries per row group before PoisonedRowGroupError.
     read_retries: int = 2
     retry_backoff_s: float = 0.1
+    #: The reader's filesystem: None or the port's local one read through
+    #: the memory map, any other through its ``open``.
+    filesystem: object = None
+    #: The reader's :class:`~petastorm_tpu_torch.ingest.IngestPlane`, or None.
+    ingest: object = None
 
 
 def piece_cache_key(piece, schema_view, transform_spec):
@@ -55,11 +60,13 @@ class ArrowReaderWorker(ParquetWorkerBase):
         piece = self._a.pieces[piece_index]
         cache_key = piece_cache_key(piece, self._a.schema_view, self._a.transform_spec)
         # the retries wrap the read only: an error out of the user's
-        # transform surfaces as itself, not as a corrupt row group
-        table = self._a.cache.get(
-            cache_key,
-            lambda: self._apply_transform(
-                self._read_with_retry(piece, lambda pf: self._load_table(pf, piece))))
+        # transform surfaces as itself, not as a corrupt row group; the
+        # scope hands the ingest plane's entry back on a cache hit
+        with self._ingest_scope(piece):
+            table = self._a.cache.get(
+                cache_key,
+                lambda: self._apply_transform(
+                    self._read_with_retry(piece, lambda pf: self._load_table(pf, piece))))
         if table is not None and table.num_rows > 0:
             self.publish_func(table)
 

@@ -11,10 +11,10 @@ import.
 Cut to this slice: the read side (``get_schema``, ``load_row_groups``
 over petastorm datasets and plain Parquet stores, hive ``key=value``
 directories included, and ``infer_or_load_unischema`` for the batch
-reader) and a streaming :class:`DatasetWriter` of one file.  Spark
-materialization, multi-file and multi-host writes, the writer's encode
-thread pool and the footer scans of the adaptive scheduler are later
-slices.
+reader, ``read_row_group_byte_sizes`` for the adaptive scheduler's cost
+prior) and a streaming :class:`DatasetWriter` of one file.  Spark
+materialization, multi-file and multi-host writes and the writer's encode
+thread pool are later slices.
 """
 
 import io
@@ -336,6 +336,25 @@ def read_row_group_num_rows(fs, file_row_groups):
         return 0
     with ThreadPoolExecutor(max_workers=min(16, len(file_row_groups))) as pool:
         return sum(pool.map(scan, file_row_groups.items()))
+
+
+def read_row_group_byte_sizes(fs, paths):
+    """``{(path, row_group): total_byte_size}`` of every row group of the
+    given files, from their footers (one open a file, in a thread pool):
+    the adaptive scheduler's epoch-0 cost prior, the one cheap signal that
+    tells a heavy row group from its neighbours before any is timed."""
+    def scan(path):
+        with fs.open(path, 'rb') as handle:
+            md = pq.ParquetFile(handle).metadata
+            return [(path, i, md.row_group(i).total_byte_size)
+                    for i in range(md.num_row_groups)]
+
+    paths = sorted(set(paths))
+    if not paths:
+        return {}
+    with ThreadPoolExecutor(max_workers=min(16, len(paths))) as pool:
+        return {(path, rg): size for found in pool.map(scan, paths)
+                for path, rg, size in found}
 
 
 def load_row_groups(fs, path):

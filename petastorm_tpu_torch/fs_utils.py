@@ -2,9 +2,13 @@
 
 Counterpart of ``petastorm_tpu/fs_utils.py``, cut to local paths and
 ``file://`` URLs (one, or a list of them for the batch reader); HDFS and
-object stores (fsspec) are a later slice (ROADMAP.md, Queue A).  The
-filesystem object exposes the few fsspec-style methods the metadata, worker
-and converter code call, over ``os`` and ``open``.
+object stores (fsspec) are a later slice (ROADMAP.md, Queue A item 7, the
+storage bullet).  The filesystem object exposes the few fsspec-style
+methods the metadata, worker, ingest and converter code call, over ``os``
+and ``open``.  A caller may give its own filesystem object, as the
+reference's ``filesystem=``: it is used as it is, with the dataset path
+taken from the URL.  It needs the methods the port calls: ``open``,
+``info``, ``isfile``, ``exists``, ``find``, ``size`` and ``protocol``.
 """
 
 import os
@@ -16,6 +20,14 @@ __all__ = ['LocalFilesystem', 'get_filesystem_and_path', 'get_filesystem_and_pat
 
 class LocalFilesystem(object):
     """The local disk, with the fsspec method names the port uses."""
+
+    #: fsspec's name of the local protocol: the ingest plane's ``'auto'``
+    #: stays off on it
+    protocol = 'file'
+
+    @staticmethod
+    def size(path):
+        return os.path.getsize(path)
 
     @staticmethod
     def isfile(path):
@@ -58,30 +70,35 @@ class LocalFilesystem(object):
         return sorted(found)
 
 
-def get_filesystem_and_path(url):
+def get_filesystem_and_path(url, filesystem=None):
     """Resolve a dataset URL (a local path or ``file://`` URL) to
-    ``(filesystem, path)``."""
+    ``(filesystem, path)``; a ``filesystem`` given is returned as it is,
+    beside the URL's path."""
     if not isinstance(url, str):
         raise ValueError('dataset_url must be a string, got %r' % (url,))
     parsed = urlparse(url)
+    if filesystem is not None:
+        path = parsed.path if parsed.scheme else url
+        return filesystem, (path[:-1] if len(path) > 1 and path.endswith('/') else path)
     if parsed.scheme not in ('', 'file'):
         raise ValueError('%r: only local paths and file:// URLs are supported in this '
                          'slice of the port; remote filesystems (hdfs, gcs, s3) are a '
-                         'later slice' % (url,))
+                         'later slice (ROADMAP.md, Queue A item 7, the storage bullet)'
+                         % (url,))
     path = parsed.path if parsed.scheme else url
     return LocalFilesystem(), (path[:-1] if len(path) > 1 and path.endswith('/') else path)
 
 
-def get_filesystem_and_path_or_paths(url_or_urls):
+def get_filesystem_and_path_or_paths(url_or_urls, filesystem=None):
     """Resolve one URL, or a list of URLs on one filesystem, to
     ``(filesystem, path)`` or ``(filesystem, [paths])``; URLs of mixed
-    schemes raise."""
+    schemes raise.  A ``filesystem`` given serves every URL."""
     urls = url_or_urls if isinstance(url_or_urls, list) else [url_or_urls]
     if not urls:
         raise ValueError('dataset_url_or_urls is an empty list')
     schemes = {urlparse(u).scheme or 'file' for u in urls if isinstance(u, str)}
     if len(schemes) > 1:
         raise ValueError('All dataset URLs must share a scheme, got %s' % sorted(schemes))
-    resolved = [get_filesystem_and_path(u) for u in urls]
+    resolved = [get_filesystem_and_path(u, filesystem) for u in urls]
     paths = [path for _, path in resolved]
     return resolved[0][0], (paths if isinstance(url_or_urls, list) else paths[0])

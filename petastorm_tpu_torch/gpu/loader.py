@@ -65,8 +65,17 @@ admits each batch, later epochs are gathered there, in the JAX loader's
 With ``sharding=`` (a :class:`~petastorm_tpu_torch.parallel.NamedSharding`,
 one process per device) each rank moves only its block of each leaf and the
 loader yields global ``DTensor`` arrays, as the JAX loader's
-``global_batch_from_local`` does.  Autotuning is a later slice of the port
-(ROADMAP.md, Queue A item 7).
+``global_batch_from_local`` does.
+
+``autotune='auto'`` runs the JAX loader's stage autotuner when the reader
+dispatches adaptively (:class:`~petastorm_tpu_torch.workers_pool.scheduling.
+Autotuner`): once a tuning window has passed it moves the lookahead window,
+the ventilator's in-flight bound, this loader's ``prefetch`` and the
+ingest plane's readahead window from the measured stage quantiles and an
+attached ``StallMonitor``'s wait share, each move a ``sched_*`` gauge in
+:attr:`DataLoader.metrics`.  The per-batch latency SLO (``batch_slo_ms``)
+needs the provenance journal, which is not ported (ROADMAP.md, Queue A
+item 7, the telemetry bullet).
 """
 
 import contextlib
@@ -153,16 +162,33 @@ class DataLoader(object):
             ``to_local()`` gives the block.  A dim the spec cannot split
             evenly raises.  Host batches, tokens and ``transform_fn`` see
             the whole rows.
+        autotune: the stage autotuner.  ``'auto'`` tunes when the reader
+            dispatches adaptively (``reader.scheduling == 'adaptive'``): the
+            lookahead window, the in-flight bound, ``prefetch`` and, with an
+            ingest plane, its window; ``True`` tunes ``prefetch`` on any
+            reader (and the rest on an adaptive one); ``False`` leaves every
+            knob where it was set.  A tuning pass runs after a host batch
+            once 2 s and 32 new cost-model samples have passed; a
+            ``StallMonitor`` given to :meth:`attach_stall_monitor` makes the
+            consumer's wait share its prefetch signal.
+        batch_slo_ms: the JAX loader's per-batch latency SLO, which needs
+            its provenance journal: not ported, so setting it raises.
     """
 
     def __init__(self, reader, batch_size, shuffling_queue_capacity=0, min_after_retrieve=None,
                  drop_last=True, prefetch=2, device=None, seed=None, transform_fn=None,
                  trace_recorder=None, transfer='auto', wire_dtypes=None, ring_slots=None,
-                 resume_state=None, echo=1, sharding=None):
+                 resume_state=None, echo=1, sharding=None, autotune='auto', batch_slo_ms=None):
         if batch_size <= 0:
             raise ValueError('batch_size must be positive')
         if echo < 1:
             raise ValueError('echo must be >= 1')
+        if autotune not in ('auto', True, False):
+            raise ValueError("autotune must be 'auto', True or False; got %r" % (autotune,))
+        if batch_slo_ms is not None:
+            raise ValueError('batch_slo_ms=%r needs the provenance journal, a later slice of the '
+                             'port (ROADMAP.md, Queue A item 7, the telemetry bullet)'
+                             % (batch_slo_ms,))
         validate_transfer(transfer)
         if reader is not None:
             self._check_reader(reader)
@@ -202,6 +228,11 @@ class DataLoader(object):
         self._sharding = sharding
         self._plane = None
         self._pump = None
+        self._autotune = autotune
+        self._tuner = None
+        self._tuner_ventilator = None
+        self._knobs = None
+        self._stall_monitor = None
         # Per-stage wall time: 'host_batch' waits on the decode plane and
         # collates, 'transform' runs the user hook, 'device_put' the put (on
         # the plane: pack, copy dispatch and any ring wait; the h2d_*
@@ -513,7 +544,104 @@ class DataLoader(object):
             yield run(carry, chunk)
 
     def _host_batches(self):
-        return self._columnar_batches() if self._batched_input else self._row_batches()
+        gen = self._columnar_batches() if self._batched_input else self._row_batches()
+        gen = self._autotuned(gen)
+        if self._trace is not None:
+            gen = self._ingest_spans_drained(gen)
+        return gen
+
+    def _ingest_spans_drained(self, gen):
+        """The reader's ingest plane's ``ingest/fetch`` and ``ingest/hedge``
+        spans onto this loader's trace, once per host batch (same process,
+        same clock), so a stall can be laid to ``ingest_fetch``."""
+        from petastorm_tpu_torch.telemetry.spans import merge_into_recorder
+        for batch in gen:
+            plane = getattr(self.reader, 'ingest_plane', None)
+            if plane is not None:
+                merge_into_recorder(self._trace, plane.spans.drain())
+            yield batch
+
+    # -- stage autotuning --------------------------------------------------
+
+    def attach_stall_monitor(self, monitor):
+        """Give the autotuner the consumer's ``StallMonitor``: its wait share
+        over each tuning window is the strongest prefetch signal."""
+        self._stall_monitor = monitor
+        if self._tuner is not None:
+            self._tuner.attach_stall_monitor(monitor)
+
+    def _set_prefetch(self, depth):
+        # read per batch by the inline path; a transfer plane's pump takes
+        # the new depth at its next iteration
+        self._prefetch = max(1, int(depth))
+
+    def _build_autotuner(self):
+        """The autotuner, or None (off, or ``'auto'`` over a FIFO reader),
+        with live setters bound for the knobs it owns: the adaptive window,
+        the in-flight bound, the prefetch and the ingest window.  It is kept
+        per ventilator instance: ``reader.reset()`` builds a new ventilator,
+        policy and cost model, and a tuner bound to the old ones would
+        write into stopped objects."""
+        if self._autotune is False or self.reader is None:
+            return None
+        from petastorm_tpu_torch.workers_pool import scheduling as sched
+        ventilator = getattr(self.reader, '_ventilator', None)
+        if self._tuner is not None and ventilator is self._tuner_ventilator:
+            return self._tuner
+        self._tuner = None
+        policy = getattr(ventilator, '_policy', None)
+        adaptive = bool(getattr(policy, 'adaptive', False))
+        if self._autotune == 'auto' and not adaptive:
+            return None
+        knobs = sched.SchedulerKnobs(
+            window=getattr(policy, 'window', sched.MIN_WINDOW),
+            max_inflight=getattr(ventilator, 'max_inflight', sched.MIN_INFLIGHT),
+            prefetch=self._prefetch)
+        if adaptive:
+            knobs.bind('window', lambda v, p=policy: setattr(p, 'window', v))
+            # the in-flight bound is the reorder depth: only an adaptive
+            # reader's to move (a FIFO reader tunes prefetch only)
+            if hasattr(ventilator, 'set_max_inflight'):
+                knobs.bind('max_inflight', ventilator.set_max_inflight)
+        knobs.bind('prefetch', self._set_prefetch)
+        ingest_plane = getattr(self.reader, 'ingest_plane', None)
+        if ingest_plane is not None:
+            knobs.ingest_window = ingest_plane.window
+            knobs.bind('ingest_window', ingest_plane.set_window)
+        self._knobs = knobs
+        # the shrink floor of the in-flight bound scales with the pool: it
+        # counts undelivered positions, so below 2x the workers it would
+        # idle workers that FIFO's own bound keeps busy
+        workers = getattr(getattr(self.reader, '_pool', None), 'workers_count', 0) or 0
+        self._tuner = sched.Autotuner(registry=self.metrics,
+                                      cost_model=getattr(self.reader, 'cost_model', None),
+                                      stall_monitor=self._stall_monitor,
+                                      min_inflight=max(sched.MIN_INFLIGHT, 2 * workers))
+        if ingest_plane is not None:
+            self._tuner.attach_ingest(ingest_plane)
+            self.metrics.gauge('sched_ingest_window').set(knobs.ingest_window)
+        self._tuner_ventilator = ventilator
+        # the starting point, so that the gauges tell the whole story
+        self.metrics.gauge('sched_window').set(knobs.window)
+        self.metrics.gauge('sched_max_inflight').set(knobs.max_inflight)
+        self.metrics.gauge('sched_prefetch').set(knobs.prefetch)
+        return self._tuner
+
+    def _autotuned(self, gen):
+        tuner = self._build_autotuner()
+        if tuner is None:
+            return gen
+        reader_metrics = getattr(self.reader, 'metrics', None)
+        decode_hist = reader_metrics.histogram('decode') if reader_metrics is not None else None
+        host_hist = self._m_stage['host_batch'][1]
+        put_hist = self._m_stage['device_put'][1]
+
+        def ticked():
+            for batch in gen:
+                yield batch
+                tuner.maybe_tune(self._knobs, decode=decode_hist, host_batch=host_hist,
+                                 device_put=put_hist)
+        return ticked()
 
     def _echoed_host_batches(self):
         """The host batches, each repeated ``echo`` times in a row (data

@@ -47,6 +47,11 @@ class RowWorkerArgs:
     #: Transient-I/O retries per row group before PoisonedRowGroupError.
     read_retries: int = 2
     retry_backoff_s: float = 0.1
+    #: The reader's filesystem: None or the port's local one read through
+    #: the memory map, any other through its ``open``.
+    filesystem: object = None
+    #: The reader's :class:`~petastorm_tpu_torch.ingest.IngestPlane`, or None.
+    ingest: object = None
 
 
 def piece_cache_key(piece, schema_view, transform_spec):
@@ -82,6 +87,12 @@ class PyDictReaderWorker(ParquetWorkerBase):
         """Decode one row group and publish it (the second argument, an
         elastic prologue's row-drop partition, is always 0 here)."""
         piece = self._a.pieces[piece_index]
+        # the scope hands the ingest plane's prefetched entry back when a
+        # result-cache hit skips the read
+        with self._ingest_scope(piece):
+            self._process(piece)
+
+    def _process(self, piece):
         cache_key = piece_cache_key(piece, self._a.schema_view, self._a.transform_spec)
         columnar = self._a.columnar_output and self._a.ngram is None
         if columnar and columnar_fast_path(self._a.transform_spec):

@@ -23,11 +23,22 @@ store through :class:`~petastorm_tpu_torch.arrow_reader_worker.ArrowReaderWorker
 the store has no petastorm metadata).  Both take a ``predicate``
 (:mod:`petastorm_tpu_torch.predicates`), ``filters`` and ``shard_seed``.
 
+Dispatch order and reads, as the JAX readers have them: ``scheduling``
+(``'auto'`` resolves to ``'adaptive'`` for a pool of at least 2 workers
+over at least 8 row groups, else ``'fifo'``; the adaptive policy launches
+predicted-slow row groups early and a reorder stage delivers in epoch
+order, :mod:`~petastorm_tpu_torch.workers_pool.scheduling`), ``ingest``
+(the async byte-range ingest plane, :mod:`~petastorm_tpu_torch.ingest`;
+``'auto'`` stays off on local files and process pools) with
+``ingest_window``, and ``filesystem`` (a caller's filesystem object, such
+as :class:`~petastorm_tpu_torch.test_util.emulation.BandwidthLimitedFilesystem`
+over the local one).  The effective modes are ``reader.scheduling`` and
+``reader.ingest``, and both stand in :attr:`Reader.diagnostics`.
+
 Cut to what the port holds.  Each option outside it raises ``ValueError``
-naming the ``ROADMAP.md`` item that brings it: the thread, process and
-dummy pools, FIFO scheduling, synchronous reads of local files (no ingest
-plane, no HDFS or object store); no ``rowgroup_selector`` or row-drop
-partitions.  ``cache_type`` takes the null cache, ``'local-disk'``
+naming the ``ROADMAP.md`` item that brings it: local files only (no
+``storage_options``, HDFS or object store), no ``rowgroup_selector`` or
+row-drop partitions.  ``cache_type`` takes the null cache, ``'local-disk'``
 (:mod:`~petastorm_tpu_torch.local_disk_cache`) and ``'plane'`` (the cache
 plane, :mod:`~petastorm_tpu_torch.cache_plane`, keyed by the data files' and
 the decode's fingerprint), as the JAX readers do.  Both readers take the reference's
@@ -39,6 +50,7 @@ more than one rank shards by ``(rank, world)``, as the JAX reader shards by
 every row group.
 """
 
+import logging
 import sys
 
 import numpy as np
@@ -46,16 +58,21 @@ import numpy as np
 from petastorm_tpu_torch.cache import NullCache
 from petastorm_tpu_torch.errors import NoDataAvailableError
 from petastorm_tpu_torch.etl.dataset_metadata import (get_schema, infer_or_load_unischema,
-                                                      load_row_groups, read_row_group_num_rows)
+                                                      load_row_groups, read_row_group_byte_sizes,
+                                                      read_row_group_num_rows)
 from petastorm_tpu_torch.fs_utils import get_filesystem_and_path, get_filesystem_and_path_or_paths
+from petastorm_tpu_torch.ingest import IngestPlane, resolve_ingest
 from petastorm_tpu_torch.ngram import NGram
 from petastorm_tpu_torch.py_dict_reader_worker import PyDictReaderWorker, RowWorkerArgs
 from petastorm_tpu_torch.transform import transform_schema
 from petastorm_tpu_torch.unischema import match_unischema_fields
 from petastorm_tpu_torch.workers_pool import EmptyResultError, TimeoutWaitingForResultError
+from petastorm_tpu_torch.workers_pool import scheduling as sched
 from petastorm_tpu_torch.workers_pool.dummy_pool import DummyPool
 from petastorm_tpu_torch.workers_pool.thread_pool import ThreadPool
 from petastorm_tpu_torch.workers_pool.ventilator import ConcurrentVentilator
+
+logger = logging.getLogger(__name__)
 
 _LATER = 'a later slice of the port'
 #: Where the host planes this slice refuses are queued.
@@ -74,35 +91,27 @@ def _make_pool(reader_pool_type, workers_count, results_queue_size, zmq_copy_buf
                      % (reader_pool_type,))
 
 
-def _refuse_outside_slice(scheduling, ingest, storage_options=None, filesystem=None,
-                          rowgroup_selector=None, shuffle_row_drop_partitions=1,
-                          hdfs_driver='libhdfs', ingest_window=None):
-    """Raise for each option whose plane the port does not hold yet.
-    ``'auto'`` scheduling and ingest read local files in FIFO order
-    synchronously, as the JAX package's do there; ``hdfs_driver`` and
-    ``ingest_window`` raise only when they differ from their defaults."""
-    refused = []
+def _refuse_outside_slice(storage_options=None, rowgroup_selector=None,
+                          shuffle_row_drop_partitions=1, hdfs_driver='libhdfs'):
+    """Raise for each option whose plane the port does not hold yet;
+    ``hdfs_driver`` raises only when it differs from its default."""
+    storage, refused = [], []
     if hdfs_driver != 'libhdfs':
-        refused.append('hdfs_driver=%r: HDFS is %s' % (hdfs_driver, _LATER))
-    if ingest_window is not None:
-        refused.append('ingest_window=%r: the async ingest plane is %s'
-                       % (ingest_window, _LATER))
-    if scheduling not in ('fifo', 'auto'):
-        refused.append('scheduling=%r: only FIFO dispatch is in this slice; adaptive '
-                       'scheduling is %s' % (scheduling, _LATER))
-    if ingest not in ('off', 'auto'):
-        refused.append('ingest=%r: only synchronous reads are in this slice; the async ingest '
-                       'plane is %s' % (ingest, _LATER))
-    if storage_options is not None or filesystem is not None:
-        refused.append('storage_options/filesystem: only local files are in this slice; HDFS '
-                       'and object stores are %s' % _LATER)
+        storage.append('hdfs_driver=%r: HDFS is %s' % (hdfs_driver, _LATER))
+    if storage_options is not None:
+        storage.append('storage_options: only local files (or a filesystem= object) are in '
+                       'this slice; HDFS and object stores are %s' % _LATER)
     if rowgroup_selector is not None:
         refused.append('rowgroup_selector needs the row-group indexes, %s' % _LATER)
     if shuffle_row_drop_partitions not in (None, 1):
         refused.append('shuffle_row_drop_partitions=%r: row-drop partitions are %s'
                        % (shuffle_row_drop_partitions, _LATER))
     if refused:
-        raise ValueError('; '.join(refused) + ' (%s)' % _HOST_PLANES)
+        refused = ['; '.join(refused) + ' (%s)' % _HOST_PLANES]
+    if storage:
+        refused.append('; '.join(storage) + ' (%s, the storage bullet)' % _HOST_PLANES)
+    if refused:
+        raise ValueError('; '.join(refused))
 
 
 def _resolve_cache(cache_type, cache_location, cache_size_limit, cache_row_size_estimate,
@@ -229,7 +238,7 @@ def make_reader(dataset_url,
                 storage_options=None, filesystem=None, hdfs_driver='libhdfs',
                 seed=None, resume_state=None, zmq_copy_buffers=True,
                 columnar_decode=False, read_retries=2, retry_backoff_s=0.1,
-                piece_indices=None, scheduling='fifo', ingest='off', ingest_window=None):
+                piece_indices=None, scheduling='auto', ingest='auto', ingest_window=None):
     """Reader over a petastorm-format dataset (codec-decoded rows).
 
     Yields namedtuple rows, or with ``columnar_decode=True`` one namedtuple
@@ -267,15 +276,31 @@ def make_reader(dataset_url,
     ``piece_indices`` reads exactly these global row groups (positions in
     the store's row-group order) instead of a shard; ``cur_shard``,
     ``shard_count`` and ``filters`` do not compose with it.
+
+    ``scheduling`` (``'auto'``, ``'fifo'``, ``'adaptive'``) is the dispatch
+    order of the row groups: ``'adaptive'`` launches predicted-slow row
+    groups early within a bounded window, from an online cost model seeded
+    from the row groups' byte sizes, while a reorder stage keeps delivery in
+    the epoch order (the same rows in the same order as ``'fifo'`` under the
+    dummy pool).  ``'auto'`` picks ``'adaptive'`` for a pool of at least 2
+    workers over at least 8 row groups; ``PETASTORM_TPU_NO_ADAPTIVE_SCHED=1``
+    forces ``'fifo'``.  ``ingest`` (``'auto'``, ``'plane'``, ``'off'``)
+    mounts the async byte-range ingest plane (:mod:`petastorm_tpu_torch.
+    ingest`): each dispatched row group's selected column chunks are fetched
+    ahead of decode on background threads, at most ``ingest_window`` pieces
+    ahead (default 8; a loader's autotuner moves it).  ``'auto'`` mounts it
+    only on a filesystem whose ``protocol`` is not local, and never for the
+    process pool; ``PETASTORM_TPU_NO_INGEST_PLANE=1`` turns it off.
+    ``filesystem`` is an object with the port's filesystem methods (see
+    :mod:`petastorm_tpu_torch.fs_utils`), used as it is.
     """
-    _refuse_outside_slice(scheduling, ingest, storage_options=storage_options,
-                          filesystem=filesystem, rowgroup_selector=rowgroup_selector,
+    _refuse_outside_slice(storage_options=storage_options, rowgroup_selector=rowgroup_selector,
                           shuffle_row_drop_partitions=shuffle_row_drop_partitions,
-                          hdfs_driver=hdfs_driver, ingest_window=ingest_window)
+                          hdfs_driver=hdfs_driver)
     ngram = schema_fields if isinstance(schema_fields, NGram) else None
     if columnar_decode and ngram is not None:
         raise ValueError('columnar_decode is incompatible with NGram windows')
-    fs, path = get_filesystem_and_path(dataset_url)
+    fs, path = get_filesystem_and_path(dataset_url, filesystem)
     stored_schema = get_schema(fs, path)
     if ngram is not None:
         schema_view = stored_schema.create_schema_view(ngram.get_field_names_at_all_timesteps())
@@ -295,7 +320,7 @@ def make_reader(dataset_url,
         pieces=pieces, schema_view=schema_view, schema=stored_schema, predicate=predicate,
         transform_spec=transform_spec, cache=cache, ngram=ngram,
         columnar_output=columnar_decode, read_retries=read_retries,
-        retry_backoff_s=retry_backoff_s)
+        retry_backoff_s=retry_backoff_s, filesystem=fs)
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size, zmq_copy_buffers)
     result_schema = transform_schema(schema_view, transform_spec) \
         if transform_spec is not None else schema_view
@@ -307,7 +332,8 @@ def make_reader(dataset_url,
                   if columnar_decode else None,
                   resume_state=resume_state,
                   topology=_topology(cur_shard, shard_count, shard_seed, len(pieces),
-                                     shuffle_row_groups))
+                                     shuffle_row_groups),
+                  scheduling=scheduling, ingest=ingest, ingest_window=ingest_window)
 
 
 def make_batch_reader(dataset_url_or_urls,
@@ -335,16 +361,14 @@ def make_batch_reader(dataset_url_or_urls,
     ``transform_spec.func`` takes and returns a ``pandas.DataFrame`` (and
     may drop rows: :attr:`Reader.transform_may_change_row_count`).
     ``predicate``, ``filters``, ``shard_seed``, ``piece_indices``, the pools,
-    the caches and ``resume_state`` work as in :func:`make_reader`.  HDFS
-    and object-store options, adaptive scheduling and the ingest plane raise
-    (``'auto'`` reads local files synchronously, in FIFO order).
+    the caches, ``resume_state``, ``scheduling``, ``ingest``,
+    ``ingest_window`` and ``filesystem`` work as in :func:`make_reader`.
+    HDFS and object-store options raise.
     """
     from petastorm_tpu_torch.arrow_reader_worker import (ArrowReaderWorker, ArrowResultConverter,
                                                          BatchWorkerArgs)
-    _refuse_outside_slice(scheduling, ingest, storage_options=storage_options,
-                          filesystem=filesystem, hdfs_driver=hdfs_driver,
-                          ingest_window=ingest_window)
-    fs, path_or_paths = get_filesystem_and_path_or_paths(dataset_url_or_urls)
+    _refuse_outside_slice(storage_options=storage_options, hdfs_driver=hdfs_driver)
+    fs, path_or_paths = get_filesystem_and_path_or_paths(dataset_url_or_urls, filesystem)
     paths = path_or_paths if isinstance(path_or_paths, list) else [path_or_paths]
     stored_schema = infer_or_load_unischema(fs, paths[0])
     if schema_fields is not None:
@@ -367,7 +391,7 @@ def make_batch_reader(dataset_url_or_urls,
     worker_args = BatchWorkerArgs(pieces=pieces, schema_view=schema_view,
                                   transform_spec=transform_spec, predicate=predicate,
                                   cache=cache, read_retries=read_retries,
-                                  retry_backoff_s=retry_backoff_s)
+                                  retry_backoff_s=retry_backoff_s, filesystem=fs)
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size, zmq_copy_buffers)
     result_schema = transform_schema(schema_view, transform_spec) \
         if transform_spec is not None else schema_view
@@ -377,7 +401,8 @@ def make_batch_reader(dataset_url_or_urls,
                   result_converter=ArrowResultConverter(result_schema),
                   resume_state=resume_state,
                   topology=_topology(cur_shard, shard_count, shard_seed, len(pieces),
-                                     shuffle_row_groups))
+                                     shuffle_row_groups),
+                  scheduling=scheduling, ingest=ingest, ingest_window=ingest_window)
 
 
 class _ColumnarDictConverter(object):
@@ -395,7 +420,25 @@ class Reader(object):
 
     def __init__(self, *, pool, worker_class, worker_args, items, schema, shuffle_items,
                  num_epochs, seed, topology, result_converter=None, resume_state=None,
-                 ngram=None, filesystem=None):
+                 ngram=None, filesystem=None, scheduling='auto', ingest='auto',
+                 ingest_window=None):
+        # the requested modes, resolved (with the kill switches) at each
+        # _start, so that reset() reads the environment again; checked here
+        # so that a typo fails before a thread starts
+        sched.resolve_scheduling(scheduling, len(items), pool.workers_count)
+        resolve_ingest(ingest, filesystem)
+        self._scheduling_requested = scheduling
+        self._ingest_requested = ingest
+        self._ingest_window = ingest_window
+        #: The effective dispatch mode (``'fifo'`` or ``'adaptive'``).
+        self.scheduling = None
+        #: The effective ingest mode (``'off'`` or ``'plane'``) and the plane.
+        self.ingest = None
+        self.ingest_plane = None
+        #: The adaptive policy's cost model (None under FIFO).
+        self.cost_model = None
+        self._reorder = None
+        self._sched_weights = None
         self.schema = schema
         #: The reader's :class:`~petastorm_tpu_torch.ngram.NGram`, or None:
         #: then each item is ``{offset: namedtuple}``, one namedtuple type
@@ -440,11 +483,51 @@ class Reader(object):
         self._start(start_epoch, start_cursor, prologue)
 
     def _start(self, start_epoch=0, start_cursor=0, prologue=()):
-        """A ventilator from the given position (its prologue first), and
-        the pool started on it."""
+        """The ingest plane, the dispatch policy and its reorder stage, a
+        ventilator from the given position (its prologue first), and the
+        pool started on them."""
+        if self.ingest_plane is not None:
+            self.ingest_plane.close()
+            self.ingest_plane = None
+        # the process pool resolves off: the plane's buffers live in this
+        # process and cannot cross the workers' pickle boundary
+        self.ingest = resolve_ingest(self._ingest_requested, self._fs,
+                                     in_process_pool=_in_process(self._pool))
+        if self.ingest == 'plane':
+            self.ingest_plane = IngestPlane(self._fs, self._worker_args.pieces,
+                                            columns=self._ingest_columns(),
+                                            registry=getattr(self._pool, 'metrics', None),
+                                            window=self._ingest_window)
+        self._worker_args.ingest = self.ingest_plane
         # Small in-flight window: bounds memory and keeps tokens tight, never
         # starves the workers.
         window = max(2 * self._pool.workers_count, 4)
+        self.scheduling = sched.resolve_scheduling(self._scheduling_requested, len(self._items),
+                                                   self._pool.workers_count)
+        policy = None
+        self._reorder = None
+        self.cost_model = None
+        if self.scheduling == 'adaptive':
+            # An online cost model, seeded from the row groups' byte sizes
+            # so that epoch 0 already ranks them; every ack refines it.  The
+            # lookahead spans the epoch (clamped): it only chooses the
+            # order, while the in-flight bound (undelivered positions, under
+            # ack on delivery) bounds memory.  early_limit keeps at least
+            # half the pool on the in-order stream.
+            self.cost_model = sched.PieceCostModel()
+            self.cost_model.seed(self._scheduling_weights())
+            policy = sched.AdaptiveDispatchPolicy(
+                self.cost_model,
+                window=min(sched.MAX_WINDOW, max(sched.MIN_WINDOW, len(self._items))),
+                early_limit=max(1, self._pool.workers_count // 2))
+            # deeper than FIFO's: a slow piece launched early holds its slot
+            # until its delivery turn, so the bound covers a straggler's
+            # worth of fast completions (16x the pool, clamped)
+            window = min(16 * self._pool.workers_count, max(len(self._items), 1),
+                         sched.MAX_INFLIGHT)
+            n = max(len(self._items), 1)
+            self._reorder = sched.ReorderBuffer(start_position=start_epoch * n + start_cursor,
+                                                prologue_count=len(prologue))
         self._ventilator = ConcurrentVentilator(
             ventilate_fn=self._pool.ventilate,
             items=self._items,
@@ -452,8 +535,56 @@ class Reader(object):
             randomize_item_order=self._shuffle_items,
             random_seed=self._seed,
             max_ventilation_queue_size=max(1, min(len(self._items) + len(prologue), window)),
-            start_epoch=start_epoch, start_cursor=start_cursor, prologue_items=prologue)
-        self._pool.start(self._worker_class, self._worker_args, ventilator=self._ventilator)
+            start_epoch=start_epoch, start_cursor=start_cursor, prologue_items=prologue,
+            dispatch_policy=policy,
+            dispatch_listener=(self.ingest_plane.observe_dispatch
+                               if self.ingest_plane is not None else None))
+        self._pool.start(self._worker_class, self._worker_args, ventilator=self._ventilator,
+                         reorder=self._reorder)
+
+    def _ingest_columns(self):
+        """The columns one piece's decode may read: the view's and the
+        predicate's (its first pass reads both), which the fetch planner
+        restricts ranges to; None (whole row groups) when the predicate
+        cannot name its fields."""
+        wanted = set(self._worker_args.schema_view.fields)
+        predicate = getattr(self._worker_args, 'predicate', None)
+        if predicate is not None:
+            stored = getattr(self._worker_args, 'schema', None) or self._worker_args.schema_view
+            try:
+                wanted |= set(predicate.get_fields()) & set(stored.fields)
+            except Exception:  # noqa: BLE001 — over-fetching beats a missed page
+                return None
+        return wanted
+
+    def _scheduling_weights(self):
+        """The adaptive scheduler's epoch-0 cost priors, kept across
+        reset(): each row group's compressed byte size from one footer
+        scan, falling back to row counts past
+        :data:`~petastorm_tpu_torch.workers_pool.scheduling.MAX_PRIOR_SCAN_FILES`
+        files or when the footers cannot be read."""
+        if self._sched_weights is not None:
+            return self._sched_weights
+        pieces = self._worker_args.pieces
+        weights = sched.piece_weights(self._items, pieces)
+        local = sorted({item[0] for item in self._items
+                        if isinstance(item[0], int) and 0 <= item[0] < len(pieces)})
+        paths = {pieces[i].path for i in local}
+        if len(paths) > sched.MAX_PRIOR_SCAN_FILES:
+            logger.debug('scheduling prior: %d files exceed the footer-scan cap (%d); using '
+                         'row counts', len(paths), sched.MAX_PRIOR_SCAN_FILES)
+        else:
+            try:
+                sizes = read_row_group_byte_sizes(self._fs, paths)
+                byte_weights = {i: sizes[(pieces[i].path, pieces[i].row_group)] for i in local
+                                if (pieces[i].path, pieces[i].row_group) in sizes}
+                if byte_weights:
+                    weights = byte_weights
+            except Exception:  # noqa: BLE001 — priors are best-effort
+                logger.debug('row-group byte-size scan failed; cost priors fall back to row '
+                             'counts', exc_info=True)
+        self._sched_weights = weights
+        return weights
 
     def _check_resume_topology(self, resume_state):
         """A token's position indexes one shard's permutation: under another
@@ -625,18 +756,37 @@ class Reader(object):
         self._start()
 
     @property
+    def metrics(self):
+        """The pool's metrics registry (its ``decode`` histogram is the
+        autotuner's skew signal), or None for the process pool."""
+        return getattr(self._pool, 'metrics', None)
+
+    @property
     def diagnostics(self):
         """The pool's counters (the process pool's ``items_processed``,
         ``busy_time``, ``warm_items``, ``warm_busy_time``, ``shm_results``
-        and its ``worker_pids``; none for the other pools) and the result
+        and its ``worker_pids``; none for the other pools), the result
         cache's (``cache_hits``, ``cache_misses``, ...: this process's view;
-        process-pool children count in their own processes)."""
+        process-pool children count in their own processes), the effective
+        ``scheduling`` and ``ingest`` with the plane's counters, the reorder
+        stage's ``reorder_pending`` results and ``ventilated_count``."""
         d = dict(getattr(self._pool, 'diagnostics', {}))
         d.update(getattr(self._cache, 'stats', None) or {})
+        d['ventilated_count'] = self._ventilator.ventilated_count
+        d['scheduling'] = self.scheduling
+        d['ingest'] = self.ingest
+        if self.ingest_plane is not None:
+            d.update(self.ingest_plane.stats)
+        d['reorder_pending'] = (self._reorder.pending_results
+                                if self._reorder is not None else 0)
         return d
 
     def stop(self):
         self._pool.stop()
+        if self.ingest_plane is not None:
+            # after the pool's stop: a worker blocked in a checkout wakes
+            # and reads synchronously instead of wedging the join
+            self.ingest_plane.close()
 
     def join(self):
         self._pool.join()
@@ -655,6 +805,12 @@ def _owned(result):
     dicts) with every array copied."""
     return {k: _owned(v) if isinstance(v, dict) else np.array(v) if isinstance(v, np.ndarray)
             else v for k, v in result.items()}
+
+
+def _in_process(pool):
+    """False for the process pool, whose workers cannot share this
+    process's buffers."""
+    return type(pool).__name__ != 'ProcessPool'
 
 
 def _clone_pool(pool):

@@ -57,8 +57,9 @@ def _build_parser():
                         'cache-affinity leasing, no serving from the plane without a reader, '
                         'no peer fill; PETASTORM_TPU_NO_CLUSTER_CACHE=1 is the kill switch')
     d.add_argument('--ingest', default='auto', choices=('auto', 'plane', 'off'),
-                   help="the ingest plane's mode for every split reader; only 'auto' is "
-                        'ported (ROADMAP.md, Queue A item 7)')
+                   help="the async byte-range ingest plane's mode for every split reader "
+                        "(make_reader(ingest=)); 'auto' mounts it only on a filesystem that "
+                        'is not local; PETASTORM_TPU_NO_INGEST_PLANE=1 is the kill switch')
     d.add_argument('--ledger-path', default=None,
                    help='durable dispatcher ledger: split states, attempt counts, the cache '
                         'directory and the decision journal persist, and a dispatcher '

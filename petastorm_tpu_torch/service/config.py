@@ -9,21 +9,15 @@ cluster cache.  The dispatcher owns the config; workers and clients fetch
 what they need over the ``job`` RPC, so every process agrees on one
 partition geometry.
 
-The fields of the planes the port does not hold yet (adaptive scheduling and
-the ingest plane) keep the reference's names and defaults, and raise
-``ValueError`` naming their ``ROADMAP.md`` item when set away from their
-defaults.  ``PETASTORM_TPU_NO_CLUSTER_CACHE=1`` turns the cluster cache off
+``scheduling`` and ``ingest`` are the modes every split reader runs
+(``make_reader(scheduling=, ingest=)``; explicit ``reader_kwargs`` win).
+``PETASTORM_TPU_NO_CLUSTER_CACHE=1`` turns the cluster cache off
 wherever it is read, and ``PETASTORM_TPU_NO_AUTOSCALE=1`` the autoscaler.
 """
 
 import dataclasses
 import hashlib
 
-#: Where the planes the port does not hold yet are queued.
-_LATER_ITEM = 'ROADMAP.md, Queue A item 7'
-
-#: field -> its default: the options of the planes not ported yet
-_OUTSIDE_SLICE = {'scheduling': 'auto', 'ingest': 'auto'}
 
 
 @dataclasses.dataclass
@@ -112,8 +106,13 @@ class ServiceConfig:
         autoscale_idle_s: how long the fleet idles (nothing pending or
             leased) before a scale-in.
 
-    ``scheduling`` and ``ingest`` are the reference's; set away from
-    ``'auto'`` they raise.
+        scheduling: the dispatch order every split reader runs
+            (``'auto'``, ``'fifo'``, ``'adaptive'``; ``'auto'`` stays FIFO
+            on a split of fewer than 8 row groups or one decode thread).
+        ingest: the ingest plane's mode every split reader runs (``'auto'``,
+            ``'plane'``, ``'off'``; ``'auto'`` mounts it only on a
+            filesystem that is not local, given through
+            ``reader_kwargs['filesystem']``).
     """
 
     dataset_url: str
@@ -153,11 +152,11 @@ class ServiceConfig:
     autoscale_idle_s: float = 30.0
 
     def __post_init__(self):
-        refused = sorted(name for name, default in _OUTSIDE_SLICE.items()
-                         if getattr(self, name) != default)
-        if refused:
-            raise ValueError('%s: adaptive scheduling and the ingest plane are a later slice '
-                             'of the port (%s)' % (', '.join(refused), _LATER_ITEM))
+        if self.scheduling not in ('auto', 'fifo', 'adaptive'):
+            raise ValueError("scheduling must be 'auto', 'fifo' or 'adaptive', got %r"
+                             % (self.scheduling,))
+        if self.ingest not in ('auto', 'plane', 'off'):
+            raise ValueError("ingest must be 'auto', 'plane' or 'off', got %r" % (self.ingest,))
         if self.num_consumers < 1:
             raise ValueError('num_consumers must be >= 1')
         if self.rowgroups_per_split < 1:

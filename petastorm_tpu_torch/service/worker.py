@@ -66,8 +66,12 @@ per split, :mod:`~petastorm_tpu_torch.test_util.chaos`) are inert unless a
 fault spec is armed.
 
 This module and what it imports load neither torch nor JAX: a worker
-process needs no card.  Not ported here (``ROADMAP.md``, Queue A item 7):
-provenance records and the ingest plane's statistics.
+process needs no card.  Each split reader takes the job's ``scheduling``
+and ``ingest`` (explicit ``reader_kwargs`` win); a reader with the ingest
+plane folds the plane's counters and histograms into the worker's registry
+and ships its ``ingest/*`` spans on the split's ``end`` header.  Not ported
+here (``ROADMAP.md``, Queue A item 7, the telemetry bullet): provenance
+records.
 """
 
 import logging
@@ -778,11 +782,15 @@ class Worker(object):
         return codec_reader
 
     def _reader_kwargs(self, job):
-        """A split reader's arguments: with the job's ``cache_plane`` it looks
-        each row group up in the plane first (explicit cache settings in
-        ``reader_kwargs`` win); a tenant over its cache budget reads without
-        the plane."""
+        """A split reader's arguments: the job's dispatch policy and ingest
+        mode (``'auto'`` still resolves to FIFO on a split too small to
+        reorder, and to no plane on local files); with the job's
+        ``cache_plane`` it looks each row group up in the plane first
+        (explicit settings in ``reader_kwargs`` win); a tenant over its
+        cache budget reads without the plane."""
         kwargs = dict(job['reader_kwargs'])
+        kwargs.setdefault('scheduling', job.get('scheduling', 'auto'))
+        kwargs.setdefault('ingest', job.get('ingest', 'auto'))
         tenant = str(job.get('tenant') or tenancy.DEFAULT_TENANT)
         if tenant in self._cache_over_budget and 'cache_type' not in kwargs:
             self._m_quota['cache_quota_degraded'].inc()
@@ -839,6 +847,21 @@ class Worker(object):
         plane_metrics = getattr(cache, 'metrics', None)
         if plane_metrics is not None:
             self.metrics.merge({'histograms': plane_metrics.snapshot()['histograms']})
+
+    def _accumulate_ingest_stats(self, reader):
+        """Fold one split reader's ingest-plane activity into the worker's
+        registry: its counters, and its ``ingest_fetch``/``ingest_wait``
+        histograms for the fleet's ``stages`` rollup."""
+        plane = getattr(reader, 'ingest_plane', None)
+        if plane is None:
+            return
+        for name, value in plane.stats.items():
+            if name in ('ingest_fetches', 'ingest_fetch_bytes', 'ingest_gets',
+                        'ingest_degraded', 'ingest_hedges', 'ingest_hedge_wins'):
+                self.metrics.counter(name).inc(int(value))
+        self.metrics.merge({'histograms': {
+            name: hist for name, hist in plane.metrics.snapshot()['histograms'].items()
+            if name.startswith('ingest_')}})
 
     def _cluster_chunks(self, split):
         """The cluster cache's try at a leased split: fetch from the holders
@@ -959,6 +982,11 @@ class Worker(object):
                     logger.warning('tenant %r cache-plane budget exhausted; its readers '
                                    'decode without the plane', tenant)
                 self._accumulate_cache_stats(reader)
+                self._accumulate_ingest_stats(reader)
+                # the split's plane is this split's fetches, exactly
+                ingest_spans = getattr(getattr(reader, 'ingest_plane', None), 'spans', None)
+                if ingest_spans is not None:
+                    spans.extend(ingest_spans.drain())
                 if self._cluster is not None and self._cluster.ready() \
                         and tjob.get('dataset_url') == job.get('dataset_url'):
                     self._cluster.note_published(

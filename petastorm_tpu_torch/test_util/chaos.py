@@ -34,10 +34,11 @@ seam                      fired from               actions
 ``fs.open`` / ``fs.read`` the flaky filesystems    raise ``OSError``
 ========================  =======================  ======================
 
-Two scenarios of the reference need planes the port does not hold yet, and
-raise ``ValueError`` naming their item: ``fetch_latency_spike`` (the
-emulation filesystem under the readers) and ``materialize_kill`` (the
-materialization plane).  Run as ``python -m
+One scenario of the reference needs a plane the port does not hold yet, and
+raises ``ValueError`` naming its item: ``materialize_kill`` (the
+materialization plane).  ``fetch_latency_spike`` puts the cold-store
+emulation (:mod:`~petastorm_tpu_torch.test_util.emulation`) under every
+split reader.  Run as ``python -m
 petastorm_tpu_torch.test_util.chaos list|run|matrix``.  The module's imports
 are standard library only (the service imports it); numpy and pyarrow load
 inside the runner.
@@ -76,8 +77,7 @@ CHAOS_ENV = 'PETASTORM_TPU_CHAOS'
 CHAOS_SALT_ENV = 'PETASTORM_TPU_CHAOS_SALT'
 CHAOS_COUNTS_ENV = 'PETASTORM_TPU_CHAOS_COUNTS'
 
-#: Where the reference's scenarios that the port cannot run yet are queued.
-_STORAGE_ITEM = "ROADMAP.md, Queue A item 7 (the storage bullet: the readers' filesystem=)"
+#: Where the reference's scenario that the port cannot run yet is queued.
 _MATERIALIZE_ITEM = 'ROADMAP.md, Queue A item 7 (the materialization plane)'
 
 
@@ -287,8 +287,8 @@ class _DyingFile(object):
 
 
 def _bandwidth_limited(*args, **kwargs):
-    raise ValueError('the bandwidth-limited emulation filesystem is not ported (%s)'
-                     % _STORAGE_ITEM)
+    from petastorm_tpu_torch.test_util.emulation import BandwidthLimitedFilesystem
+    return BandwidthLimitedFilesystem(*args, **kwargs)
 
 
 #: The storage faults by name (a scenario's ``filesystem`` key).
@@ -491,9 +491,6 @@ def _refuse_unported(scenario):
     if scenario.get('runner') == 'materialize':
         raise ValueError('a materialize scenario needs the materialization plane (%s)'
                          % _MATERIALIZE_ITEM)
-    if scenario.get('filesystem') is not None:
-        raise ValueError("a filesystem scenario needs the readers' filesystem= (%s)"
-                         % _STORAGE_ITEM)
 
 
 def ported_scenarios():
@@ -696,8 +693,12 @@ def run_scenario(name, dataset_url, rows, workdir, seed=7, n_workers=2, expected
     spec = {'seed': int(seed), 'faults': scenario.get('faults') or []}
     ledger_path = os.path.join(workdir, 'ledger_%s.json' % name)
     overrides = dict(scenario.get('config') or {})
+    reader_kwargs = {'workers_count': 1}
+    fs_spec = scenario.get('filesystem')
+    if fs_spec is not None:
+        reader_kwargs['filesystem'] = _build_fault_fs(fs_spec)
     config_kwargs = dict(dataset_url=dataset_url, num_consumers=1, rowgroups_per_split=2,
-                         lease_ttl_s=2.0, reader_kwargs={'workers_count': 1},
+                         lease_ttl_s=2.0, reader_kwargs=reader_kwargs,
                          ledger_path=ledger_path, drain_timeout_s=20.0)
     if scenario.get('cache_plane'):
         config_kwargs.update(cache_plane=True,
@@ -721,8 +722,11 @@ def run_scenario(name, dataset_url, rows, workdir, seed=7, n_workers=2, expected
         use_subproc = bool(scenario.get('dispatcher_subprocess'))
         if use_subproc:
             dispatcher_addr = 'tcp://127.0.0.1:%d' % _free_port()
+            # JSON cannot carry a filesystem object into the child (no
+            # subprocess-dispatcher scenario has one)
+            child_spec = dict(config_kwargs, reader_kwargs={'workers_count': 1})
             dispatcher_proc = _spawn(_DISPATCHER_CHILD,
-                                     [dispatcher_addr, json.dumps(config_kwargs), _repo_root()],
+                                     [dispatcher_addr, json.dumps(child_spec), _repo_root()],
                                      spec_env=spec_env)
             pids.add(dispatcher_proc.pid)
         else:
@@ -981,6 +985,14 @@ def _ledger_tmp_residue(ledger_path):
     except OSError:
         return []
     return [n for n in names if n.startswith(base + '.') and n.endswith('.tmp')]
+
+
+def _build_fault_fs(fs_spec):
+    """The storage fault a scenario's ``filesystem`` entry names, over the
+    local disk."""
+    from petastorm_tpu_torch.fs_utils import LocalFilesystem
+    kwargs = {k: v for k, v in fs_spec.items() if k != 'kind'}
+    return FILESYSTEM_FAULTS[fs_spec['kind']](LocalFilesystem(), **kwargs)
 
 
 def run_matrix(names, dataset_url=None, rows=None, workdir=None, seed=7,

@@ -2,12 +2,17 @@
 
 Counterpart of ``petastorm_tpu/workers_pool/dummy_pool.py``: work items run
 lazily inside ``get_results``, one at a time, in ventilation order, each
-acked by its position after its results are published.
+acked by its position after its results are published.  An out-of-order
+dispatch policy still needs the reorder stage here
+(:class:`~petastorm_tpu_torch.workers_pool.scheduling.ReorderBuffer`) to
+deliver in epoch order; each item's decode seconds ride its ack into the
+policy's cost model.
 """
 
 import time
 from collections import deque
 
+from petastorm_tpu_torch.telemetry.registry import MetricsRegistry
 from petastorm_tpu_torch.workers_pool import (EmptyResultError, TimeoutWaitingForResultError,
                                               unpack_item)
 
@@ -20,18 +25,30 @@ class DummyPool(object):
         self._results = deque()
         self._worker = None
         self._ventilator = None
+        self._reorder = None
+        self._position = None
         self._stopped = False
-        self.items_processed = 0
-        self.busy_time = 0.0
+        self.metrics = MetricsRegistry('dummy_pool')
+        self._m_items = self.metrics.counter('items_processed')
+        self._m_busy = self.metrics.counter('decode_busy_s')
+        self._m_decode = self.metrics.histogram('decode')
         self._started_at = None
         self._stopped_at = None
 
-    def start(self, worker_class, worker_setup_args=None, ventilator=None):
-        self._worker = worker_class(0, self._results.append, worker_setup_args)
+    def start(self, worker_class, worker_setup_args=None, ventilator=None, reorder=None):
+        self._worker = worker_class(0, self._publish, worker_setup_args)
         self._started_at = time.monotonic()
         self._ventilator = ventilator
+        self._reorder = reorder
+        self._position = None
         if ventilator is not None:
             ventilator.start()
+
+    def _publish(self, result):
+        if self._reorder is not None and self._position is not None:
+            self._reorder.add(self._position, result)
+            return
+        self._results.append(result)
 
     def ventilate(self, *args):
         self._pending.append(args)
@@ -41,12 +58,24 @@ class DummyPool(object):
         while not self._results:
             if self._pending:
                 position, args = unpack_item(self._pending.popleft())
+                self._position = position
                 started = time.monotonic()
-                self._worker.process(*args)
-                self.items_processed += 1
-                self.busy_time += time.monotonic() - started
-                if self._ventilator is not None:
-                    self._ventilator.processed_item(position)
+                sleep_before = getattr(self._worker, 'retry_sleep_s', 0.0)
+                try:
+                    self._worker.process(*args)
+                finally:
+                    self._position = None
+                slept = getattr(self._worker, 'retry_sleep_s', 0.0) - sleep_before
+                elapsed = max(0.0, time.monotonic() - started - slept)
+                self._m_items.inc()
+                self._m_busy.inc(elapsed)
+                self._m_decode.observe(elapsed)
+                if self._reorder is not None and position is not None:
+                    # ack on delivery: release publishes in epoch order, then acks
+                    self._reorder.release(position, elapsed, self._results.append,
+                                          self._ventilator)
+                elif self._ventilator is not None:
+                    self._ventilator.processed_item(position, elapsed)
             elif self._ventilator is not None and not self._ventilator.completed():
                 # The ventilator thread may still be filling us; spin briefly
                 # but honor the timeout (a paused ventilator never completes,
@@ -58,6 +87,14 @@ class DummyPool(object):
             else:
                 raise EmptyResultError()
         return self._results.popleft()
+
+    @property
+    def items_processed(self):
+        return self._m_items.value
+
+    @property
+    def busy_time(self):
+        return self._m_busy.value
 
     @property
     def diagnostics(self):

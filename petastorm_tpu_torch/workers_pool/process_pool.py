@@ -1,8 +1,8 @@
 """Decode workers in processes of their own, over ZeroMQ PUSH/PULL sockets.
 
 Counterpart of ``petastorm_tpu/workers_pool/process_pool.py`` (its metrics
-registry, reorder stage and provenance records are not ported; three plain
-counters stand in for the registry).  The parent binds a work PUSH socket
+registry and provenance records are not ported; plain counters stand in
+for the registry).  The parent binds a work PUSH socket
 and a sink PULL socket; each worker is a fresh interpreter
 (:func:`~.exec_in_new_process.exec_in_new_process`) that takes pickled work
 items and sends back its results: pickled row lists and column dicts, Arrow
@@ -17,6 +17,13 @@ when the host has a usable ``/dev/shm``: a worker places the payload in a
 slab and sends only its descriptor, and the parent maps views of it.  A
 small result or a full arena falls back to the byte path per message.
 
+With a reorder stage (the adaptive scheduler's
+:class:`~petastorm_tpu_torch.workers_pool.scheduling.ReorderBuffer`) every
+result message carries its position in a trailing frame; the parent stages
+results by position and serves them, and acks each position, in epoch
+order as the workers' acks complete them.  Each ack carries the item's
+decode seconds, which feed the dispatch policy's cost model.
+
 Decode then runs outside the training process's interpreter lock: the
 thread that launches the step shares the lock with nothing but the pool's
 receive loop.
@@ -30,6 +37,7 @@ import tempfile
 import threading
 import time
 import uuid
+from collections import deque
 
 import zmq
 
@@ -77,13 +85,17 @@ class ProcessPool(object):
         self._endpoint_dir = None
         self._processes = []
         self._ventilator = None
+        #: the reorder stage, or None (completion-order delivery)
+        self._reorder = None
+        #: results the reorder stage released, in epoch order
+        self._ready = deque()
         self._inflight = 0
         self._inflight_lock = threading.Lock()
         self._stopped = False
         self._started_at = None
         self._stopped_at = None
 
-    def start(self, worker_class, worker_setup_args=None, ventilator=None):
+    def start(self, worker_class, worker_setup_args=None, ventilator=None, reorder=None):
         """Spawn the workers.  Raises, with nothing left bound or spawned,
         when ``worker_class`` or ``worker_setup_args`` cannot be pickled
         (a transform that is a closure, say)."""
@@ -100,11 +112,12 @@ class ProcessPool(object):
             setup_payload = pickle.dumps(
                 (worker_class, worker_setup_args, work_addr, sink_addr,
                  self._zmq_copy_buffers, shm_plane.available(), shm_plane.DEFAULT_CAPACITY_BYTES,
-                 os.getpid()), protocol=4)
+                 os.getpid(), reorder is not None), protocol=4)
         except Exception:
             shutil.rmtree(endpoint_dir, ignore_errors=True)
             raise
         self._endpoint_dir = endpoint_dir
+        self._reorder = reorder
         self._context = zmq.Context()
         self._work_socket = self._context.socket(zmq.PUSH)
         # A PUSH socket deals each item to the next worker whose pipe has
@@ -156,13 +169,17 @@ class ProcessPool(object):
         every item is acked.  A worker's exception is raised here."""
         waited_ms = 0
         while True:
+            if self._ready:
+                return self._ready.popleft()
             if self._poller.poll(50):
                 frames = self._sink_socket.recv_multipart()
                 tag, payload = frames[0], frames[1]
-                if tag == b'R':
-                    return self._pickle_ser.deserialize(payload)
-                if tag == b'A':
-                    return self._arrow_ser.deserialize(payload)
+                if tag in (b'R', b'A'):
+                    result = (self._pickle_ser if tag == b'R' else self._arrow_ser) \
+                        .deserialize(payload)
+                    if self._stage_result(frames, result):
+                        continue
+                    return result
                 if tag in (b'P', b'T'):
                     try:
                         result = shm_plane.read_payload(pickle.loads(payload))
@@ -173,6 +190,8 @@ class ProcessPool(object):
                             e.errno, 'shm result slab vanished before the parent read it: '
                             'did a worker process die? (%s)' % e)
                     self.shm_results += 1
+                    if self._stage_result(frames, result):
+                        continue
                     return result
                 if tag == b'K':
                     position, busy_s, first = pickle.loads(payload)
@@ -183,8 +202,13 @@ class ProcessPool(object):
                     if not first:
                         self.warm_items += 1
                         self.warm_busy_time += busy_s
-                    if self._ventilator is not None:
-                        self._ventilator.processed_item(position)
+                    if self._reorder is not None and position is not None:
+                        # ack on delivery: release stages each run in epoch
+                        # order for get_results, then acks it
+                        self._reorder.release(position, busy_s, self._ready.append,
+                                              self._ventilator)
+                    elif self._ventilator is not None:
+                        self._ventilator.processed_item(position, busy_s)
                     continue
                 if tag == b'E':
                     exc, tb_str = pickle.loads(payload)
@@ -207,11 +231,24 @@ class ProcessPool(object):
                     % (timeout, inflight, sum(p.poll() is None for p in self._processes),
                        len(self._processes)))
 
+    def _stage_result(self, frames, result):
+        """Route a positioned result (its position in a trailing frame, which
+        the workers add under a reorder stage) into the reorder buffer;
+        True when staged."""
+        if self._reorder is None or len(frames) < 3:
+            return False
+        position = pickle.loads(frames[2])
+        if position is None:
+            return False
+        self._reorder.add(position, result)
+        return True
+
     def _all_done(self):
         if self._ventilator is not None and not self._ventilator.completed():
             return False
         with self._inflight_lock:
-            return self._inflight == 0
+            return self._inflight == 0 and not self._ready \
+                and (self._reorder is None or self._reorder.empty())
 
     def stop(self):
         if self._stopped:

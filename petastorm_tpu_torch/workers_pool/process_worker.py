@@ -1,7 +1,7 @@
 """Child-process main loop of :class:`~.process_pool.ProcessPool`.
 
 Counterpart of ``petastorm_tpu/workers_pool/process_worker.py`` (its
-telemetry, provenance and reorder frames are not ported).  The child
+telemetry and provenance frames are not ported).  The child
 connects to the parent's ZeroMQ sockets, takes pickled work items,
 publishes each result, and acks each item so that the parent's ventilator
 can refill.  Multipart framing:
@@ -18,6 +18,10 @@ can refill.  Multipart framing:
                 of ``worker.process`` for the item, and whether it was this
                 worker's first (whose time holds the worker's cold start)
       tag b'E'  error: pickle((exception, traceback_str))
+
+Under a reorder stage each result message (``R``, ``A``, ``P``, ``T``)
+carries a third frame, pickle(position), so that the parent can restore
+the epoch order.
 
 The shm tags are per message: a small result, a full arena or an unusable
 ``/dev/shm`` sends that message with the matching byte tag, and the parent
@@ -41,8 +45,13 @@ def worker_main(setup_payload, worker_id):
     from petastorm_tpu_torch.reader_impl.pickle_serializer import PickleSerializer
     from petastorm_tpu_torch.workers_pool import shm_plane
 
+    payload = pickle.loads(setup_payload)
     worker_class, worker_args, work_addr, sink_addr, copy_buffers, use_shm, \
-        shm_capacity, parent_pid = pickle.loads(setup_payload)
+        shm_capacity, parent_pid = payload[:8]
+    # positioned result frames for the parent's reorder stage (a payload
+    # without the flag has none)
+    reorder = payload[8] if len(payload) > 8 else False
+    current_position = [None]
 
     context = zmq.Context()
     work_socket = context.socket(zmq.PULL)
@@ -56,23 +65,27 @@ def worker_main(setup_payload, worker_id):
     arena = shm_plane.ShmArena(capacity_bytes=shm_capacity) \
         if use_shm and shm_plane.available() else None
 
+    def send(frames, copy=True):
+        if reorder:
+            frames = frames + [pickle.dumps(current_position[0], protocol=4)]
+        sink_socket.send_multipart(frames, copy=copy)
+
     def publish(result):
         if isinstance(result, pa.Table):
             desc = shm_plane.write_table(arena, result, arrow_ser) if arena else None
             if desc is not None:
-                sink_socket.send_multipart([b'T', pickle.dumps(desc, protocol=4)])
+                send([b'T', pickle.dumps(desc, protocol=4)])
             else:
-                sink_socket.send_multipart([b'A', arrow_ser.serialize(result)],
-                                           copy=copy_buffers)
+                send([b'A', arrow_ser.serialize(result)], copy=copy_buffers)
             return
         desc = None
         if arena is not None:
             desc = shm_plane.write_columns(arena, result) if isinstance(result, dict) \
                 else shm_plane.write_pickled(arena, result, pickle_ser)
         if desc is not None:
-            sink_socket.send_multipart([b'P', pickle.dumps(desc, protocol=4)])
+            send([b'P', pickle.dumps(desc, protocol=4)])
         else:
-            sink_socket.send_multipart([b'R', pickle_ser.serialize(result)], copy=copy_buffers)
+            send([b'R', pickle_ser.serialize(result)], copy=copy_buffers)
 
     worker = worker_class(worker_id, publish, worker_args)
     # A parent killed with SIGKILL never sends STOP: poll with a timeout and
@@ -92,13 +105,17 @@ def worker_main(setup_payload, worker_id):
             if frames[-1] == b'STOP':
                 break
             position, args, kwargs = pickle.loads(frames[0])
+            current_position[0] = position
             started = time.monotonic()
+            sleep_before = getattr(worker, 'retry_sleep_s', 0.0)
             try:
                 worker.process(*args, **kwargs)
             except Exception as e:  # noqa: BLE001 — shipped to the parent
                 sink_socket.send_multipart([b'E', pickle.dumps((e, traceback.format_exc()))])
             finally:
-                busy = time.monotonic() - started
+                # retry back-off sleeps are waiting, not decoding
+                slept = getattr(worker, 'retry_sleep_s', 0.0) - sleep_before
+                busy = max(0.0, time.monotonic() - started - slept)
                 sink_socket.send_multipart([b'K', pickle.dumps((position, busy, first))])
                 first = False
     finally:

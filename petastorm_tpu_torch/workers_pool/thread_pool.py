@@ -3,13 +3,17 @@ decode scales across host cores.
 
 Counterpart of ``petastorm_tpu/workers_pool/thread_pool.py``: input queue +
 bounded results queue, worker exceptions re-raised in the caller, acks
-flowing back to the ventilator.  Delivery is in completion order (FIFO
-scheduling), and each item is acked by its position once its results are
-published (the order a reader's drain for an exact snapshot relies on);
-each item's decode time goes to a metrics registry, which
-:attr:`ThreadPool.diagnostics` reads (``decode_utilization`` is the share of
-the workers' wall time spent decoding).  The reorder stage and provenance
-records are later slices.
+flowing back to the ventilator.  Without a reorder stage, delivery is in
+completion order, and each item is acked by its position once its results
+are published (the order a reader's drain for an exact snapshot relies
+on).  With one (:class:`~petastorm_tpu_torch.workers_pool.scheduling.
+ReorderBuffer`, the adaptive scheduler's) a worker's results stage by
+position and are published, then acked, in epoch order.  Each item's
+decode time goes to a metrics registry, which :attr:`ThreadPool.diagnostics`
+reads (``decode_utilization`` is the share of the workers' wall time spent
+decoding), and rides the ack into the dispatch policy's cost model.
+Provenance records are not ported (ROADMAP.md, Queue A item 7, the
+telemetry bullet).
 """
 
 import queue
@@ -41,6 +45,11 @@ class ThreadPool(object):
         self._threads = []
         self._workers = []
         self._ventilator = None
+        #: the reorder stage, or None (completion-order delivery)
+        self._reorder = None
+        #: keeps two workers' released runs from interleaving on the queue
+        self._flush_lock = threading.Lock()
+        self._tls = threading.local()   # each worker thread's current position
         self._stop_event = threading.Event()
         self._inflight_lock = threading.Lock()
         self._inflight = 0  # ventilated but not yet fully processed
@@ -51,11 +60,12 @@ class ThreadPool(object):
         self._started_at = None
         self._stopped_at = None
 
-    def start(self, worker_class, worker_setup_args=None, ventilator=None):
+    def start(self, worker_class, worker_setup_args=None, ventilator=None, reorder=None):
         self._ventilator = ventilator
+        self._reorder = reorder
         self._started_at = time.monotonic()
         for worker_id in range(self.workers_count):
-            worker = worker_class(worker_id, self._put_result, worker_setup_args)
+            worker = worker_class(worker_id, self._publish, worker_setup_args)
             self._workers.append(worker)
             thread = threading.Thread(target=self._worker_loop, args=(worker,),
                                       name='reader-worker-%d' % worker_id, daemon=True)
@@ -68,6 +78,16 @@ class ThreadPool(object):
         with self._inflight_lock:
             self._inflight += 1
         self._input_queue.put(args)
+
+    def _publish(self, result):
+        # With a reorder stage a positioned result waits for every earlier
+        # position; the worker loop's finally releases it.  A worker's error
+        # never passes here: it goes to the queue directly.
+        position = getattr(self._tls, 'position', None)
+        if self._reorder is not None and position is not None:
+            self._reorder.add(position, result)
+            return
+        self._put_result(result)
 
     def _put_result(self, result):
         # Bounded put that stays responsive to stop(): a worker blocked on a
@@ -89,22 +109,33 @@ class ThreadPool(object):
                 if item is _SENTINEL:
                     break
                 position, args = unpack_item(item)
+                self._tls.position = position
                 started = time.monotonic()
+                sleep_before = getattr(worker, 'retry_sleep_s', 0.0)
                 try:
                     worker.process(*args)
                 except Exception as e:  # noqa: BLE001 — travels to the caller
                     self._put_result(_WorkerError(e, traceback.format_exc()))
                 finally:
-                    elapsed = time.monotonic() - started
+                    # retry back-off sleeps are waiting, not decoding
+                    slept = getattr(worker, 'retry_sleep_s', 0.0) - sleep_before
+                    elapsed = max(0.0, time.monotonic() - started - slept)
+                    self._tls.position = None
                     self._m_items.inc()
                     self._m_busy.inc(elapsed)
                     self._m_decode.observe(elapsed)
                     with self._inflight_lock:
                         self._inflight -= 1
-                    if self._ventilator is not None:
+                    if self._reorder is not None and position is not None:
+                        # ack on delivery: release publishes each run in
+                        # epoch order, then acks it
+                        with self._flush_lock:
+                            self._reorder.release(position, elapsed, self._put_result,
+                                                  self._ventilator)
+                    elif self._ventilator is not None:
                         # after the publish: a drain that sees no item
                         # outstanding finds every result queued
-                        self._ventilator.processed_item(position)
+                        self._ventilator.processed_item(position, elapsed)
         finally:
             # The owning thread closes its own worker's files: closing them
             # from another thread could unmap a file mid-read.
@@ -135,7 +166,8 @@ class ThreadPool(object):
             return False
         with self._inflight_lock:
             inflight = self._inflight
-        return inflight == 0 and self._input_queue.empty() and self._results_queue.empty()
+        return inflight == 0 and self._input_queue.empty() and self._results_queue.empty() \
+            and (self._reorder is None or self._reorder.empty())
 
     @property
     def items_processed(self):

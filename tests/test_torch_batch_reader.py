@@ -278,12 +278,22 @@ def test_predicate_fields_absent_raise(plain):
 
 
 def test_options_outside_the_slice_raise(plain):
-    for kwargs in (dict(scheduling='adaptive'), dict(ingest='plane'),
-                   dict(storage_options={'a': 1})):
-        with pytest.raises(ValueError, match='ROADMAP.md, Queue A item'):
-            make_batch_reader(plain, **kwargs)
+    with pytest.raises(ValueError, match='ROADMAP.md, Queue A item 7, the storage bullet'):
+        make_batch_reader(plain, storage_options={'a': 1})
     with pytest.raises(ValueError, match='regex strings'):
         make_batch_reader(plain, schema_fields=[object()])
+
+
+@pytest.mark.parametrize('ingest', ['off', 'plane'])
+def test_adaptive_dispatch_and_the_ingest_plane_deliver_jax_s_batches(plain, ingest):
+    """Adaptive dispatch on three decode threads, with or without the
+    ingest plane: JAX's batches in JAX's (epoch) order."""
+    kwargs = dict(reader_pool_type='thread', workers_count=3, shuffle_row_groups=True, seed=5,
+                  scheduling='adaptive', ingest=ingest)
+    with make_batch_reader(plain, **kwargs) as reader:
+        got = [b._asdict() for b in reader]
+        assert (reader.scheduling, reader.ingest) == ('adaptive', ingest)
+    _assert_cells_equal(got, _collect(jax_make_batch_reader(plain, **kwargs)))
 
 
 def test_the_local_disk_cache_serves_the_second_epoch_as_jax(plain, tmp_path):

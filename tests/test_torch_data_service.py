@@ -15,8 +15,8 @@ fleet's options and entry points working (their own files,
 ``test_torch_tenancy.py``, ``test_torch_service_ledger.py`` and
 ``test_torch_cluster_cache.py``, hold them against JAX), the control
 plane's options (the autoscaler's, the worker knobs, the span export)
-equal to JAX's, and each option outside the slice raising with its
-``ROADMAP.md`` item.
+equal to JAX's, and ``scheduling`` and ``ingest`` reaching the job as
+JAX's do.
 
 Every test that runs the wire runs under a watchdog of its own (a service
 fault fails that test and does not hang the suite); lease TTLs stay at 2 s
@@ -560,13 +560,14 @@ def test_piece_indices_raise_where_jax_does(url, kwargs, match):
         jax_make_reader(url, reader_pool_type='dummy', **kwargs)
 
 
-# -- the options: outside the slice, and the control plane's -------------------
+# -- the options: the split readers', and the control plane's -----------------
 
 @pytest.mark.parametrize('field,value', [('scheduling', 'adaptive'), ('ingest', 'plane')])
-def test_config_options_outside_the_slice_raise(url, field, value):
-    with pytest.raises(ValueError, match='ROADMAP.md, Queue A item 7') as info:
-        ServiceConfig(url, **{field: value})
-    assert field in str(info.value)
+def test_config_scheduling_and_ingest_reach_the_job_as_jax_s(url, field, value):
+    ours, ref = ServiceConfig(url, **{field: value}), JaxServiceConfig(url, **{field: value})
+    assert ours.job_info(4)[field] == ref.job_info(4)[field] == value
+    with pytest.raises(ValueError, match=field):
+        ServiceConfig(url, **{field: 'bogus'})
 
 
 @pytest.mark.parametrize('field,value', [

@@ -151,10 +151,17 @@ def test_thread_pool_delivers_the_same_rows(datasets):
 
 
 def test_unsupported_options_name_the_later_slice(datasets):
-    url = datasets['port']
-    for kwargs in (dict(scheduling='adaptive'), dict(ingest='plane')):
-        with pytest.raises(ValueError, match='later slice'):
-            make_reader(url, **kwargs)
+    """The per-batch SLO needs the provenance journal: it raises naming the
+    telemetry bullet (the JAX loader takes it), as a bad ``autotune`` raises
+    in both loaders."""
+    with make_reader(datasets['port'], reader_pool_type='dummy', columnar_decode=True) as reader:
+        with pytest.raises(ValueError, match='later slice.*telemetry bullet'):
+            DataLoader(reader, 4, device='cpu', batch_slo_ms=50.0)
+        with pytest.raises(ValueError, match='autotune'):
+            DataLoader(reader, 4, device='cpu', autotune='on')
+    with jax_make_reader(datasets['jax'], reader_pool_type='dummy') as reader:
+        with pytest.raises(ValueError, match='autotune'):
+            JaxDataLoader(reader, 4, autotune='on')
 
 
 def test_a_loader_over_the_local_disk_cache_repeats_its_batches(datasets, tmp_path):

@@ -61,14 +61,17 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                    'cache_plane/fingerprint.py', 'cache_plane/plane.py',
                    'local_disk_cache.py', 'telemetry/decisions.py', 'telemetry/scrape.py',
                    'service/autoscaler.py', 'service/cli.py', 'test_util/__init__.py',
-                   'test_util/chaos.py'):
+                   'test_util/chaos.py', 'test_util/emulation.py', 'workers_pool/scheduling.py',
+                   'workers_pool/ventilator.py', 'ingest/__init__.py', 'ingest/planner.py',
+                   'ingest/plane.py', 'fs_utils.py', 'reader_impl/parquet_worker_base.py'):
         assert os.path.join(PACKAGE, module) in sources, module
     offenders = []
     for path in sources:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
         for module in _imported_modules(tree):
-            if module.split('.')[0] in FORBIDDEN:
+            # nor fsspec: the card's machine is not known to have it
+            if module.split('.')[0] in FORBIDDEN + ('fsspec',):
                 offenders.append('%s: %s' % (os.path.relpath(path, REPO), module))
     assert not offenders, offenders
 

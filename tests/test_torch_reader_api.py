@@ -6,7 +6,8 @@ the ``predicate`` and ``transform_spec`` properties and
 ``insert_explicit_nulls``; every argument name of the JAX ``make_reader``
 (each option outside the port's slice raises ``ValueError`` naming ROADMAP
 Queue A item 7 when it asks for more than its default, never
-``TypeError``); and ``DataLoader(min_after_retrieve=)``, whose buffer
+``TypeError``; a caller's ``filesystem`` and ``ingest_window`` read the JAX
+reader's rows); and ``DataLoader(min_after_retrieve=)``, whose buffer
 order is the JAX loader's at the same seed.
 """
 
@@ -142,9 +143,7 @@ def test_make_reader_takes_every_argument_name_of_the_jax_reader():
 
 OUTSIDE_THE_SLICE = {
     'storage_options': dict(storage_options={'anon': True}),
-    'filesystem': dict(filesystem=object()),
     'hdfs_driver': dict(hdfs_driver='libhdfs3'),
-    'ingest_window': dict(ingest_window=8),
 }
 
 
@@ -155,6 +154,47 @@ def test_an_option_outside_the_slice_names_queue_a_item_7(url, factory, name):
     with pytest.raises(ValueError, match='Queue A item 7') as raised:
         make(url, **OUTSIDE_THE_SLICE[name])
     assert name in str(raised.value)
+    assert 'storage bullet' in str(raised.value)
+
+
+@pytest.mark.parametrize('factory', ['make_reader', 'make_batch_reader'])
+@pytest.mark.parametrize('remote', ['s3://bucket/ds', 'gs://bucket/ds', 'hdfs://nn/ds'])
+def test_a_url_that_is_not_local_names_the_storage_bullet(factory, remote):
+    make = make_reader if factory == 'make_reader' else make_batch_reader
+    with pytest.raises(ValueError, match='Queue A item 7, the storage bullet') as raised:
+        make(remote)
+    assert remote in str(raised.value)
+
+
+def _taken(name):
+    """(the port's, JAX's) arguments of an option both readers take: a
+    caller's filesystem over the local disk, or the ingest plane's window."""
+    if name == 'filesystem':
+        from fsspec.implementations.local import LocalFileSystem
+
+        from petastorm_tpu_torch.fs_utils import LocalFilesystem
+        from petastorm_tpu_torch.test_util.emulation import BandwidthLimitedFilesystem
+        return (dict(filesystem=BandwidthLimitedFilesystem(LocalFilesystem(), bps=1e9)),
+                dict(filesystem=LocalFileSystem()))
+    return dict(ingest='plane', ingest_window=3), dict(ingest='plane', ingest_window=3)
+
+
+@pytest.mark.parametrize('factory', ['make_reader', 'make_batch_reader'])
+@pytest.mark.parametrize('name', ['filesystem', 'ingest_window'])
+def test_filesystem_and_ingest_window_are_taken_as_jax_takes_them(url, factory, name):
+    ours, theirs = _taken(name)
+    got, want = [], []
+    for make, kwargs, out in (
+            (make_reader if factory == 'make_reader' else make_batch_reader, ours, got),
+            (petastorm_tpu.make_reader if factory == 'make_reader' else jax_make_batch_reader,
+             theirs, want)):
+        with make(url, reader_pool_type='dummy', shuffle_row_groups=False, **kwargs) as reader:
+            for item in reader:
+                out.extend(np.atleast_1d(np.asarray(item.id)).tolist())
+            if name == 'ingest_window':
+                assert reader.ingest == 'plane' and reader.ingest_plane.window == 3
+                assert reader.diagnostics['ingest_fetches'] > 0
+    assert got == want and sorted(got) == list(range(ROWS))
 
 
 #: the cache options, each with a cache that reads it

@@ -4,8 +4,7 @@ and worker knobs against the JAX package's, on the CPU.
 Against JAX: every subcommand's flags, each set away from its default, parse
 to the same arguments, and the ``dispatcher`` and ``worker`` subcommands
 build the same ``ServiceConfig`` (its ``job_info``, fingerprint and every
-knob) and the same ``Worker`` arguments; ``--ingest`` other than ``auto``
-raises naming its ``ROADMAP.md`` item.  As processes: a dispatcher of the
+knob, ``--ingest`` among them) and the same ``Worker`` arguments.  As processes: a dispatcher of the
 command line with ``--autoscale`` spawns its worker (``cli worker``) and
 serves ``/metrics``, and ``status``, ``drain``, ``clock`` and ``stop`` run
 against it.  The knobs: a worker with ``max_inflight_splits=1`` never holds
@@ -119,10 +118,6 @@ def test_each_flag_parses_and_builds_as_jax(command, flag, monkeypatch):
     assert vars(cli._build_parser().parse_args(argv)) == \
         vars(jax_cli._build_parser().parse_args(argv))
     if command == 'dispatcher':
-        if flag == '--ingest':
-            with pytest.raises(ValueError, match='ROADMAP.md, Queue A item 7'):
-                cli.main(argv)
-            return
         ours = _captured(cli.main, monkeypatch, port_dispatcher, 'Dispatcher', argv)
         ref = _captured(jax_cli.main, monkeypatch, jax_service, 'Dispatcher', argv)
         assert ours['kwargs'] == ref['kwargs']
