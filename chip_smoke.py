@@ -239,7 +239,16 @@ Phases, in order; any failure propagates and exits nonzero:
    with the plane and the tuner fed by a ``StallMonitor``), 28 graphed
    steps each, timed after 4, then the rest of two epochs: every row twice,
    the adaptive legs' ids equal in order, the plane fetching and never
-   degrading.
+   degrading; each leg's window read by the health engine;
+28. telemetry (``phase_telemetry``): per-batch provenance, the SLO
+   watchdog, the flight recorder, the health engine and the explaining
+   tools under ViT-S/16 at full width from the 512-row store: provenance
+   on (32 graphed steps, every record checked, the p99 exemplar resolved,
+   ``explain`` on the dumped journal) and off (the same batches step by
+   step), the SLO watchdog's dump, the process pool's records, the service
+   (an autoscaled dispatcher spawning one worker, its health, ``diagnose``,
+   ``top`` and ``why`` against it live, its flight dump read back), and the
+   resident tier's outcomes with the warm window's health.
 
 Every streaming path moves its batches through the loader's transfer
 plane (``transfer='auto'``): a dispatch thread pulls, transforms and puts
@@ -5705,7 +5714,8 @@ def ing_leg(fa, url, fields, transform, step, label, bps, reader_kwargs, autotun
     from petastorm_tpu_torch.fs_utils import LocalFilesystem
     from petastorm_tpu_torch.gpu import DataLoader
     from petastorm_tpu_torch.reader import make_reader
-    from petastorm_tpu_torch.telemetry import decisions
+    from petastorm_tpu_torch.telemetry import decisions, health
+    from petastorm_tpu_torch.telemetry.registry import merge_snapshots, snapshot_delta
     from petastorm_tpu_torch.test_util.emulation import BandwidthLimitedFilesystem
     fs = BandwidthLimitedFilesystem(LocalFilesystem(), bps=bps, cold_latency=ING_COLD_LATENCY_S,
                                     cold_threshold=ING_COLD_THRESHOLD)
@@ -5723,6 +5733,11 @@ def ing_leg(fa, url, fields, transform, step, label, bps, reader_kwargs, autotun
         if autotune is True:
             loader.attach_stall_monitor(monitor)
         gauges = {}
+
+        def registries():
+            # the loader's and the reader's (its pool's) registries, merged
+            return merge_snapshots([loader.metrics.snapshot()]
+                                   + ([reader.metrics.snapshot()] if reader.metrics else []))
         with loader:
             batches = monitor.wrap(loader)
             reset_counts(fa)
@@ -5734,6 +5749,7 @@ def ing_leg(fa, url, fields, transform, step, label, bps, reader_kwargs, autotun
                 if i == ING_WARMUP:
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
+                    window_start = registries()
                 if batch['image'].device.type != 'cuda':
                     raise AssertionError('%s: a batch reached the step on %s'
                                          % (label, batch['image'].device))
@@ -5745,6 +5761,11 @@ def ing_leg(fa, url, fields, transform, step, label, bps, reader_kwargs, autotun
             torch.cuda.synchronize()
             elapsed = time.perf_counter() - t0
             launches, by_design = counts(fa)
+            # the health of the timed window, from the registries' delta
+            regime = health.health_report(
+                snapshot_delta(registries(), window_start),
+                meta={'decode_utilization': reader.diagnostics.get('decode_utilization')},
+                window_s=elapsed)
             report = monitor.report()
             waited = (monitor.wait_time, monitor.steps)
             gauges['end'] = {k: loader.metrics.as_dict().get(k) for k in ING_GAUGES}
@@ -5780,6 +5801,7 @@ def ing_leg(fa, url, fields, transform, step, label, bps, reader_kwargs, autotun
            'ingest_fetch_ms': {q: hists.get('ingest_fetch_%s_ms' % q) for q in ('p50', 'p99')},
            'decode_ms': {q: hists.get('decode_%s_ms' % q) for q in ('p50', 'p99')},
            'gauges': gauges, 'decisions': decisions_by_actor,
+           'health': {k: regime[k] for k in ('regime', 'regime_severity', 'regime_evidence')},
            'fetch_bound': bool(waited[1] and waited[0] / waited[1] > 0.5 * elapsed / timed)}
     return run, ids
 
@@ -5797,7 +5819,8 @@ def phase_ingest(fa, tmp):
     ``StallMonitor`` attached.  Each prints images/s, step ms, data wait,
     ``stall_pct``, the ingest counters, ``ingest_wait``/``ingest_fetch``
     p50/p99, the ``sched_*`` gauges at the first batch and at the last step,
-    and the decision records by actor.  Fails when a loss is not finite, a
+    the decision records by actor, and the health regime of the timed window
+    (the loader's and reader's registries' delta).  Fails when a loss is not finite, a
     kernel was not launched 12 times a step, a row is lost or repeated in
     one of the two epochs, (b) and (c) differ in delivered ids or order, or
     (c) has no plane, no fetch or a degraded piece."""
@@ -5826,14 +5849,380 @@ def phase_ingest(fa, tmp):
         raise AssertionError('ingest: the plane leg ran ingest=%r with %s'
                              % (plane['ingest'], plane['counters']))
     log('ingest: images/s fifo %.1f, adaptive %.1f, adaptive+plane %.1f; data wait ms %s; '
-        'fetch-bound fifo: %s' % (runs['fifo']['images_per_s'], runs['adaptive']['images_per_s'],
-                                 plane['images_per_s'],
-                                 [runs[k]['data_wait_ms'] for k, _, _ in ING_LEGS],
-                                 runs['fifo']['fetch_bound']))
+        'fetch-bound fifo: %s; health %s' % (
+            runs['fifo']['images_per_s'], runs['adaptive']['images_per_s'],
+            plane['images_per_s'], [runs[k]['data_wait_ms'] for k, _, _ in ING_LEGS],
+            runs['fifo']['fetch_bound'], [runs[k]['health']['regime'] for k, _, _ in ING_LEGS]))
     SUMMARY['ingest'] = dict(runs, bps=bps, mean_row_group_bytes=mean_bytes,
                              cold_latency_s=ING_COLD_LATENCY_S)
     launches = collections.Counter()
     for run in runs.values():
+        launches.update(run['launches'])
+    return dict(launches)
+
+
+# -- the telemetry bullet: provenance, the SLO watchdog, the flight recorder, health, the tools --
+
+TEL_STEPS = 32          # graphed ViT-S/16 steps of legs (a) and (b): 4 epochs of the 512-row store
+TEL_WARMUP = 4          # steps before the timed window
+TEL_SHORT = 8           # steps of legs (c), (d) and (e): one epoch
+TEL_SEED = 7            # every leg's reader shuffles its row groups by this seed
+TEL_STAGES = ('decode', 'release', 'host_batch', 'h2d_dispatch')
+TEL_SCHED = ('policy', 'early', 'predicted_cost', 'actual_s')
+TEL_SERVICE_CONFIG = dict(rowgroups_per_split=1, lease_ttl_s=2.0, autoscale=True,
+                          autoscale_min_workers=1, autoscale_max_workers=1, autoscale_step=1,
+                          autoscale_cooldown_s=1.0, autoscale_starve_s=0.3, autoscale_idle_s=60.0)
+
+
+def tel_tool(tool, *argv, timeout=60):
+    """One run of ``python -m petastorm_tpu_torch.telemetry.<tool>`` (no card,
+    the checkout on its path): its exit code and standard output; fails when
+    the tool printed nothing."""
+    proc = subprocess.run([sys.executable, '-m', 'petastorm_tpu_torch.telemetry.' + tool]
+                          + list(argv), env=ctl_env(), capture_output=True, text=True,
+                          timeout=timeout)
+    if not proc.stdout.strip():
+        raise AssertionError('telemetry: %s %s printed nothing (exit %d): %s'
+                             % (tool, ' '.join(argv), proc.returncode, proc.stderr[-2000:]))
+    return proc.returncode, proc.stdout
+
+
+def tel_digest(batch):
+    """A batch's fingerprint, on the card: its image bytes summed, plainly and
+    weighted by position (two int64)."""
+    img = batch['image'].reshape(batch['image'].shape[0], -1)
+    weights = torch.arange(1, img.shape[1] + 1, device=img.device, dtype=torch.int64) % 8191
+    return torch.stack([img.sum(dtype=torch.int64), (img.to(torch.int64) * weights).sum()])
+
+
+def tel_reader(url, pool='thread', num_epochs=None):
+    """The main path's reader of the 512-row store: 8 decode workers,
+    columnar, ``scheduling='auto'`` (adaptive here), rows shuffled by
+    ``TEL_SEED``."""
+    from petastorm_tpu_torch.reader import make_reader
+    from petastorm_tpu_torch.train import make_transform
+    return make_reader(url, schema_fields=['image', 'noun_id'],
+                       transform_spec=make_transform((224, 224)), workers_count=8,
+                       columnar_decode=True, reader_pool_type=pool, seed=TEL_SEED,
+                       num_epochs=num_epochs)
+
+
+def tel_steps(fa, loader, step, label, steps, warmup=TEL_WARMUP, on_step=None):
+    """``steps`` graphed ViT-S/16 steps from an open ``loader`` (the counts set
+    to 0 just before): images/s, step ms and data wait after ``warmup``, each
+    batch's digest, the launches (12 of each kernel a step, on the tensor
+    cores).  ``on_step(i)`` runs before step ``i``."""
+    from petastorm_tpu_torch.benchmark.stall_profiler import StallMonitor
+    monitor = StallMonitor(warmup_steps=warmup)
+    digests, losses = [], []
+    batches = monitor.wrap(loader)
+    torch.cuda.synchronize()
+    reset_counts(fa)
+    t_start = time.monotonic()
+    for i in range(steps):
+        batch = next(batches)
+        if on_step is not None:
+            on_step(i)
+        if i == warmup:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        if batch['image'].device.type != 'cuda':
+            raise AssertionError('%s: a batch reached the step on %s'
+                                 % (label, batch['image'].device))
+        digests.append(tel_digest(batch))
+        losses.append(step(batch))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    t_end = time.monotonic()
+    launches, by_design = counts(fa)
+    losses = [float(v) for v in torch.stack(losses).cpu()]
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError('%s: non-finite loss %s' % (label, losses))
+    check_launches(label, launches, by_design, {name: 12 * steps for name in launches})
+    timed = steps - warmup
+    return {'steps': steps, 'launches': launches, 'images_per_s': timed * BATCH / elapsed,
+            'step_ms': 1e3 * elapsed / timed,
+            'data_wait_ms': 1e3 * monitor.wait_time / monitor.steps if monitor.steps else None,
+            'stall_pct': monitor.report()['stall_pct'],
+            'digests': torch.stack(digests).cpu(), 't_start': t_start, 't_end': t_end}
+
+
+def tel_brief(run):
+    return {k: v for k, v in run.items() if k not in ('digests', 't_start', 't_end', 'launches')}
+
+
+def tel_check_records(label, records, store_dir, pid=None, sched=True, transfer=True,
+                      stages=TEL_STAGES):
+    """Every sealed record of a leg: steps 0..n-1, pieces of the store's files
+    and row groups, a worker pid and host, the adaptive policy's fields, a
+    coalesced or narrowed transfer and the named stages."""
+    if [r.get('step') for r in records] != list(range(len(records))):
+        raise AssertionError('%s: journal steps %s' % (label, [r.get('step') for r in records]))
+    for r in records:
+        pieces = r.get('pieces') or []
+        bad = [p for p in pieces if not str(p.get('path', '')).startswith(store_dir)
+               or p.get('row_group') not in range(IMAGE_ROWS // BATCH)]
+        missing = [s for s in stages if s not in r.get('stages', {})]
+        wrong = []
+        if not pieces or bad:
+            wrong.append('pieces %s' % (pieces,))
+        if not r.get('worker_pid') or not r.get('worker_host') \
+                or (pid is not None and not pid(r['worker_pid'])):
+            wrong.append('worker %s@%s' % (r.get('worker_pid'), r.get('worker_host')))
+        if sched and ((r.get('sched') or {}).get('policy') != 'adaptive'
+                      or any(k not in r['sched'] for k in TEL_SCHED)):
+            wrong.append('sched %s' % (r.get('sched'),))
+        if transfer and r.get('transfer') not in ('coalesced', 'narrowed'):
+            wrong.append('transfer %s' % (r.get('transfer'),))
+        if missing:
+            wrong.append('stages %s lack %s' % (sorted(r.get('stages', {})), missing))
+        if wrong:
+            raise AssertionError('%s: step %s: %s' % (label, r.get('step'), '; '.join(wrong)))
+
+
+def tel_provenance(fa, url, step, tmp, smi):
+    """Legs (a)-(d): provenance on, off, the SLO watchdog, the process pool."""
+    from petastorm_tpu_torch.gpu import DataLoader
+    from petastorm_tpu_torch.telemetry.provenance import stage_coverage
+    store_dir = url[len('file://'):]
+    out = {}
+    # (a) provenance on
+    with tel_reader(url) as reader:
+        with DataLoader(reader, BATCH) as loader:
+            on = tel_steps(fa, loader, step, 'telemetry on', TEL_STEPS)
+        journal = loader.provenance
+        hist = loader.metrics.snapshot()['histograms']['host_batch']
+    records = journal.records()
+    if len(records) < TEL_STEPS:
+        raise AssertionError('telemetry on: %d records for %d steps' % (len(records), TEL_STEPS))
+    tel_check_records('telemetry on', records, store_dir, pid=lambda p: p == os.getpid())
+    walls = np.array([r['latency_ms'] for r in records])
+    exemplar = (hist.get('exemplars') or [{}])[-1].get('ref') or {}
+    if journal.get(exemplar.get('step')) is None:
+        raise AssertionError('telemetry on: host_batch p99 exemplar %s is no journaled step'
+                             % (exemplar,))
+    path = os.path.join(tmp, 'telemetry_journal.json')
+    if loader.dump_provenance(path) != path:
+        raise AssertionError('telemetry on: the journal did not dump')
+    rc, text = tel_tool('explain', '--journal', path, '--worst', '3', '--json')
+    worst = json.loads(text)['records'][0] if rc == 0 else {}
+    if (worst.get('pieces') or [{}])[0].get('row_group') is None:
+        raise AssertionError('telemetry on: explain --worst --json exited %d, named no row '
+                             'group: %s' % (rc, text[-2000:]))
+    on.update(records=len(records), wall_ms=dict({q: float(np.percentile(walls, q))
+                                                  for q in (50, 90, 99)}, min=float(walls.min())),
+              coverage=float(np.mean([stage_coverage(r) for r in records])),
+              exemplar=exemplar, explained={k: worst.get(k) for k in ('step', 'latency_ms',
+                                                                       'pieces', 'transfer')},
+              stages=sorted(records[-1]['stages']), sched=records[-1]['sched'],
+              stage_ms={name: float(np.mean([1e3 * (r['stages'][name][1] - r['stages'][name][0])
+                                             for r in records if name in r['stages']]))
+                        for name in sorted(records[-1]['stages'])})
+    out['on'] = on
+    log('telemetry (a) provenance on: %s' % json.dumps(tel_brief(on)))
+    # (b) provenance off: the same seed and steps; then each leg once more,
+    # in turns, for the spread of the pair
+    for name in ('off', 'on2', 'off2'):
+        if name.startswith('off'):
+            os.environ['PETASTORM_TPU_NO_PROVENANCE'] = '1'
+        try:
+            with tel_reader(url) as reader:
+                with DataLoader(reader, BATCH) as loader:
+                    run = tel_steps(fa, loader, step, 'telemetry ' + name, TEL_STEPS)
+                left = reader.take_provenance()
+        finally:
+            os.environ.pop('PETASTORM_TPU_NO_PROVENANCE', None)
+        if name.startswith('off') and (loader.provenance is not None or left):
+            raise AssertionError('telemetry %s: a journal %s, %d records under the kill switch'
+                                 % (name, loader.provenance, len(left)))
+        if name == 'on2':
+            tel_check_records('telemetry on2', loader.provenance.records(), store_dir,
+                              pid=lambda p: p == os.getpid())
+        if not torch.equal(run['digests'], on['digests']):
+            bad = [i for i in range(TEL_STEPS) if not torch.equal(run['digests'][i],
+                                                                  on['digests'][i])]
+            raise AssertionError('telemetry %s: batches %s differ from (a)\'s' % (name, bad))
+        out[name] = run
+        log('telemetry (b) provenance %s: %s' % (name, json.dumps(tel_brief(run))))
+    log('telemetry on / off / on / off (%s): images/s %s, data wait ms %s; batches equal step '
+        'by step' % (smi, ' / '.join('%.1f' % out[k]['images_per_s']
+                                     for k in ('on', 'off', 'on2', 'off2')),
+                     ' / '.join('%.2f' % out[k]['data_wait_ms']
+                                for k in ('on', 'off', 'on2', 'off2'))))
+    # (c) the SLO watchdog, its budget a tenth of (a)'s fastest record wall:
+    # every batch's wall holds a row group's decode on one thread, so nearly
+    # every one breaches
+    budget_ms = 0.1 * on['wall_ms']['min']
+    slo_dir = os.path.join(tmp, 'telemetry_slo')
+    os.environ['PETASTORM_TPU_FLIGHT_DIR'] = slo_dir
+    try:
+        with tel_reader(url) as reader:
+            with DataLoader(reader, BATCH, batch_slo_ms=budget_ms) as loader:
+                slo = tel_steps(fa, loader, step, 'telemetry slo', TEL_SHORT)
+    finally:
+        del os.environ['PETASTORM_TPU_FLIGHT_DIR']
+    dumps = sorted(os.listdir(slo_dir)) if os.path.isdir(slo_dir) else []
+    counted = int(loader.metrics.counter('slo_violations').value)
+    if not loader._slo.violations or counted != loader._slo.violations \
+            or dumps != ['provenance_slo_loader_%d.json' % os.getpid()]:
+        raise AssertionError('telemetry slo: %d violations (%d counted), dumps %s'
+                             % (loader._slo.violations, counted, dumps))
+    with open(os.path.join(slo_dir, dumps[0])) as f:
+        dump = json.load(f)
+    if dump['reason'] != 'slo_violation' or len(dump['records']) != dump['violation_step'] + 1 \
+            or dump['steps'] != dump['violation_step'] + 1:
+        raise AssertionError('telemetry slo: the dump holds %d records, %s steps, the violation '
+                             'at %s' % (len(dump['records']), dump['steps'],
+                                        dump['violation_step']))
+    rc, text = tel_tool('explain', '--journal', os.path.join(slo_dir, dumps[0]), '--worst', '1')
+    if rc != 0 or 'SLO violation at step' not in text:
+        raise AssertionError('telemetry slo: explain exited %d: %s' % (rc, text[-2000:]))
+    slo.update(budget_ms=budget_ms, violations=loader._slo.violations,
+               dumped_records=len(dump['records']), violation_step=dump['violation_step'])
+    out['slo'] = slo
+    log('telemetry (c) slo: %s' % json.dumps(tel_brief(slo)))
+    # (d) the process pool
+    with tel_reader(url, pool='process') as reader:
+        with DataLoader(reader, BATCH) as loader:
+            proc = tel_steps(fa, loader, step, 'telemetry process', TEL_SHORT)
+        pids = set(reader.diagnostics['worker_pids'])
+    records = loader.provenance.records()
+    tel_check_records('telemetry process', records, store_dir, pid=lambda p: p in pids)
+    transports = sorted({r.get('transport') for r in records})
+    if not set(transports) <= {'shm', 'bytes'} or None in transports \
+            or any('ipc' not in r['stages'] for r in records):
+        raise AssertionError('telemetry process: transports %s' % transports)
+    if not torch.equal(proc['digests'], on['digests'][:TEL_SHORT]):
+        raise AssertionError('telemetry process: its batches differ from the thread leg\'s')
+    proc.update(records=len(records), transports=transports,
+                worker_pids=len({r['worker_pid'] for r in records}))
+    out['process'] = proc
+    log('telemetry (d) process pool: %s' % json.dumps(tel_brief(proc)))
+    return out
+
+
+def tel_service(fa, url, step, tmp):
+    """Leg (e): an autoscaled dispatcher (min = max = 1) that spawns one worker
+    process (4 decode threads), a ``ServiceDataLoader`` feeding one epoch; the
+    tools against the live dispatcher; its flight dump after it exits."""
+    from petastorm_tpu_torch.service import Dispatcher, ServiceConfig, ServiceDataLoader
+    from petastorm_tpu_torch.service.autoscaler import SubprocessWorkerLauncher
+    from petastorm_tpu_torch.telemetry import health
+    from petastorm_tpu_torch.train import make_transform
+    store_dir = url[len('file://'):]
+    flight_dir = os.path.join(tmp, 'telemetry_flight')
+    config = ServiceConfig(url, reader_kwargs=dict(
+        schema_fields=['image', 'noun_id'], transform_spec=make_transform((224, 224)),
+        workers_count=4), **TEL_SERVICE_CONFIG)
+    launcher = SubprocessWorkerLauncher(env={'CUDA_VISIBLE_DEVICES': '', 'PYTHONHASHSEED': '0'})
+    os.environ['PETASTORM_TPU_FLIGHT_DIR'] = flight_dir
+    try:
+        dispatcher = Dispatcher(config, launcher=launcher)
+    finally:
+        del os.environ['PETASTORM_TPU_FLIGHT_DIR']
+    tools = {}
+    with dispatcher:
+        with ServiceDataLoader(dispatcher.addr, batch_size=BATCH, consumer=0,
+                               device='cuda') as loader:
+            run = tel_steps(fa, loader, step, 'telemetry service', TEL_SHORT, warmup=2)
+        stats = loader.service_diagnostics()
+        pids = {proc.pid for proc in launcher.procs}   # the launcher forgets them at close
+        for tool, argv in (('diagnose', ['--dispatcher', dispatcher.addr]),
+                           ('top', ['--dispatcher', dispatcher.addr, '--once']),
+                           ('why', ['--dispatcher', dispatcher.addr, '--actor', 'autoscaler'])):
+            tools[tool] = tel_tool(tool, *argv)
+    records = loader.provenance.records()
+    tel_check_records('telemetry service', records, store_dir, pid=lambda p: p in pids,
+                      sched=False, stages=('decode', 'client_buffer', 'host_batch'))
+    outside = [r['step'] for r in records if r.get('source') != 'service'
+               or not run['t_start'] - 1.0 <= r['stages']['decode'][0]
+               <= r['stages']['decode'][1] <= run['t_end'] + 1.0]
+    if len(records) < TEL_SHORT or outside:
+        raise AssertionError('telemetry service: %d records; not the service\'s or their decode '
+                             'off the client\'s clock: steps %s' % (len(records), outside))
+    if (stats.get('health') or {}).get('regime') not in health.REGIMES:
+        raise AssertionError('telemetry service: stats health %s' % (stats.get('health'),))
+    rc, text = tools['diagnose']
+    if rc != 0 or not any(line.startswith(' 1. [') for line in text.splitlines()):
+        raise AssertionError('telemetry service: diagnose exited %d: %s' % (rc, text[-2000:]))
+    rc, text = tools['top']
+    if rc != 0 or 'splits  pending' not in text:
+        raise AssertionError('telemetry service: top exited %d: %s' % (rc, text[-2000:]))
+    rc, text = tools['why']
+    if rc != 0 or 'scale_out' not in text:
+        raise AssertionError('telemetry service: why exited %d: %s' % (rc, text[-2000:]))
+    dumps = [n for n in (os.listdir(flight_dir) if os.path.isdir(flight_dir) else ())
+             if n.startswith('flight_dispatcher_') and n.endswith('.json')]
+    if len(dumps) != 1:
+        raise AssertionError('telemetry service: dispatcher flight dumps %s' % dumps)
+    with open(os.path.join(flight_dir, dumps[0])) as f:
+        frames = len(json.load(f)['frames'])
+    rc, text = tel_tool('diagnose', '--flight', os.path.join(flight_dir, dumps[0]), '--json')
+    verdicts = json.loads(text)['verdicts'] if rc == 0 else []
+    if not verdicts:
+        raise AssertionError('telemetry service: diagnose --flight exited %d: %s'
+                             % (rc, text[-2000:]))
+    run.update(records=len(records), health={k: stats['health'][k] for k in
+                                             ('regime', 'regime_severity', 'regime_evidence')},
+               diagnose_live=tools['diagnose'][1].splitlines()[2].strip(),
+               why=[line for line in tools['why'][1].splitlines() if 'scale_out' in line][0],
+               flight_frames=frames, flight_verdict=verdicts[0]['id'],
+               transports=sorted({r.get('transport') for r in records}))
+    log('telemetry (e) service: %s' % json.dumps(tel_brief(run)))
+    log('telemetry (e) top --once:\n%s' % tools['top'][1].rstrip())
+    return run
+
+
+def tel_resident(fa, url, step):
+    """Leg (f): one streamed and one warm epoch of ``ResidentDataLoader``: the
+    records' residency outcomes, and the health of the warm window."""
+    from petastorm_tpu_torch.gpu import ResidentDataLoader
+    from petastorm_tpu_torch.telemetry import health
+    from petastorm_tpu_torch.telemetry.registry import snapshot_delta
+    per_epoch = IMAGE_ROWS // BATCH
+    marks = {}
+    with ResidentDataLoader(tel_reader(url, num_epochs=1), BATCH, num_epochs=2,
+                            seed=TEL_SEED) as loader:
+        def mark(i):
+            if i == per_epoch:   # the first warm batch delivered
+                marks['warm'] = loader.metrics.snapshot()
+        run = tel_steps(fa, loader, step, 'telemetry resident', 2 * per_epoch, on_step=mark)
+        report = health.health_report(snapshot_delta(loader.metrics.snapshot(), marks['warm']))
+    outcomes = [r.get('residency') for r in loader.provenance.records()]
+    if len(outcomes) != 2 * per_epoch or not set(outcomes[:per_epoch]) <= {'admitted', 'evicted'} \
+            or set(outcomes[per_epoch:]) != {'hit'} or report['regime'] != 'resident':
+        raise AssertionError('telemetry resident: outcomes %s, warm-window health %s'
+                             % (outcomes, report))
+    run.update(outcomes=outcomes, health={k: report[k] for k in ('regime', 'regime_evidence')})
+    log('telemetry (f) resident: %s' % json.dumps(tel_brief(run)))
+    return run
+
+
+def phase_telemetry(fa, url, tmp, smi):
+    """The telemetry bullet on the card, ViT-S/16 at full width (batch 64,
+    224², graphed) fed from the 512-row JPEG store by 8 decode workers under
+    ``scheduling='auto'`` (adaptive), rows shuffled by ``TEL_SEED``:
+    (a) provenance on, 32 steps: every sealed record names the store's files
+    and row groups, this pid and host, the adaptive policy's fields, a
+    coalesced or narrowed transfer and the decode, release, host_batch and
+    h2d_dispatch stages; the journal's steps run 0..n-1, the ``host_batch``
+    p99 exemplar resolves to a journaled step, and ``explain --worst --json``
+    on the dumped journal names a row group.  (b) the same under
+    ``PETASTORM_TPU_NO_PROVENANCE=1``: the batches' digests equal (a)'s step
+    by step, no journal; then on and off once more, in turns; the four legs'
+    images/s and data wait beside the card.
+    (c) ``batch_slo_ms`` at a tenth of (a)'s fastest record wall: violations, one
+    dump holding the whole journal, read by ``explain``.  (d) the process
+    pool: the children's pids, a transport, (a)'s first batches.  (e) the
+    service (``tel_service``).  (f) the resident tier (``tel_resident``).
+    ``phase_ingest``'s legs print the health of their windows (leg (g))."""
+    step = vit_resident_step()
+    out = tel_provenance(fa, url, step, tmp, smi)
+    out['service'] = tel_service(fa, url, step, tmp)
+    out['resident'] = tel_resident(fa, url, step)
+    SUMMARY['telemetry'] = {k: tel_brief(v) for k, v in out.items()}
+    launches = collections.Counter()
+    for run in out.values():
         launches.update(run['launches'])
     return dict(launches)
 
@@ -5895,7 +6284,8 @@ def main():
                             ('service', lambda: phase_service(fa, tmp)),
                             ('service_fleet', lambda: phase_service_fleet(fa, tmp)),
                             ('service_control', lambda: phase_service_control(fa, tmp)),
-                            ('ingest', lambda: phase_ingest(fa, tmp))):
+                            ('ingest', lambda: phase_ingest(fa, tmp)),
+                            ('telemetry', lambda: phase_telemetry(fa, url, tmp, smi))):
             t0 = time.monotonic()
             paths[name] = phase()
             log('phase %s: %.1f s' % (name, time.monotonic() - t0))
@@ -5905,7 +6295,8 @@ def main():
                 'sequence_parallel': paths['sequence_parallel'],
                 'multi_device': paths['multi_device'], 'elastic': paths['elastic'],
                 'service': paths['service'], 'service_fleet': paths['service_fleet'],
-                'service_control': paths['service_control'], 'ingest': paths['ingest']}
+                'service_control': paths['service_control'], 'ingest': paths['ingest'],
+                'telemetry': paths['telemetry']}
     kernels = [dict(name=name, route='cuda', design=MAIN_PATH_DESIGN[name],
                     source=SOURCES[name], replaces=REPLACES[name],
                     launches=sum(path[name] for path in launches.values()),

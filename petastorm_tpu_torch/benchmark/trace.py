@@ -24,9 +24,13 @@ import json
 import os
 import threading
 import time
+import weakref
 from collections import deque
 
-__all__ = ['TraceRecorder']
+__all__ = ['TraceRecorder', 'all_recorder_events']
+
+#: Every live recorder, for a crash dump (``telemetry.dump_state``).
+_LIVE = weakref.WeakSet()
 
 
 class TraceRecorder(object):
@@ -37,6 +41,7 @@ class TraceRecorder(object):
         self._events = deque(maxlen=int(max_events))
         self._lock = threading.Lock()
         self._t0 = time.monotonic()   # the trace's origin
+        _LIVE.add(self)
 
     def event(self, name, t_start_s, t_end_s, pid=None, tid=None, **args):
         """Record one complete span; times are ``time.monotonic()`` seconds.
@@ -91,3 +96,11 @@ class TraceRecorder(object):
         with open(path, 'w') as f:
             json.dump({'traceEvents': events, 'displayTimeUnit': 'ms'}, f)
         return len(events)
+
+
+def all_recorder_events():
+    """Each live recorder's events with its monotonic origin (``ts`` is
+    relative to it: ``origin_monotonic + ts / 1e6`` puts every event back on
+    the process clock)."""
+    return [{'origin_monotonic': recorder._t0, 'events': recorder.events}
+            for recorder in list(_LIVE)]

@@ -73,9 +73,19 @@ Autotuner`): once a tuning window has passed it moves the lookahead window,
 the ventilator's in-flight bound, this loader's ``prefetch`` and the
 ingest plane's readahead window from the measured stage quantiles and an
 attached ``StallMonitor``'s wait share, each move a ``sched_*`` gauge in
-:attr:`DataLoader.metrics`.  The per-batch latency SLO (``batch_slo_ms``)
-needs the provenance journal, which is not ported (ROADMAP.md, Queue A
-item 7, the telemetry bullet).
+:attr:`DataLoader.metrics`.
+
+Every delivery mode (pumped, inline, ``iter_host_batches``,
+``scan_batches``, the resident tier's streamed and warm epochs) seals one
+provenance record a batch into the loader's journal
+(:attr:`DataLoader.provenance`, a
+:class:`~petastorm_tpu_torch.telemetry.provenance.ProvenanceJournal`): the
+reader's records of the batch's chunks merged, with the loader's stage
+windows, the transfer plane's outcome and, on the resident tier, its
+outcome.  The stage histograms keep tail exemplars into it, and
+``batch_slo_ms`` (or ``PETASTORM_TPU_BATCH_SLO_MS``) arms the per-batch
+latency watchdog.  The loader also arms the process's flight recorder
+(:func:`~petastorm_tpu_torch.telemetry.flight.enable`).
 """
 
 import contextlib
@@ -99,6 +109,8 @@ from petastorm_tpu_torch.gpu.transfer import (DONE, DispatchPump, TransferPlane,
                                               plane_enabled, resolve_device, validate_transfer)
 from petastorm_tpu_torch.reader_impl.shuffling_buffer import (NoopShufflingBuffer,
                                                               RandomShufflingBuffer)
+from petastorm_tpu_torch.telemetry import flight
+from petastorm_tpu_torch.telemetry import provenance as _provenance
 from petastorm_tpu_torch.telemetry.registry import MetricsRegistry
 
 logger = logging.getLogger(__name__)
@@ -171,8 +183,12 @@ class DataLoader(object):
             once 2 s and 32 new cost-model samples have passed; a
             ``StallMonitor`` given to :meth:`attach_stall_monitor` makes the
             consumer's wait share its prefetch signal.
-        batch_slo_ms: the JAX loader's per-batch latency SLO, which needs
-            its provenance journal: not ported, so setting it raises.
+        batch_slo_ms: the per-batch latency SLO (default
+            ``PETASTORM_TPU_BATCH_SLO_MS``): a sealed record whose wall passes
+            it counts in ``slo_violations`` and dumps the whole journal under
+            ``PETASTORM_TPU_FLIGHT_DIR`` for ``explain``.  The journal itself
+            (:attr:`provenance`) is on whenever provenance is
+            (``PETASTORM_TPU_NO_PROVENANCE=1`` turns both off).
     """
 
     def __init__(self, reader, batch_size, shuffling_queue_capacity=0, min_after_retrieve=None,
@@ -185,10 +201,6 @@ class DataLoader(object):
             raise ValueError('echo must be >= 1')
         if autotune not in ('auto', True, False):
             raise ValueError("autotune must be 'auto', True or False; got %r" % (autotune,))
-        if batch_slo_ms is not None:
-            raise ValueError('batch_slo_ms=%r needs the provenance journal, a later slice of the '
-                             'port (ROADMAP.md, Queue A item 7, the telemetry bullet)'
-                             % (batch_slo_ms,))
         validate_transfer(transfer)
         if reader is not None:
             self._check_reader(reader)
@@ -242,6 +254,26 @@ class DataLoader(object):
         self._m_stage = {stage: (self.metrics.counter(stage + '_s'),
                                  self.metrics.histogram(stage))
                          for stage in ('host_batch', 'transform', 'device_put')}
+        # the trainer's flight recorder: the stage histograms' trajectory
+        flight.enable(label='trainer')
+        #: the journal of the delivered batches' records (None with
+        #: provenance off) and its SLO watchdog
+        self.provenance = None
+        self._slo = None
+        #: the pull window of the host batch being delivered (set and read
+        #: on the thread that pulls)
+        self._last_pull_window = None
+        if _provenance.enabled():
+            self.provenance = _provenance.ProvenanceJournal(label='loader')
+            if batch_slo_ms is None:
+                try:
+                    batch_slo_ms = float(os.environ.get('PETASTORM_TPU_BATCH_SLO_MS') or 0) \
+                        or None
+                except ValueError:
+                    batch_slo_ms = None
+            if batch_slo_ms:
+                self._slo = _provenance.SloWatchdog(self.provenance, float(batch_slo_ms) / 1e3,
+                                                    label='loader', metrics=self.metrics)
 
     @staticmethod
     def _check_reader(reader):
@@ -251,6 +283,50 @@ class DataLoader(object):
         counter, hist = self._m_stage[stage]
         counter.inc(t1 - t0)
         hist.observe(t1 - t0)
+
+    def _seal_provenance(self, stages, transfer=None, residency=None):
+        """Seal one delivered batch's record: the reader's records drained
+        since the last batch, merged, with this batch's stage windows, the
+        transfer outcome and the resident tier's outcome; then the stage
+        histograms' exemplars (``{'step': N}``, attached to the samples
+        observed before the step existed) and the SLO watchdog.  Returns
+        the step, or None with provenance off.  A failed drain seals the
+        loader's windows alone: provenance never stops a batch."""
+        journal = self.provenance
+        if journal is None:
+            return None
+        records = []
+        take = getattr(self.reader, 'take_provenance', None)
+        if take is not None:
+            try:
+                records = take() or []
+            except Exception:  # noqa: BLE001 — provenance is never load-bearing
+                records = []
+        record = _provenance.merge_records(records)
+        for name, window in stages.items():
+            if window is not None and window[1] > window[0]:
+                record['stages'][name] = list(window)
+        if transfer is not None:
+            record['transfer'] = transfer
+        if residency is not None:
+            record['residency'] = residency
+        record = journal.seal(record)
+        ref = {'step': record['step']}
+        for stage_name, hist_key in (('host_batch', 'host_batch'), ('transform', 'transform'),
+                                     ('h2d_dispatch', 'device_put')):
+            window = record['stages'].get(stage_name)
+            if window is not None:
+                self._m_stage[hist_key][1].note_exemplar(window[1] - window[0], ref)
+        if self._slo is not None:
+            self._slo.check(record)
+        return record['step']
+
+    def dump_provenance(self, path):
+        """Write the journal (atomic JSON), the file ``explain --journal``
+        reads; the path, or None with provenance off or a failed write."""
+        if self.provenance is None:
+            return None
+        return self.provenance.persist(path)
 
     @property
     def stats(self):
@@ -308,6 +384,17 @@ class DataLoader(object):
             if degraded:   # a structure the plane cannot pack: column by column
                 shipped = plane.put_inline(numeric)
             t3 = time.monotonic()
+            if self.provenance is not None:
+                last = (plane.last_put if not degraded else None) or {}
+                stages = dict(last.get('stages') or {})
+                stages['transform'] = [t1, t2]
+                if degraded:
+                    stages['h2d_dispatch'] = [t2, t3]
+                if self._last_pull_window is not None:
+                    # pulled on this (the pump's) thread just before
+                    stages['host_batch'] = list(self._last_pull_window)
+                self._seal_provenance(stages, transfer='degraded' if degraded
+                                      else last.get('outcome'))
             self._observe('transform', t1, t2)
             self._observe('device_put', t2, t3)
             self._m_batches.inc()
@@ -361,6 +448,9 @@ class DataLoader(object):
             pending.append(plane.put_inline(
                 self._block(_filter_numeric(host_batch, self._warned_fields))))
             t3 = time.monotonic()
+            if self.provenance is not None:
+                self._seal_provenance({'host_batch': [t0, t1], 'transform': [t1, t2],
+                                       'h2d_dispatch': [t2, t3]}, transfer='inline')
             self._observe('host_batch', t0, t1)
             self._observe('transform', t1, t2)
             self._observe('device_put', t2, t3)
@@ -386,10 +476,17 @@ class DataLoader(object):
             self._m_batches.inc()
             yield host_batch
         for host_batch in self._timed_pulls(self._echoed_host_batches()):
+            stages = {}
+            if self._last_pull_window is not None:
+                stages['host_batch'] = list(self._last_pull_window)
             if self._transform_fn is not None:
                 t1 = time.monotonic()
                 host_batch = self._transform_fn(host_batch)
-                self._observe('transform', t1, time.monotonic())
+                t2 = time.monotonic()
+                self._observe('transform', t1, t2)
+                stages['transform'] = [t1, t2]
+            if self.provenance is not None:
+                self._seal_provenance(stages)
             self._m_batches.inc()
             yield host_batch
 
@@ -437,6 +534,9 @@ class DataLoader(object):
             except StopIteration:
                 return
             t1 = time.monotonic()
+            # the pull window of the batch about to be delivered, read by
+            # the consumer on this thread
+            self._last_pull_window = (t0, t1)
             self._observe('host_batch', t0, t1)
             if self._trace is not None:
                 self._trace.event('host_batch', t0, t1)
@@ -535,6 +635,9 @@ class DataLoader(object):
                 chunk = []
                 yield carry, outs
             chunk.append(host_batch)
+            if self.provenance is not None:
+                self._seal_provenance({'host_batch': list(self._last_pull_window)}
+                                      if self._last_pull_window is not None else {})
             self._m_batches.inc()
             if len(chunk) == steps_per_call:
                 carry, outs = run(carry, chunk)
@@ -1690,7 +1793,8 @@ class ResidentDataLoader(InMemDataLoader):
     def _stream_one(self, cache, n, plan, idx):
         """Slice, narrow, move and widen one batch of rows ``idx``: the
         streamed batch, ``widen(narrow(rows))`` as a warm gather gives it.
-        Returns the wire tensors on the device beside the batch."""
+        Returns the wire tensors on the device, the batch, and the windows of
+        the narrowing and of the move."""
         t0 = time.monotonic()
         if plan is not None:
             wire = plan.narrow(cache, idx, pin_memory=self.device.type == 'cuda')
@@ -1708,7 +1812,7 @@ class ResidentDataLoader(InMemDataLoader):
         self._observe('host_batch', t0, t1)
         self._observe('device_put', t1, t2)
         self._res_counters.host_batches.inc()
-        return wire_dev, batch
+        return wire_dev, batch, [t0, t1], [t1, t2]
 
     def _streamed_epoch(self, cache, n, plan, tier, order, starts, skip):
         """One epoch through a dispatch thread, which slices, narrows, copies
@@ -1726,9 +1830,11 @@ class ResidentDataLoader(InMemDataLoader):
             j, idx = item
             with torch.cuda.stream(copy_stream) if copy_stream is not None \
                     else contextlib.nullcontext():
-                wire_dev, batch = self._stream_one(cache, n, plan, idx)
-                if tier is not None:
-                    tier.admit(idx, wire_dev)
+                wire_dev, batch, w_host, w_put = self._stream_one(cache, n, plan, idx)
+                outcome = tier.admit(idx, wire_dev) if tier is not None else 'bypass'
+                if self.provenance is not None:
+                    self._seal_provenance({'host_batch': w_host, 'h2d_dispatch': w_put},
+                                          residency=outcome)
                 event = None
                 if copy_stream is not None:
                     event = torch.cuda.Event()
@@ -1768,9 +1874,14 @@ class ResidentDataLoader(InMemDataLoader):
                     batch = tier.gather(order_dev, start)
                 else:   # the ragged tail (drop_last=False)
                     batch = tier.gather_tail(order_dev, start)
+                outcome = 'hit'
             else:
-                _, batch = self._stream_one(cache, n, plan, order[start:min(start + bs, n)])
+                _, batch, _, _ = self._stream_one(cache, n, plan,
+                                                  order[start:min(start + bs, n)])
                 self._res_counters.bypass.inc()
+                outcome = 'bypass'
+            if self.provenance is not None:
+                self._seal_provenance({}, residency=outcome)
             yield j, batch
 
     def state_dict(self):

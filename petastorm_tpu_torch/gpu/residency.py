@@ -30,10 +30,14 @@ narrowing kept; a dtype outside the wire support matrix makes
 :func:`wire_plan` return None and the loader streams at full width; a budget
 below the dataset keeps admitting (the LRU churns) and never serves warm.
 
-The residency decision records, ``donation_supported`` and the shared
+Each admission that allocates, each bypass and each drop is a record of
+the decision journal (actor ``residency``, rule ``residency_budget``, with
+the allocator's state before it, which ``why --check`` replays), and
+:meth:`ResidencyTier.admit` returns the outcome the loader's provenance
+record carries.  ``donation_supported`` and the shared
 ``place_once``/``device_cache_valid`` helpers of the JAX module are not
-here: the first belong to the decision journal, torch writes in place
-without donation, and the device cache places its rows itself.
+here: torch writes in place without donation, and the device cache places
+its rows itself.
 """
 
 import os
@@ -45,6 +49,7 @@ import torch
 
 from petastorm_tpu_torch import random as prng
 from petastorm_tpu_torch.gpu.transfer import canonical_dtype, supported, wire_dtype_for
+from petastorm_tpu_torch.telemetry import decisions as _decisions
 
 __all__ = ['KILL_SWITCH', 'COUNTER_NAMES', 'GAUGE_NAMES', 'killed', 'epoch_key',
            'epoch_permutation', 'WirePlan', 'wire_plan', 'estimate_budget', 'ResidencyCounters',
@@ -368,9 +373,20 @@ class ResidencyTier(object):
         with self._lock:
             if self._dropped or rows == 0 or rows > self._capacity:
                 self._c.bypass.inc()
+                _decisions.record_decision(
+                    'residency', 'bypass', 'residency_budget',
+                    {'rows': rows, 'capacity': self._capacity, 'dropped': bool(self._dropped)},
+                    suppressed=True)
                 return 'bypass'
             if (self._slot_of_row[row_ids] >= 0).all():
+                # a warm re-sight allocates and displaces nothing: no record
+                # (it would flood the journal every warm batch)
                 return 'admitted'
+            # the allocator's state before the evictions, from which the
+            # decision's replay derives the outcome
+            inputs = {'rows': rows, 'capacity': self._capacity, 'bump': self._bump,
+                      'free_rows': [r for _, r in self._free],
+                      'entry_rows': [r for _, r, _ in self._entries.values()]}
             self._ensure_slabs()
             evicted = False
             slot = self._alloc(rows)
@@ -380,6 +396,8 @@ class ResidencyTier(object):
                 slot = self._alloc(rows)
             if slot is None:
                 self._c.bypass.inc()
+                _decisions.record_decision('residency', 'bypass', 'residency_budget', inputs,
+                                           suppressed=True)
                 return 'bypass'
             self._write(slot, rows, wire_dev)
             self._entries[self._seq] = (slot, rows, row_ids)
@@ -391,7 +409,10 @@ class ResidencyTier(object):
             if evicted:
                 self._c.thrash.inc()
             self._update_gauges()
-            return 'evicted' if evicted else 'admitted'
+            outcome = 'evicted' if evicted else 'admitted'
+            _decisions.record_decision('residency', outcome, 'residency_budget', inputs,
+                                       slot=slot)
+            return outcome
 
     def _write(self, slot, rows, wire_dev):
         """Copy the batch into its slot range in place, on the current stream."""
@@ -445,6 +466,10 @@ class ResidencyTier(object):
         with self._lock:
             if self._dropped:
                 return
+            _decisions.record_decision(
+                'residency', 'drop', 'residency_budget',
+                {'entries': len(self._entries), 'resident_rows': self._resident,
+                 'capacity': self._capacity})
             if self._slabs is not None and self._entries:
                 self._c.evictions.inc(len(self._entries))
             self._slabs = None

@@ -670,6 +670,16 @@ class Reader(object):
         """Resume dispatch after :meth:`drain_in_flight`."""
         self._ventilator.unpause()
 
+    def take_provenance(self):
+        """The provenance records of the results delivered since the last
+        call, in delivery order: pieces (file and row group), the worker's
+        pid and host, the dispatch decision, the cache outcome, the
+        transport and the decode/ipc/release windows.  The loader drains
+        them each host batch into its journal; empty under
+        ``PETASTORM_TPU_NO_PROVENANCE=1``."""
+        take = getattr(self._pool, 'take_provenance', None)
+        return take() if take is not None else []
+
     def num_local_rows(self):
         """The rows of this shard's row groups: an upper bound of what one
         epoch yields under a predicate or an NGram (both depend on the

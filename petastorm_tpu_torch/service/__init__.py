@@ -29,7 +29,9 @@ Counterpart of ``petastorm_tpu/service/``:
 
 Every control law records its decisions in the journal
 (:mod:`petastorm_tpu_torch.telemetry.decisions`), the workers ship their
-spans to the clients' traces, and the chaos plane's seams
+spans to the clients' traces and each split's provenance record to the
+client's journal, the dispatcher keeps the fleet's flight recorder and
+reports its health in ``stats``, and the chaos plane's seams
 (:mod:`petastorm_tpu_torch.test_util.chaos`) sit in the RPCs, the chunk
 sends and the decodes.  Imports are lazy, so that a worker process that
 imports this package loads no torch.

@@ -36,7 +36,11 @@ With a ``trace_recorder`` each wait for a split is a ``service/split_wait``
 span, and the spans the workers ship on a split's ``end`` header merge into
 the same trace on this process's clock: the discovery poll is a clock
 handshake with the dispatcher (an EWMA of the offset), and each worker's
-offset to the dispatcher comes with the poll's reply.
+offset to the dispatcher comes with the poll's reply.  A split's provenance
+record (the ``end`` header's) is moved onto this clock the same way and
+journaled by the loader, its ``client_buffer`` stage the split's wait in
+this client; a record that cannot be placed (no offsets yet from a worker
+on another clock) is dropped, not journaled with a made-up latency.
 """
 
 import logging
@@ -51,6 +55,7 @@ from petastorm_tpu_torch.errors import ServiceError
 from petastorm_tpu_torch.gpu.loader import DataLoader
 from petastorm_tpu_torch.service import backoff, tenancy
 from petastorm_tpu_torch.service.worker import _Rpc, deserialize_chunk
+from petastorm_tpu_torch.telemetry import provenance
 from petastorm_tpu_torch.telemetry.spans import merge_into_recorder
 
 logger = logging.getLogger(__name__)
@@ -141,7 +146,8 @@ class _ServiceConnection(object):
                 rpc.call({'op': 'mark_consumed', 'split_ids': sorted(self.consumed)})
             finally:
                 rpc.close()
-        #: complete splits for the reader: (split_id, [chunk dicts]).  Bounded:
+        #: complete splits for the reader: (split_id, [chunk dicts], record or
+        #: None).  Bounded:
         #: a full queue stops the receiver reading its sockets, which stops
         #: the credits, which stalls the workers.
         self._ready = queue.Queue(maxsize=max(1, int(queue_splits)))
@@ -155,7 +161,8 @@ class _ServiceConnection(object):
     # -- consumption (the reader's thread) -----------------------------------
 
     def next_split(self):
-        """The next complete split not yet delivered, ``(split_id, chunks)``;
+        """The next complete split not yet delivered, ``(split_id, chunks,
+        record)``;
         None at the end of the stream.  A receive loop that failed raises
         here.  With a trace recorder the wait is a ``service/split_wait``
         span."""
@@ -317,6 +324,7 @@ class _ServiceConnection(object):
                             sock.send(pickle.dumps({'type': 'ack', 'split': sid,
                                                     'attempt': attempt}, protocol=4))
                             self._merge_worker_spans(header, addr_of.get(sock))
+                            record = self._align_provenance(header, addr_of.get(sock))
                             chunks = []
                             for i in sorted(parts):
                                 tag, payload = parts[i]
@@ -330,12 +338,12 @@ class _ServiceConnection(object):
                             for key in [k for k in buffers if k[0] == sid]:
                                 del buffers[key]
                             if self._ordered:
-                                held[sid] = chunks
+                                held[sid] = (chunks, record)
                                 while order and order[0] in held:
                                     nxt = order.pop(0)
-                                    self._put((nxt, held.pop(nxt)))
+                                    self._put((nxt,) + held.pop(nxt))
                             else:
-                                self._put((sid, chunks))
+                                self._put((sid, chunks, record))
         except Exception as e:  # noqa: BLE001 — raised again in next_split
             self._error = e
         finally:
@@ -384,6 +392,29 @@ class _ServiceConnection(object):
             if pid != os.getpid():   # a worker thread of this process shares its track
                 self._trace.set_process_label(pid, 'service worker %s' % (addr or '?'))
         self.spans_merged += merge_into_recorder(self._trace, spans, clock_offset_s=shift)
+
+    def _align_provenance(self, header, addr):
+        """The split's record with its stage windows moved onto this
+        process's clock (the chained offsets of
+        :meth:`_merge_worker_spans`), stamped with its receipt.  A latency
+        is computed from these windows, so a record still far from this
+        client's present after the shift (a worker on another host whose
+        offset has not arrived) is dropped: journaled, it would carry the
+        hosts' boot skew as its latency.  A worker on this host shares the
+        clock and passes unshifted."""
+        record = header.get('provenance')
+        if record is None or not provenance.enabled():
+            return None
+        now = time.monotonic()
+        worker_offset = self.worker_offsets.get(addr)
+        if self.clock_offset is not None and worker_offset is not None:
+            record = provenance.shift_stages(record, self.clock_offset - worker_offset)
+        stages = record.get('stages') or {}
+        latest = max((w[1] for w in stages.values()), default=now)
+        if abs(now - latest) > 60.0:
+            return None
+        record['_received_t'] = now
+        return record
 
     def _put(self, item):
         while not self._stop.is_set():
@@ -465,6 +496,8 @@ class ServiceReader(object):
     def __init__(self, connection):
         self._conn = connection
         self._current = []
+        #: the records of the splits adopted since the loader last took them
+        self._pending_provenance = []
         self.last_row_consumed = False
 
     @property
@@ -484,16 +517,37 @@ class ServiceReader(object):
             if item is None:
                 self.last_row_consumed = True
                 raise StopIteration
-            split_id, chunks = item
+            split_id, chunks, record = item
             self._conn.commit(split_id)
             self._current = list(chunks)
+            self._adopt_provenance(record)
         return self._current.pop(0)
+
+    def _adopt_provenance(self, record):
+        """Keep a split's record as its chunks enter the loader, with its
+        ``client_buffer`` stage (receipt until now)."""
+        if record is None:
+            return
+        received = record.pop('_received_t', None)
+        now = time.monotonic()
+        if received is not None and now > received:
+            record.setdefault('stages', {})['client_buffer'] = [received, now]
+        self._pending_provenance.append(record)
+        del self._pending_provenance[:-64]
+
+    def take_provenance(self):
+        """The records of the splits adopted since the last call (the
+        surface ``Reader.take_provenance`` has)."""
+        out = list(self._pending_provenance)
+        self._pending_provenance = []
+        return out
 
     def drain_in_flight(self):
         drained = list(self._current)
         self._current = []
-        for split_id, chunks in self._conn.drain_ready():
+        for split_id, chunks, record in self._conn.drain_ready():
             self._conn.commit(split_id)
+            self._adopt_provenance(record)
             drained.extend(chunks)
         return drained
 

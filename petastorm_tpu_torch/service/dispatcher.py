@@ -60,9 +60,19 @@ the ``decisions`` RPC returns it whole.  Registration, heartbeats, ``clock``
 and ``workers`` replies carry the dispatcher's ``time.monotonic()``: the
 clock handshakes that put the workers' spans on a client's timeline.
 
-Not ported here: the materializer hand-off (the materialization plane) and
-the flight recorder (the telemetry bullet), both ``ROADMAP.md``, Queue A
-item 7.
+The fleet's flight recorder (:attr:`Dispatcher.flight`) ticks in the serve
+loop over the fleet snapshot (the workers' heartbeat registries merged,
+with the split states, lease churn, the control plane's counters and each
+tenant's grants) and is persisted when the loop exits (under
+``PETASTORM_TPU_FLIGHT_DIR``).  ``stats`` carries the fleet's health
+(:func:`~petastorm_tpu_torch.telemetry.health.health_report` over the
+current snapshot against the ring's frame about 60 s back), whose scores
+are also gauges of :attr:`Dispatcher.metrics`; each tenant's row gains its
+grants in that window (``grants_delta``), and each stage the one summary
+(:func:`~petastorm_tpu_torch.telemetry.registry.summarize_hist`).
+
+Not ported here: the materializer hand-off (the materialization plane,
+``ROADMAP.md``, Queue A item 7).
 """
 
 import collections
@@ -74,6 +84,11 @@ import time
 
 from petastorm_tpu_torch.service import tenancy as _tenancy
 from petastorm_tpu_torch.telemetry import decisions as _decisions
+from petastorm_tpu_torch.telemetry import health
+from petastorm_tpu_torch.telemetry.flight import (FlightRecorder, default_persist_path,
+                                                  window_frames)
+from petastorm_tpu_torch.telemetry.registry import (MetricsRegistry, merge_snapshots,
+                                                    snapshot_delta, summarize_hist)
 
 logger = logging.getLogger(__name__)
 
@@ -209,6 +224,13 @@ class Dispatcher(object):
         self._thread = None
         self._started = threading.Event()
         self.addr = None
+        #: the fleet's flight recorder: its frames are fleet snapshots, ticked
+        #: by the serve loop; two frames subtract into the window ``stats``'
+        #: health reads
+        self.flight = FlightRecorder(source=self._fleet_snapshot, label='dispatcher_fleet',
+                                     persist_path=default_persist_path('dispatcher'))
+        #: the health gauges, for a scrape of the dispatcher's process
+        self.metrics = MetricsRegistry('dispatcher')
         # the journal of the dispatcher's control laws: a record marks the
         # ledger dirty, so the next serve-loop turn persists it
         self._decisions = _decisions.DecisionJournal(label='dispatcher')
@@ -424,9 +446,9 @@ class Dispatcher(object):
                 self._expire_leases()
                 # lease grants and expiries reach the ledger within a turn
                 self._ledger_save()
-                # observe under the lock, act outside it; the flight
-                # recorder's tick (the telemetry bullet of ROADMAP.md, Queue
-                # A item 7) is not ported
+                # one fleet frame an interval, from the loop that runs anyway
+                self.flight.maybe_tick()
+                # observe under the lock, act outside it
                 self._autoscale_tick()
                 if not dict(poller.poll(100)):
                     continue
@@ -452,6 +474,9 @@ class Dispatcher(object):
                 if request.get('op') == 'stop':
                     break
         finally:
+            # the ring is the postmortem (when a flight directory is set)
+            self.flight.persist(reason='dispatcher_exit')
+            self.flight.stop()
             if self.autoscaler is not None:
                 # the workers it spawned do not outlive the control plane
                 self.autoscaler.close()
@@ -461,6 +486,36 @@ class Dispatcher(object):
                 self._ledger.release()
             socket.close(0)
             context.term()
+
+    def _fleet_snapshot(self):
+        """The fleet's snapshot, the flight recorder's frame source: the
+        workers' heartbeat registries merged (cumulative, so two frames
+        subtract), the split states and live workers as gauges, and as
+        counters the lease churn, the control plane's traffic, each tenant's
+        grants (``tenant_grants:<tenant>``) and the autoscaler's actions."""
+        with self._lock:
+            snaps = [w['stats'].get('registry') for w in self._workers.values()]
+            states = collections.Counter(s.state for s in self._splits)
+            alive = len(self._workers)
+            grants = {job.tenant: job.grants for job in self._tenants.jobs()}
+        merged = merge_snapshots(snaps)
+        merged['gauges'].update({'splits_pending': states[_PENDING],
+                                 'splits_leased': states[_LEASED],
+                                 'splits_done': states[_DONE],
+                                 'splits_failed': states[_FAILED],
+                                 'workers_registered': alive})
+        counters = merged['counters']
+        counters['lease_churn'] = self.lease_churn
+        counters['cache_affinity_routed'] = self.affinity_routed
+        counters['ledger_restores'] = self.ledger_restores
+        counters['drains'] = self.drains
+        counters['drain_timeouts'] = self.drain_timeouts
+        for tenant, n in grants.items():
+            counters['tenant_grants:%s' % tenant] = n
+        if self.autoscaler is not None:
+            counters['autoscale_outs'] = self.autoscaler.scale_outs
+            counters['autoscale_ins'] = self.autoscaler.scale_ins
+        return merged
 
     # -- the autoscaler ------------------------------------------------------
 
@@ -976,6 +1031,18 @@ class Dispatcher(object):
                        'directory_digests': len(set().union(*self._worker_digests.values()))
                        if self._worker_digests else 0,
                        'piece_map': self._piece_digests is not None}
+        # the health window: the current fleet snapshot against the ring's
+        # frame about 60 s back (with one frame, that frame), so the report
+        # is current even on a dispatcher younger than one tick
+        self.flight.maybe_tick()
+        frames = self.flight.frames()
+        baseline = window_frames(frames, 60.0)[0] or (frames[-1] if frames else None)
+        delta = snapshot_delta(self._fleet_snapshot(),
+                               baseline['snapshot'] if baseline else None)
+        grant_deltas = {name.split(':', 1)[1]: value
+                        for name, value in (delta.get('counters') or {}).items()
+                        if name.startswith('tenant_grants:')}
+        with self._lock:
             deficits = self._scheduler.deficits()
             tenants = {}
             for job in self._tenants.jobs():
@@ -985,7 +1052,8 @@ class Dispatcher(object):
                     'weight': job.weight, 'split_base': job.split_base,
                     'num_splits': job.num_splits, 'pending': span[_PENDING],
                     'leased': span[_LEASED], 'done': span[_DONE], 'failed': span[_FAILED],
-                    'grants': job.grants, 'deficit': round(deficits.get(job.tenant, 0.0), 3)}
+                    'grants': job.grants, 'grants_delta': int(grant_deltas.get(job.tenant, 0)),
+                    'deficit': round(deficits.get(job.tenant, 0.0), 3)}
 
         def total(keys):
             return {key: sum(int(w.get(key, 0)) for w in workers.values()) for key in keys}
@@ -1017,6 +1085,22 @@ class Dispatcher(object):
                                                   1))
                     if agg['last'] is None or last['age_s'] < agg['last'].get('age_s', 0.0):
                         agg['last'] = last
+        # a tenant with pending work and no grant in the window while another
+        # was granted: the fleet moves, not for it
+        fleet_moving = any(row['grants_delta'] > 0 for row in tenants.values())
+        starved = sorted(tid for tid, row in tenants.items()
+                         if row['pending'] > 0 and row['grants_delta'] == 0 and fleet_moving)
+        meta = {'pending': states[_PENDING], 'leased': states[_LEASED],
+                'failed': states[_FAILED], 'workers_alive': alive,
+                'ledger_restores': self.ledger_restores, 'drain_timeouts': self.drain_timeouts,
+                'retry_giveups': control['retry_giveups'], 'starved_tenants': starved,
+                'tenant_count': len(tenants),
+                'control_flaps': self._decisions.opposing_actions(60.0)}
+        fleet_health = health.health_report(
+            delta, meta=meta,
+            window_s=(time.monotonic() - baseline['t_mono']) if baseline else None)
+        health.export_gauges(self.metrics, fleet_health)
+        merged = merge_snapshots([w.get('registry') for w in workers.values()])
         return {
             'num_splits': len(self._splits),
             'pending': states[_PENDING],
@@ -1032,7 +1116,8 @@ class Dispatcher(object):
             'tenants': tenants,
             'autoscale': autoscale,
             'decisions': decisions,
-            'stages': _merged_stages([w.get('registry') for w in workers.values()]),
+            'stages': {name: summarize_hist(hist) for name, hist in merged['histograms'].items()},
+            'health': fleet_health,
             'workers': {wid: {k: v for k, v in row.items() if k != 'registry'}
                         for wid, row in workers.items()},
         }
@@ -1049,24 +1134,6 @@ class Dispatcher(object):
     def _op_stop(self, request):
         self._stop.set()
         return {'ok': True}
-
-
-def _merged_stages(snapshots):
-    """Fleet-wide stage latencies: the workers' histogram snapshots added
-    bucket by bucket (the buckets are fixed log2), then each stage's count
-    and p50/p99 in ms."""
-    from petastorm_tpu_torch.telemetry.registry import hist_quantile, ms
-    merged = {}
-    for snap in snapshots:
-        for name, hist in ((snap or {}).get('histograms') or {}).items():
-            into = merged.setdefault(name, {'counts': [0] * len(hist['counts']), 'sum': 0.0,
-                                            'count': 0})
-            into['counts'] = [a + b for a, b in zip(into['counts'], hist['counts'])]
-            into['sum'] += hist['sum']
-            into['count'] += hist['count']
-    return {name: {'count': hist['count'], 'p50_ms': ms(hist_quantile(hist, 0.5)),
-                   'p99_ms': ms(hist_quantile(hist, 0.99))}
-            for name, hist in merged.items()}
 
 
 def _count_row_groups(dataset_url):

@@ -69,9 +69,12 @@ This module and what it imports load neither torch nor JAX: a worker
 process needs no card.  Each split reader takes the job's ``scheduling``
 and ``ingest`` (explicit ``reader_kwargs`` win); a reader with the ingest
 plane folds the plane's counters and histograms into the worker's registry
-and ships its ``ingest/*`` spans on the split's ``end`` header.  Not ported
-here (``ROADMAP.md``, Queue A item 7, the telemetry bullet): provenance
-records.
+and ships its ``ingest/*`` spans on the split's ``end`` header.  With
+provenance on, the ``end`` header also carries the split's record (its
+pieces, this worker's pid and host, the cache outcome, the transport, the
+split reader's scheduling, the tenant and the stage windows on this
+worker's clock), which the client moves onto its own; the process arms its
+flight recorder at registration.
 """
 
 import logging
@@ -91,6 +94,7 @@ import pyarrow.parquet  # noqa: F401
 
 from petastorm_tpu_torch.errors import ServiceError, ServiceRpcTimeoutError
 from petastorm_tpu_torch.service import backoff, tenancy
+from petastorm_tpu_torch.telemetry import flight, provenance
 from petastorm_tpu_torch.telemetry.registry import MetricsRegistry
 from petastorm_tpu_torch.test_util import chaos
 
@@ -105,6 +109,10 @@ MAX_BUFFERED_CHUNKS = 32
 _MAX_SPANS_PER_SPLIT = 2048
 
 _DEFAULT_RPC_TIMEOUT_S = 20.0
+
+#: A per-split plane's counters before the split: the plane is made for the
+#: split, so its totals are the split's cache outcome.
+_ZERO_CACHE = {'cache_hits': 0, 'cache_ram_hits': 0, 'cache_misses': 0, 'cache_degraded': 0}
 
 
 class _Rpc(object):
@@ -373,6 +381,9 @@ class Worker(object):
             from petastorm_tpu_torch.service import cluster
             if cluster.enabled(job):
                 self._cluster = cluster.ClusterWorkerState(job)
+            # the minutes before a worker's death, on disk when a flight
+            # directory is set
+            flight.enable(label='service_worker')
             self._zmq_context = context
             if job.get('shm', True) and shm_plane.available():
                 self._arena = shm_plane.ShmArena(
@@ -612,12 +623,14 @@ class Worker(object):
                               'attempt': split['attempt'], 'seq': seq, 'tag': tag}
                     sendq.setdefault(ckey, deque()).append((header, payload))
                 elif kind == 'end':
-                    _, _, nchunks, nrows, spans = item
+                    _, _, nchunks, nrows, spans, record = item
                     decoding.discard(split['split_id'])
-                    # the split's spans, on this worker's clock
+                    # the split's spans and record, on this worker's clock
                     header = {'type': 'end', 'split': split['split_id'],
                               'attempt': split['attempt'], 'chunks': nchunks, 'rows': nrows,
                               'spans': spans}
+                    if record is not None:
+                        header['provenance'] = record
                     sendq.setdefault(ckey, deque()).append((header, None))
                     key = (split['split_id'], split['attempt'])
                     awaiting_ack[key] = split
@@ -909,18 +922,48 @@ class Worker(object):
                            split.get('split_id'), exc_info=True)
             return None
 
-    def _stream(self, split, chunks, decode_out, spans):
+    def _stream(self, split, chunks, decode_out, spans, tags):
         """Serialize and queue a split's chunks; their count, rows and
-        bytes."""
+        bytes.  Each chunk's tag goes into ``tags``."""
         seq = rows = out_bytes = 0
         for chunk in chunks:
             tag, payload = self._serialize_split_chunk(
                 split, chunk, '%d/%d' % (split['split_id'], seq), spans)
+            tags.add(tag)
             rows += len(next(iter(chunk.values())))
             out_bytes += len(payload)
             decode_out.put(('chunk', split, seq, tag, payload))
             seq += 1
         return seq, rows, out_bytes
+
+    def _split_record(self, split, stages, spans, tags, cache, worker_args=None, sched=None):
+        """The split's provenance record for its ``end`` header, its stage
+        windows on this worker's clock.  ``serialize`` and ``cache_fill``
+        are the envelopes of their per-chunk spans, which interleave with
+        decode, so their summed busy time rides beside them
+        (``stage_busy_ms``, what ``explain`` reports)."""
+        stages = dict(stages)
+        busy_ms = {}
+        for stage, names in (('serialize', ('service/serialize', 'service/shm_publish')),
+                             ('cache_fill', ('cache/fill',))):
+            windows = [s for s in spans if s.get('name') in names]
+            if windows:
+                stages[stage] = [min(s['t0'] for s in windows), max(s['t1'] for s in windows)]
+                busy_ms[stage] = round(1e3 * sum(s['t1'] - s['t0'] for s in windows), 3)
+        transport = None
+        if tags:
+            if tags <= {b'S'}:
+                transport = 'shm'
+            elif b'S' in tags:
+                transport = 'mixed'
+            else:
+                transport = 'bytes'
+        return provenance.make_record(
+            'service', worker_pid=os.getpid(), worker_host=provenance.host(),
+            pieces=provenance.pieces_for_indices(worker_args, split.get('indices') or ()),
+            cache=cache, transport=transport, sched=sched, stages=stages,
+            stage_busy_ms=busy_ms or None, split=int(split['split_id']),
+            attempt=int(split['attempt']), tenant=self._split_tenant(split))
 
     def _decode_loop(self, job, decode_in, decode_out):
         try:
@@ -942,10 +985,14 @@ class Worker(object):
         registration ``job`` ships them."""
         t0 = time.monotonic()
         spans = []
+        tags = set()
+        record = None
         try:
             # the chaos seam: a decode's delay, or its failure (the lease
             # then expires and moves)
             chaos.inject('worker.decode', split=split['split_id'])
+            prov_on = provenance.enabled()
+            peer_fills_before = int(self._m_cluster['cache_peer_fills'].value)
             tenant = self._split_tenant(split)
             tjob = self._job_for(split) if self._tenant_jobs else job
             # a split of the registration job's dataset may be served from
@@ -954,10 +1001,15 @@ class Worker(object):
             if tjob.get('dataset_url') == job.get('dataset_url'):
                 chunks = self._cluster_chunks(split)
             if chunks is not None:
-                seq, rows, _ = self._stream(split, chunks, decode_out, spans)
+                seq, rows, _ = self._stream(split, chunks, decode_out, spans, tags)
                 name = 'service/serve_cached_split'
                 t1 = time.monotonic()
                 self._m_serve_hist.observe(t1 - t0)
+                if prov_on:
+                    outcome = 'peer_fill' if int(self._m_cluster['cache_peer_fills'].value) \
+                        > peer_fills_before else 'remote_hit'
+                    record = self._split_record(split, {'serve_cached': [t0, t1]}, spans, tags,
+                                                outcome)
             else:
                 factory = self._reader_factories.get(tenant)
                 if factory is None:
@@ -968,7 +1020,7 @@ class Worker(object):
                 with reader:
                     seq, rows, out_bytes = self._stream(
                         split, (item._asdict() if hasattr(item, '_asdict') else dict(item)
-                                for item in reader), decode_out, spans)
+                                for item in reader), decode_out, spans, tags)
                 name = 'service/decode_split'
                 t1 = time.monotonic()
                 self._m_decode_hist.observe(t1 - t0)
@@ -987,6 +1039,15 @@ class Worker(object):
                 ingest_spans = getattr(getattr(reader, 'ingest_plane', None), 'spans', None)
                 if ingest_spans is not None:
                     spans.extend(ingest_spans.drain())
+                if prov_on:
+                    # the split's plane is made for it: its totals are the
+                    # split's cache outcome
+                    cache_stats = getattr(getattr(reader, '_cache', None), 'stats', None)
+                    record = self._split_record(
+                        split, {'decode': [t0, t1]}, spans, tags,
+                        provenance.cache_outcome(_ZERO_CACHE, cache_stats),
+                        worker_args=getattr(reader, '_worker_args', None),
+                        sched={'policy': getattr(reader, 'scheduling', None)})
                 if self._cluster is not None and self._cluster.ready() \
                         and tjob.get('dataset_url') == job.get('dataset_url'):
                     self._cluster.note_published(
@@ -998,7 +1059,7 @@ class Worker(object):
             self._m_splits.inc()
             decode_out.put(('end', split, seq, rows,
                             spans[-_MAX_SPANS_PER_SPLIT:] if job.get('telemetry_spans', True)
-                            else []))
+                            else [], record))
         except Exception:  # noqa: BLE001 — shipped to the event loop
             decode_out.put(('error', split, traceback.format_exc()))
 

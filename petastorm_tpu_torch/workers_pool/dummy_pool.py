@@ -6,12 +6,17 @@ acked by its position after its results are published.  An out-of-order
 dispatch policy still needs the reorder stage here
 (:class:`~petastorm_tpu_torch.workers_pool.scheduling.ReorderBuffer`) to
 deliver in epoch order; each item's decode seconds ride its ack into the
-policy's cost model.
+policy's cost model.  With provenance on (read at ``start``) each result is
+paired with its record at publish, as in the thread pool, and
+:meth:`DummyPool.take_provenance` hands the delivered ones over.
 """
 
+import os
 import time
 from collections import deque
 
+from petastorm_tpu_torch.telemetry import provenance
+from petastorm_tpu_torch.telemetry.provenance import Provenanced
 from petastorm_tpu_torch.telemetry.registry import MetricsRegistry
 from petastorm_tpu_torch.workers_pool import (EmptyResultError, TimeoutWaitingForResultError,
                                               unpack_item)
@@ -34,6 +39,11 @@ class DummyPool(object):
         self._m_decode = self.metrics.histogram('decode')
         self._started_at = None
         self._stopped_at = None
+        #: records of the delivered results, in delivery order
+        self.provenance_out = deque(maxlen=256)
+        self._prov_on = False
+        self._worker_setup_args = None
+        self._prov_ctx = None   # (started, item_args, cache_before) of the item
 
     def start(self, worker_class, worker_setup_args=None, ventilator=None, reorder=None):
         self._worker = worker_class(0, self._publish, worker_setup_args)
@@ -41,10 +51,24 @@ class DummyPool(object):
         self._ventilator = ventilator
         self._reorder = reorder
         self._position = None
+        self._prov_on = provenance.enabled()
+        self._worker_setup_args = worker_setup_args
         if ventilator is not None:
             ventilator.start()
 
     def _publish(self, result):
+        if self._prov_on and self._prov_ctx is not None:
+            started, item_args, cache_before = self._prov_ctx
+            now = time.monotonic()
+            record = provenance.make_record(
+                'pool', position=self._position, worker_pid=os.getpid(),
+                worker_host=provenance.host(),
+                pieces=provenance.piece_info(self._worker_setup_args, item_args),
+                cache=provenance.cache_outcome(cache_before,
+                                               provenance.cache_stats(self._worker_setup_args)),
+                transport='inline', stages={'decode': [started, now]})
+            record['_staged_t'] = now
+            result = Provenanced(result, record)
         if self._reorder is not None and self._position is not None:
             self._reorder.add(self._position, result)
             return
@@ -60,11 +84,15 @@ class DummyPool(object):
                 position, args = unpack_item(self._pending.popleft())
                 self._position = position
                 started = time.monotonic()
+                if self._prov_on:
+                    self._prov_ctx = (started, args,
+                                      provenance.cache_stats(self._worker_setup_args))
                 sleep_before = getattr(self._worker, 'retry_sleep_s', 0.0)
                 try:
                     self._worker.process(*args)
                 finally:
                     self._position = None
+                    self._prov_ctx = None
                 slept = getattr(self._worker, 'retry_sleep_s', 0.0) - sleep_before
                 elapsed = max(0.0, time.monotonic() - started - slept)
                 self._m_items.inc()
@@ -86,7 +114,19 @@ class DummyPool(object):
                 time.sleep(0.001)
             else:
                 raise EmptyResultError()
-        return self._results.popleft()
+        result = self._results.popleft()
+        if isinstance(result, Provenanced):
+            self.provenance_out.append(provenance.finalize_delivery(result.record,
+                                                                    self._ventilator))
+            result = result.result
+        return result
+
+    def take_provenance(self):
+        """The records of the results delivered since the last call, in
+        delivery order (none under the kill switch)."""
+        out = list(self.provenance_out)
+        self.provenance_out.clear()
+        return out
 
     @property
     def items_processed(self):

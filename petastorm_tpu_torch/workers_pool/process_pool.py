@@ -1,8 +1,8 @@
 """Decode workers in processes of their own, over ZeroMQ PUSH/PULL sockets.
 
 Counterpart of ``petastorm_tpu/workers_pool/process_pool.py`` (its metrics
-registry and provenance records are not ported; plain counters stand in
-for the registry).  The parent binds a work PUSH socket
+registry is not ported; plain counters stand in for it).  The parent binds
+a work PUSH socket
 and a sink PULL socket; each worker is a fresh interpreter
 (:func:`~.exec_in_new_process.exec_in_new_process`) that takes pickled work
 items and sends back its results: pickled row lists and column dicts, Arrow
@@ -24,6 +24,11 @@ results by position and serves them, and acks each position, in epoch
 order as the workers' acks complete them.  Each ack carries the item's
 decode seconds, which feed the dispatch policy's cost model.
 
+With provenance on, each result message also carries its child-built record
+(``process_worker``'s framing); the parent pairs it with its result,
+stamps it at delivery and hands it over through :meth:`ProcessPool.
+take_provenance`.
+
 Decode then runs outside the training process's interpreter lock: the
 thread that launches the step shares the lock with nothing but the pool's
 receive loop.
@@ -43,6 +48,8 @@ import zmq
 
 from petastorm_tpu_torch.reader_impl.arrow_table_serializer import ArrowTableSerializer
 from petastorm_tpu_torch.reader_impl.pickle_serializer import PickleSerializer
+from petastorm_tpu_torch.telemetry import provenance
+from petastorm_tpu_torch.telemetry.provenance import Provenanced
 from petastorm_tpu_torch.workers_pool import (DEFAULT_TIMEOUT_S, EmptyResultError,
                                               TimeoutWaitingForResultError, shm_plane,
                                               unpack_item)
@@ -89,6 +96,8 @@ class ProcessPool(object):
         self._reorder = None
         #: results the reorder stage released, in epoch order
         self._ready = deque()
+        #: records of the delivered results, in delivery order
+        self.provenance_out = deque(maxlen=256)
         self._inflight = 0
         self._inflight_lock = threading.Lock()
         self._stopped = False
@@ -170,7 +179,7 @@ class ProcessPool(object):
         waited_ms = 0
         while True:
             if self._ready:
-                return self._ready.popleft()
+                return self._deliver(self._ready.popleft())
             if self._poller.poll(50):
                 frames = self._sink_socket.recv_multipart()
                 tag, payload = frames[0], frames[1]
@@ -179,7 +188,7 @@ class ProcessPool(object):
                         .deserialize(payload)
                     if self._stage_result(frames, result):
                         continue
-                    return result
+                    return self._deliver(self._wrap_prov(frames, result))
                 if tag in (b'P', b'T'):
                     try:
                         result = shm_plane.read_payload(pickle.loads(payload))
@@ -192,7 +201,7 @@ class ProcessPool(object):
                     self.shm_results += 1
                     if self._stage_result(frames, result):
                         continue
-                    return result
+                    return self._deliver(self._wrap_prov(frames, result))
                 if tag == b'K':
                     position, busy_s, first = pickle.loads(payload)
                     with self._inflight_lock:
@@ -231,16 +240,43 @@ class ProcessPool(object):
                     % (timeout, inflight, sum(p.poll() is None for p in self._processes),
                        len(self._processes)))
 
+    def _wrap_prov(self, frames, result):
+        """The result paired with its record, when the message carries one
+        (its fourth frame); a record that does not unpickle is dropped."""
+        if len(frames) < 4:
+            return result
+        try:
+            record = pickle.loads(frames[3])
+        except Exception:  # noqa: BLE001 — provenance is never load-bearing
+            return result
+        return Provenanced(result, record) if record else result
+
+    def _deliver(self, result):
+        """Unwrap a paired result as it is delivered: its record, stamped,
+        goes to :meth:`take_provenance`."""
+        if isinstance(result, Provenanced):
+            self.provenance_out.append(provenance.finalize_delivery(result.record,
+                                                                    self._ventilator))
+            result = result.result
+        return result
+
+    def take_provenance(self):
+        """The records of the results delivered since the last call, in
+        delivery order (none under the kill switch)."""
+        out = list(self.provenance_out)
+        self.provenance_out.clear()
+        return out
+
     def _stage_result(self, frames, result):
-        """Route a positioned result (its position in a trailing frame, which
-        the workers add under a reorder stage) into the reorder buffer;
-        True when staged."""
+        """Route a positioned result (its position in the third frame, which
+        the workers add under a reorder stage or with provenance on) into the
+        reorder buffer, paired with its record; True when staged."""
         if self._reorder is None or len(frames) < 3:
             return False
         position = pickle.loads(frames[2])
         if position is None:
             return False
-        self._reorder.add(position, result)
+        self._reorder.add(position, self._wrap_prov(frames, result))
         return True
 
     def _all_done(self):

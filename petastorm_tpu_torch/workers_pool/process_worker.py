@@ -1,7 +1,7 @@
 """Child-process main loop of :class:`~.process_pool.ProcessPool`.
 
 Counterpart of ``petastorm_tpu/workers_pool/process_worker.py`` (its
-telemetry and provenance frames are not ported).  The child
+registry snapshots and spans on the ack are not ported).  The child
 connects to the parent's ZeroMQ sockets, takes pickled work items,
 publishes each result, and acks each item so that the parent's ventilator
 can refill.  Multipart framing:
@@ -19,9 +19,20 @@ can refill.  Multipart framing:
                 worker's first (whose time holds the worker's cold start)
       tag b'E'  error: pickle((exception, traceback_str))
 
-Under a reorder stage each result message (``R``, ``A``, ``P``, ``T``)
-carries a third frame, pickle(position), so that the parent can restore
-the epoch order.
+A result message (``R``, ``A``, ``P``, ``T``) may carry trailing frames:
+
+  [tag, payload, pickle(position)]                      a reorder stage
+  [tag, payload, pickle(position), pickle(record)]      provenance on
+
+The position frame lets the parent restore the epoch order; it rides
+whenever the pool has a reorder stage or provenance is on (the parent then
+pairs the record with its result).  The record frame is the item's
+provenance record (its piece, this child's pid and host, the cache
+outcome, the transport, ``shm`` or ``bytes``, and the ``decode`` and
+``ipc`` windows).  Under ``PETASTORM_TPU_NO_PROVENANCE=1`` the child sends
+neither the record frame nor, without a reorder stage, the position frame:
+the framing and the payload frames are those without provenance, byte for
+byte.
 
 The shm tags are per message: a small result, a full arena or an unusable
 ``/dev/shm`` sends that message with the matching byte tag, and the parent
@@ -43,6 +54,7 @@ def worker_main(setup_payload, worker_id):
 
     from petastorm_tpu_torch.reader_impl.arrow_table_serializer import ArrowTableSerializer
     from petastorm_tpu_torch.reader_impl.pickle_serializer import PickleSerializer
+    from petastorm_tpu_torch.telemetry import provenance
     from petastorm_tpu_torch.workers_pool import shm_plane
 
     payload = pickle.loads(setup_payload)
@@ -52,6 +64,11 @@ def worker_main(setup_payload, worker_id):
     # without the flag has none)
     reorder = payload[8] if len(payload) > 8 else False
     current_position = [None]
+    prov_on = provenance.enabled()
+    current_started = [None]     # the item's start
+    current_args = [None]        # the item's arguments (its piece)
+    current_publish_t = [None]   # the start of the publish being sent
+    cache_before = [None]        # the cache's counters before the item
 
     context = zmq.Context()
     work_socket = context.socket(zmq.PULL)
@@ -65,27 +82,45 @@ def worker_main(setup_payload, worker_id):
     arena = shm_plane.ShmArena(capacity_bytes=shm_capacity) \
         if use_shm and shm_plane.available() else None
 
-    def send(frames, copy=True):
-        if reorder:
+    def cache_stats():
+        return provenance.cache_stats(getattr(worker, '_a', None))
+
+    def send(frames, transport, copy=True):
+        if reorder or prov_on:
             frames = frames + [pickle.dumps(current_position[0], protocol=4)]
+        if prov_on:
+            now = time.monotonic()
+            t_pub = current_publish_t[0] or now
+            stages = {'ipc': [t_pub, now]}
+            if current_started[0] is not None:
+                stages['decode'] = [current_started[0], t_pub]
+            record = provenance.make_record(
+                'pool', position=current_position[0], worker_pid=os.getpid(),
+                worker_host=provenance.host(),
+                pieces=provenance.piece_info(getattr(worker, '_a', None), current_args[0]),
+                cache=provenance.cache_outcome(cache_before[0], cache_stats()),
+                transport=transport, stages=stages)
+            record['_staged_t'] = now
+            frames = frames + [pickle.dumps(record, protocol=4)]
         sink_socket.send_multipart(frames, copy=copy)
 
     def publish(result):
+        current_publish_t[0] = time.monotonic()
         if isinstance(result, pa.Table):
             desc = shm_plane.write_table(arena, result, arrow_ser) if arena else None
             if desc is not None:
-                send([b'T', pickle.dumps(desc, protocol=4)])
+                send([b'T', pickle.dumps(desc, protocol=4)], 'shm')
             else:
-                send([b'A', arrow_ser.serialize(result)], copy=copy_buffers)
+                send([b'A', arrow_ser.serialize(result)], 'bytes', copy=copy_buffers)
             return
         desc = None
         if arena is not None:
             desc = shm_plane.write_columns(arena, result) if isinstance(result, dict) \
                 else shm_plane.write_pickled(arena, result, pickle_ser)
         if desc is not None:
-            send([b'P', pickle.dumps(desc, protocol=4)])
+            send([b'P', pickle.dumps(desc, protocol=4)], 'shm')
         else:
-            send([b'R', pickle_ser.serialize(result)], copy=copy_buffers)
+            send([b'R', pickle_ser.serialize(result)], 'bytes', copy=copy_buffers)
 
     worker = worker_class(worker_id, publish, worker_args)
     # A parent killed with SIGKILL never sends STOP: poll with a timeout and
@@ -107,6 +142,11 @@ def worker_main(setup_payload, worker_id):
             position, args, kwargs = pickle.loads(frames[0])
             current_position[0] = position
             started = time.monotonic()
+            if prov_on:
+                current_started[0] = started
+                current_args[0] = args
+                current_publish_t[0] = None
+                cache_before[0] = cache_stats()
             sleep_before = getattr(worker, 'retry_sleep_s', 0.0)
             try:
                 worker.process(*args, **kwargs)

@@ -11,17 +11,23 @@ ReorderBuffer`, the adaptive scheduler's) a worker's results stage by
 position and are published, then acked, in epoch order.  Each item's
 decode time goes to a metrics registry, which :attr:`ThreadPool.diagnostics`
 reads (``decode_utilization`` is the share of the workers' wall time spent
-decoding), and rides the ack into the dispatch policy's cost model.
-Provenance records are not ported (ROADMAP.md, Queue A item 7, the
-telemetry bullet).
+decoding), and rides the ack into the dispatch policy's cost model.  With
+provenance on (read at ``start``), each result is paired at publish with its
+record (piece, pid, host, cache outcome, decode window), stamped at delivery
+(:func:`~petastorm_tpu_torch.telemetry.provenance.finalize_delivery`) and
+handed to the reader by :meth:`ThreadPool.take_provenance`.
 """
 
+import os
 import queue
 import sys
 import threading
 import time
 import traceback
+from collections import deque
 
+from petastorm_tpu_torch.telemetry import provenance
+from petastorm_tpu_torch.telemetry.provenance import Provenanced
 from petastorm_tpu_torch.telemetry.registry import MetricsRegistry, ms
 from petastorm_tpu_torch.workers_pool import (DEFAULT_TIMEOUT_S, EmptyResultError,
                                               TimeoutWaitingForResultError, unpack_item)
@@ -59,10 +65,16 @@ class ThreadPool(object):
         self._m_decode = self.metrics.histogram('decode')
         self._started_at = None
         self._stopped_at = None
+        #: records of the delivered results, in delivery order
+        self.provenance_out = deque(maxlen=256)
+        self._prov_on = False
+        self._worker_setup_args = None
 
     def start(self, worker_class, worker_setup_args=None, ventilator=None, reorder=None):
         self._ventilator = ventilator
         self._reorder = reorder
+        self._prov_on = provenance.enabled()
+        self._worker_setup_args = worker_setup_args
         self._started_at = time.monotonic()
         for worker_id in range(self.workers_count):
             worker = worker_class(worker_id, self._publish, worker_setup_args)
@@ -84,10 +96,32 @@ class ThreadPool(object):
         # position; the worker loop's finally releases it.  A worker's error
         # never passes here: it goes to the queue directly.
         position = getattr(self._tls, 'position', None)
+        record = self._make_record(position)
+        if record is not None:
+            result = Provenanced(result, record)
         if self._reorder is not None and position is not None:
             self._reorder.add(position, result)
             return
         self._put_result(result)
+
+    def _make_record(self, position):
+        """The record of the result being published, built at publish (the
+        item's decode work for it is done), so that delivery pairs it
+        exactly."""
+        if not self._prov_on:
+            return None
+        now = time.monotonic()
+        started = getattr(self._tls, 'prov_started', None)
+        record = provenance.make_record(
+            'pool', position=position, worker_pid=os.getpid(), worker_host=provenance.host(),
+            pieces=provenance.piece_info(self._worker_setup_args,
+                                         getattr(self._tls, 'item_args', None)),
+            cache=provenance.cache_outcome(getattr(self._tls, 'cache_before', None),
+                                           provenance.cache_stats(self._worker_setup_args)),
+            transport='inline',
+            stages={'decode': [started, now]} if started is not None else {})
+        record['_staged_t'] = now
+        return record
 
     def _put_result(self, result):
         # Bounded put that stays responsive to stop(): a worker blocked on a
@@ -111,6 +145,13 @@ class ThreadPool(object):
                 position, args = unpack_item(item)
                 self._tls.position = position
                 started = time.monotonic()
+                if self._prov_on:
+                    # the item's start, its arguments (the piece) and the
+                    # cache's counters before it (a cache shared by the
+                    # threads can blur the difference)
+                    self._tls.prov_started = started
+                    self._tls.item_args = args
+                    self._tls.cache_before = provenance.cache_stats(self._worker_setup_args)
                 sleep_before = getattr(worker, 'retry_sleep_s', 0.0)
                 try:
                     worker.process(*args)
@@ -159,7 +200,18 @@ class ThreadPool(object):
             if isinstance(result, _WorkerError):
                 sys.stderr.write(result.tb_str)
                 raise result.exc
+            if isinstance(result, Provenanced):
+                self.provenance_out.append(
+                    provenance.finalize_delivery(result.record, self._ventilator))
+                result = result.result
             return result
+
+    def take_provenance(self):
+        """The records of the results delivered since the last call, in
+        delivery order (none under the kill switch)."""
+        out = list(self.provenance_out)
+        self.provenance_out.clear()
+        return out
 
     def _all_done(self):
         if self._ventilator is not None and not self._ventilator.completed():

@@ -31,7 +31,11 @@ stage, :class:`~petastorm_tpu_torch.workers_pool.scheduling.ReorderBuffer`),
 so the in-flight bound counts undelivered positions; the last free slot
 then always goes to the delivery frontier, or nothing could ever ack.
 A ``dispatch_listener`` sees every item in the actual dispatch order, just
-before the pool does (the ingest plane's readahead feed).
+before the pool does (the ingest plane's readahead feed).  With provenance
+on (:func:`~petastorm_tpu_torch.telemetry.provenance.enabled`, read at
+construction) each epoch dispatch keeps the policy's decision and its time
+for the record of that position (:meth:`ConcurrentVentilator.
+take_dispatch_meta`).
 """
 
 import logging
@@ -40,6 +44,7 @@ import time
 
 import numpy as np
 
+from petastorm_tpu_torch.telemetry import provenance
 from petastorm_tpu_torch.workers_pool import VentilatedItem
 from petastorm_tpu_torch.workers_pool.scheduling import FifoDispatchPolicy
 
@@ -101,9 +106,11 @@ class ConcurrentVentilator(object):
         #: position -> work item, dispatched and not yet acked (kept so an
         #: ack feeds the cost model by piece index)
         self._outstanding = {}
-        #: position -> the policy's decision for it, popped at delivery
-        #: (:meth:`take_dispatch_meta`); bounded, oldest dropped first
+        #: position -> the policy's decision for it and its dispatch time,
+        #: popped at delivery (:meth:`take_dispatch_meta`) while provenance
+        #: is on; bounded, oldest dropped first
         self._dispatch_meta = {}
+        self._prov = provenance.enabled()
         self.ventilated_count = 0
         self._completed = threading.Event()
         self._paused = False
@@ -171,11 +178,12 @@ class ConcurrentVentilator(object):
             return None
         position, item = picked
         self._cursor = self._policy.oldest_undispatched_idx()
-        meta = dict(getattr(self._policy, 'last_dispatch_meta', None) or {'policy': 'fifo'})
-        meta['t_dispatch'] = time.monotonic()
-        self._dispatch_meta[position] = meta
-        while len(self._dispatch_meta) > _DISPATCH_META_ENTRIES:
-            self._dispatch_meta.pop(next(iter(self._dispatch_meta)))
+        if self._prov:
+            meta = dict(getattr(self._policy, 'last_dispatch_meta', None) or {'policy': 'fifo'})
+            meta['t_dispatch'] = time.monotonic()
+            self._dispatch_meta[position] = meta
+            while len(self._dispatch_meta) > _DISPATCH_META_ENTRIES:
+                self._dispatch_meta.pop(next(iter(self._dispatch_meta)))
         return VentilatedItem(position, item)
 
     def _run(self):
@@ -213,8 +221,9 @@ class ConcurrentVentilator(object):
             self._dispatch_listener = None
 
     def take_dispatch_meta(self, position):
-        """Pop the dispatch decision recorded for ``position`` (None when it
-        aged out of the bounded map or came from the prologue)."""
+        """Pop the dispatch decision recorded for ``position`` (None when
+        provenance is off, or it aged out of the bounded map or came from the
+        prologue)."""
         with self._cond:
             return self._dispatch_meta.pop(position, None)
 

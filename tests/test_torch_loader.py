@@ -150,13 +150,39 @@ def test_thread_pool_delivers_the_same_rows(datasets):
     assert key(got) == key(want)
 
 
-def test_unsupported_options_name_the_later_slice(datasets):
-    """The per-batch SLO needs the provenance journal: it raises naming the
-    telemetry bullet (the JAX loader takes it), as a bad ``autotune`` raises
-    in both loaders."""
+def test_unsupported_options_name_the_later_slice(datasets, tmp_path, monkeypatch):
+    """``batch_slo_ms`` is taken by both loaders and trips their watchdogs
+    alike: with a budget no batch meets, every batch counts a violation
+    (``slo_violations``) and the first dumps the whole journal under
+    ``PETASTORM_TPU_FLIGHT_DIR``, naming the same step and pieces in both.
+    A bad ``autotune`` raises in both loaders."""
+    import json
+    import os
+    monkeypatch.delenv('PETASTORM_TPU_NO_PROVENANCE', raising=False)
+    dumps = {}
+    for name, reader_fn, loader_cls, extra in (
+            ('port', make_reader, DataLoader, dict(device='cpu')),
+            ('jax', jax_make_reader, JaxDataLoader, dict(transfer=False))):
+        monkeypatch.setenv('PETASTORM_TPU_FLIGHT_DIR', str(tmp_path / name))
+        with reader_fn(datasets['port'], schema_fields=['idx', 'weight'],
+                       reader_pool_type='dummy', columnar_decode=True,
+                       shuffle_row_groups=False, scheduling='fifo', ingest='off') as reader:
+            loader = loader_cls(reader, 8, drop_last=False, batch_slo_ms=1e-6, **extra)
+            with loader:
+                n = len(list(loader))
+        assert loader._slo.violations == n == 6
+        assert int(loader.metrics.counter('slo_violations').value) == n
+        names = os.listdir(str(tmp_path / name))
+        assert names == ['provenance_slo_loader_%d.json' % os.getpid()], names
+        with open(str(tmp_path / name / names[0])) as f:
+            dumps[name] = json.load(f)
+    port, jax = dumps['port'], dumps['jax']
+    for key in ('kind', 'reason', 'violation_step', 'budget_ms', 'label'):
+        assert port[key] == jax[key], key
+    assert port['violation_step'] == 0 and port['reason'] == 'slo_violation'
+    assert [(r['step'], r['pieces'], r['transfer']) for r in port['records']] == \
+        [(r['step'], r['pieces'], r['transfer']) for r in jax['records']]
     with make_reader(datasets['port'], reader_pool_type='dummy', columnar_decode=True) as reader:
-        with pytest.raises(ValueError, match='later slice.*telemetry bullet'):
-            DataLoader(reader, 4, device='cpu', batch_slo_ms=50.0)
         with pytest.raises(ValueError, match='autotune'):
             DataLoader(reader, 4, device='cpu', autotune='on')
     with jax_make_reader(datasets['jax'], reader_pool_type='dummy') as reader:

@@ -723,6 +723,42 @@ def test_resident_loader_on_cpu_never_loads_jax(tmp_path):
     assert 'LOADED []' in proc.stdout
 
 
+def test_the_telemetry_package_and_its_tools_load_neither_torch_nor_jax(tmp_path):
+    """Importing the telemetry package and its four tools (the service's
+    workers and the decode children import it), and using them (a journal
+    sealed and dumped, a flight frame, a health report, ``dump_state``,
+    each tool's ``main`` on a dump), loads neither torch nor anything in
+    ``FORBIDDEN``."""
+    script = textwrap.dedent('''
+        import contextlib, io, json, sys
+        import petastorm_tpu_torch.telemetry as telemetry
+        from petastorm_tpu_torch.telemetry import diagnose, explain, top, why
+        from petastorm_tpu_torch.telemetry import flight, health, provenance
+        journal = provenance.ProvenanceJournal(label='t')
+        journal.seal(provenance.make_record('pool', stages={'decode': [1.0, 2.0]}))
+        path = sys.argv[1] + '/journal.json'
+        journal.persist(path)
+        recorder = flight.FlightRecorder(label='t')
+        recorder.tick()
+        recorder.persist(sys.argv[1] + '/flight.json')
+        health.report_from_frames(recorder.frames())
+        json.dumps(telemetry.dump_state(), default=str)
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert explain.main(['--journal', path]) == 0
+            assert diagnose.main(['--flight', sys.argv[1] + '/flight.json']) == 0
+            why.main(['--flight', sys.argv[1] + '/flight.json'])
+        top.render_stats({})
+        loaded = sorted(m for m in sys.modules if m.split('.')[0] in FORBIDDEN + ('torch',))
+        print('LOADED', loaded)
+        sys.exit(1 if loaded else 0)
+    ''').replace('FORBIDDEN', repr(FORBIDDEN))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, '-c', script, str(tmp_path)], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert 'LOADED []' in proc.stdout
+
+
 def test_ngram_sensor_needs_the_card_unless_asked_for_the_cpu(monkeypatch, tmp_path):
     from petastorm_tpu_torch import ngram_sensor
     url = ngram_sensor.generate('file://%s' % (tmp_path / 'ngram'), rows=200)

@@ -8,9 +8,9 @@ orders, wire plans, delivered batches (values and dtypes), the residency
 counters and gauges after each pass, and resume tokens must be equal
 exactly: streamed, served warm, under the kill switch, under a budget that
 cannot hold the dataset, and with the tier dropped mid-epoch.  The cases of
-``tests/test_residency.py`` that this slice covers are ported beside them
-(the provenance, health and doctor cases wait for the decision journal and
-the doctor).
+``tests/test_residency.py`` that this slice covers are ported beside them,
+with the tier's provenance outcomes and decision records (the doctor cases
+wait for the doctor).
 """
 
 import numpy as np
@@ -596,6 +596,47 @@ def test_drop_tier_mid_epoch_equals_jax(url, no_kill, cut):
     assert got_stats['hits'] == cut - 4
     assert got_stats['bypass'] == 12 - cut
     assert got_stats['evictions'] == 4 and got_stats['residency_rows'] == 0
+
+
+@pytest.mark.parametrize('budget_rows', [None, 36])
+def test_records_and_decisions_equal_jax(url, no_kill, budget_rows):
+    """Each delivered batch's provenance record carries the tier's outcome
+    (``admitted``/``evicted`` streamed, ``hit`` warm, ``bypass``), and each
+    admission that allocates, each bypass and the drop at exit is a
+    ``residency`` record of the process's decision journal: the same
+    outcomes step by step and the same records (action, rule, inputs,
+    slot) as the JAX loader's, and every record replays to its action."""
+    from petastorm_tpu.telemetry import decisions as jax_decisions
+    from petastorm_tpu_torch.telemetry import decisions
+    no_kill.delenv('PETASTORM_TPU_NO_PROVENANCE', raising=False)
+    no_kill.delenv(decisions.KILL_SWITCH, raising=False)
+    plan = residency.wire_plan(_first_rows(url), 'auto')
+    budget = None if budget_rows is None else budget_rows * plan.wire_row_nbytes
+    kwargs = dict(num_epochs=2, seed=5, hbm_budget_bytes=budget, drop_last=False)
+    runs = {}
+    for name, make, module in (('port', _port_loader, decisions),
+                               ('jax', _jax_loader, jax_decisions)):
+        journal = module.default_journal()
+        before = max((r['seq'] for r in journal.records()), default=-1)
+        loader = make(url, **kwargs)
+        _pull(loader)
+        records = loader.provenance.records()
+        made = [(r['actor'], r['action'], r['rule'], r['inputs'], r['suppressed'],
+                 r.get('slot')) for r in journal.records()
+                if r['seq'] > before and r['actor'] == 'residency']
+        replays = [module.replay_decision(r)['verdict'] for r in journal.records()
+                   if r['seq'] > before and r['actor'] == 'residency']
+        runs[name] = ([r.get('residency') for r in records], [r['step'] for r in records],
+                      made, replays)
+    assert runs['port'] == runs['jax']
+    outcomes, steps, made, replays = runs['port']
+    assert steps == list(range(8))
+    if budget_rows is None:
+        assert outcomes == ['admitted'] * 4 + ['hit'] * 4
+    else:
+        assert 'evicted' in outcomes and 'hit' not in outcomes
+    assert made and {m[1] for m in made} <= {'admitted', 'evicted', 'bypass', 'drop'}
+    assert 'match' in replays and set(replays) <= {'match', 'unchecked'}
 
 
 def test_resident_epochs_bit_identical_to_streamed(url, monkeypatch):
