@@ -248,7 +248,20 @@ Phases, in order; any failure propagates and exits nonzero:
    step), the SLO watchdog's dump, the process pool's records, the service
    (an autoscaled dispatcher spawning one worker, its health, ``diagnose``,
    ``top`` and ``why`` against it live, its flight dump read back), and the
-   resident tier's outcomes with the warm window's health.
+   resident tier's outcomes with the warm window's health;
+29. materialize (``phase_materialize``): the materialization plane with
+   row-group selectors and row-drop partitions, ViT-S/16 at full width on
+   the 1,536-row store: (a) a ``MaterializeController`` warms a plane (with
+   a ledger and the ``'auto'`` wire policy), ``derive_candidates`` over a
+   cold epoch's journal; (b) one tenant's first epoch through a dispatcher
+   and one worker of one decode thread over the warm plane (every split a
+   plane hit, no decode) and over an empty one, the rows and image digests
+   equal to each other's and a direct read's; (c) ``materialize_kill``
+   through the port's chaos runner; (d) ``rewrite_layout`` to 12 row groups
+   of 128 and an epoch over the rewrite (the same ids and image digests);
+   (e) a row-group index of ``noun_id``, a selector keeping about half the
+   row groups and ``shuffle_row_drop_partitions=2``: every selected row
+   once, each selected row group read twice.
 
 Every streaming path moves its batches through the loader's transfer
 plane (``transfer='auto'``): a dispatch thread pulls, transforms and puts
@@ -4779,10 +4792,12 @@ def svc_stop_workers(procs):
         raise AssertionError('service workers exited badly: %s' % failed)
 
 
-def svc_epoch(fa, loader, label, step=None, on_step=None):
+def svc_epoch(fa, loader, label, step=None, on_step=None, on_batch=None, expect_ids=None):
     """One epoch of graphed ViT-S/16 steps from ``loader`` (the counts set
     to 0 just before; ``step`` a ``vit_resident_step()`` to reuse, else a
-    new one; ``on_step(i)`` called after step ``i``): the row ids, losses,
+    new one; ``on_step(i)`` called after step ``i``, ``on_batch(batch)``
+    before it; the ids must be ``expect_ids``, sorted, by default every row
+    of the service's store once): the row ids, losses,
     images/s, step ms and host ms in the step call after ``SVC_WARMUP``
     steps, the data wait per step and ``stall_pct``, and each step's wall
     and data wait."""
@@ -4804,6 +4819,8 @@ def svc_epoch(fa, loader, label, step=None, on_step=None):
                 raise AssertionError('%s: a batch reached the step on %s'
                                      % (label, batch['image'].device))
             ids.append(batch['id'].clone())
+            if on_batch is not None:
+                on_batch(batch)
             t1 = time.perf_counter()
             losses.append(step(batch))
             if i >= SVC_WARMUP:
@@ -4818,7 +4835,7 @@ def svc_epoch(fa, loader, label, step=None, on_step=None):
     steps = len(losses)
     ids = [int(i) for i in torch.cat(ids).cpu()]
     losses = [float(v) for v in torch.stack(losses).cpu()]
-    if sorted(ids) != list(range(SVC_ROWS)):
+    if sorted(ids) != (list(range(SVC_ROWS)) if expect_ids is None else list(expect_ids)):
         raise AssertionError('%s: rows lost or repeated (%d delivered, %d distinct)'
                              % (label, len(ids), len(set(ids))))
     if not np.all(np.isfinite(losses)):
@@ -6227,6 +6244,297 @@ def phase_telemetry(fa, url, tmp, smi):
     return dict(launches)
 
 
+# -- the materialization plane, row-group selectors and row-drop partitions ----
+
+MAT_PIECES = SVC_ROWS // 64     # the service store's row groups
+MAT_REWRITE_ROWS = 128          # (d): 12 row groups of 128, the service's split of two
+MAT_DROP = 2                    # (e): shuffle_row_drop_partitions
+
+
+def mat_digest_weights():
+    """Per-byte weights of an image row's digest (int64, below 2^31: a row
+    of 224 x 224 x 3 bytes sums below 2^57, so the card's sum and the
+    host's are the same integer)."""
+    gen = torch.Generator().manual_seed(29)
+    return torch.randint(0, 1 << 31, (224 * 224 * 3,), generator=gen, dtype=torch.int64)
+
+
+def mat_row_digests(images, weights):
+    """One integer digest per image row, on the images' device."""
+    w = weights.to(images.device)
+    return (images.reshape(len(images), -1).long() * w).sum(1)
+
+
+class MatRows(object):
+    """``on_batch`` of ``svc_epoch``: keeps each batch's ids and image
+    digests on the card, read back once at the end."""
+
+    def __init__(self, weights):
+        self._weights = weights
+        self._parts = []
+
+    def __call__(self, batch):
+        self._parts.append((batch['id'].clone(), mat_row_digests(batch['image'], self._weights)))
+
+    def multiset(self):
+        ids = torch.cat([p[0] for p in self._parts]).cpu().tolist()
+        digests = torch.cat([p[1] for p in self._parts]).cpu().tolist()
+        return collections.Counter(zip((int(i) for i in ids), (int(d) for d in digests)))
+
+
+def mat_direct_rows(url, fields, resize, weights):
+    """The store's ``(id, image digest)`` multiset by a direct read on the
+    host."""
+    from petastorm_tpu_torch.reader import make_reader
+    out = collections.Counter()
+    with make_reader(url, num_epochs=1, schema_fields=fields, transform_spec=resize,
+                     columnar_decode=True, shuffle_row_groups=False,
+                     workers_count=SVC_LOCAL_THREADS) as reader:
+        for batch in reader:
+            digests = mat_row_digests(torch.from_numpy(np.ascontiguousarray(batch.image)),
+                                      weights)
+            out.update(zip((int(i) for i in batch.id), (int(d) for d in digests)))
+    return out
+
+
+def mat_serve(fa, url, fields, resize, plane, label, step, weights, warm):
+    """(b) One tenant's first epoch through a dispatcher and one worker of
+    one decode thread over ``plane``: the epoch's numbers, its rows and the
+    worker's cache counters."""
+    from petastorm_tpu_torch.service import Dispatcher, ServiceConfig, ServiceDataLoader
+    config = ServiceConfig(url, rowgroups_per_split=2, lease_ttl_s=2.0, cache_plane=True,
+                           cache_plane_dir=plane,
+                           reader_kwargs=dict(schema_fields=fields, transform_spec=resize,
+                                              workers_count=1))
+    rows = MatRows(weights)
+    with Dispatcher(config) as dispatcher:
+        procs = [fleet_spawn_worker(dispatcher.addr, plane)]
+        try:
+            def ready():
+                stats = dispatcher._op_stats({})
+                cluster = stats['cluster_cache']
+                return len(stats['workers']) == 1 and cluster['directory_workers'] == 1 \
+                    and (not warm or (cluster['piece_map']
+                                      and cluster['directory_digests'] >= MAT_PIECES))
+            fleet_wait('the %s worker\'s cluster identity' % label, ready)
+            loader = ServiceDataLoader(dispatcher.addr, batch_size=BATCH, consumer=0,
+                                       device='cuda', transform_fn=fleet_labels)
+            run = svc_epoch(fa, loader, 'materialize ' + label, step=step, on_batch=rows)
+
+            def settled():
+                workers = dispatcher._op_stats({})['workers']
+                return sum(int(w.get('splits_decoded', 0)) for w in workers.values()) \
+                    >= MAT_PIECES // 2
+            fleet_wait('the %s worker\'s counters' % label, settled, 30)
+            (worker,) = dispatcher._op_stats({})['workers'].values()
+            run['counters'] = {k: int(worker.get(k, 0) or 0)
+                               for k in ('cache_hits', 'cache_misses', 'cache_remote_hits',
+                                         'cache_peer_fills', 'splits_decoded', 'rows_decoded')}
+        finally:
+            svc_stop_workers(procs)
+    return run, rows.multiset()
+
+
+def mat_selector_store(url, tmp):
+    """(e) A copy of the store with a row-group index of ``noun_id`` and a
+    selector of nouns found only in even row groups, one for each even row
+    group that has one: about half the row groups.  ``(url, selector,
+    selected row groups)``."""
+    import shutil
+
+    from petastorm_tpu_torch.etl.rowgroup_indexers import SingleFieldIndexer
+    from petastorm_tpu_torch.etl.rowgroup_indexing import build_rowgroup_index
+    from petastorm_tpu_torch.selectors import SingleIndexSelector
+    path = os.path.join(tmp, 'mat_indexed')
+    shutil.copytree(url[len('file://'):], path)
+    indexed = 'file://' + path
+    index = build_rowgroup_index(indexed, indexers=[SingleFieldIndexer('by_noun', 'noun_id')])
+    by_noun = index['by_noun']
+    values = []
+    for group in range(0, MAT_PIECES, 2):
+        for noun in sorted(by_noun.indexed_values()):
+            groups = by_noun.get_row_group_indexes(noun)
+            if group in groups and all(g % 2 == 0 for g in groups):
+                values.append(noun)
+                break
+    selector = SingleIndexSelector('by_noun', values)
+    selected = sorted(selector.select_row_groups(index))
+    if not MAT_PIECES // 3 <= len(selected) <= 2 * MAT_PIECES // 3:
+        raise AssertionError('materialize selector: %d of %d row groups selected'
+                             % (len(selected), MAT_PIECES))
+    return indexed, selector, selected
+
+
+def phase_materialize(fa, tmp):
+    """The materialization plane, row-group selectors and row-drop
+    partitions, feeding ViT-S/16 at full width (batch 64, 224², graphed) on
+    ``phase_service``'s 1,536-row JPEG store, read with the declared resize
+    (``ResizeImages``) and the host label (``fleet_labels``), the cluster
+    cache's decode identity.  (a) ``MaterializeController(...,
+    wire_policy='auto', ledger_path=...).run()`` warms a plane (uint8
+    images narrow nothing: no wire sibling), then ``derive_candidates``
+    over the journal of one cold epoch (an empty plane) names the store's
+    root.  (b) one tenant's first epoch through a ``Dispatcher`` and one
+    worker of one decode thread, once over the warm plane (every split
+    served from the plane: no miss, every piece a plane hit) and once over
+    an empty one; both legs' ``(id, image digest)`` multisets equal a direct
+    read's.  (c) ``materialize_kill`` through the port's chaos runner: no
+    torn entry, the restart resumes from its ledger, a plane-cached
+    consumer delivers the ground truth.  (d) ``rewrite_layout`` to row
+    groups of 128 (``layout_stats`` before and after), then an epoch over
+    the rewrite with the original's multiset.  (e) ``build_rowgroup_index``
+    of ``noun_id`` on a copy, a selector keeping about half the row groups,
+    ``make_reader(..., rowgroup_selector=..., shuffle_row_drop_partitions=2)``
+    for one epoch: every selected row once and no other, each selected row
+    group read twice.  Every epoch: finite losses, 12 launches of each flash
+    kernel a step."""
+    import shutil
+
+    from petastorm_tpu_torch import materialize
+    from petastorm_tpu_torch.cache_plane.plane import default_ram_dir
+    from petastorm_tpu_torch.gpu import DataLoader
+    from petastorm_tpu_torch.reader import make_reader
+    from petastorm_tpu_torch.test_util import chaos
+    from petastorm_tpu_torch.transform import ResizeImages
+    url = 'file://' + os.path.join(tmp, 'service_jpeg')
+    fields = ['id', 'image', 'noun_id']
+    resize = ResizeImages({'image': (224, 224)})
+    weights = mat_digest_weights()
+    planes = {name: os.path.join(tmp, 'mat_plane_' + name) for name in ('warm', 'cold', 'probe')}
+    step = vit_resident_step()
+    launches = collections.Counter()
+    out = {}
+    try:
+        # (a) warm a plane, then the candidates from a cold epoch's journal
+        t0 = time.monotonic()
+        with materialize.MaterializeController(
+                url, planes['warm'], reader_kwargs=dict(schema_fields=fields,
+                                                        transform_spec=resize),
+                wire_policy='auto', ledger_path=os.path.join(tmp, 'mat_ledger.json')) as ctl:
+            summary = ctl.run()
+            skipped = ctl.metrics.counter('materialize_wire_skipped').value
+            out['warm'] = dict(summary, wire_skipped=skipped, seconds=time.monotonic() - t0)
+            log('materialize warm: pieces warmed %d, failed %d, refused %d; published %d B; '
+                'wire siblings published %d, skipped %d; %.3f s'
+                % (summary['warmed'], summary['failed'], summary['refused'],
+                   summary['published_bytes'], summary['wire_published'], skipped,
+                   out['warm']['seconds']))
+            log('materialize warm summary: %s' % json.dumps(ctl.summary()))
+        if summary['done'] != MAT_PIECES or summary['failed_pieces'] or summary['refused'] \
+                or summary['wire_published'] or skipped != MAT_PIECES:
+            raise AssertionError('materialize warm: %s' % json.dumps(out['warm']))
+        reader = make_reader(url, num_epochs=1, schema_fields=fields, transform_spec=resize,
+                             columnar_decode=True, workers_count=SVC_LOCAL_THREADS,
+                             cache_type='plane', cache_location=planes['probe'])
+        with DataLoader(reader, batch_size=BATCH, device='cuda',
+                        transform_fn=fleet_labels) as loader:
+            for _ in loader:
+                pass
+        candidates = materialize.derive_candidates(journals=[loader.provenance])
+        out['candidates'] = candidates
+        log('materialize candidates: %s' % json.dumps(candidates))
+        store_root = url[len('file://'):]
+        if not candidates or candidates[0]['root'] != store_root \
+                or candidates[0]['pieces'] != MAT_PIECES:
+            raise AssertionError('materialize candidates name %s, not the store %s'
+                                 % (candidates, store_root))
+
+        # (b) one tenant's first epoch, over the warm plane and over an empty one
+        truth = mat_direct_rows(url, fields, resize, weights)
+        for label, warm in (('warm', True), ('cold', False)):
+            run, rows = mat_serve(fa, url, fields, resize, planes[label], label, step, weights,
+                                  warm)
+            launches.update(run['launches'])
+            out[label + ' serve'] = svc_brief(run)
+            log('materialize serve %s: %s' % (label, json.dumps(svc_brief(run))))
+            if rows != truth:
+                raise AssertionError('materialize serve %s: the rows and image digests differ '
+                                     'from a direct read\'s' % label)
+            counters = run['counters']
+            # every split served from the plane without a reader (the
+            # worker's rows_decoded counts the rows it sent either way)
+            if warm and (counters['cache_misses'] or counters['cache_hits']
+                         or counters['cache_remote_hits'] != MAT_PIECES):
+                raise AssertionError('materialize serve warm: the worker decoded: %s' % counters)
+            if not warm and counters['cache_misses'] != MAT_PIECES:
+                raise AssertionError('materialize serve cold: %s' % counters)
+        warm_run, cold_run = out['warm serve'], out['cold serve']
+        log('materialize serve: warm/cold images/s %.1f/%.1f (x%.2f), data wait ms %.2f/%.2f, '
+            'stall_pct %s/%s' % (warm_run['images_per_s'], cold_run['images_per_s'],
+                                 warm_run['images_per_s'] / cold_run['images_per_s'],
+                                 warm_run['data_wait_ms'], cold_run['data_wait_ms'],
+                                 warm_run['stall_pct'], cold_run['stall_pct']))
+
+        # (c) the controller killed mid-publish and resumed, on the host
+        t0 = time.monotonic()
+        chaos_dir = os.path.join(tmp, 'mat_chaos')
+        os.makedirs(chaos_dir)
+        chaos_url, chaos_rows = chaos.make_chaos_dataset(os.path.join(chaos_dir, 'dataset'))
+        report = chaos.run_scenario('materialize_kill', chaos_url, chaos_rows, chaos_dir)
+        out['kill'] = {'ok': report['ok'], 'checks': report['checks'],
+                       'restart': report.get('restart_summary'),
+                       'seconds': time.monotonic() - t0}
+        log('materialize kill: %s' % json.dumps(out['kill']))
+        if not report['ok'] or report['digest'] != chaos.direct_read_digest(chaos_url):
+            raise AssertionError('materialize kill: %s' % chaos.render_report([report]))
+
+        # (d) the layout rewrite and an epoch over it
+        t0 = time.monotonic()
+        rewritten = 'file://' + os.path.join(tmp, 'mat_rewritten')
+        layout = materialize.rewrite_layout(url, rewritten, MAT_REWRITE_ROWS)
+        out['rewrite'] = {'seconds': time.monotonic() - t0, 'rows': layout['rows'],
+                          'before': layout['before'], 'after': layout['after']}
+        log('materialize rewrite: %d rows in %.3f s; layout before %s; after %s'
+            % (layout['rows'], out['rewrite']['seconds'], json.dumps(layout['before']),
+               json.dumps(layout['after'])))
+        if layout['after']['row_groups'] != SVC_ROWS // MAT_REWRITE_ROWS:
+            raise AssertionError('materialize rewrite: %s' % json.dumps(layout['after']))
+        rows = MatRows(weights)
+        reader = make_reader(rewritten, num_epochs=1, schema_fields=fields,
+                             transform_spec=resize, columnar_decode=True,
+                             workers_count=SVC_LOCAL_THREADS)
+        run = svc_epoch(fa, DataLoader(reader, batch_size=BATCH, device='cuda',
+                                       transform_fn=fleet_labels),
+                        'materialize rewritten', step=step, on_batch=rows)
+        launches.update(run['launches'])
+        out['rewritten epoch'] = svc_brief(run)
+        log('materialize rewritten epoch: %s' % json.dumps(svc_brief(run)))
+        if rows.multiset() != truth:
+            raise AssertionError('materialize rewritten: the rows and image digests differ '
+                                 'from the original store\'s')
+
+        # (e) a selector and row-drop partitions
+        indexed, selector, selected = mat_selector_store(url, tmp)
+        want = [i for g in selected for i in range(64 * g, 64 * g + 64)]
+        reader = make_reader(indexed, num_epochs=1, schema_fields=fields, transform_spec=resize,
+                             columnar_decode=True, workers_count=SVC_LOCAL_THREADS,
+                             rowgroup_selector=selector, shuffle_row_drop_partitions=MAT_DROP)
+        loader = DataLoader(reader, batch_size=BATCH, device='cuda', transform_fn=fleet_labels)
+        pieces_read = collections.Counter()
+        run = svc_epoch(fa, loader, 'materialize selector', step=step, expect_ids=want)
+        for record in loader.provenance.records():
+            pieces_read.update(p['row_group'] for p in record.get('pieces') or ())
+        launches.update(run['launches'])
+        ventilated = reader.diagnostics['ventilated_count']
+        out['selector'] = dict(svc_brief(run), selected=selected, ventilated=ventilated,
+                               row_groups_read=dict(pieces_read))
+        log('materialize selector: %d of %d row groups selected %s, %d items ventilated, '
+            'row groups read %s; %s' % (len(selected), MAT_PIECES, selected, ventilated,
+                                       json.dumps(dict(sorted(pieces_read.items()))),
+                                       json.dumps(svc_brief(run))))
+        # each row group read once per row-drop partition (the provenance
+        # records name the pieces of the results each batch took)
+        if ventilated != MAT_DROP * len(selected) \
+                or dict(pieces_read) != {g: MAT_DROP for g in selected}:
+            raise AssertionError('materialize selector: ventilated %d, row groups read %s'
+                                 % (ventilated, dict(pieces_read)))
+    finally:
+        for path in planes.values():   # the hot tiers live in /dev/shm
+            shutil.rmtree(default_ram_dir(path), ignore_errors=True)
+    SUMMARY['materialize'] = out
+    return dict(launches)
+
+
 def main():
     # The kernels' module (petastorm_tpu_torch.ops re-exports its function
     # under the same name).  Imported first: outside a checkout this fails
@@ -6285,7 +6593,8 @@ def main():
                             ('service_fleet', lambda: phase_service_fleet(fa, tmp)),
                             ('service_control', lambda: phase_service_control(fa, tmp)),
                             ('ingest', lambda: phase_ingest(fa, tmp)),
-                            ('telemetry', lambda: phase_telemetry(fa, url, tmp, smi))):
+                            ('telemetry', lambda: phase_telemetry(fa, url, tmp, smi)),
+                            ('materialize', lambda: phase_materialize(fa, tmp))):
             t0 = time.monotonic()
             paths[name] = phase()
             log('phase %s: %.1f s' % (name, time.monotonic() - t0))
@@ -6296,7 +6605,7 @@ def main():
                 'multi_device': paths['multi_device'], 'elastic': paths['elastic'],
                 'service': paths['service'], 'service_fleet': paths['service_fleet'],
                 'service_control': paths['service_control'], 'ingest': paths['ingest'],
-                'telemetry': paths['telemetry']}
+                'telemetry': paths['telemetry'], 'materialize': paths['materialize']}
     kernels = [dict(name=name, route='cuda', design=MAIN_PATH_DESIGN[name],
                     source=SOURCES[name], replaces=REPLACES[name],
                     launches=sum(path[name] for path in launches.values()),

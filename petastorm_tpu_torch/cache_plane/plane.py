@@ -1,7 +1,8 @@
 """The tiered cache plane: mmap'd entry files, a hot shm tier, single-flight.
 
-Counterpart of ``petastorm_tpu/cache_plane/plane.py`` (its background
-publishers' admission, fill spans and decision records are not ported).
+Counterpart of ``petastorm_tpu/cache_plane/plane.py`` (its fill spans and
+decision records are not ported).  Background publishers (the
+materialization plane) ask :meth:`CachePlane.admit_publish` first.
 One published entry (``<digest>.cpe``) is::
 
     magic(8) | header_len(8) | pickled header | pad to 64 | payload
@@ -345,6 +346,47 @@ class Tier(object):
         finally:
             os.close(fd)
 
+    def eviction_estimate(self, nbytes):
+        """What storing ``nbytes`` more would evict: a read-only dry run of
+        :meth:`_evict_if_needed`'s walk (the same listdir, the same atime
+        order, the same cap arithmetic), so that a background publisher can
+        ask whether a publish evicts anything and how recently its youngest
+        victim was read.  ``{'fits', 'victims', 'victim_bytes',
+        'victim_newest_age_s', 'total_bytes'}``; an unlistable tier reports
+        a fit (the store then degrades on its own terms)."""
+        nbytes = int(nbytes)
+        entries, total = [], 0
+        try:
+            names = os.listdir(self.root)
+        except OSError:
+            names = []
+        for name in names:
+            if not name.endswith(ENTRY_SUFFIX):
+                continue
+            try:
+                st = os.stat(os.path.join(self.root, name))
+            except OSError:
+                continue
+            entries.append((st.st_atime, st.st_size))
+            total += st.st_size
+        report = {'fits': True, 'victims': 0, 'victim_bytes': 0,
+                  'victim_newest_age_s': None, 'total_bytes': total}
+        over = total + nbytes - self.capacity_bytes
+        if over <= 0:
+            return report
+        report['fits'] = False
+        now = time.time()
+        for atime, size in sorted(entries):   # oldest access first
+            report['victims'] += 1
+            report['victim_bytes'] += size
+            age = max(0.0, now - atime)
+            if report['victim_newest_age_s'] is None or age < report['victim_newest_age_s']:
+                report['victim_newest_age_s'] = age
+            over -= size
+            if over <= 0:
+                break
+        return report
+
     def sweep(self):
         """Unlink crash residue; returns the names removed: tmp files of
         dead writers (pid, then the flock probe), and single-flight lock
@@ -635,6 +677,26 @@ class CachePlane(object):
         except Exception:  # noqa: BLE001 — the plane never raises
             logger.warning('cache plane: publish_blob(%s) failed', digest, exc_info=True)
             return False
+
+    def admit_publish(self, nbytes, hot_window_s=300.0):
+        """Eviction-aware admission for background publishers (the
+        materialization plane): refuse a publish whose LRU victims on the
+        disk tier include an entry read within ``hot_window_s``, so that
+        warming never evicts traffic hotter than what it brings.  Consumer
+        publishes (``get_or_fill``, peer fill) stay unconditional: a
+        consumer's miss is demand.  ``(admitted, estimate)``, the estimate
+        :meth:`Tier.eviction_estimate`'s (None without a disk tier)."""
+        if self.disk is None:
+            return False, None
+        try:
+            estimate = self.disk.eviction_estimate(nbytes)
+        except Exception:  # noqa: BLE001 — the plane never raises
+            logger.warning('cache plane: admit_publish estimate failed', exc_info=True)
+            return True, None
+        if estimate['fits']:
+            return True, estimate
+        newest = estimate['victim_newest_age_s']
+        return newest is None or newest >= float(hot_window_s), estimate
 
     def held_digests(self):
         """Every published entry's digest, in either tier."""

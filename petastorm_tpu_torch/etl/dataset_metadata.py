@@ -12,9 +12,10 @@ Cut to this slice: the read side (``get_schema``, ``load_row_groups``
 over petastorm datasets and plain Parquet stores, hive ``key=value``
 directories included, and ``infer_or_load_unischema`` for the batch
 reader, ``read_row_group_byte_sizes`` for the adaptive scheduler's cost
-prior) and a streaming :class:`DatasetWriter` of one file.  Spark
-materialization, multi-file and multi-host writes and the writer's encode
-thread pool are later slices.
+prior) and a streaming :class:`DatasetWriter` (row groups by rows or by
+size, files by rows: the materialization plane's one row sink).  Spark
+materialization, multi-host writes and the writer's encode thread pool
+are later slices.
 """
 
 import io
@@ -146,27 +147,52 @@ def _partition_values_for(path, root):
 class DatasetWriter(object):
     """Streaming Spark-free dataset writer.
 
-    Encodes row dicts through the schema's codecs and writes one Parquet
-    file, a row group every ``rows_per_rowgroup`` rows (or every 32 MB of
-    encoded cells when None), then stamps the footer metadata::
+    Encodes row dicts through the schema's codecs and writes Parquet, a row
+    group every ``rows_per_rowgroup`` rows (or every ``rowgroup_size_mb``
+    of encoded cells, 32 MB when neither is given), a new file every
+    ``rows_per_file`` rows (None: one file), then stamps the footer
+    metadata.  ``compression`` is pyarrow's (a codec name, or a dict per
+    column); a codec name leaves the cells that are already compressed
+    (JPEG/PNG images, zlib'd arrays) uncompressed, as the JAX package's
+    writer does, so the two write the same row groups from the same rows::
 
         with DatasetWriter(url, MySchema, rows_per_rowgroup=64) as w:
             for row in rows:
                 w.write(row)
+
+    ``filesystem`` is a filesystem object used as it is; ``storage_options``
+    other than None raises (object stores are the storage bullet's).
     """
 
-    def __init__(self, dataset_url, schema, rows_per_rowgroup=None):
+    def __init__(self, dataset_url, schema, rowgroup_size_mb=None, rows_per_rowgroup=None,
+                 rows_per_file=None, compression='snappy', storage_options=None,
+                 filesystem=None):
+        if rowgroup_size_mb is not None and rows_per_rowgroup is not None:
+            raise ValueError('Pass rowgroup_size_mb or rows_per_rowgroup, not both')
+        if storage_options is not None:
+            raise ValueError('storage_options: only local files (or a filesystem= object) are '
+                             'in this slice; HDFS and object stores are a later slice of the '
+                             'port (ROADMAP.md, Queue A item 7, the storage bullet)')
         self._schema = schema
         self._arrow_schema = schema.as_arrow_schema()
+        self._rowgroup_size_mb = rowgroup_size_mb
         self._rows_per_rowgroup = rows_per_rowgroup
-        # Snappy, except for JPEG/PNG cells: already compressed, they gain
-        # nothing from it but CPU burned on every read.
-        from petastorm_tpu_torch.codecs import CompressedImageCodec
-        self._compression = {name: 'NONE' if isinstance(f.codec, CompressedImageCodec)
-                             else 'snappy' for name, f in schema.fields.items()}
-        self._fs, self._path = get_filesystem_and_path(dataset_url)
+        self._rows_per_file = rows_per_file
+        if isinstance(compression, str):
+            from petastorm_tpu_torch.codecs import CompressedImageCodec, CompressedNdarrayCodec
+            precompressed = [name for name, f in schema.fields.items()
+                             if isinstance(f.codec, (CompressedImageCodec,
+                                                     CompressedNdarrayCodec))]
+            if precompressed:
+                compression = dict.fromkeys(schema.fields, compression)
+                for name in precompressed:
+                    compression[name] = 'NONE'
+        self._compression = compression
+        self._fs, self._path = get_filesystem_and_path(dataset_url, filesystem)
         self._buffer = []
         self._buffer_nbytes = 0
+        self._file_index = 0
+        self._rows_in_file = 0
         self._writer = None
         self._sink = None
         self._closed = False
@@ -178,14 +204,33 @@ class DatasetWriter(object):
 
     def write(self, row_dict):
         """Encode and buffer one row; may flush a row group."""
-        encoded = encode_row(self._schema, row_dict)
+        self._append(encode_row(self._schema, row_dict))
+
+    def write_encoded(self, cells):
+        """Buffer one row of cells already in their stored form (what a
+        Parquet read of a store of this schema gives: a codec's bytes, a
+        scalar's value); may flush a row group.  A layout rewrite copies
+        cells this way, so a lossy codec's cells (JPEG) are not encoded
+        again."""
+        unknown = set(cells) - set(self._schema.fields)
+        if unknown:
+            raise ValueError('Rows contain fields not in schema %r: %s'
+                             % (self._schema.name, sorted(unknown)))
+        for name, field in self._schema.fields.items():
+            if cells.get(name) is None and not field.nullable:
+                raise ValueError('Field %r is not nullable but got None' % (name,))
+        self._append(dict(cells))
+
+    def _append(self, encoded):
         self._buffer.append(encoded)
         self._buffer_nbytes += sum(len(v) if isinstance(v, (bytes, bytearray)) else 8
                                    for v in encoded.values() if v is not None)
         if self._rows_per_rowgroup is not None:
             ready = len(self._buffer) >= self._rows_per_rowgroup
         else:
-            ready = self._buffer_nbytes >= _ROWGROUP_BYTES
+            limit = (_ROWGROUP_BYTES if self._rowgroup_size_mb is None
+                     else self._rowgroup_size_mb * (1 << 20))
+            ready = self._buffer_nbytes >= limit
         if ready:
             self._flush_rowgroup()
 
@@ -198,9 +243,11 @@ class DatasetWriter(object):
                             type=self._arrow_schema.field(name).type)
              for name in self._schema.fields},
             schema=self._arrow_schema)
-        if self._writer is None:
-            self._open_file()
+        if self._writer is None or (self._rows_per_file is not None
+                                    and self._rows_in_file >= self._rows_per_file):
+            self._roll_file()
         self._writer.write_table(table)  # one write_table call == one row group
+        self._rows_in_file += len(rows)
         self._buffer = []
         self._buffer_nbytes = 0
 
@@ -212,9 +259,13 @@ class DatasetWriter(object):
             self._sink.close()
             self._sink = None
 
-    def _open_file(self):
+    def _roll_file(self):
+        self._close_current_file()
         self._fs.makedirs(self._path, exist_ok=True)
-        self._sink = self._fs.open(posixpath.join(self._path, 'part_00000.parquet'), 'wb')
+        name = posixpath.join(self._path, 'part_%05d.parquet' % self._file_index)
+        self._file_index += 1
+        self._rows_in_file = 0
+        self._sink = self._fs.open(name, 'wb')
         self._writer = pq.ParquetWriter(self._sink, self._arrow_schema,
                                         compression=self._compression)
 

@@ -12,8 +12,11 @@ columnar path masks them), as the JAX package's worker does; hive partition
 values are injected where the view asks for them.  With an NGram
 (``RowWorkerArgs.ngram``) each row group's rows, decoded and transformed,
 are formed into windows ``{offset: row}`` before they are published, so a
-window never spans row groups; NGram never takes the columnar path.
-Row-drop partitions are a later slice.  Nothing here imports ``torch``:
+window never spans row groups; NGram never takes the columnar path.  With
+``shuffle_row_drop_partitions`` N > 1 a work item is ``(piece, p)`` and
+publishes the rows ``p::N`` of its row group (after the predicate, before
+the transform): an approximate row shuffle at N times the read cost, keyed
+``...:<p>:...`` in the caches.  Nothing here imports ``torch``:
 the process pool's children unpickle this module's worker.
 """
 
@@ -41,6 +44,8 @@ class RowWorkerArgs:
     #: An :class:`~petastorm_tpu_torch.ngram.NGram` with its fields resolved:
     #: publish its windows of each row group's rows.
     ngram: object = None
+    #: N: each row group is read N times, item ``p`` keeping rows ``p::N``.
+    shuffle_row_drop_partitions: int = 1
     #: Publish one dict of stacked column arrays per row group instead of a
     #: list of row dicts.
     columnar_output: bool = False
@@ -54,12 +59,14 @@ class RowWorkerArgs:
     ingest: object = None
 
 
-def piece_cache_key(piece, schema_view, transform_spec):
-    """Result-cache key of one piece: cached payloads are post-transform, so
-    the key carries the transform's identity."""
-    cache_key = '%s:%d:0:%s' % (piece.path, piece.row_group,
-                                ','.join(sorted(schema_view.fields)))
-    token = transform_spec.cache_token if transform_spec is not None else None
+def piece_cache_key(piece, schema_view, transform_spec, row_drop_partition=0):
+    """Result-cache key of one ``(piece, row-drop partition)`` work item,
+    the JAX worker's string: cached payloads are post-transform, so the key
+    carries the transform's identity.  The cluster cache and the
+    materialization plane compute it without a reader."""
+    cache_key = '%s:%d:%d:%s' % (piece.path, piece.row_group, row_drop_partition,
+                                 ','.join(sorted(schema_view.fields)))
+    token = getattr(transform_spec, 'cache_token', None) if transform_spec is not None else None
     if token:
         cache_key += ':t{%s}' % token
     return cache_key
@@ -83,28 +90,30 @@ class PyDictReaderWorker(ParquetWorkerBase):
         self._fields = dict(args.schema_view.fields)
         self._fields.update(self._stored.fields)
 
-    def process(self, piece_index, _row_drop_partition=0):
-        """Decode one row group and publish it (the second argument, an
-        elastic prologue's row-drop partition, is always 0 here)."""
+    def process(self, piece_index, row_drop_partition=0):
+        """Decode row-drop partition ``row_drop_partition`` of one row group
+        and publish it."""
         piece = self._a.pieces[piece_index]
         # the scope hands the ingest plane's prefetched entry back when a
         # result-cache hit skips the read
         with self._ingest_scope(piece):
-            self._process(piece)
+            self._process(piece, int(row_drop_partition))
 
-    def _process(self, piece):
-        cache_key = piece_cache_key(piece, self._a.schema_view, self._a.transform_spec)
+    def _process(self, piece, part):
+        cache_key = piece_cache_key(piece, self._a.schema_view, self._a.transform_spec, part)
         columnar = self._a.columnar_output and self._a.ngram is None
         if columnar and columnar_fast_path(self._a.transform_spec):
             # True columnar decode: no intermediate row dicts.
             columns = self._a.cache.get(
                 cache_key + ':c',
-                lambda: self._read_with_retry(piece, lambda pf: self._load_columns(pf, piece)))
+                lambda: self._read_with_retry(piece,
+                                              lambda pf: self._load_columns(pf, piece, part)))
             if columns and len(next(iter(columns.values()), ())) > 0:
                 self.publish_func(columns)
             return
         rows = self._a.cache.get(
-            cache_key, lambda: self._read_with_retry(piece, lambda pf: self._load_rows(pf, piece)))
+            cache_key,
+            lambda: self._read_with_retry(piece, lambda pf: self._load_rows(pf, piece, part)))
         if self._a.ngram is not None:
             rows = self._a.ngram.form_sequences(rows, self._a.schema_view)
         if rows:
@@ -134,10 +143,10 @@ class PyDictReaderWorker(ParquetWorkerBase):
                 dtype = np.dtype(self._fields[key].numpy_dtype)
                 yield key, value if dtype.kind in ('U', 'S', 'O') else dtype.type(value)
 
-    def _load_columns(self, pf, piece):
+    def _load_columns(self, pf, piece, part=0):
         """A row group decoded column-wise into stacked arrays: the
-        predicate's columns first, then the rest, masked; then the
-        partition values."""
+        predicate's columns first, then the rest, masked; the row-drop
+        partition's rows; then the partition values."""
         wanted = set(self._a.schema_view.fields) - _injected(pf, piece)
         predicate = self._a.predicate
         mask = None
@@ -157,6 +166,9 @@ class PyDictReaderWorker(ParquetWorkerBase):
             remaining = sorted(wanted)
         for name, arr in self._decode_columns(pf, piece, remaining).items():
             out[name] = arr[mask] if mask is not None else arr
+        n_drop = self._a.shuffle_row_drop_partitions
+        if n_drop > 1:
+            out = {k: v[part::n_drop] for k, v in out.items()}
         for key, cell in list(self._partition_cells(piece, out)):
             out[key] = np.full(len(next(iter(out.values()))), cell,
                                dtype=object if isinstance(cell, str) else None)
@@ -233,7 +245,7 @@ class PyDictReaderWorker(ParquetWorkerBase):
 
     # -- row path -------------------------------------------------------------
 
-    def _load_rows(self, pf, piece):
+    def _load_rows(self, pf, piece, part=0):
         wanted = set(self._a.schema_view.fields) - _injected(pf, piece)
         predicate = self._a.predicate
         if predicate is not None:
@@ -263,6 +275,9 @@ class PyDictReaderWorker(ParquetWorkerBase):
             table = pf.read_row_group(piece.row_group, columns=columns)
             cols = {name: self._decoded_cells(name, table.column(name)) for name in columns}
             rows = [{name: cols[name][i] for name in columns} for i in range(table.num_rows)]
+        n_drop = self._a.shuffle_row_drop_partitions
+        if n_drop > 1:
+            rows = rows[part::n_drop]
         for key, cell in self._partition_cells(piece, wanted):
             for r in rows:
                 r[key] = cell

@@ -35,10 +35,16 @@ as :class:`~petastorm_tpu_torch.test_util.emulation.BandwidthLimitedFilesystem`
 over the local one).  The effective modes are ``reader.scheduling`` and
 ``reader.ingest``, and both stand in :attr:`Reader.diagnostics`.
 
+``rowgroup_selector`` (:mod:`petastorm_tpu_torch.selectors`) prunes the row
+groups through the footer's indexes before ``filters``;
+``shuffle_row_drop_partitions`` N makes each row group N work items
+``(piece, p)``, item ``p`` delivering rows ``p::N``.  Work items are
+``(global piece index, row-drop partition)`` pairs, as in the JAX readers.
+
 Cut to what the port holds.  Each option outside it raises ``ValueError``
 naming the ``ROADMAP.md`` item that brings it: local files only (no
-``storage_options``, HDFS or object store), no ``rowgroup_selector`` or
-row-drop partitions.  ``cache_type`` takes the null cache, ``'local-disk'``
+``storage_options``, HDFS or object store).  ``cache_type`` takes the null
+cache, ``'local-disk'``
 (:mod:`~petastorm_tpu_torch.local_disk_cache`) and ``'plane'`` (the cache
 plane, :mod:`~petastorm_tpu_torch.cache_plane`, keyed by the data files' and
 the decode's fingerprint), as the JAX readers do.  Both readers take the reference's
@@ -91,27 +97,17 @@ def _make_pool(reader_pool_type, workers_count, results_queue_size, zmq_copy_buf
                      % (reader_pool_type,))
 
 
-def _refuse_outside_slice(storage_options=None, rowgroup_selector=None,
-                          shuffle_row_drop_partitions=1, hdfs_driver='libhdfs'):
-    """Raise for each option whose plane the port does not hold yet;
+def _refuse_outside_slice(storage_options=None, hdfs_driver='libhdfs'):
+    """Raise for each storage option the port does not hold yet;
     ``hdfs_driver`` raises only when it differs from its default."""
-    storage, refused = [], []
+    storage = []
     if hdfs_driver != 'libhdfs':
         storage.append('hdfs_driver=%r: HDFS is %s' % (hdfs_driver, _LATER))
     if storage_options is not None:
         storage.append('storage_options: only local files (or a filesystem= object) are in '
                        'this slice; HDFS and object stores are %s' % _LATER)
-    if rowgroup_selector is not None:
-        refused.append('rowgroup_selector needs the row-group indexes, %s' % _LATER)
-    if shuffle_row_drop_partitions not in (None, 1):
-        refused.append('shuffle_row_drop_partitions=%r: row-drop partitions are %s'
-                       % (shuffle_row_drop_partitions, _LATER))
-    if refused:
-        refused = ['; '.join(refused) + ' (%s)' % _HOST_PLANES]
     if storage:
-        refused.append('; '.join(storage) + ' (%s, the storage bullet)' % _HOST_PLANES)
-    if refused:
-        raise ValueError('; '.join(refused))
+        raise ValueError('; '.join(storage) + ' (%s, the storage bullet)' % _HOST_PLANES)
 
 
 def _resolve_cache(cache_type, cache_location, cache_size_limit, cache_row_size_estimate,
@@ -176,14 +172,22 @@ def _default_shard(cur_shard, shard_count):
     return None, None
 
 
-def _topology(cur_shard, shard_count, shard_seed, num_pieces, shuffle_row_groups):
-    """The JAX reader's topology keys, at the values this reader has (no
-    row-drop partitions)."""
+def _topology(cur_shard, shard_count, shard_seed, num_pieces, shuffle_row_groups,
+              drop_partitions=1):
+    """The JAX reader's topology keys."""
     return {'cur_shard': cur_shard, 'shard_count': shard_count,
             'shard_seed': None if shard_seed is None else int(shard_seed),
             'shard_scheme': None if shard_seed is None else 'rs-perm-v1',
-            'num_global_pieces': num_pieces, 'drop_partitions': 1,
+            'num_global_pieces': num_pieces, 'drop_partitions': int(drop_partitions),
             'shuffle': bool(shuffle_row_groups)}
+
+
+def _drop_partitions(shuffle_row_drop_partitions):
+    n = int(shuffle_row_drop_partitions or 1)
+    if n < 1:
+        raise ValueError('shuffle_row_drop_partitions must be >= 1, got %r'
+                         % (shuffle_row_drop_partitions,))
+    return n
 
 
 def _explicit_piece_indices(piece_indices, num_pieces, cur_shard, shard_count, pruned=False):
@@ -196,7 +200,7 @@ def _explicit_piece_indices(piece_indices, num_pieces, cur_shard, shard_count, p
                          'cur_shard/shard_count do not compose with it')
     if pruned:
         raise ValueError('piece_indices indexes the full load_row_groups '
-                         'order; filters would renumber it')
+                         'order; rowgroup_selector/filters would renumber it')
     indices = [int(i) for i in piece_indices]
     bad = [i for i in indices if not 0 <= i < num_pieces]
     if bad:
@@ -205,17 +209,25 @@ def _explicit_piece_indices(piece_indices, num_pieces, cur_shard, shard_count, p
 
 
 def _local_pieces(fs, pieces, filters, stored_schema, cur_shard, shard_count, shard_seed,
-                  dataset_url, piece_indices=None, resume_state=None):
-    """The pieces after ``filters``, this reader's indices into them and its
-    ``(cur_shard, shard_count)``: the given ``piece_indices``, else the
-    shard's.  No local row group is legal only for a token with a
-    prologue (an elastic reshard onto more shards than row groups)."""
+                  dataset_url, piece_indices=None, resume_state=None, rowgroup_selector=None,
+                  index_path=None):
+    """The pieces after ``rowgroup_selector`` (whose ordinals index the full
+    row-group order of the store at ``index_path``, so it goes first) and
+    ``filters``, this reader's indices into them and its ``(cur_shard,
+    shard_count)``: the given ``piece_indices``, else the shard's.  No local
+    row group is legal only for a token with a prologue (an elastic reshard
+    onto more shards than row groups)."""
+    if rowgroup_selector is not None:
+        from petastorm_tpu_torch.etl.rowgroup_indexing import get_row_group_indexes
+        keep = rowgroup_selector.select_row_groups(get_row_group_indexes(fs, index_path))
+        pieces = [p for i, p in enumerate(pieces) if i in keep]
     if filters is not None:
         from petastorm_tpu_torch.etl.rowgroup_filtering import apply_arrow_filters
         pieces = apply_arrow_filters(fs, pieces, filters, stored_schema)
     if piece_indices is not None:
-        local_indices = _explicit_piece_indices(piece_indices, len(pieces), cur_shard,
-                                                shard_count, pruned=filters is not None)
+        local_indices = _explicit_piece_indices(
+            piece_indices, len(pieces), cur_shard, shard_count,
+            pruned=rowgroup_selector is not None or filters is not None)
     else:
         cur_shard, shard_count = _default_shard(cur_shard, shard_count)
         local_indices = _shard_indices(len(pieces), cur_shard, shard_count, shard_seed)
@@ -275,7 +287,15 @@ def make_reader(dataset_url,
 
     ``piece_indices`` reads exactly these global row groups (positions in
     the store's row-group order) instead of a shard; ``cur_shard``,
-    ``shard_count`` and ``filters`` do not compose with it.
+    ``shard_count``, ``rowgroup_selector`` and ``filters`` do not compose
+    with it.
+
+    ``rowgroup_selector`` (a :class:`~petastorm_tpu_torch.selectors.
+    RowGroupSelectorBase`) keeps the row groups its footer indexes select
+    (:func:`~petastorm_tpu_torch.etl.rowgroup_indexing.build_rowgroup_index`).
+    ``shuffle_row_drop_partitions`` N > 1 reads each row group N times, each
+    work item ``(piece, p)`` delivering its rows ``p::N``: an approximate
+    row-level shuffle at N times the read cost.
 
     ``scheduling`` (``'auto'``, ``'fifo'``, ``'adaptive'``) is the dispatch
     order of the row groups: ``'adaptive'`` launches predicted-slow row
@@ -294,9 +314,8 @@ def make_reader(dataset_url,
     ``filesystem`` is an object with the port's filesystem methods (see
     :mod:`petastorm_tpu_torch.fs_utils`), used as it is.
     """
-    _refuse_outside_slice(storage_options=storage_options, rowgroup_selector=rowgroup_selector,
-                          shuffle_row_drop_partitions=shuffle_row_drop_partitions,
-                          hdfs_driver=hdfs_driver)
+    _refuse_outside_slice(storage_options=storage_options, hdfs_driver=hdfs_driver)
+    drop_partitions = _drop_partitions(shuffle_row_drop_partitions)
     ngram = schema_fields if isinstance(schema_fields, NGram) else None
     if columnar_decode and ngram is not None:
         raise ValueError('columnar_decode is incompatible with NGram windows')
@@ -311,7 +330,7 @@ def make_reader(dataset_url,
         schema_view = stored_schema
     pieces, local_indices, cur_shard, shard_count = _local_pieces(
         fs, load_row_groups(fs, path), filters, stored_schema, cur_shard, shard_count,
-        shard_seed, dataset_url, piece_indices, resume_state)
+        shard_seed, dataset_url, piece_indices, resume_state, rowgroup_selector, path)
     cache = _resolve_cache(cache_type, cache_location, cache_size_limit, cache_row_size_estimate,
                            cache_extra_settings,
                            plane_context=_plane_context(cache_type, fs, pieces, schema_view,
@@ -319,20 +338,22 @@ def make_reader(dataset_url,
     worker_args = RowWorkerArgs(
         pieces=pieces, schema_view=schema_view, schema=stored_schema, predicate=predicate,
         transform_spec=transform_spec, cache=cache, ngram=ngram,
+        shuffle_row_drop_partitions=drop_partitions,
         columnar_output=columnar_decode, read_retries=read_retries,
         retry_backoff_s=retry_backoff_s, filesystem=fs)
     pool = _make_pool(reader_pool_type, workers_count, results_queue_size, zmq_copy_buffers)
     result_schema = transform_schema(schema_view, transform_spec) \
         if transform_spec is not None else schema_view
     return Reader(pool=pool, worker_class=PyDictReaderWorker, worker_args=worker_args,
-                  items=[(i,) for i in local_indices], schema=result_schema, ngram=ngram,
+                  items=[(i, p) for i in local_indices for p in range(drop_partitions)],
+                  schema=result_schema, ngram=ngram,
                   filesystem=fs, shuffle_items=shuffle_row_groups, num_epochs=num_epochs,
                   seed=seed,
                   result_converter=_ColumnarDictConverter(result_schema)
                   if columnar_decode else None,
                   resume_state=resume_state,
                   topology=_topology(cur_shard, shard_count, shard_seed, len(pieces),
-                                     shuffle_row_groups),
+                                     shuffle_row_groups, drop_partitions),
                   scheduling=scheduling, ingest=ingest, ingest_window=ingest_window)
 
 
@@ -349,7 +370,8 @@ def make_batch_reader(dataset_url_or_urls,
                       storage_options=None, filesystem=None, hdfs_driver='libhdfs',
                       seed=None, resume_state=None, zmq_copy_buffers=True,
                       read_retries=2, retry_backoff_s=0.1, piece_indices=None,
-                      scheduling='auto', ingest='auto', ingest_window=None):
+                      scheduling='auto', ingest='auto', ingest_window=None,
+                      rowgroup_selector=None):
     """Columnar reader over any Parquet store (petastorm metadata optional).
 
     Yields one namedtuple of numpy arrays per row group: a rectangular list
@@ -362,8 +384,10 @@ def make_batch_reader(dataset_url_or_urls,
     may drop rows: :attr:`Reader.transform_may_change_row_count`).
     ``predicate``, ``filters``, ``shard_seed``, ``piece_indices``, the pools,
     the caches, ``resume_state``, ``scheduling``, ``ingest``,
-    ``ingest_window`` and ``filesystem`` work as in :func:`make_reader`.
-    HDFS and object-store options raise.
+    ``ingest_window`` and ``filesystem`` work as in :func:`make_reader`, and
+    so does ``rowgroup_selector`` (an extension: the JAX batch reader has
+    none) over a single store whose footer holds the index.  HDFS and
+    object-store options raise.
     """
     from petastorm_tpu_torch.arrow_reader_worker import (ArrowReaderWorker, ArrowResultConverter,
                                                          BatchWorkerArgs)
@@ -381,9 +405,12 @@ def make_batch_reader(dataset_url_or_urls,
     pieces = []
     for p in paths:
         pieces.extend(load_row_groups(fs, p))
+    if rowgroup_selector is not None and len(paths) != 1:
+        raise ValueError('rowgroup_selector reads the index of one store; got %d URLs'
+                         % len(paths))
     pieces, local_indices, cur_shard, shard_count = _local_pieces(
         fs, pieces, filters, stored_schema, cur_shard, shard_count, shard_seed,
-        dataset_url_or_urls, piece_indices, resume_state)
+        dataset_url_or_urls, piece_indices, resume_state, rowgroup_selector, paths[0])
     cache = _resolve_cache(cache_type, cache_location, cache_size_limit, cache_row_size_estimate,
                            cache_extra_settings,
                            plane_context=_plane_context(cache_type, fs, pieces, schema_view,
@@ -396,7 +423,7 @@ def make_batch_reader(dataset_url_or_urls,
     result_schema = transform_schema(schema_view, transform_spec) \
         if transform_spec is not None else schema_view
     return Reader(pool=pool, worker_class=ArrowReaderWorker, worker_args=worker_args,
-                  items=[(i,) for i in local_indices], schema=result_schema, filesystem=fs,
+                  items=[(i, 0) for i in local_indices], schema=result_schema, filesystem=fs,
                   shuffle_items=shuffle_row_groups, num_epochs=num_epochs, seed=seed,
                   result_converter=ArrowResultConverter(result_schema),
                   resume_state=resume_state,
@@ -477,9 +504,6 @@ class Reader(object):
             if resume_state.get('seed') is not None:
                 self._seed = int(resume_state['seed'])
             prologue = [(int(i), int(p)) for i, p in (resume_state.get('prologue') or ())]
-            if any(p for _, p in prologue):
-                raise ValueError('resume_state\'s prologue names row-drop partitions, which '
-                                 'are %s (%s)' % (_LATER, _HOST_PLANES))
         self._start(start_epoch, start_cursor, prologue)
 
     def _start(self, start_epoch=0, start_cursor=0, prologue=()):
@@ -617,7 +641,7 @@ class Reader(object):
         ``drop_partitions``, ``shard_seed``, ``shard_scheme``, ``shuffle``)
         and ``num_epochs``: the JAX reader's token.  While prologue work is
         unprocessed it carries ``'prologue'``, a list of ``(global piece
-        index, 0)`` pairs.  The tokens of every shard reshard onto another
+        index, row-drop partition)`` pairs.  The tokens of every shard reshard onto another
         shard count through :mod:`petastorm_tpu_torch.elastic`.
 
         For an exact snapshot call :meth:`drain_in_flight` first (a loader's

@@ -69,20 +69,30 @@ def cdigest(digest):
 
 
 class ClusterCacheIdentity(object):
-    """A worker's decode identity of one job: the pieces, the plane, and each
-    piece's cache digest as a split reader would compute it.  Built by
-    :meth:`build` from the footers (no decode, no pool); None when the job's
-    reader arguments fall outside what it understands (the plane then works
-    as before, without the cluster cache)."""
+    """A worker's decode identity of one job: the pieces, the plane, and the
+    cache digest of each piece's work items (one per row-drop partition) as
+    a split reader would compute them.  Built by :meth:`build` from the
+    footers (no decode, no pool); None when the job's reader arguments fall
+    outside what it understands (the plane then works as before, without
+    the cluster cache).  It keeps the decode's inputs (``fs``,
+    ``stored_schema``, ``schema_view``, ``transform_spec``, ``predicate``),
+    from which the materialization plane builds the consumer's own
+    worker."""
 
-    def __init__(self, plane, pieces, item_digests, converter, kind):
+    def __init__(self, plane, pieces, item_digests, converter, kind, drop_partitions=1):
         #: the worker's CachePlane over the job's plane directory
         self.plane = plane
         self._pieces = pieces
-        #: piece index -> [its full digest]
+        #: piece index -> [its full digest per row-drop partition]
         self._item_digests = item_digests
         self._converter = converter
         self._kind = kind   # 'columns' (the codec reader) or 'batch' (Arrow)
+        self._drop_partitions = int(drop_partitions)
+        self.fs = None
+        self.stored_schema = None
+        self.schema_view = None
+        self.transform_spec = None
+        self.predicate = None
 
     @classmethod
     def build(cls, job):
@@ -116,15 +126,23 @@ class ClusterCacheIdentity(object):
             return None   # NGram selections
         predicate = kwargs.get('predicate')
         transform_spec = kwargs.get('transform_spec')
-        fs, path_or_paths = get_filesystem_and_path_or_paths(job['dataset_url'])
+        drop_partitions = max(1, int(kwargs.get('shuffle_row_drop_partitions') or 1))
+        fs, path_or_paths = get_filesystem_and_path_or_paths(job['dataset_url'],
+                                                             kwargs.get('filesystem'))
         paths = path_or_paths if isinstance(path_or_paths, list) else [path_or_paths]
         # the worker's choice of reader, without its probe reader
-        try:
-            stored_schema = get_schema(fs, paths[0])
-            kind = 'columns'
-        except MetadataError:
-            kind = 'batch'
+        factory = job.get('reader_factory', 'auto')
+        kind = 'batch'
+        if factory in ('auto', 'reader'):
+            try:
+                stored_schema = get_schema(fs, paths[0])
+                kind = 'columns'
+            except MetadataError:
+                if factory == 'reader':
+                    raise
         if kind == 'batch':
+            if drop_partitions != 1:
+                return None   # the batch reader has no row-drop axis
             stored_schema = infer_or_load_unischema(fs, paths[0])
             matched = (match_unischema_fields(stored_schema, schema_fields)
                        if schema_fields is not None else None)
@@ -150,8 +168,9 @@ class ClusterCacheIdentity(object):
         if kind == 'columns':
             from petastorm_tpu_torch.py_dict_reader_worker import piece_cache_key
             from petastorm_tpu_torch.reader import _ColumnarDictConverter
-            item_digests = [[plane.digest(piece_cache_key(p, schema_view, transform_spec)
-                                          + ':c')] for p in pieces]
+            item_digests = [[plane.digest(piece_cache_key(p, schema_view, transform_spec, part)
+                                          + ':c') for part in range(drop_partitions)]
+                            for p in pieces]
         else:
             from petastorm_tpu_torch.arrow_reader_worker import (ArrowResultConverter,
                                                                  piece_cache_key)
@@ -161,19 +180,39 @@ class ClusterCacheIdentity(object):
                          if transform_spec is not None else schema_view)
         converter = (_ColumnarDictConverter(result_schema) if kind == 'columns'
                      else ArrowResultConverter(result_schema))
-        return cls(plane, pieces, item_digests, converter, kind)
+        identity = cls(plane, pieces, item_digests, converter, kind, drop_partitions)
+        identity.fs = fs
+        identity.stored_schema = stored_schema
+        identity.schema_view = schema_view
+        identity.transform_spec = transform_spec
+        identity.predicate = predicate
+        return identity
 
     @property
     def num_pieces(self):
         return len(self._pieces)
 
     @property
+    def pieces(self):
+        return self._pieces
+
+    @property
     def kind(self):
         return self._kind
 
+    @property
+    def drop_partitions(self):
+        return self._drop_partitions
+
+    def piece_digests(self, index):
+        """The full digests of one piece's work items, one per row-drop
+        partition: what the materialization plane publishes under."""
+        return list(self._item_digests[int(index)])
+
     def piece_cdigests(self):
         """The compact digest of each global piece: what a worker advertises
-        once per job, so that the dispatcher maps any split to the directory."""
+        once per job, so that the dispatcher maps any split to the directory
+        (a piece of several row-drop partitions advertises its first's)."""
         return [cdigest(parts[0]) for parts in self._item_digests]
 
     def split_digests(self, indices):
@@ -216,7 +255,8 @@ class ClusterCacheIdentity(object):
 
 def _supported_kwargs(kwargs):
     """Reader arguments the identity understands: anything that renumbers the
-    pieces or changes what a piece caches turns the cluster cache off."""
+    pieces (``rowgroup_selector``, ``filters``) or changes what a piece caches
+    turns the cluster cache off, as in the JAX package."""
     if kwargs.get('rowgroup_selector') is not None or kwargs.get('filters') is not None:
         return False
     return kwargs.get('cache_type', 'plane') == 'plane'

@@ -71,8 +71,11 @@ are also gauges of :attr:`Dispatcher.metrics`; each tenant's row gains its
 grants in that window (``grants_delta``), and each stage the one summary
 (:func:`~petastorm_tpu_torch.telemetry.registry.summarize_hist`).
 
-Not ported here: the materializer hand-off (the materialization plane,
-``ROADMAP.md``, Queue A item 7).
+With a :class:`~petastorm_tpu_torch.materialize.MaterializeController`
+attached (:meth:`Dispatcher.attach_materializer`), an autoscaler's scale-in
+victim is first offered to it for one bounded warming pass: its drain is
+deferred until the pass ends or ``DRAIN_WARM_DEADLINE_S`` passes, and
+``materialize_handoffs`` counts the victims handed over.
 """
 
 import collections
@@ -243,8 +246,11 @@ class Dispatcher(object):
                 launcher = _autoscaler.SubprocessWorkerLauncher()
             self.autoscaler = _autoscaler.Autoscaler(config, launcher)
             self.autoscaler.decisions = self._decisions
-        # the materializer's hand-off of scale-in victims is the
-        # materialization plane's (ROADMAP.md, Queue A item 7): none here
+        # scale-in victims offered to an attached materializer for one
+        # bounded warming pass before their drain
+        self._materializer = None
+        self._deferred_drains = {}   # victim worker id -> drain deadline
+        self.materialize_handoffs = 0
         if config.ledger_path:
             from petastorm_tpu_torch.service.ledger import DispatcherLedger
             self._ledger = DispatcherLedger(config.ledger_path).acquire()
@@ -510,6 +516,7 @@ class Dispatcher(object):
         counters['ledger_restores'] = self.ledger_restores
         counters['drains'] = self.drains
         counters['drain_timeouts'] = self.drain_timeouts
+        counters['materialize_handoffs'] = self.materialize_handoffs
         for tenant, n in grants.items():
             counters['tenant_grants:%s' % tenant] = n
         if self.autoscaler is not None:
@@ -519,11 +526,37 @@ class Dispatcher(object):
 
     # -- the autoscaler ------------------------------------------------------
 
+    #: A scale-in victim offered to the materializer warms for at most this
+    #: long before its drain goes ahead regardless (the hand-off must never
+    #: turn a scale-in into none).
+    DRAIN_WARM_DEADLINE_S = 30.0
+
+    def attach_materializer(self, controller):
+        """Attach a :class:`~petastorm_tpu_torch.materialize.MaterializeController`:
+        scale-in victims get one bounded warming pass (through the
+        controller's lease protocol) before their drain."""
+        self._materializer = controller
+
     def _drain_worker(self, victim):
         with self._lock:
             worker = self._workers.get(victim)
             if worker is not None:
                 worker['draining'] = True
+
+    def _tick_deferred_drains(self, now):
+        """Drain the victims whose warming pass ended (or ran out of time)."""
+        materializer = self._materializer
+        for victim, deadline in list(self._deferred_drains.items()):
+            ready = now >= deadline
+            if not ready:
+                try:
+                    ready = materializer is None or materializer.drain_ready(victim)
+                except Exception:  # noqa: BLE001 — the hand-off is best-effort
+                    ready = True
+            if ready:
+                del self._deferred_drains[victim]
+                self._drain_worker(victim)
+                logger.info('autoscaler draining worker %s (warming pass done)', victim)
 
     def _autoscale_tick(self):
         """One evaluation of the control law: the observation taken under the
@@ -532,6 +565,7 @@ class Dispatcher(object):
             return
         stale = 3.0 * self._config.lease_ttl_s
         now = time.monotonic()
+        self._tick_deferred_drains(now)
         with self._lock:
             states = collections.Counter(s.state for s in self._splits)
             alive = [wid for wid, w in sorted(self._workers.items())
@@ -546,8 +580,24 @@ class Dispatcher(object):
             'free_slots': free_slots, 'coverage': coverage, 'dispatcher_addr': self.addr},
             now=now)
         if action and action[0] == 'scale_in':
-            self._drain_worker(action[1])
-            logger.info('autoscaler draining worker %s (least cache coverage)', action[1])
+            victim = action[1]
+            materializer = self._materializer
+            if materializer is not None and victim not in self._deferred_drains:
+                offered = False
+                try:
+                    offered = materializer.offer_drain_candidate(
+                        victim, deadline_s=self.DRAIN_WARM_DEADLINE_S)
+                except Exception:  # noqa: BLE001 — the hand-off is best-effort
+                    logger.warning('materialize drain hand-off for %s failed', victim,
+                                   exc_info=True)
+                if offered:
+                    self._deferred_drains[victim] = now + self.DRAIN_WARM_DEADLINE_S
+                    self.materialize_handoffs += 1
+                    logger.info('autoscaler victim %s offered to the materializer for one '
+                                'warming pass before its drain', victim)
+                    return
+            self._drain_worker(victim)
+            logger.info('autoscaler draining worker %s (least cache coverage)', victim)
 
     # -- lease bookkeeping ---------------------------------------------------
 

@@ -34,9 +34,10 @@ seam                      fired from               actions
 ``fs.open`` / ``fs.read`` the flaky filesystems    raise ``OSError``
 ========================  =======================  ======================
 
-One scenario of the reference needs a plane the port does not hold yet, and
-raises ``ValueError`` naming its item: ``materialize_kill`` (the
-materialization plane).  ``fetch_latency_spike`` puts the cold-store
+``materialize_kill`` runs no fleet: it SIGKILLs a materialize controller in
+a child process mid-publish, restarts it on its ledger, and reads the store
+through the warmed plane (:func:`run_scenario` hands it to its own runner).
+``fetch_latency_spike`` puts the cold-store
 emulation (:mod:`~petastorm_tpu_torch.test_util.emulation`) under every
 split reader.  Run as ``python -m
 petastorm_tpu_torch.test_util.chaos list|run|matrix``.  The module's imports
@@ -76,9 +77,6 @@ _ERROR_SEAMS = ('worker.decode', 'fs.open', 'fs.read')
 CHAOS_ENV = 'PETASTORM_TPU_CHAOS'
 CHAOS_SALT_ENV = 'PETASTORM_TPU_CHAOS_SALT'
 CHAOS_COUNTS_ENV = 'PETASTORM_TPU_CHAOS_COUNTS'
-
-#: Where the reference's scenario that the port cannot run yet is queued.
-_MATERIALIZE_ITEM = 'ROADMAP.md, Queue A item 7 (the materialization plane)'
 
 
 class ChaosInjectedError(OSError):
@@ -485,24 +483,9 @@ _KILL_ROLES = ('dispatcher', 'worker', 'materialize')
 _KILL_SIGNALS = ('kill', 'term')
 
 
-def _refuse_unported(scenario):
-    """Raise ``ValueError`` for a scenario that needs a plane the port does
-    not hold yet."""
-    if scenario.get('runner') == 'materialize':
-        raise ValueError('a materialize scenario needs the materialization plane (%s)'
-                         % _MATERIALIZE_ITEM)
-
-
 def ported_scenarios():
-    """The catalogue's scenarios this runner can run."""
-    out = []
-    for name, scenario in SCENARIOS.items():
-        try:
-            _refuse_unported(scenario)
-        except ValueError:
-            continue
-        out.append(name)
-    return out
+    """The catalogue's scenarios this runner can run: every one."""
+    return list(SCENARIOS)
 
 
 def load_spec_json(path):
@@ -559,6 +542,20 @@ spec = json.loads(sys.argv[2])
 with Dispatcher(ServiceConfig(**spec), bind=sys.argv[1]) as d:
     while d._thread.is_alive():
         time.sleep(0.2)
+"""
+
+_MATERIALIZE_CHILD = r"""
+import json, os, sys
+sys.path.insert(0, sys.argv[2])
+from petastorm_tpu_torch.materialize import MaterializeController
+spec = json.loads(sys.argv[1])
+summary_path = spec.pop('summary_path')
+with MaterializeController(**spec) as controller:
+    summary = controller.run()
+tmp = summary_path + '.part'
+with open(tmp, 'w') as f:
+    json.dump(summary, f)
+os.replace(tmp, summary_path)
 """
 
 
@@ -672,12 +669,155 @@ def _journal_records(reply):
     return records, int(journal.get('restores', 0) or 0)
 
 
+def _run_materialize_scenario(name, scenario, dataset_url, workdir, seed=7,
+                              expected_digest=None, timeout_s=240.0):
+    """The materialization crash drill: SIGKILL the controller (one process,
+    scheduler and warming worker both) while publishes are in flight, then
+    hold (1) no torn ``.cpe`` entry (a publish is a tmp file and a rename),
+    (2) the ledger carries the progress and a restarted controller resumes
+    it instead of warming again, and (3) a consumer reading through the
+    warmed plane delivers the ground-truth digest with no decode miss; and
+    zero residue.  A report, as :func:`run_scenario`'s; never raises."""
+    import signal as _signal
+
+    import numpy as np
+
+    from petastorm_tpu_torch.cache_plane.plane import ENTRY_SUFFIX, decode_entry
+    from petastorm_tpu_torch.materialize import MATERIALIZE_LEDGER_KIND
+    from petastorm_tpu_torch.reader import make_batch_reader
+    from petastorm_tpu_torch.service.ledger import DispatcherLedger, decode_splits
+
+    report = {'scenario': name, 'seed': int(seed), 'ok': False, 'checks': {},
+              'injections': {}}
+    plane_dir = os.path.join(workdir, 'mat_plane_%s' % name)
+    ledger_path = os.path.join(workdir, 'mat_ledger_%s.json' % name)
+    summary_path = os.path.join(workdir, 'mat_summary_%s.json' % name)
+    # a disk-only plane (no hot tier): every publish is a file to inspect,
+    # and the drill leaves nothing in /dev/shm
+    spec = {'dataset_url': dataset_url, 'cache_plane_dir': plane_dir,
+            'ledger_path': ledger_path, 'cache_plane_ram_bytes': 0,
+            'throttle_s': float(scenario.get('throttle_s', 0.25)),
+            'summary_path': summary_path}
+    pids = {os.getpid()}
+    proc = None
+
+    def entries():
+        try:
+            return sorted(n for n in os.listdir(plane_dir) if n.endswith(ENTRY_SUFFIX))
+        except OSError:
+            return []
+
+    try:
+        # phase 1: warm under the throttle, SIGKILL mid-publish
+        proc = _spawn(_MATERIALIZE_CHILD, [json.dumps(spec), _repo_root()])
+        pids.add(proc.pid)
+        deadline = time.monotonic() + timeout_s
+        want = int(scenario.get('min_entries_before_kill', 3))
+        while len(entries()) < want:
+            if proc.poll() is not None or time.monotonic() > deadline:
+                report['checks']['kill_controller'] = (
+                    'controller finished (%d entr(ies)) before the kill window'
+                    % len(entries()))
+                return report
+            time.sleep(0.02)
+        proc.send_signal(_signal.SIGKILL)
+        proc.wait(timeout=30)
+        report['checks']['kill_controller'] = ('SIGKILL pid %d with %d entr(ies) published'
+                                               % (proc.pid, len(entries())))
+
+        # invariant 1: no torn entry
+        torn = []
+        for entry_name in entries():
+            try:
+                with open(os.path.join(plane_dir, entry_name), 'rb') as f:
+                    decode_entry(f.read())
+            except Exception as e:  # noqa: BLE001 — any failure is the finding
+                torn.append('%s: %r' % (entry_name, e))
+        report['checks']['zero_torn_entries'] = (
+            'ok (%d entr(ies) decode cleanly)' % len(entries()) if not torn
+            else '; '.join(torn[:4]))
+
+        # invariant 2a: the kill left durable progress in the ledger
+        state = DispatcherLedger(ledger_path, kind=MATERIALIZE_LEDGER_KIND).load()
+        done_before = 0
+        if state and isinstance(state.get('splits'), list):
+            try:
+                done_before = sum(1 for st, _ in decode_splits(state['splits']) if st == 'done')
+            except (ValueError, KeyError, TypeError):
+                pass
+        report['checks']['ledger_progress'] = (
+            'ok (%d piece(s) durably done)' % done_before if done_before >= 1
+            else 'ledger shows no completed piece after the kill')
+
+        # invariant 2b: the restart resumes instead of warming again
+        proc = _spawn(_MATERIALIZE_CHILD, [json.dumps(dict(spec, throttle_s=0.0)),
+                                           _repo_root()])
+        pids.add(proc.pid)
+        proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        try:
+            with open(summary_path) as f:
+                summary = json.load(f)
+        except (OSError, ValueError) as e:
+            report['checks']['resume'] = 'no restart summary: %r' % e
+            return report
+        report['restart_summary'] = summary
+        resumed = int(summary.get('resumed', 0) or 0)
+        resumed_ok = (resumed >= max(1, done_before)
+                      and summary.get('done') == summary.get('total_pieces')
+                      and not summary.get('failed_pieces'))
+        report['checks']['resume'] = (
+            'ok (resumed %d from the ledger, warmed the remaining %d of %d)'
+            % (resumed, int(summary.get('done', 0)) - resumed, summary.get('total_pieces', 0))
+            if resumed_ok else 'summary %r' % summary)
+
+        # invariant 3: the consumer's delivery digest, with no decode miss
+        if expected_digest is None:
+            expected_digest = direct_read_digest(dataset_url)
+        digest = DeliveryDigest()
+        with make_batch_reader(dataset_url, num_epochs=1, shuffle_row_groups=False,
+                               workers_count=1, cache_type='plane', cache_location=plane_dir,
+                               cache_extra_settings={'ram_bytes': 0}) as reader:
+            for item in reader:
+                digest.update({k: np.asarray(v) for k, v in item._asdict().items()})
+            diag = reader.diagnostics
+        digest_ok = digest.hexdigest() == expected_digest
+        report['checks']['digest'] = ('ok' if digest_ok else '%s != expected %s'
+                                      % (digest.hexdigest(), expected_digest))
+        report['digest'] = digest.hexdigest()
+        misses = int(diag.get('cache_misses', -1))
+        served_warm = misses == 0 and int(diag.get('cache_hits', 0)) >= 1
+        report['checks']['served_from_plane'] = (
+            'ok (%d hit(s), 0 misses)' % int(diag.get('cache_hits', 0)) if served_warm
+            else 'consumer decoded: hits=%s misses=%s'
+            % (diag.get('cache_hits'), diag.get('cache_misses')))
+        report['ok'] = bool(not torn and done_before >= 1 and resumed_ok and digest_ok
+                            and served_warm)
+        return report
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            try:
+                proc.wait(timeout=20)
+            except Exception:  # noqa: BLE001 — never hang the matrix
+                pass
+        shm_left = _shm_residue(pids)
+        tmp_left = _ledger_tmp_residue(ledger_path)
+        # a SIGKILL mid-write leaves ``.tmp.<pid>.*`` beside the entries: the
+        # restart must have swept it
+        plane_tmp = [n for n in (os.listdir(plane_dir) if os.path.isdir(plane_dir) else [])
+                     if n.startswith('.tmp.')]
+        report['checks']['zero_residue'] = (
+            'ok' if not shm_left and not tmp_left and not plane_tmp else
+            'shm=%s tmp=%s plane_tmp=%s' % (sorted(shm_left)[:4], tmp_left[:4], plane_tmp[:4]))
+        if report.get('ok'):
+            report['ok'] = not shm_left and not tmp_left and not plane_tmp
+
+
 def run_scenario(name, dataset_url, rows, workdir, seed=7, n_workers=2, expected_digest=None,
                  timeout_s=240.0, scenario=None):
     """One scenario end to end; a report dict (``ok``, each invariant's
-    verdict, the injection counts).  A scenario that needs a plane the port
-    does not hold raises ``ValueError``; any other failure lands in the
-    report (the matrix must finish).  ``scenario`` replaces the catalogue's
+    verdict, the injection counts).  A failure lands in the report (the
+    matrix must finish).  ``scenario`` replaces the catalogue's
     entry (``name`` then only labels the report)."""
     import numpy as np
 
@@ -688,7 +828,11 @@ def run_scenario(name, dataset_url, rows, workdir, seed=7, n_workers=2, expected
 
     if scenario is None:
         scenario = SCENARIOS[name]
-    _refuse_unported(scenario)
+    if scenario.get('runner') == 'materialize':
+        # the materialization drill runs no fleet: one controller process,
+        # killed and restarted, then a plane-cached consumer's read
+        return _run_materialize_scenario(name, scenario, dataset_url, workdir, seed=seed,
+                                         expected_digest=expected_digest, timeout_s=timeout_s)
     n_workers = int(scenario.get('n_workers', n_workers))
     spec = {'seed': int(seed), 'faults': scenario.get('faults') or []}
     ledger_path = os.path.join(workdir, 'ledger_%s.json' % name)
@@ -999,13 +1143,10 @@ def run_matrix(names, dataset_url=None, rows=None, workdir=None, seed=7,
                scenario_overrides=None):
     """Run each named scenario against one dataset and one truth digest;
     ``(reports, all_ok)``.  ``scenario_overrides`` maps a name to a scenario
-    used in place of the catalogue's (``--spec-json``).  A scenario the port
-    cannot run raises ``ValueError`` before any runs."""
+    used in place of the catalogue's (``--spec-json``)."""
     import shutil
     import tempfile
     overrides = scenario_overrides or {}
-    for name in names:
-        _refuse_unported(overrides.get(name) or SCENARIOS[name])
     owned = workdir is None
     ok = False
     if owned:

@@ -11,8 +11,8 @@ port's runner at its default store, each under a watchdog: ``autoscale_storm``
 (this port's autoscaler, its actions within the damping bound),
 ``message_dup`` (the ``worker.chunk`` seam, at least one injection) and
 ``fetch_latency_spike`` (the cold-store emulation under every split reader,
-its reads slowed), every invariant true.  ``materialize_kill`` raises naming
-its item.
+its reads slowed), every invariant true; ``materialize_kill`` through
+``run_matrix``, the controller killed and resumed.
 The kills of the runner go by phases read from the dispatcher, never by
 sleeps; ``message_drop`` runs on the card's host (``chip_smoke.py``).
 """
@@ -46,7 +46,7 @@ def test_the_catalogue_equals_jax():
     assert chaos.PHASES == jax_chaos.PHASES
     assert (chaos.CHAOS_ENV, chaos.CHAOS_SALT_ENV, chaos.CHAOS_COUNTS_ENV) == \
         (jax_chaos.CHAOS_ENV, jax_chaos.CHAOS_SALT_ENV, jax_chaos.CHAOS_COUNTS_ENV)
-    assert set(chaos.ported_scenarios()) == set(chaos.SCENARIOS) - {'materialize_kill'}
+    assert chaos.ported_scenarios() == list(jax_chaos.SCENARIOS)
 
 
 _CASES = [(seam, action) for seam in chaos.SEAMS for action in ('drop', 'dup', 'delay', 'error')
@@ -187,9 +187,22 @@ def test_a_scenario_end_to_end_keeps_every_invariant(name, tmp_path):
     assert report['digest'] == jax_chaos.direct_read_digest(url)
 
 
-@pytest.mark.parametrize('name,item', [('materialize_kill', 'materialization plane')])
-def test_the_scenarios_of_planes_not_ported_raise(name, item, tmp_path):
-    with pytest.raises(ValueError, match='ROADMAP.md, Queue A item 7.*%s' % item):
-        chaos.run_scenario(name, 'file:///nowhere', 1, str(tmp_path))
-    with pytest.raises(ValueError, match=item):
-        chaos.run_matrix([name], workdir=str(tmp_path))
+@watched(240)
+def test_materialize_kill_runs_through_the_matrix(tmp_path):
+    """The materialization drill through the port's matrix, on the store
+    both packages write alike: the controller SIGKILLed mid-publish leaves no
+    torn entry, its restart resumes from the ledger, and a plane-cached
+    consumer delivers the direct read's digest with no decode miss."""
+    url, rows = chaos.make_chaos_dataset(str(tmp_path / 'dataset'), seed=13)
+    reports, ok = chaos.run_matrix(['materialize_kill'], dataset_url=url, rows=rows,
+                                   workdir=str(tmp_path), seed=13)
+    (report,) = reports
+    assert ok and report['ok'], chaos.render_report(reports)
+    checks = report['checks']
+    for name in ('zero_torn_entries', 'ledger_progress', 'resume', 'digest',
+                 'served_from_plane', 'zero_residue'):
+        assert checks[name].startswith('ok'), (name, checks)
+    summary = report['restart_summary']
+    assert summary['resumed'] >= 1 and summary['done'] == summary['total_pieces'] == rows // 4
+    assert summary['warmed'] == summary['total_pieces'] - summary['resumed']
+    assert report['digest'] == jax_chaos.direct_read_digest(url)

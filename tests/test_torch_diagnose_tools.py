@@ -27,6 +27,7 @@ import io
 import json
 import os
 import time
+import weakref
 
 import numpy as np
 import pytest
@@ -154,6 +155,17 @@ def test_diagnose_stats_evidence_equals_jax():
 def journal_files(tmp_path_factory):
     """One loader's journal, a flight dump and a crash artifact of the same
     process state, each a file."""
+    with pytest.MonkeyPatch.context() as mp:
+        # this module's journals only: the flight dump and the crash artifact
+        # carry every live journal of the process, and other test files of
+        # the same worker leave theirs alive
+        mp.setattr(provenance, '_LIVE', weakref.WeakSet())
+        mp.setattr(decisions, '_LIVE', weakref.WeakSet())
+        mp.setattr(decisions, '_DEFAULT', None)
+        return _journal_files(tmp_path_factory)
+
+
+def _journal_files(tmp_path_factory):
     root = tmp_path_factory.mktemp('torch_tools')
     ds = create_test_dataset('file://' + str(root / 'ds'), num_rows=30, rows_per_rowgroup=5)
     with make_reader(ds.url, schema_fields=['id', 'matrix'], reader_pool_type='thread',

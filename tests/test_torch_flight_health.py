@@ -144,7 +144,20 @@ def test_window_frames_and_report_from_frames_equal_jax(seed):
     assert health.report_from_frames([]) is jax_health.report_from_frames([]) is None
 
 
-def test_flight_ring_bounds_window_and_frames_carry_worst_and_decisions():
+@pytest.fixture
+def own_journals(monkeypatch):
+    """Fresh process-wide live sets of provenance and decision journals for
+    one test: a frame reads every live journal of the process, and journals
+    that other test files leave alive in the same worker (with slower
+    records) would push this test's own out of the frame's top four."""
+    import weakref
+    from petastorm_tpu_torch.telemetry import decisions
+    monkeypatch.setattr(provenance, '_LIVE', weakref.WeakSet())
+    monkeypatch.setattr(decisions, '_LIVE', weakref.WeakSet())
+    monkeypatch.setattr(decisions, '_DEFAULT', None, raising=False)
+
+
+def test_flight_ring_bounds_window_and_frames_carry_worst_and_decisions(own_journals):
     reg = registry.MetricsRegistry('fr')
     journal = provenance.ProvenanceJournal(label='fr')
     journal.seal(provenance.make_record('pool', stages={'decode': [1.0, 1.5]}))

@@ -13,7 +13,8 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(REPO, 'petastorm_tpu_torch')
-FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'petastorm_tpu', 'petastorm')
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'ml_dtypes', 'petastorm_tpu',
+             'petastorm')
 
 
 def _port_sources():
@@ -63,7 +64,10 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                    'service/autoscaler.py', 'service/cli.py', 'test_util/__init__.py',
                    'test_util/chaos.py', 'test_util/emulation.py', 'workers_pool/scheduling.py',
                    'workers_pool/ventilator.py', 'ingest/__init__.py', 'ingest/planner.py',
-                   'ingest/plane.py', 'fs_utils.py', 'reader_impl/parquet_worker_base.py'):
+                   'ingest/plane.py', 'fs_utils.py', 'reader_impl/parquet_worker_base.py',
+                   'materialize/__init__.py', 'materialize/controller.py',
+                   'materialize/transcode.py', 'materialize/rewrite.py', 'selectors.py',
+                   'etl/rowgroup_indexing.py', 'etl/rowgroup_indexers.py'):
         assert os.path.join(PACKAGE, module) in sources, module
     offenders = []
     for path in sources:
@@ -754,6 +758,59 @@ def test_the_telemetry_package_and_its_tools_load_neither_torch_nor_jax(tmp_path
     ''').replace('FORBIDDEN', repr(FORBIDDEN))
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, '-c', script, str(tmp_path)], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert 'LOADED []' in proc.stdout
+
+
+def test_the_materialization_plane_and_selectors_load_neither_torch_nor_jax(tmp_path):
+    """The materialization plane (its controller runs in the dispatcher, in a
+    spawned child and beside the decode workers), the selectors and the
+    row-group indexing, used end to end in one process: an index built and
+    read by a selector with row-drop partitions, a controller's warm run with
+    its wire siblings and a ledger, the chaos runner's materialize child,
+    ``derive_candidates``, a layout rewrite and its stats.  None loads torch
+    or anything in ``FORBIDDEN``."""
+    script = textwrap.dedent('''
+        import json, os, sys
+        import numpy as np
+        from petastorm_tpu_torch.codecs import NdarrayCodec, ScalarCodec
+        from petastorm_tpu_torch.etl.rowgroup_indexers import SingleFieldIndexer
+        from petastorm_tpu_torch.etl.rowgroup_indexing import build_rowgroup_index
+        from petastorm_tpu_torch.materialize import (MaterializeController, derive_candidates,
+                                                     layout_stats, rewrite_layout, write_rows)
+        from petastorm_tpu_torch.reader import make_reader
+        from petastorm_tpu_torch.selectors import SingleIndexSelector
+        from petastorm_tpu_torch.test_util import chaos
+        from petastorm_tpu_torch.unischema import Unischema, UnischemaField
+        schema = Unischema('S', [UnischemaField('id', np.int64, (), ScalarCodec(None), False),
+                                 UnischemaField('x', np.float32, (3,), NdarrayCodec(), False)])
+        root = sys.argv[1]
+        url = 'file://' + root + '/ds'
+        write_rows(url, schema, ({'id': i, 'x': np.full(3, i, np.float32)} for i in range(32)),
+                   rows_per_rowgroup=4)
+        build_rowgroup_index(url, indexers=[SingleFieldIndexer('by_id', 'id')])
+        with make_reader(url, reader_pool_type='dummy', shuffle_row_drop_partitions=2,
+                         rowgroup_selector=SingleIndexSelector('by_id', [0, 9])) as reader:
+            assert sorted(int(r.id) for r in reader) == list(range(4)) + list(range(8, 12))
+        with MaterializeController(url, root + '/plane', ledger_path=root + '/ledger.json',
+                                   reader_kwargs={'shuffle_row_drop_partitions': 2}) as c:
+            summary = c.run()
+        assert summary['done'] == 8 and summary['wire_published'] == 16, summary
+        spec = {'dataset_url': url, 'cache_plane_dir': root + '/plane2',
+                'summary_path': root + '/summary.json'}
+        sys.argv = ['child', json.dumps(spec), os.getcwd()]
+        exec(chaos._MATERIALIZE_CHILD)
+        assert json.load(open(root + '/summary.json'))['done'] == 8
+        assert derive_candidates(journals=[]) == []
+        out = rewrite_layout(url, 'file://' + root + '/re', 8)
+        assert out['rows'] == 32 and layout_stats('file://' + root + '/re')['row_groups'] == 4
+        loaded = sorted(m for m in sys.modules if m.split('.')[0] in FORBIDDEN + ('torch',))
+        print('LOADED', loaded)
+        sys.exit(1 if loaded else 0)
+    ''').replace('FORBIDDEN', repr(FORBIDDEN))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, '-c', script, str(tmp_path)], env=env, cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert 'LOADED []' in proc.stdout
